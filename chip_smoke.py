@@ -1,0 +1,572 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``src/repro_torch``) end to end on one GPU.
+
+    python3 chip_smoke.py
+
+Phases, each printing one JSON line:
+
+1. ``device``     — the card (``nvidia-smi``), versions, and the build of the
+                    three CUDA kernels from ``src/repro_torch/csrc`` (one
+                    ``nvcc`` per source, started together).
+2. ``search_shapes`` — every kernel genome of the three schedule spaces at
+                    the search's evaluation shapes in float32, and the
+                    default schedules in bfloat16: the kernel against its
+                    plain PyTorch version and the ``ref.py`` oracle; and
+                    flash attention at head dim 128 in float32 over every
+                    block_q x block_k that fits shared memory.
+3. ``full_width`` — each kernel at the width of a configured model, bf16,
+                    default schedule: times of the kernel, its plain
+                    version and the library call, the bound, the error.
+4. ``overheads``  — the per-block and per-timestep costs of the cost
+                    model's H100 record, measured.
+5. ``search``     — the main path: the measured kernel-schedule search
+                    (``evolve_kernel_schedule``) on each kernel, and the
+                    joint three-kernel workload in static mode, each with
+                    the launch counts set to 0 before it; each measured
+                    search must launch its kernel, the joint one all three.
+6. ``profile``    — where the main path's time goes: a measured search
+                    under torch.profiler, and the host cost of a wrapper
+                    call at the search shapes.
+
+Then a ``{"kernels": [...]}`` line, the card's name and power limit, and
+the last line ``{"ok": true, "device": {...}}``.  Any failure raises and
+the script exits nonzero.  Without a CUDA device, or outside a checkout of
+the repository, it exits nonzero before printing a result.
+"""
+
+from __future__ import annotations
+
+import itertools
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+# Tolerances of tests/test_kernels.py (absolute).  In bf16 an output may
+# also differ by one rounding step of bf16 (relative 2**-7), since the
+# kernel and the plain version sum in different orders before the cast.
+ATOL = {"float32": {"flash_attention": 2e-5, "mamba_scan": 1e-4,
+                    "rmsnorm": 1e-5},
+        "bfloat16": {"flash_attention": 2e-2, "mamba_scan": 5e-2,
+                     "rmsnorm": 3e-2}}
+RTOL = {"float32": 0.0, "bfloat16": 2.0 ** -7}
+# At full width a causal row p of random q, k, v averages about p values, so
+# its output is near sqrt(e / p) (about 0.03 at S = 4096): the flash check
+# there is held to a few times the error of a right kernel (1e-3 on the
+# card), not to the search-shape tolerance.
+FULL_ATOL = {"flash_attention": 4e-3}
+# Every block_q x block_k of flash's space at head dim 128 in f32 (the
+# search shapes have head dim 64): the hd-128 instantiations, the 1024-thread
+# one (block_q 256) among them.
+FLASH_HD128 = {"B": 1, "H": 2, "S": 512, "hd": 128}
+
+# qwen3-0.6b (configs/qwen3_0_6b.py): d_model 1024, 16 heads of 128 (KV heads
+# expanded to 16); falcon-mamba-7b (configs/falcon_mamba_7b.py): d_inner
+# 2 * 4096, ssm_state 16.  4096 tokens.
+FULL = {"rmsnorm": {"rows": 16384, "d": 1024},
+        "flash_attention": {"B": 1, "H": 16, "S": 4096, "hd": 128},
+        "mamba_scan": {"Bt": 1, "L": 4096, "D": 8192, "N": 16}}
+
+SOURCES = {k: f"src/repro_torch/csrc/{k}.cu"
+           for k in ("rmsnorm", "flash_attention", "mamba_scan")}
+REPLACES = {"rmsnorm": "src/repro/kernels/rmsnorm/rmsnorm.py:17",
+            "flash_attention":
+                "src/repro/kernels/flash_attention/flash_attention.py:25",
+            "mamba_scan": "src/repro/kernels/mamba_scan/mamba_scan.py:28"}
+
+
+def emit(doc: dict) -> None:
+    print(json.dumps(doc), flush=True)
+
+
+def nvidia_smi() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def device_rates() -> dict:
+    """The rates ``bound_ms`` divides by, from the port's one record of the
+    card: HBM bytes/s and f32 FLOP/s of ``kernels.costs.H100``, bf16
+    tensor-core FLOP/s of ``core.fitness.PEAK_FLOPS``."""
+    from repro_torch.core.fitness import PEAK_FLOPS
+    from repro_torch.kernels.costs import H100
+    return {"record": H100.name, "bw": H100.hbm_bw, "bf16": PEAK_FLOPS,
+            "f32": H100.peak_flops}
+
+
+def time_ms(torch, fn, *, reps: int, flush=None) -> float:
+    """Median milliseconds of ``fn()`` by CUDA events, after two warm-up
+    calls; ``flush`` (a large tensor) is zeroed before each timed call so
+    the 50 MB L2 cache starts cold, as for a caller that has just moved
+    other data."""
+    for _ in range(2):
+        fn()
+    pairs = []
+    for _ in range(reps):
+        if flush is not None:
+            flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def max_err(torch, a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+def check_close(torch, name, what, got, want, dtype_name,
+                atol=None) -> float:
+    torch.cuda.synchronize()
+    atol = ATOL[dtype_name][name] if atol is None else atol
+    rtol = RTOL[dtype_name]
+    err = max_err(torch, got, want)
+    excess = float(((got.float() - want.float()).abs()
+                    - rtol * want.float().abs()).max())
+    if not excess <= atol:
+        raise AssertionError(f"{name} ({what}, {dtype_name}): max |diff| "
+                             f"{err:.3e} beyond atol {atol} + rtol {rtol}")
+    return err
+
+
+def phase_device(torch, build) -> dict:
+    t0 = time.perf_counter()
+    per_source = build.build()
+    total = time.perf_counter() - t0
+    spills = {}
+    for name in build.SOURCES:
+        log = build.library_path(name).with_suffix(".log")
+        lines = log.read_text().splitlines() if log.exists() else []
+        spills[name] = sum(1 for ln in lines if "spill" in ln
+                           and "0 bytes spill stores" not in ln)
+    doc = {"phase": "device", "gpu": nvidia_smi(),
+           "kind": torch.cuda.get_device_name(0),
+           "count": torch.cuda.device_count(),
+           "python": sys.version.split()[0], "torch": torch.__version__,
+           "cuda": torch.version.cuda,
+           "build_s": {k: round(v, 2) for k, v in per_source.items()},
+           "build_total_s": round(total, 2),
+           "ptxas_spill_reports": spills}
+    emit(doc)
+    return doc
+
+
+def run_kernel(kernel, knobs, inputs, *, plain: bool):
+    """The kernel (or its plain version) under ``knobs`` on ``inputs``."""
+    from repro_torch.kernels.flash_attention.flash_attention import \
+        flash_attention_plain
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.mamba_scan.mamba_scan import mamba_scan_plain
+    from repro_torch.kernels.mamba_scan.ops import mamba_scan
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm
+    from repro_torch.kernels.rmsnorm.rmsnorm import rmsnorm_plain
+    i = inputs
+    if kernel == "rmsnorm":
+        scale = i["scale"]
+        if knobs.get("epilogue") == "unfused":
+            scale = scale.new_ones(scale.shape)
+        br = min(knobs["block_rows"], i["x"].shape[0])
+        y = (rmsnorm_plain(i["x"], scale, eps=1e-6, block_rows=br) if plain
+             else rmsnorm(i["x"], scale, block_rows=br))
+        return y * i["scale"] if knobs.get("epilogue") == "unfused" else y
+    if kernel == "flash_attention":
+        q = i["q"]
+        bq, bk = min(knobs["block_q"], q.shape[2]), min(knobs["block_k"],
+                                                        q.shape[2])
+        if plain:
+            return flash_attention_plain(q, i["k"], i["v"], causal=True,
+                                         scale=q.shape[-1] ** -0.5,
+                                         block_q=bq, block_k=bk)
+        return flash_attention(q, i["k"], i["v"], causal=True, block_q=bq,
+                               block_k=bk)
+    args = (i["dt"], i["x"], i["A"], i["B"], i["C"])
+    ch = min(knobs["chunk"], i["x"].shape[1])
+    return mamba_scan_plain(*args, chunk=ch) if plain else \
+        mamba_scan(*args, chunk=ch)
+
+
+def run_ref(kernel, inputs):
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.mamba_scan.ref import mamba_scan_ref
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+    i = inputs
+    if kernel == "rmsnorm":
+        return rmsnorm_ref(i["x"], i["scale"])
+    if kernel == "flash_attention":
+        return attention_ref(i["q"], i["k"], i["v"], causal=True)
+    return mamba_scan_ref(i["dt"], i["x"], i["A"], i["B"], i["C"])
+
+
+def to_dtype(torch, kernel, inputs, dtype):
+    """Inputs in ``dtype``; the scan's A and rmsnorm's scale stay f32."""
+    keep = {"A", "scale"}
+    return {k: v if k in keep else v.to(dtype).contiguous()
+            for k, v in inputs.items()}
+
+
+def all_genomes(space):
+    names = space.names()
+    for values in itertools.product(*(space.choices(n) for n in names)):
+        yield dict(zip(names, values))
+
+
+def phase_search_shapes(torch, wl) -> dict:
+    dev = torch.device("cuda")
+    out = {}
+    for kernel in wl.KERNELS:
+        space = wl.kernel_space(kernel)
+        base = wl.inputs_from_numpy(kernel, wl.numpy_inputs(kernel, 0), dev)
+        genomes = [g for g in all_genomes(space) if g["impl"] == "pallas"]
+        worst = {"plain": 0.0, "ref": 0.0}
+        for g in genomes:
+            got = run_kernel(kernel, g, base, plain=False)
+            worst["plain"] = max(worst["plain"], check_close(
+                torch, kernel, f"{g} vs plain", got,
+                run_kernel(kernel, g, base, plain=True), "float32"))
+            worst["ref"] = max(worst["ref"], check_close(
+                torch, kernel, f"{g} vs ref", got, run_ref(kernel, base),
+                "float32"))
+        bf = to_dtype(torch, kernel, base, torch.bfloat16)
+        g = wl.BASELINES[kernel]
+        got = run_kernel(kernel, g, bf, plain=False)
+        bf_err = {
+            "plain": check_close(torch, kernel, "default vs plain", got,
+                                 run_kernel(kernel, g, bf, plain=True),
+                                 "bfloat16"),
+            "ref": check_close(torch, kernel, "default vs ref", got,
+                               run_ref(kernel, bf), "bfloat16")}
+        out[kernel] = {"genomes_f32": len(genomes), "max_err_f32": worst,
+                       "max_err_bf16_default": bf_err}
+    out["flash_attention_hd128"] = flash_hd128(torch, wl)
+    emit({"phase": "search_shapes", "tolerances": {"atol": ATOL,
+                                                   "rtol": RTOL},
+          "kernels": out})
+    return out
+
+
+def flash_hd128(torch, wl) -> dict:
+    """Flash attention at head dim 128, f32, over every block_q x block_k
+    of its space that fits a block's shared memory, against the plain
+    version."""
+    from repro_torch.kernels.costs import H100
+    from repro_torch.kernels.flash_attention.flash_attention import \
+        smem_bytes
+    s = FLASH_HD128
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    shape = (s["B"], s["H"], s["S"], s["hd"])
+    inputs = {n: torch.randn(shape, generator=gen, device="cuda")
+              for n in ("q", "k", "v")}
+    space = wl.kernel_space("flash_attention")
+    checked, over, worst = 0, [], 0.0
+    for bq, bk in itertools.product(space.choices("block_q"),
+                                    space.choices("block_k")):
+        knobs = {"block_q": bq, "block_k": bk}
+        if smem_bytes(knobs, s, torch.float32) > H100.smem_per_block:
+            over.append(knobs)
+            continue
+        got = run_kernel("flash_attention", knobs, inputs, plain=False)
+        worst = max(worst, check_close(
+            torch, "flash_attention", f"hd128 {knobs} vs plain", got,
+            run_kernel("flash_attention", knobs, inputs, plain=True),
+            "float32"))
+        checked += 1
+    return {"shape": s, "genomes_f32": checked, "max_err_f32": worst,
+            "over_shared_memory": over}
+
+
+def full_inputs(torch, kernel, gen):
+    dev = torch.device("cuda")
+    s = FULL[kernel]
+    bf = torch.bfloat16
+
+    def normal(*shape, dtype=bf):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    if kernel == "rmsnorm":
+        return {"x": normal(s["rows"], s["d"]),
+                "scale": normal(s["d"], dtype=torch.float32)}
+    if kernel == "flash_attention":
+        shape = (s["B"], s["H"], s["S"], s["hd"])
+        return {"q": normal(*shape), "k": normal(*shape),
+                "v": normal(*shape)}
+    seq = (s["Bt"], s["L"], s["D"])
+    return {"dt": torch.nn.functional.softplus(
+                torch.randn(seq, generator=gen, device=dev)).to(bf),
+            "x": normal(*seq),
+            "A": -torch.exp(torch.randn((s["D"], s["N"]), generator=gen,
+                                        device=dev) * 0.3),
+            "B": normal(s["Bt"], s["L"], s["N"]),
+            "C": normal(s["Bt"], s["L"], s["N"])}
+
+
+def bound(kernel, rates) -> tuple[float, str, float, float]:
+    """(bound_ms, bound_by, bytes, operations) of one call at full width in
+    bf16: each input read once, each output written once; operations of
+    the data this run needs (the causal half of attention)."""
+    s = FULL[kernel]
+    if kernel == "rmsnorm":
+        n = s["rows"] * s["d"]
+        nbytes = 2 * n * 2 + s["d"] * 4
+        ops, rate = 4 * n, rates["f32"]
+    elif kernel == "flash_attention":
+        B, H, S, hd = s["B"], s["H"], s["S"], s["hd"]
+        nbytes = 4 * B * H * S * hd * 2
+        ops, rate = 4 * hd * B * H * (S * (S + 1) // 2), rates["bf16"]
+    else:
+        Bt, L, D, N = s["Bt"], s["L"], s["D"], s["N"]
+        nbytes = 3 * Bt * L * D * 2 + D * N * 4 + 2 * Bt * L * N * 2
+        ops, rate = 6 * Bt * L * D * N, rates["f32"]
+    t_bytes, t_ops = nbytes / rates["bw"], ops / rate
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    return max(t_bytes, t_ops) * 1e3, by, nbytes, ops
+
+
+def library_call(torch, kernel, inputs):
+    F = torch.nn.functional
+    i = inputs
+    if kernel == "rmsnorm":
+        w = i["scale"].to(i["x"].dtype)
+        return lambda: F.rms_norm(i["x"], (i["x"].shape[-1],), w, 1e-6)
+    if kernel == "flash_attention":
+        return lambda: F.scaled_dot_product_attention(i["q"], i["k"], i["v"],
+                                                      is_causal=True)
+    return None
+
+
+def phase_full_width(torch, wl) -> dict:
+    rates = device_rates()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    out = {}
+    for kernel in wl.KERNELS:
+        inputs = full_inputs(torch, kernel, gen)
+        knobs = wl.BASELINES[kernel]
+        got = run_kernel(kernel, knobs, inputs, plain=False)
+        want = run_kernel(kernel, knobs, inputs, plain=True)
+        err = check_close(torch, kernel, "full width vs plain", got, want,
+                          "bfloat16", atol=FULL_ATOL.get(kernel))
+        finite = bool(torch.isfinite(got.float()).all())
+        if not finite or got.shape != want.shape:
+            raise AssertionError(f"{kernel}: output not finite or of shape "
+                                 f"{tuple(got.shape)}")
+        del got, want
+        ms = time_ms(torch, lambda: run_kernel(kernel, knobs, inputs,
+                                               plain=False),
+                     reps=20, flush=flush)
+        plain_ms = time_ms(torch, lambda: run_kernel(kernel, knobs, inputs,
+                                                     plain=True),
+                           reps=3, flush=flush)
+        lib = library_call(torch, kernel, inputs)
+        library_ms = (time_ms(torch, lib, reps=20, flush=flush)
+                      if lib is not None else None)
+        bound_ms, bound_by, nbytes, ops = bound(kernel, rates)
+        out[kernel] = {"shape": FULL[kernel], "dtype": "bfloat16",
+                       "schedule": knobs, "max_abs_err": err,
+                       "kernel_ms": ms, "plain_ms": plain_ms,
+                       "library_ms": library_ms, "bound_ms": bound_ms,
+                       "bound_by": bound_by, "bytes": nbytes,
+                       "operations": ops}
+        del inputs
+        torch.cuda.empty_cache()
+    emit({"phase": "full_width", "rates": rates,
+          "atol": {k: FULL_ATOL.get(k, ATOL["bfloat16"][k])
+                   for k in wl.KERNELS}, "kernels": out})
+    return out
+
+
+def phase_overheads(torch) -> dict:
+    """The two overheads of the cost model's device record, measured with
+    the kernels themselves: what one more block costs at equal work
+    (rmsnorm, 65536 rows of 32 f32, 1 vs 256 rows a block), and what one
+    more step of the sequential scan costs (one block of 8 channels,
+    L = 4096 vs 256)."""
+    from repro_torch.kernels.mamba_scan.ops import mamba_scan
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn((65536, 32), generator=gen, device="cuda")
+    scale = torch.randn(32, generator=gen, device="cuda")
+    t_many = time_ms(torch, lambda: rmsnorm(x, scale, block_rows=1), reps=50)
+    t_few = time_ms(torch, lambda: rmsnorm(x, scale, block_rows=256),
+                    reps=50)
+    grid_step_s = (t_many - t_few) * 1e-3 / (65536 - 256)
+
+    def scan_ms(L):
+        D, N = 8, 16
+        dt = torch.rand((1, L, D), generator=gen, device="cuda")
+        xs = torch.randn((1, L, D), generator=gen, device="cuda")
+        A = -torch.rand((D, N), generator=gen, device="cuda")
+        B = torch.randn((1, L, N), generator=gen, device="cuda")
+        C = torch.randn((1, L, N), generator=gen, device="cuda")
+        return time_ms(torch, lambda: mamba_scan(dt, xs, A, B, C, chunk=64),
+                       reps=20)
+
+    t_short, t_long = scan_ms(256), scan_ms(4096)
+    seq_step_s = (t_long - t_short) * 1e-3 / (4096 - 256)
+    doc = {"phase": "overheads", "gpu": nvidia_smi(),
+           "rmsnorm_65536_blocks_ms": t_many, "rmsnorm_256_blocks_ms": t_few,
+           "grid_step_s": grid_step_s, "scan_L256_ms": t_short,
+           "scan_L4096_ms": t_long, "seq_step_s": seq_step_s}
+    emit(doc)
+    return doc
+
+
+def phase_search(torch, wl, counters) -> dict:
+    """The main path: GEVO's kernel-schedule search on the card, as four
+    paths — the measured search of each kernel and the joint static search
+    — each counted from zero.  A measured search must launch its own
+    kernel; the joint search must launch all three."""
+
+    def reset():
+        for c in counters.values():
+            c.launches = 0
+
+    def read(path, need):
+        got = {k: c.launches for k, c in counters.items()}
+        idle = [k for k in need if got[k] <= 0]
+        if idle:
+            raise AssertionError(f"{path}: kernels never launched: {idle}")
+        return got
+
+    fronts, launches = {}, {"measured": {}, "joint_static": {}}
+    t0 = time.perf_counter()
+    for kernel in wl.KERNELS:
+        reset()
+        w = wl.build_kernel_workload(kernel, time_mode="measured")
+        search, res, best, ok = wl.evolve_kernel_schedule(
+            w, generations=2, pop_size=6, seed=0)
+        launches["measured"][kernel] = read(f"measured {kernel}",
+                                            [kernel])
+        search.close()
+        fronts[kernel] = {
+            "original": list(res.original_fitness),
+            "pareto": [{"fitness": list(i.fitness),
+                        "schedule": w.space.decode(i.patch.apply(w.program))}
+                       for i in res.pareto],
+            "best": w.space.decode(best.patch.apply(w.program)),
+            "within_tol": ok, "evals": search.n_evals}
+    reset()
+    wj = wl.build_joint_kernel_workload()
+    search, res, best, ok = wl.evolve_kernel_schedule(
+        wj, generations=2, pop_size=6, seed=0)
+    launches["joint_static"] = read("joint static", wl.KERNELS)
+    search.close()
+    fronts["joint_static"] = {
+        "original": list(res.original_fitness),
+        "pareto": [list(i.fitness) for i in res.pareto],
+        "evals": search.n_evals}
+    emit({"phase": "search", "seconds": time.perf_counter() - t0,
+          "launches": launches, "fronts": fronts})
+    return launches
+
+
+def phase_profile(torch, wl) -> dict:
+    """Where the main path's time goes: one measured search (flash
+    attention, pop 6, 1 generation) under torch.profiler — device time by
+    kernel and the device's idle share of the window — and, per kernel at
+    its search shape, the host time of one wrapper call in a tight loop
+    against the CUDA-event time the measured fitness reads."""
+    from torch.profiler import ProfilerActivity, profile
+    w = wl.build_kernel_workload("flash_attention", time_mode="measured")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        search, *_ = wl.evolve_kernel_schedule(w, generations=1, pop_size=6,
+                                               seed=1)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    search.close()
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    by_name: dict[str, float] = {}
+    busy_us, cur = 0.0, None
+    for start, end, name in spans:
+        by_name[name] = by_name.get(name, 0.0) + (end - start)
+        if cur is None or start > cur[1]:
+            busy_us += 0.0 if cur is None else cur[1] - cur[0]
+            cur = [start, end]
+        else:
+            cur[1] = max(cur[1], end)
+    busy_us += 0.0 if cur is None else cur[1] - cur[0]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+
+    dispatch = {}
+    dev = torch.device("cuda")
+    for kernel in wl.KERNELS:
+        inputs = wl.inputs_from_numpy(kernel, wl.numpy_inputs(kernel, 0),
+                                      dev)
+        fn = wl._variant_fn(kernel, wl.BASELINES[kernel])
+        fn(inputs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            fn(inputs)
+        torch.cuda.synchronize()
+        host_us = (time.perf_counter() - t0) / 200 * 1e6
+        event_us = time_ms(torch, lambda: fn(inputs), reps=50) * 1e3
+        dispatch[kernel] = {"loop_us_per_call": host_us,
+                            "event_us_per_call": event_us}
+    doc = {"phase": "profile", "window_us": wall_us,
+           "device_events": len(spans),
+           "device_busy_us": busy_us if spans else None,
+           "device_idle_share": (1 - busy_us / wall_us) if spans else None,
+           "device_us_by_kernel": dict(top), "dispatch": dispatch}
+    emit(doc)
+    return doc
+
+
+def main() -> int:
+    if not (SRC / "repro_torch" / "kernels").is_dir():
+        print("chip_smoke.py: run it from a checkout of the repository "
+              "(src/repro_torch is missing)", file=sys.stderr)
+        return 2
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke.py: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(SRC))
+    from repro_torch.kernels import build
+    from repro_torch.kernels import workloads as wl
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.mamba_scan.ops import mamba_scan
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm
+
+    phase_device(torch, build)
+    phase_search_shapes(torch, wl)
+    full = phase_full_width(torch, wl)
+    phase_overheads(torch)
+    counters = {"rmsnorm": rmsnorm, "flash_attention": flash_attention,
+                "mamba_scan": mamba_scan}
+    launches = phase_search(torch, wl, counters)
+    phase_profile(torch, wl)
+
+    # launches: in the kernel's own measured search; launches_joint_static:
+    # in the joint static search
+    emit({"kernels": [
+        {"name": k, "route": "cuda", "source": SOURCES[k],
+         "replaces": REPLACES[k], "launches": launches["measured"][k][k],
+         "launches_joint_static": launches["joint_static"][k],
+         "max_abs_err": full[k]["max_abs_err"], "ms": full[k]["kernel_ms"],
+         "plain_ms": full[k]["plain_ms"], "bound_ms": full[k]["bound_ms"],
+         "bound_by": full[k]["bound_by"],
+         "library_ms": full[k]["library_ms"]} for k in wl.KERNELS]})
+    print(nvidia_smi(), flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,68 @@
+// Helpers shared by the hand-written Hopper kernels of repro_torch.
+//
+// Every kernel library exposes plain C functions (loaded from Python with
+// ctypes): pointers and the CUDA stream arrive as void*, element types as
+// the codes below, and each launcher returns the cudaError_t of its launch.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+// element-type codes; repro_torch/kernels/build.py holds the same table
+enum DType : int { kF32 = 0, kBF16 = 1 };
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_float(float v);
+template <>
+__device__ __forceinline__ float from_float<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);  // round to nearest even, as torch's .to()
+}
+
+// Four consecutive elements of T as floats, from one 16-byte (f32) or
+// 8-byte (bf16) load; the address must be aligned to that size.
+__device__ __forceinline__ void load4(const float* p, float* out) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* out) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&raw.x);
+  const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&raw.y);
+  const float2 a = __bfloat1622float2(lo), b = __bfloat1622float2(hi);
+  out[0] = a.x; out[1] = a.y; out[2] = b.x; out[3] = b.y;
+}
+
+__device__ __forceinline__ void store4(float* p, const float* in) {
+  *reinterpret_cast<float4*>(p) = make_float4(in[0], in[1], in[2], in[3]);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const float* in) {
+  __nv_bfloat162 lo = __floats2bfloat162_rn(in[0], in[1]);
+  __nv_bfloat162 hi = __floats2bfloat162_rn(in[2], in[3]);
+  uint2 raw;
+  raw.x = *reinterpret_cast<uint32_t*>(&lo);
+  raw.y = *reinterpret_cast<uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(p) = raw;
+}
+
+// Opt a kernel in to more than 48 KB of dynamic shared memory when it needs
+// it (Hopper allows 227 KB per block, only as dynamic shared memory).
+template <typename K>
+inline cudaError_t allow_smem(K kernel, int smem_bytes) {
+  if (smem_bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              smem_bytes);
+}
+
+extern "C" const char* repro_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

@@ -1,0 +1,82 @@
+"""Forward flash attention: the hand-written CUDA kernel
+(``csrc/flash_attention.cu``), its shared-memory size, and its plain
+PyTorch version.
+
+The kernel replaces the Pallas TPU kernel of
+``src/repro/kernels/flash_attention/flash_attention.py``
+(``_flash_kernel``): blockwise online softmax, so the (S x S) score matrix
+is never materialized in HBM.  A CUDA block owns ``block_q`` query rows of
+one (batch, head) and sweeps the keys in ``block_k`` tiles staged in shared
+memory; the running max, denominator and accumulator are f32.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import build
+
+NEG_INF = -1e30
+HEAD_DIMS = (32, 64, 128)   # the head dims the kernel is instantiated for
+MAX_BLOCK_Q = 256           # 4 threads a row, at most 1024 a block
+
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+    ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_void_p]
+
+
+def smem_bytes(knobs: dict, shape: dict, dtype: torch.dtype):
+    """Dynamic shared memory of one block: one K and one V tile of
+    ``block_k`` rows in the input dtype.  Pure arithmetic on the values,
+    so the cost model evaluates it on arrays of genomes too."""
+    return 2 * knobs["block_k"] * shape["hd"] * dtype.itemsize
+
+
+def flash_attention_plain(q, k, v, *, causal: bool, scale: float,
+                          block_q: int, block_k: int) -> torch.Tensor:
+    """The kernel's algorithm in plain PyTorch: for each block of
+    ``block_q`` query rows, an online softmax over ``block_k`` key tiles in
+    f32, skipping the causal tiles that lie wholly above the diagonal."""
+    B, H, Sq, hd = q.shape
+    Sk = k.shape[2]
+    out = torch.empty_like(q)
+    kf, vf = k.to(torch.float32), v.to(torch.float32)
+    for q0 in range(0, Sq, block_q):
+        qb = q[:, :, q0:q0 + block_q].to(torch.float32)
+        qpos = torch.arange(q0, q0 + block_q, device=q.device)
+        m = torch.full((B, H, block_q), NEG_INF, device=q.device)
+        l = torch.zeros((B, H, block_q), device=q.device)
+        acc = torch.zeros((B, H, block_q, hd), device=q.device)
+        n_tiles = Sk // block_k
+        if causal:
+            n_tiles = min(n_tiles, (q0 + block_q - 1) // block_k + 1)
+        for t in range(n_tiles):
+            k0 = t * block_k
+            s = (qb @ kf[:, :, k0:k0 + block_k].transpose(-1, -2)) * scale
+            if causal:
+                kpos = torch.arange(k0, k0 + block_k, device=q.device)
+                s = torch.where(kpos[None, :] <= qpos[:, None], s,
+                                torch.tensor(NEG_INF, device=q.device))
+            m_new = torch.maximum(m, s.amax(-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(s - m_new[..., None])
+            l = alpha * l + p.sum(-1)
+            acc = acc * alpha[..., None] + p @ vf[:, :, k0:k0 + block_k]
+            m = m_new
+        denom = torch.clamp(l, min=1e-30)
+        out[:, :, q0:q0 + block_q] = (acc / denom[..., None]).to(q.dtype)
+    return out
+
+
+def flash_attention_launch(q, k, v, o, *, causal: bool, scale: float,
+                           block_q: int, block_k: int, smem: int) -> None:
+    """Launch the CUDA kernel on PyTorch's current stream.  The caller has
+    checked the arguments (``ops.flash_attention``)."""
+    fn = build.function("flash_attention", "flash_attention_fwd", _ARGTYPES)
+    B, H, Sq, hd = q.shape
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B * H,
+             Sq, k.shape[2], hd, block_q, block_k, scale, int(causal),
+             build.DTYPE_CODES[q.dtype], smem, build.stream_ptr(q.device))
+    build.check("flash_attention", err, "flash_attention_fwd")

@@ -1,0 +1,127 @@
+"""The CUDA kernels on the card: each against its plain PyTorch version
+over every genome of its schedule space, launch counting, and refused
+launches.  Marked ``cuda``; they skip on hosts without a GPU.  On a machine
+with one:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+This file imports no JAX, so it runs where only PyTorch is installed.
+"""
+
+import itertools
+
+import pytest
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels import workloads as wl
+from repro_torch.kernels.flash_attention.flash_attention import \
+    flash_attention_plain
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.mamba_scan.mamba_scan import mamba_scan_plain
+from repro_torch.kernels.mamba_scan.ops import mamba_scan
+from repro_torch.kernels.rmsnorm.ops import rmsnorm
+from repro_torch.kernels.rmsnorm.rmsnorm import rmsnorm_plain
+
+pytestmark = pytest.mark.cuda
+
+# absolute f32 tolerances of tests/test_kernels.py
+TOL = {"rmsnorm": 1e-5, "flash_attention": 2e-5, "mamba_scan": 1e-4}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    return torch.device("cuda")
+
+
+def _pairs(kernel, genome, i):
+    """(kernel output, plain output) under one genome."""
+    if kernel == "rmsnorm":
+        br = genome["block_rows"]
+        return (rmsnorm(i["x"], i["scale"], block_rows=br),
+                rmsnorm_plain(i["x"], i["scale"], eps=1e-6, block_rows=br))
+    if kernel == "flash_attention":
+        bq, bk = genome["block_q"], genome["block_k"]
+        return (flash_attention(i["q"], i["k"], i["v"], block_q=bq,
+                                block_k=bk),
+                flash_attention_plain(i["q"], i["k"], i["v"], causal=True,
+                                      scale=i["q"].shape[-1] ** -0.5,
+                                      block_q=bq, block_k=bk))
+    args = (i["dt"], i["x"], i["A"], i["B"], i["C"])
+    return (mamba_scan(*args, chunk=genome["chunk"]),
+            mamba_scan_plain(*args, chunk=genome["chunk"]))
+
+
+@pytest.mark.parametrize("kernel", wl.KERNELS)
+def test_kernel_matches_plain_version_over_its_space(cuda, kernel):
+    space = wl.kernel_space(kernel)
+    inputs = wl.inputs_from_numpy(kernel, wl.numpy_inputs(kernel, 0), cuda)
+    names = space.names()
+    for values in itertools.product(*(space.choices(n) for n in names)):
+        genome = dict(zip(names, values))
+        if genome["impl"] != "pallas":
+            continue
+        got, want = _pairs(kernel, genome, inputs)
+        torch.cuda.synchronize()
+        assert (got - want).abs().max().item() <= TOL[kernel], genome
+
+
+@pytest.mark.parametrize("block_q", (32, 64, 128, 256))
+def test_flash_head_dim_128_matches_plain_version(cuda, block_q):
+    """Head dim 128 (the search shapes have 64), f32, every block_k of the
+    space whose K/V tiles fit a block's shared memory; block_q 256 is the
+    kernel's 1024-thread instantiation."""
+    from repro_torch.kernels.costs import H100
+    from repro_torch.kernels.flash_attention.flash_attention import \
+        smem_bytes
+    shape = {"B": 1, "H": 2, "S": 512, "hd": 128}
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (torch.randn(tuple(shape.values()), generator=g, device=cuda)
+               for _ in range(3))
+    space = wl.kernel_space("flash_attention")
+    assert block_q in space.choices("block_q")
+    fits = [bk for bk in space.choices("block_k")
+            if smem_bytes({"block_q": block_q, "block_k": bk}, shape,
+                          torch.float32) <= H100.smem_per_block]
+    assert fits
+    for bk in fits:
+        got, want = _pairs("flash_attention",
+                           {"block_q": block_q, "block_k": bk},
+                           {"q": q, "k": k, "v": v})
+        torch.cuda.synchronize()
+        assert (got - want).abs().max().item() <= TOL["flash_attention"], bk
+
+
+@pytest.mark.parametrize("d,dtype", [(30, torch.float32),
+                                     (1026, torch.bfloat16)])
+def test_rmsnorm_rows_not_a_multiple_of_four(cuda, d, dtype):
+    """Widths that rule out the 4-wide loads take the kernel's scalar
+    path; it computes the same function."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(64, d, generator=g, device=cuda).to(dtype)
+    scale = torch.randn(d, generator=g, device=cuda)
+    got = rmsnorm(x, scale, block_rows=16)
+    want = rmsnorm_plain(x, scale, eps=1e-6, block_rows=16)
+    torch.cuda.synchronize()
+    # bf16: one rounding step of the output (2**-7 relative) besides atol
+    bf16 = dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=3e-2 if bf16 else 1e-5,
+                               rtol=2.0 ** -7 if bf16 else 0.0)
+
+
+def test_launches_are_counted_on_the_card(cuda):
+    x = torch.randn(64, 32, device=cuda)
+    before = rmsnorm.launches
+    rmsnorm(x, torch.ones(32, device=cuda), block_rows=16)
+    assert rmsnorm.launches == before + 1
+
+
+def test_refused_launch_raises(cuda):
+    """More shared memory than a block may have: the runtime refuses the
+    launch and the wrapper raises — it never falls back."""
+    q = torch.randn(1, 1, 1024, 128, device=cuda)
+    with pytest.raises(build.KernelLaunchError):
+        flash_attention(q, q, q, block_q=128, block_k=512)
