@@ -7,13 +7,21 @@ Phases, each printing one JSON line:
 
 1. ``device``     — the card (``nvidia-smi``), versions, and the build of the
                     three CUDA kernels from ``src/repro_torch/csrc`` (one
-                    ``nvcc`` per source, started together).
+                    ``nvcc`` per source, started together); the count of
+                    ``HGMMA`` (tensor-core) instructions in the built flash
+                    library (``cuobjdump -sass``) and the ``ptxas``
+                    registers and spills of every kernel instantiation.
 2. ``search_shapes`` — every kernel genome of the three schedule spaces at
                     the search's evaluation shapes in float32, and the
                     default schedules in bfloat16: the kernel against its
-                    plain PyTorch version and the ``ref.py`` oracle; and
+                    plain PyTorch version and the ``ref.py`` oracle;
                     flash attention at head dim 128 in float32 over every
-                    block_q x block_k that fits shared memory.
+                    block_q x block_k that fits shared memory; flash in
+                    bfloat16 over every block_q x block_k of the joint
+                    space that divides S, at head dims 32, 64 and 128,
+                    against the plain version and bit-identical across
+                    block_q for each block_k; rmsnorm bit-identical across
+                    block_rows in float32 and bfloat16.
 3. ``full_width`` — each kernel at the width of a configured model, bf16,
                     default schedule: times of the kernel, its plain
                     version and the library call, the bound, the error.
@@ -38,6 +46,8 @@ from __future__ import annotations
 
 import itertools
 import json
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -64,6 +74,13 @@ FULL_ATOL = {"flash_attention": 4e-3}
 # search shapes have head dim 64): the hd-128 instantiations, the 1024-thread
 # one (block_q 256) among them.
 FLASH_HD128 = {"B": 1, "H": 2, "S": 512, "hd": 128}
+# The bf16 sweep of flash: the search shape, FLASH_HD128, and S = 384 at
+# each head dim (the only sequence length here that block_k 48 and 192
+# divide), which is also the small shape of head dim 32.
+FLASH_BF16_SHAPES = ({"B": 1, "H": 2, "S": 256, "hd": 64}, FLASH_HD128,
+                     {"B": 1, "H": 2, "S": 384, "hd": 32},
+                     {"B": 1, "H": 2, "S": 384, "hd": 64},
+                     {"B": 1, "H": 2, "S": 384, "hd": 128})
 
 # qwen3-0.6b (configs/qwen3_0_6b.py): d_model 1024, 16 heads of 128 (KV heads
 # expanded to 16); falcon-mamba-7b (configs/falcon_mamba_7b.py): d_inner
@@ -140,16 +157,78 @@ def check_close(torch, name, what, got, want, dtype_name,
     return err
 
 
+def _tool(name: str) -> str:
+    found = shutil.which(name)
+    if found:
+        return found
+    default = f"/usr/local/cuda/bin/{name}"
+    if Path(default).exists():
+        return default
+    raise RuntimeError(f"{name} not found")
+
+
+def _demangle(names: list) -> list:
+    """Readable kernel names (``flash_bf16_kernel<128, 128, 2>``) where
+    ``c++filt`` is at hand, else the mangled ones."""
+    if not names or shutil.which("c++filt") is None:
+        return names
+    out = subprocess.run(["c++filt"], input="\n".join(names), text=True,
+                         capture_output=True, check=True).stdout.split("\n")
+    short = []
+    for raw, name in zip(names, out):
+        m = re.search(r"::(\w+(?:<[^()]*>)?)\(", name)
+        short.append(m.group(1) if m else raw)
+    return short
+
+
+def ptxas_report(log_text: str) -> list:
+    """Registers and spill bytes of every kernel instantiation, from the
+    ``ptxas -v`` report that the build keeps beside a library, and whether
+    ptxas serialized its wgmma instructions (warning C7518)."""
+    rows, current = [], None
+    serialized = set(re.findall(
+        r"wgmma\.mma_async instructions are serialized.*?function '(\w+)'",
+        log_text))
+    for ln in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            current = {"kernel": m.group(1), "registers": None,
+                       "spill_stores": 0, "spill_loads": 0,
+                       "wgmma_serialized": m.group(1) in serialized}
+            rows.append(current)
+            continue
+        if current is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m:
+            current["spill_stores"] = int(m.group(1))
+            current["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            current["registers"] = int(m.group(1))
+    for row, name in zip(rows, _demangle([r["kernel"] for r in rows])):
+        row["kernel"] = name
+    return rows
+
+
 def phase_device(torch, build) -> dict:
     t0 = time.perf_counter()
     per_source = build.build()
     total = time.perf_counter() - t0
-    spills = {}
+    spills, ptxas = {}, {}
     for name in build.SOURCES:
         log = build.library_path(name).with_suffix(".log")
-        lines = log.read_text().splitlines() if log.exists() else []
-        spills[name] = sum(1 for ln in lines if "spill" in ln
-                           and "0 bytes spill stores" not in ln)
+        ptxas[name] = ptxas_report(log.read_text() if log.exists() else "")
+        spills[name] = sum(1 for r in ptxas[name] if r["spill_stores"])
+    sass = subprocess.run(
+        [_tool("cuobjdump"), "-sass",
+         str(build.library_path("flash_attention"))],
+        check=True, capture_output=True, text=True, timeout=300).stdout
+    hgmma = len(re.findall(r"\bHGMMA\.", sass))
+    if hgmma == 0:
+        raise AssertionError("flash_attention: no HGMMA instruction in the "
+                             "built library")
     doc = {"phase": "device", "gpu": nvidia_smi(),
            "kind": torch.cuda.get_device_name(0),
            "count": torch.cuda.device_count(),
@@ -157,7 +236,8 @@ def phase_device(torch, build) -> dict:
            "cuda": torch.version.cuda,
            "build_s": {k: round(v, 2) for k, v in per_source.items()},
            "build_total_s": round(total, 2),
-           "ptxas_spill_reports": spills}
+           "flash_hgmma_instructions": hgmma,
+           "ptxas_spill_reports": spills, "ptxas": ptxas}
     emit(doc)
     return doc
 
@@ -249,6 +329,9 @@ def phase_search_shapes(torch, wl) -> dict:
         out[kernel] = {"genomes_f32": len(genomes), "max_err_f32": worst,
                        "max_err_bf16_default": bf_err}
     out["flash_attention_hd128"] = flash_hd128(torch, wl)
+    out["flash_attention_bf16"] = [flash_bf16_sweep(torch, wl, s)
+                                   for s in FLASH_BF16_SHAPES]
+    out["rmsnorm_block_rows_bit_identical"] = rmsnorm_bit_identity(torch, wl)
     emit({"phase": "search_shapes", "tolerances": {"atol": ATOL,
                                                    "rtol": RTOL},
           "kernels": out})
@@ -283,6 +366,70 @@ def flash_hd128(torch, wl) -> dict:
         checked += 1
     return {"shape": s, "genomes_f32": checked, "max_err_f32": worst,
             "over_shared_memory": over}
+
+
+def flash_bf16_sweep(torch, wl, s) -> dict:
+    """Flash attention in bf16 at shape ``s``, causal, over every block_q x
+    block_k of the joint space that divides S and that the bf16 shared
+    memory admits: each genome against its plain version, and the outputs
+    of one block_k bit-identical across block_q."""
+    from repro_torch.kernels.costs import H100
+    from repro_torch.kernels.flash_attention.flash_attention import \
+        smem_bytes
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    shape = (s["B"], s["H"], s["S"], s["hd"])
+    inputs = {n: torch.randn(shape, generator=gen, device="cuda").to(
+        torch.bfloat16) for n in ("q", "k", "v")}
+    space = wl.joint_space()
+    fits = [c for c in space.choices("flash_attention.block_q")
+            if s["S"] % c == 0]
+    checked, worst, identical = 0, 0.0, {}
+    for bk in space.choices("flash_attention.block_k"):
+        if s["S"] % bk:
+            continue
+        first = None
+        for bq in fits:
+            knobs = {"block_q": bq, "block_k": bk}
+            if smem_bytes(knobs, s, torch.bfloat16) > H100.smem_per_block:
+                continue
+            got = run_kernel("flash_attention", knobs, inputs, plain=False)
+            worst = max(worst, check_close(
+                torch, "flash_attention", f"bf16 {s} {knobs} vs plain", got,
+                run_kernel("flash_attention", knobs, inputs, plain=True),
+                "bfloat16"))
+            checked += 1
+            if first is None:
+                first = got
+            elif not torch.equal(first, got):
+                raise AssertionError(f"flash_attention bf16 {s}: block_q "
+                                     f"{bq} changes the output at block_k "
+                                     f"{bk}")
+        identical[bk] = first is not None
+    return {"shape": s, "genomes_bf16": checked, "max_err_bf16": worst,
+            "bit_identical_across_block_q": identical}
+
+
+def rmsnorm_bit_identity(torch, wl) -> dict:
+    """rmsnorm's output at every block_rows of the joint space that divides
+    the rows, at the search shape and at full width, in f32 and bf16: one
+    output, bit for bit."""
+    out = {}
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    choices = wl.joint_space().choices("rmsnorm.block_rows")
+    for s in (wl.SHAPES["rmsnorm"], FULL["rmsnorm"]):
+        x = torch.randn((s["rows"], s["d"]), generator=gen, device="cuda")
+        scale = torch.randn(s["d"], generator=gen, device="cuda")
+        for dtype in (torch.float32, torch.bfloat16):
+            xs = x.to(dtype)
+            brs = [b for b in choices if s["rows"] % b == 0]
+            outs = [run_kernel("rmsnorm", {"block_rows": b},
+                               {"x": xs, "scale": scale}, plain=False)
+                    for b in brs]
+            if not all(torch.equal(outs[0], o) for o in outs[1:]):
+                raise AssertionError(f"rmsnorm {s} {dtype}: block_rows "
+                                     "changes the output")
+            out[f"{s['rows']}x{s['d']} {str(dtype)[6:]}"] = brs
+    return out
 
 
 def full_inputs(torch, kernel, gen):

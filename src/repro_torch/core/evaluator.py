@@ -573,11 +573,11 @@ def make_evaluator(workload, *, parallel: int = 0,
     if screen:
         raise NotImplementedError(
             "the static patch screen is not ported yet "
-            "(ROADMAP.md, queue 1, slice 3: core/analysis)")
+            "(ROADMAP.md, queue 3, slice 3: core/analysis)")
     if features:
         raise NotImplementedError(
             "the surrogate featurizer is not ported yet "
-            "(ROADMAP.md, queue 1, slice 3: core/surrogate)")
+            "(ROADMAP.md, queue 3, slice 3: core/surrogate)")
     cache = FitnessCache(cache_path)
     if parallel and parallel > 1:
         return ParallelEvaluator(workload, n_workers=parallel, cache=cache,

@@ -96,7 +96,7 @@ class SearchResult:
         deployment layer is not ported yet."""
         raise NotImplementedError(
             "SearchResult.to_front needs the deployment layer, which is not "
-            "ported yet (ROADMAP.md, queue 1, slice 4: core/deploy)")
+            "ported yet (ROADMAP.md, queue 3, slice 4: core/deploy)")
 
 
 class GevoML:
@@ -139,15 +139,15 @@ class GevoML:
         if engine == "tensor":
             raise NotImplementedError(
                 "engine='tensor' is not ported yet "
-                "(ROADMAP.md, queue 1, slice 3: core/tensor_evo)")
+                "(ROADMAP.md, queue 3, slice 3: core/tensor_evo)")
         if screen:
             raise NotImplementedError(
                 "the static patch screen is not ported yet "
-                "(ROADMAP.md, queue 1, slice 3: core/analysis)")
+                "(ROADMAP.md, queue 3, slice 3: core/analysis)")
         if surrogate or surrogate_live:
             raise NotImplementedError(
                 "the surrogate pre-rank is not ported yet "
-                "(ROADMAP.md, queue 1, slice 3: core/surrogate)")
+                "(ROADMAP.md, queue 3, slice 3: core/surrogate)")
         self.engine = engine
         self.w = workload
         self.pop_size = pop_size

@@ -54,13 +54,16 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, const float* in) {
 }
 
 // Opt a kernel in to more than 48 KB of dynamic shared memory when it needs
-// it (Hopper allows 227 KB per block, only as dynamic shared memory).
+// it (Hopper allows 227 KB per block, only as dynamic shared memory).  A
+// refusal is returned and also cleared from the runtime's last error, so
+// the next launch's cudaGetLastError() does not report it again.
 template <typename K>
 inline cudaError_t allow_smem(K kernel, int smem_bytes) {
   if (smem_bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              smem_bytes);
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) cudaGetLastError();
+  return err;
 }
 
 extern "C" const char* repro_error_string(int err) {

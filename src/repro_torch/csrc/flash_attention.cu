@@ -2,40 +2,75 @@
 // staged in shared memory; the (Sq x Sk) score matrix never reaches HBM.
 //
 // Replaces the Pallas TPU kernel
-// src/repro/kernels/flash_attention/flash_attention.py (_flash_kernel,
+// src/repro/kernels/flash_attention/flash_attention.py (_flash_kernel, :25,
 // launched by flash_attention_fwd).  Same function: f32 running max, sum
 // and accumulator; scale hd**-0.5; causal mask kpos <= qpos on absolute
 // positions (no offset when Sq != Sk), filled with -1e30; denominator
-// clamped at 1e-30.
+// clamped at 1e-30.  Causal tiles that lie wholly above the rows a block
+// (or a warpgroup) still has to produce are skipped: for those rows the
+// reference's update is exactly the identity (the max does not move, so
+// the rescale is 1, and every probability is 0).
 //
 // Bound on the H100: operations.  At hd = 128 each K/V byte staged in
-// shared memory feeds ~block_q * 4 flops, above the ridge, so the rate at
-// which the SM multiplies is the limit.  This first kernel multiplies on
-// the CUDA cores in f32 (no wgmma, no TMA yet), so it runs far below the
-// tensor-core bound; what its design does about the bound is reuse: each
-// K/V tile is read from HBM once per block of block_q query rows and then
-// read block_q times from shared memory, with 16-byte (f32) or 8-byte
-// (bf16) loads that four neighbouring threads share by broadcast.  Causal
-// tiles that lie wholly above the diagonal are skipped; for them the
-// reference's update is exactly the identity, so the result is unchanged.
+// shared memory feeds ~block_q * 4 flops, above the card's ridge, so the
+// rate at which the SM multiplies is the limit.  Two kernels:
 //
-// Layout: a block owns block_q query rows of one (batch, head); each row is
-// owned by 4 threads, each holding hd/4 of the query and accumulator in
-// registers (dims 16*i + 4*sub + c).  Per K/V tile of block_k keys, pass 1
-// finds the tile's row max and pass 2 recomputes the scores, exponentiates
-// and accumulates.  A row's arithmetic (the order of every sum) depends on
-// block_k but not on block_q, so the error does not depend on block_q —
-// the contract of ERROR_KNOBS in repro_torch/kernels/workloads.py.
+// bf16 (flash_bf16_kernel) -- the tensor cores.  S = Q K^T and O += P V
+//   run on wgmma, bf16 in and f32 out: QK^T reads the Q slab and the K
+//   tile (both K-major) from shared memory; P V takes P from registers,
+//   rounded to bf16, and the V tile as an MN-major operand (the transpose
+//   bit).  One pass per K/V tile (FA2): S once, the tile's row max, the
+//   rescale of the accumulator and the sum by exp(m_old - m_new), P =
+//   exp(S - m_new), O += P V.  K/V tiles arrive by TMA, swizzled as the
+//   wgmma descriptors expect (128 B for hd >= 64, 64 B for hd 32), into a
+//   ring of up to 4 stages guarded by mbarriers; one producer warp keeps
+//   the next tiles in flight while the consumer warpgroups compute.  A
+//   consumer warpgroup owns a slab of 64 query rows; block_q < 64 pads the
+//   slab (TMA zero-fills rows past Sq, and only the block's own rows are
+//   stored), block_q 128 to 256 is 2 to 4 slabs.  Registers, not shared
+//   memory, bound the warpgroups: S (64 x block_k f32) and O (64 x hd f32)
+//   live in a thread's registers, so block_k <= 128 runs 2 consumer
+//   warpgroups and block_k 192 and 256 one; a warpgroup walks the block's
+//   slabs in rounds, sweeping the K/V tiles once per round.
+//
+// f32 (flash_f32_kernel) -- the CUDA cores.  The tensor cores have no f32
+//   rate that holds the f32 tolerance (TF32 keeps 10 bits), so f32 runs as
+//   FMAs, fed from shared memory: each K/V tile is read from HBM once per
+//   block of block_q query rows and then read block_q times from shared
+//   memory with 16-byte loads that four neighbouring threads share by
+//   broadcast.  Each row is owned by 4 threads, each holding hd/4 of the
+//   query and accumulator in registers (dims 16*i + 4*sub + c).  Per K/V
+//   tile of block_k keys, pass 1 finds the tile's row max and pass 2
+//   recomputes the scores, exponentiates and accumulates.
+//
+// A row's arithmetic (every instruction shape, the order of every sum, the
+// rounding of P) depends on block_k and hd but not on block_q, so the
+// error does not depend on block_q -- the contract of ERROR_KNOBS in
+// repro_torch/kernels/workloads.py; in bf16 the output is bit-identical
+// across block_q.
 
 #include "common.cuh"
+#include "hopper.cuh"
+#include "wgmma_ops.cuh"
+
+#include <algorithm>
 
 namespace {
 
 constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// bf16 kernel's shared memory: the slack that aligns the buffers to 1024
+// bytes (128-byte swizzle atoms), the barriers, the Q slabs, the stages.
+// repro_torch/kernels/flash_attention/flash_attention.py holds the same
+// numbers (smem_bytes).
+constexpr int kMaxStages = 4;
+constexpr int kAlignSlack = 1024;
+constexpr int kBarrierBytes = 128;  // full[4], empty[4], q: 8 bytes each
 
 template <typename T, int HD, int kMaxThreads>
 __global__ void __launch_bounds__(kMaxThreads)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
+flash_f32_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, T* __restrict__ o, int Sq, int Sk,
              int block_q, int block_k, float scale, int causal) {
   constexpr int kVPT = HD / 4;  // dims per thread
@@ -145,50 +180,379 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int HD, int kMaxThreads>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int BH, int Sq, int Sk, int block_q, int block_k,
-                   float scale, int causal, int smem, cudaStream_t stream) {
-  auto kernel = flash_kernel<T, HD, kMaxThreads>;
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Consumer warpgroups of a block_k: S (block_k / 2 f32 a thread), O (hd / 2)
+// and P (block_k / 4) must fit a thread's registers at the launch bound.
+template <int BK>
+constexpr int max_warpgroups() {
+  return BK <= 128 ? 2 : 1;
+}
+
+template <int HD, int BK, int kWG>
+__global__ void __launch_bounds__(kWG * 128 + 32, 1)
+flash_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
+                  const __grid_constant__ CUtensorMap tm_k,
+                  const __grid_constant__ CUtensorMap tm_v,
+                  __nv_bfloat16* __restrict__ o, int Sq, int Sk, int block_q,
+                  float scale, int causal, int stages) {
+  // a panel is one swizzle width of columns (64 bf16 = 128 B, or 32 = 64 B)
+  constexpr int kPanelCols = HD >= 64 ? 64 : 32;
+  constexpr uint32_t kRowBytes = 2 * kPanelCols;
+  constexpr int kPanels = HD / kPanelCols;
+  constexpr int kStepsPerPanel = kPanelCols / 16;  // k-steps of 16 columns
+  constexpr uint64_t kLayout = HD >= 64 ? kSwizzle128B : kSwizzle64B;
+  constexpr uint32_t kSbo16 = 8 * kRowBytes / 16;  // 8 rows, 16-byte units
+  constexpr uint32_t kSlabBytes = 64 * HD * 2;
+  constexpr uint32_t kQPanelBytes = 64 * kRowBytes;
+  constexpr uint32_t kTileBytes = BK * HD * 2;  // one K or V tile
+  constexpr uint32_t kKVPanelBytes = BK * kRowBytes;
+
+  extern __shared__ __align__(1024) unsigned char smem_bf16[];
+  const uint32_t base = (smem_addr(smem_bf16) + 1023u) & ~1023u;
+  const int nslab = (block_q + 63) / 64;
+  const uint32_t q_s = base;
+  const uint32_t kv_s = q_s + nslab * kSlabBytes;
+  const uint32_t bars = kv_s + stages * 2 * kTileBytes;
+  const uint32_t q_bar = bars + 16 * kMaxStages;
+  auto full_bar = [&](int i) { return bars + 8 * i; };
+  auto empty_bar = [&](int i) { return bars + 8 * (kMaxStages + i); };
+
+  const int nwg = (blockDim.x - 32) / 128;  // consumer warpgroups
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < stages; ++i) {
+      mbar_init(full_bar(i), 1);            // the producer's arrival + bytes
+      mbar_init(empty_bar(i), nwg * 4);     // one arrival per consumer warp
+    }
+    mbar_init(q_bar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  // the blocks with the most causal tiles start first
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * block_q;
+  const int bh = blockIdx.y;
+  const int rounds = (nslab + nwg - 1) / nwg;
+  // K/V tiles of round r: up to the last row the round stores
+  auto round_tiles = [&](int r) {
+    const int last = min(q0 + (r + 1) * nwg * 64, q0 + block_q) - 1;
+    const int all = Sk / BK;
+    return causal ? min(all, last / BK + 1) : all;
+  };
+
+  if (warp == nwg * 4) {  // the producer warp
+    if (lane == 0) {
+      mbar_arrive_expect_tx(q_bar, nslab * kSlabBytes);
+      for (int j = 0; j < nslab; ++j) {
+        for (int p = 0; p < kPanels; ++p) {
+          tma_load_3d(q_s + j * kSlabBytes + p * kQPanelBytes, &tm_q, q_bar,
+                      p * kPanelCols, q0 + 64 * j, bh);
+        }
+      }
+      int it = 0;
+      for (int r = 0; r < rounds; ++r) {
+        const int n = round_tiles(r);
+        for (int t = 0; t < n; ++t, ++it) {
+          const int stage = it % stages;
+          const uint32_t use = it / stages;
+          mbar_wait(empty_bar(stage), (use & 1) ^ 1);  // use 0: at once
+          mbar_arrive_expect_tx(full_bar(stage), 2 * kTileBytes);
+          const uint32_t ks = kv_s + stage * 2 * kTileBytes;
+          for (int p = 0; p < kPanels; ++p) {
+            tma_load_3d(ks + p * kKVPanelBytes, &tm_k, full_bar(stage),
+                        p * kPanelCols, t * BK, bh);
+            tma_load_3d(ks + kTileBytes + p * kKVPanelBytes, &tm_v,
+                        full_bar(stage), p * kPanelCols, t * BK, bh);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg, this thread's rows wrow and wrow + 8 of a slab
+  const int wg = warp / 4;
+  const int wrow = (warp % 4) * 16 + lane / 4;
+  const int quad = lane % 4;
+  __nv_bfloat16* ob = o + static_cast<long>(bh) * Sq * HD;
+  mbar_wait(q_bar, 0);
+  int it = 0;
+  for (int r = 0; r < rounds; ++r) {
+    const int j = r * nwg + wg;
+    const bool active = j < nslab;
+    const int s0 = q0 + 64 * j;
+    const int slab_last = min(s0 + 63, q0 + block_q - 1);
+    const int row0 = s0 + wrow;
+    const int row1 = row0 + 8;
+    const uint32_t q_slab = q_s + j * kSlabBytes;
+    const int n = round_tiles(r);
+
+    float acc[HD / 2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+    float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+
+    // Tiles [0, n_c) are computed; the rest of the round's tiles (wholly
+    // above this slab's rows, or all of them for a warpgroup without a
+    // slab this round) are only passed on to the producer.
+    const int n_c = !active ? 0 : causal ? min(n, slab_last / BK + 1) : n;
+    auto stage_of = [&](int t) { return (it + t) % stages; };
+    auto parity_of = [&](int t) { return ((it + t) / stages) & 1; };
+    auto release = [&](int t) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty_bar(stage_of(t)));
+    };
+
+    float s[BK / 2];
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) s[i] = 0.f;
+    for (int t = 0; t < n_c; ++t) {
+      mbar_wait(full_bar(stage_of(t)), parity_of(t));
+      const uint32_t ks = kv_s + stage_of(t) * 2 * kTileBytes;
+      const uint32_t vs = ks + kTileBytes;
+
+      // S = Q K^T, k-steps of 16 head dims
+      fence_regs(s);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const uint32_t col = (kk % kStepsPerPanel) * 32;
+        const int p = kk / kStepsPerPanel;
+        WgmmaSS<BK>::mma(
+            s, gmma_desc(q_slab + p * kQPanelBytes + col, 1, kSbo16, kLayout),
+            gmma_desc(ks + p * kKVPanelBytes + col, 1, kSbo16, kLayout),
+            kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(s);
+      const int k0 = t * BK;
+
+      // scale, mask, the tile's row max (the 4 threads of a row)
+      const bool mask = causal && k0 + BK - 1 > s0;
+      float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+      for (int g = 0; g < BK / 8; ++g) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float v = s[4 * g + e] * scale;
+          const int kpos = k0 + 8 * g + 2 * quad + (e & 1);
+          if (mask && kpos > ((e & 2) ? row1 : row0)) v = kNegInf;
+          s[4 * g + e] = v;
+        }
+        mx0 = fmaxf(mx0, fmaxf(s[4 * g], s[4 * g + 1]));
+        mx1 = fmaxf(mx1, fmaxf(s[4 * g + 2], s[4 * g + 3]));
+      }
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+      }
+      const float mn0 = fmaxf(m0, mx0);
+      const float mn1 = fmaxf(m1, mx1);
+      // exactly 1 when the max does not move (a masked tile's identity)
+      const float a0 = mn0 == m0 ? 1.f : exp2f((m0 - mn0) * kLog2e);
+      const float a1 = mn1 == m1 ? 1.f : exp2f((m1 - mn1) * kLog2e);
+
+      // P = exp(S - m_new): its f32 row sum, and bf16 pairs laid out as
+      // wgmma's register operand A (m64k16: rows r, r + 8; columns
+      // 2q, 2q + 1 and 2q + 8, 2q + 9 of each 16)
+      float ps0 = 0.f, ps1 = 0.f;
+      uint32_t pa[BK / 16][4];
+#pragma unroll
+      for (int g = 0; g < BK / 8; ++g) {
+        const float p0 = exp2f((s[4 * g] - mn0) * kLog2e);
+        const float p1 = exp2f((s[4 * g + 1] - mn0) * kLog2e);
+        const float p2 = exp2f((s[4 * g + 2] - mn1) * kLog2e);
+        const float p3 = exp2f((s[4 * g + 3] - mn1) * kLog2e);
+        ps0 += p0 + p1;
+        ps1 += p2 + p3;
+        pa[g / 2][(g % 2) * 2] = pack_bf16(p0, p1);
+        pa[g / 2][(g % 2) * 2 + 1] = pack_bf16(p2, p3);
+      }
+      l0 = a0 * l0 + ps0;
+      l1 = a1 * l1 + ps1;
+      m0 = mn0;
+      m1 = mn1;
+#pragma unroll
+      for (int g = 0; g < HD / 8; ++g) {
+        acc[4 * g] *= a0;
+        acc[4 * g + 1] *= a0;
+        acc[4 * g + 2] *= a1;
+        acc[4 * g + 3] *= a1;
+      }
+
+      // O += P V, k-steps of 16 keys; V's panels are LBO apart along hd
+      fence_regs(acc);
+      fence_regs(pa);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        WgmmaRS<HD>::mma(acc, pa[kk],
+                         gmma_desc(vs + kk * 16 * kRowBytes,
+                                   kKVPanelBytes / 16, kSbo16, kLayout),
+                         1);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(acc);
+      fence_regs(pa);
+      release(t);
+    }
+    for (int t = n_c; t < n; ++t) {
+      mbar_wait(full_bar(stage_of(t)), parity_of(t));
+      release(t);
+    }
+    it += n;
+
+    if (active) {
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1) {
+        l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+        l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+      }
+      const float inv0 = 1.f / fmaxf(l0, 1e-30f);
+      const float inv1 = 1.f / fmaxf(l1, 1e-30f);
+      const int end = q0 + block_q;  // the block's own rows only
+#pragma unroll
+      for (int g = 0; g < HD / 8; ++g) {
+        const int col = 8 * g + 2 * quad;
+        if (row0 < end) {
+          *reinterpret_cast<__nv_bfloat162*>(ob + row0 * HD + col) =
+              __floats2bfloat162_rn(acc[4 * g] * inv0, acc[4 * g + 1] * inv0);
+        }
+        if (row1 < end) {
+          *reinterpret_cast<__nv_bfloat162*>(ob + row1 * HD + col) =
+              __floats2bfloat162_rn(acc[4 * g + 2] * inv1,
+                                    acc[4 * g + 3] * inv1);
+        }
+      }
+    }
+  }
+}
+
+template <int HD, int kMaxThreads>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
+                       int BH, int Sq, int Sk, int block_q, int block_k,
+                       float scale, int causal, int smem, cudaStream_t stream) {
+  auto kernel = flash_f32_kernel<float, HD, kMaxThreads>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   dim3 grid(Sq / block_q, BH);
   kernel<<<grid, block_q * 4, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Sq, Sk, block_q, block_k,
-      scale, causal);
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), Sq, Sk, block_q,
+      block_k, scale, causal);
   return cudaGetLastError();
 }
 
-template <typename T, int HD>
-cudaError_t launch_threads(const void* q, const void* k, const void* v,
-                           void* o, int BH, int Sq, int Sk, int block_q,
-                           int block_k, float scale, int causal, int smem,
-                           cudaStream_t stream) {
+template <int HD>
+cudaError_t launch_f32_threads(const void* q, const void* k, const void* v,
+                               void* o, int BH, int Sq, int Sk, int block_q,
+                               int block_k, float scale, int causal, int smem,
+                               cudaStream_t stream) {
   // a 512-thread bound leaves 128 registers a thread (no spills at hd 128);
   // block_q > 128 needs the 1024-thread bound, and so 64 registers
   if (block_q * 4 <= 512)
-    return launch<T, HD, 512>(q, k, v, o, BH, Sq, Sk, block_q, block_k, scale,
+    return launch_f32<HD, 512>(q, k, v, o, BH, Sq, Sk, block_q, block_k,
+                               scale, causal, smem, stream);
+  return launch_f32<HD, 1024>(q, k, v, o, BH, Sq, Sk, block_q, block_k, scale,
                               causal, smem, stream);
-  return launch<T, HD, 1024>(q, k, v, o, BH, Sq, Sk, block_q, block_k, scale,
-                             causal, smem, stream);
 }
 
-template <typename T>
-cudaError_t launch_hd(int hd, const void* q, const void* k, const void* v,
-                      void* o, int BH, int Sq, int Sk, int block_q,
-                      int block_k, float scale, int causal, int smem,
-                      cudaStream_t stream) {
+cudaError_t launch_f32_hd(int hd, const void* q, const void* k, const void* v,
+                          void* o, int BH, int Sq, int Sk, int block_q,
+                          int block_k, float scale, int causal, int smem,
+                          cudaStream_t stream) {
   switch (hd) {
     case 32:
-      return launch_threads<T, 32>(q, k, v, o, BH, Sq, Sk, block_q, block_k,
-                                   scale, causal, smem, stream);
-    case 64:
-      return launch_threads<T, 64>(q, k, v, o, BH, Sq, Sk, block_q, block_k,
-                                   scale, causal, smem, stream);
-    case 128:
-      return launch_threads<T, 128>(q, k, v, o, BH, Sq, Sk, block_q, block_k,
+      return launch_f32_threads<32>(q, k, v, o, BH, Sq, Sk, block_q, block_k,
                                     scale, causal, smem, stream);
+    case 64:
+      return launch_f32_threads<64>(q, k, v, o, BH, Sq, Sk, block_q, block_k,
+                                    scale, causal, smem, stream);
+    case 128:
+      return launch_f32_threads<128>(q, k, v, o, BH, Sq, Sk, block_q,
+                                     block_k, scale, causal, smem, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+template <int HD, int BK>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
+                        int BH, int Sq, int Sk, int block_q, float scale,
+                        int causal, int smem, cudaStream_t stream) {
+  constexpr int kWG = max_warpgroups<BK>();
+  constexpr int kPanelCols = HD >= 64 ? 64 : 32;
+  const int nslab = (block_q + 63) / 64;
+  const int q_bytes = nslab * 64 * HD * 2;
+  const int stage_bytes = 2 * BK * HD * 2;
+  const int stages = std::min(
+      kMaxStages, (smem - kAlignSlack - kBarrierBytes - q_bytes) / stage_bytes);
+  if (stages < 1) return cudaErrorInvalidValue;
+  const CUtensorMapSwizzle swizzle =
+      HD >= 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
+  CUtensorMap tm_q, tm_k, tm_v;
+  if (!encode_bf16_3d(&tm_q, q, HD, Sq, BH, kPanelCols, 64, swizzle) ||
+      !encode_bf16_3d(&tm_k, k, HD, Sk, BH, kPanelCols, BK, swizzle) ||
+      !encode_bf16_3d(&tm_v, v, HD, Sk, BH, kPanelCols, BK, swizzle)) {
+    return cudaErrorInvalidValue;
+  }
+  auto kernel = flash_bf16_kernel<HD, BK, kWG>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const int nwg = std::min(nslab, kWG);
+  dim3 grid(Sq / block_q, BH);
+  kernel<<<grid, nwg * 128 + 32, smem, stream>>>(
+      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(o), Sq, Sk, block_q,
+      scale, causal, stages);
+  return cudaGetLastError();
+}
+
+template <int HD>
+cudaError_t launch_bf16_bk(int block_k, const void* q, const void* k,
+                           const void* v, void* o, int BH, int Sq, int Sk,
+                           int block_q, float scale, int causal, int smem,
+                           cudaStream_t stream) {
+#define REPRO_FLASH_BK(BK)                                                 \
+  case BK:                                                                 \
+    return launch_bf16<HD, BK>(q, k, v, o, BH, Sq, Sk, block_q, scale,     \
+                               causal, smem, stream);
+  switch (block_k) {
+    REPRO_FLASH_BK(16)
+    REPRO_FLASH_BK(32)
+    REPRO_FLASH_BK(48)
+    REPRO_FLASH_BK(64)
+    REPRO_FLASH_BK(128)
+    REPRO_FLASH_BK(192)
+    REPRO_FLASH_BK(256)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef REPRO_FLASH_BK
+}
+
+cudaError_t launch_bf16_hd(int hd, int block_k, const void* q, const void* k,
+                           const void* v, void* o, int BH, int Sq, int Sk,
+                           int block_q, float scale, int causal, int smem,
+                           cudaStream_t stream) {
+  switch (hd) {
+    case 32:
+      return launch_bf16_bk<32>(block_k, q, k, v, o, BH, Sq, Sk, block_q,
+                                scale, causal, smem, stream);
+    case 64:
+      return launch_bf16_bk<64>(block_k, q, k, v, o, BH, Sq, Sk, block_q,
+                                scale, causal, smem, stream);
+    case 128:
+      return launch_bf16_bk<128>(block_k, q, k, v, o, BH, Sq, Sk, block_q,
+                                 scale, causal, smem, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -197,25 +561,28 @@ cudaError_t launch_hd(int hd, const void* q, const void* k, const void* v,
 }  // namespace
 
 // q, o: (BH, Sq, hd); k, v: (BH, Sk, hd), all contiguous and 16-byte
-// aligned.  smem must be at least 2 * block_k * hd * sizeof(element)
-// (smem_bytes in repro_torch/kernels/flash_attention/flash_attention.py).
+// aligned.  smem is the block's dynamic shared memory, smem_bytes in
+// repro_torch/kernels/flash_attention/flash_attention.py: for f32 at least
+// 2 * block_k * hd * 4; for bf16 the alignment slack, the barriers, the Q
+// slabs and at least one stage (the kernel uses as many stages as smem
+// holds, up to 4).  bf16 takes block_k in {16, 32, 48, 64, 128, 192, 256}.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, int BH, int Sq,
                                    int Sk, int hd, int block_q, int block_k,
                                    float scale, int causal, int dtype,
                                    int smem, void* stream) {
-  const int elem = dtype == kF32 ? 4 : 2;
   if (BH <= 0 || block_q <= 0 || block_k <= 0 || block_q % 8 != 0 ||
-      block_q > 256 || Sq % block_q != 0 || Sk % block_k != 0 ||
-      smem < 2 * block_k * hd * elem) {
+      block_q > 256 || Sq % block_q != 0 || Sk % block_k != 0) {
     return cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kF32)
-    return launch_hd<float>(hd, q, k, v, o, BH, Sq, Sk, block_q, block_k,
-                            scale, causal, smem, s);
+  if (dtype == kF32) {
+    if (smem < 2 * block_k * hd * 4) return cudaErrorInvalidValue;
+    return launch_f32_hd(hd, q, k, v, o, BH, Sq, Sk, block_q, block_k, scale,
+                         causal, smem, s);
+  }
   if (dtype == kBF16)
-    return launch_hd<__nv_bfloat16>(hd, q, k, v, o, BH, Sq, Sk, block_q,
-                                    block_k, scale, causal, smem, s);
+    return launch_bf16_hd(hd, block_k, q, k, v, o, BH, Sq, Sk, block_q, scale,
+                          causal, smem, s);
   return cudaErrorInvalidValue;
 }

@@ -2,44 +2,149 @@
 // computed in f32 and stored in x's type.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/rmsnorm/rmsnorm.py
-// (_rmsnorm_kernel, launched by rmsnorm_fwd).
+// (_rmsnorm_kernel, :17, launched by rmsnorm_fwd).
 //
 // Bound on the H100: bytes.  Each element is read from HBM once and written
-// once, against ~4 flops, far below the card's ~20 flops/byte f32 ridge.
-// Design: one warp owns a row at a time, so the row never leaves the SM
-// between the sum of squares and the output pass (the second read hits
-// L1); loads and stores are 16 bytes (f32) or 8 bytes (bf16) per lane when
-// the row width allows; the scale vector is staged once per block in shared
-// memory as f32.  ``block_rows`` (rows per block) sets the grid: few large
-// blocks leave SMs idle, many small ones pay more per-block overhead and
-// re-stage the scale more often.  A row's arithmetic (its lane split and the
-// butterfly reduction) does not depend on block_rows, so neither does the
-// error — the contract of ERROR_KNOBS in repro_torch/kernels/workloads.py.
+// once, against ~4 flops, far below the card's ~20 flops/byte f32 ridge, so
+// the design is about reading each byte once and keeping enough bytes in
+// flight to cover HBM's latency:
+//
+// * One warp owns a row at a time and holds the whole row in registers:
+//   every lane issues all its 16-byte loads (8 bf16 or 4 f32 values each;
+//   d = 1024 bf16 is 4 loads, 32 values a lane) before the reduction,
+//   then takes the butterfly sum and writes the output from the registers.
+//   Widths up to 4096 are compile-time instantiations (512, 1024, 2048,
+//   4096 values a row at most); other widths, and rows whose width is not
+//   a multiple of the 16-byte vector, take a generic path that reads the
+//   row twice.
+// * A block runs min(block_rows, 32) warps (fewer for the widest rows, so
+//   the row still fits the registers), so the default schedule at full
+//   width holds 32 warps, 64 KB of loads in flight, on each SM.
+//   ``block_rows`` (rows per block) still sets the grid: few large blocks
+//   leave SMs idle, many small ones stage the scale vector (f32, in shared
+//   memory) more often.
+//
+// A row's arithmetic (its lane split, the order of the per-lane sum, the
+// butterfly) depends on d alone, not on block_rows or on how many warps a
+// block has, so outputs are bit-identical across block_rows -- the
+// contract of ERROR_KNOBS in repro_torch/kernels/workloads.py.
 
 #include "common.cuh"
 
+#include <algorithm>
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+constexpr int kMaxWarps = 32;
 
-template <typename T, typename S, bool kVec>
-__global__ void __launch_bounds__(kThreads)
-rmsnorm_kernel(const T* __restrict__ x, const S* __restrict__ scale,
-               T* __restrict__ y, int d, int block_rows, float eps) {
-  extern __shared__ float scale_s[];  // d floats
-  for (int i = threadIdx.x; i < d; i += kThreads) {
+// 16 bytes of x as floats
+__device__ __forceinline__ void unpack16(const uint4& raw, float* v, float) {
+  v[0] = __uint_as_float(raw.x);
+  v[1] = __uint_as_float(raw.y);
+  v[2] = __uint_as_float(raw.z);
+  v[3] = __uint_as_float(raw.w);
+}
+__device__ __forceinline__ void unpack16(const uint4& raw, float* v,
+                                         __nv_bfloat16) {
+  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    v[2 * i] = __uint_as_float(w[i] << 16);
+    v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+__device__ __forceinline__ uint4 pack16(const float* v, float) {
+  return make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]),
+                    __float_as_uint(v[2]), __float_as_uint(v[3]));
+}
+__device__ __forceinline__ uint4 pack16(const float* v, __nv_bfloat16) {
+  uint32_t w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    __nv_bfloat162 b = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+    w[i] = *reinterpret_cast<uint32_t*>(&b);
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+template <typename S>
+__device__ __forceinline__ void stage_scale(const S* scale, float* scale_s,
+                                            int d) {
+  for (int i = threadIdx.x; i < d; i += blockDim.x) {
     scale_s[i] = to_float(scale[i]);
   }
   __syncthreads();
+}
+
+// the row in registers: lane l's chunk c covers elements
+// (32 c + l) * kVec ... + kVec - 1; d must be a multiple of kVec
+template <typename T, typename S, int kChunks, int kMaxThreads>
+__global__ void __launch_bounds__(kMaxThreads)
+rmsnorm_row_kernel(const T* __restrict__ x, const S* __restrict__ scale,
+                   T* __restrict__ y, int d, int block_rows, float eps) {
+  constexpr int kVec = 16 / sizeof(T);
+  extern __shared__ float scale_s[];  // d floats
+  stage_scale(scale, scale_s, d);
+  const int warps = blockDim.x / 32;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const long row0 = static_cast<long>(blockIdx.x) * block_rows;
-  for (int r = warp; r < block_rows; r += kWarps) {
+  for (int r = warp; r < block_rows; r += warps) {
+    const T* xr = x + (row0 + r) * d;
+    T* yr = y + (row0 + r) * d;
+    uint4 raw[kChunks];
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) {
+      const int i = (32 * c + lane) * kVec;
+      if (i < d) raw[c] = __ldg(reinterpret_cast<const uint4*>(xr + i));
+    }
+    float ss = 0.f;
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) {
+      if ((32 * c + lane) * kVec < d) {
+        float v[kVec];
+        unpack16(raw[c], v, T());
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) ss += v[e] * v[e];
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      ss += __shfl_xor_sync(0xffffffffu, ss, off);
+    }
+    const float inv = rsqrtf(ss / static_cast<float>(d) + eps);
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) {
+      const int i = (32 * c + lane) * kVec;
+      if (i < d) {
+        float v[kVec];
+        unpack16(raw[c], v, T());
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) v[e] = v[e] * inv * scale_s[i + e];
+        *reinterpret_cast<uint4*>(yr + i) = pack16(v, T());
+      }
+    }
+  }
+}
+
+// any width: the sum of squares, then a second read of the row for the
+// output (4-wide loads when d is a multiple of 4, else one element a lane)
+template <typename T, typename S, bool kVec4>
+__global__ void __launch_bounds__(kMaxWarps * 32)
+rmsnorm_generic_kernel(const T* __restrict__ x, const S* __restrict__ scale,
+                       T* __restrict__ y, int d, int block_rows, float eps) {
+  extern __shared__ float scale_s[];  // d floats
+  stage_scale(scale, scale_s, d);
+  const int warps = blockDim.x / 32;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const long row0 = static_cast<long>(blockIdx.x) * block_rows;
+  for (int r = warp; r < block_rows; r += warps) {
     const T* xr = x + (row0 + r) * d;
     T* yr = y + (row0 + r) * d;
     float ss = 0.f;
-    if constexpr (kVec) {
+    if constexpr (kVec4) {
       for (int i = 4 * lane; i < d; i += 128) {
         float v[4];
         load4(xr + i, v);
@@ -57,7 +162,7 @@ rmsnorm_kernel(const T* __restrict__ x, const S* __restrict__ scale,
       ss += __shfl_xor_sync(0xffffffffu, ss, off);
     }
     const float inv = rsqrtf(ss / static_cast<float>(d) + eps);
-    if constexpr (kVec) {
+    if constexpr (kVec4) {
       for (int i = 4 * lane; i < d; i += 128) {
         float v[4];
         load4(xr + i, v);
@@ -73,29 +178,61 @@ rmsnorm_kernel(const T* __restrict__ x, const S* __restrict__ scale,
   }
 }
 
-template <typename T, typename S, bool kVec>
-cudaError_t launch(const void* x, const void* scale, void* y, int rows, int d,
-                   int block_rows, float eps, int smem, cudaStream_t stream) {
-  auto kernel = rmsnorm_kernel<T, S, kVec>;
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<rows / block_rows, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const S*>(scale),
-      static_cast<T*>(y), d, block_rows, eps);
-  return cudaGetLastError();
+// the row kernel for the smallest width cap that holds d
+template <typename T, typename S>
+cudaError_t launch_row(const T* x, const S* scale, T* y, int rows, int d,
+                       int block_rows, float eps, int smem,
+                       cudaStream_t stream) {
+  constexpr int kVec = 16 / sizeof(T);
+  auto go = [&](auto kernel, int max_threads) {
+    cudaError_t err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    const int warps = std::min(block_rows, max_threads / 32);
+    kernel<<<rows / block_rows, warps * 32, smem, stream>>>(x, scale, y, d,
+                                                            block_rows, eps);
+    return cudaGetLastError();
+  };
+  // raw registers a lane: 4 per chunk; the launch bound leaves room for them
+  if (d <= 512)
+    return go(rmsnorm_row_kernel<T, S, 512 / 32 / kVec, 1024>, 1024);
+  if (d <= 1024)
+    return go(rmsnorm_row_kernel<T, S, 1024 / 32 / kVec, 1024>, 1024);
+  if (d <= 2048) {
+    constexpr int kC = 2048 / 32 / kVec;
+    return go(rmsnorm_row_kernel<T, S, kC, kC <= 8 ? 1024 : 512>,
+              kC <= 8 ? 1024 : 512);
+  }
+  constexpr int kC = 4096 / 32 / kVec;
+  return go(rmsnorm_row_kernel<T, S, kC, kC <= 16 ? 512 : 256>,
+            kC <= 16 ? 512 : 256);
 }
 
+constexpr int kMaxRowWidth = 4096;
+
 template <typename T, typename S>
-cudaError_t launch_vec(const void* x, const void* scale, void* y, int rows,
+cudaError_t launch_any(const void* xv, const void* scalev, void* yv, int rows,
                        int d, int block_rows, float eps, int smem,
                        cudaStream_t stream) {
-  const bool vec = d % 4 == 0 &&
-                   reinterpret_cast<uintptr_t>(x) % (4 * sizeof(T)) == 0 &&
-                   reinterpret_cast<uintptr_t>(y) % (4 * sizeof(T)) == 0;
-  return vec ? launch<T, S, true>(x, scale, y, rows, d, block_rows, eps, smem,
-                                  stream)
-             : launch<T, S, false>(x, scale, y, rows, d, block_rows, eps,
-                                   smem, stream);
+  const T* x = static_cast<const T*>(xv);
+  const S* scale = static_cast<const S*>(scalev);
+  T* y = static_cast<T*>(yv);
+  constexpr int kVec = 16 / sizeof(T);
+  const bool aligned16 = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                         reinterpret_cast<uintptr_t>(y) % 16 == 0;
+  if (aligned16 && d % kVec == 0 && d <= kMaxRowWidth)
+    return launch_row<T, S>(x, scale, y, rows, d, block_rows, eps, smem,
+                            stream);
+  const int warps = std::min(block_rows, kMaxWarps);
+  const bool vec4 = d % 4 == 0 &&
+                    reinterpret_cast<uintptr_t>(x) % (4 * sizeof(T)) == 0 &&
+                    reinterpret_cast<uintptr_t>(y) % (4 * sizeof(T)) == 0;
+  auto kernel = vec4 ? rmsnorm_generic_kernel<T, S, true>
+                     : rmsnorm_generic_kernel<T, S, false>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<rows / block_rows, warps * 32, smem, stream>>>(x, scale, y, d,
+                                                          block_rows, eps);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -112,16 +249,16 @@ extern "C" int rmsnorm_fwd(const void* x, const void* scale, void* y,
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (x_dtype == kF32 && scale_dtype == kF32)
-    return launch_vec<float, float>(x, scale, y, rows, d, block_rows, eps,
+    return launch_any<float, float>(x, scale, y, rows, d, block_rows, eps,
                                     smem, s);
   if (x_dtype == kBF16 && scale_dtype == kF32)
-    return launch_vec<__nv_bfloat16, float>(x, scale, y, rows, d, block_rows,
+    return launch_any<__nv_bfloat16, float>(x, scale, y, rows, d, block_rows,
                                             eps, smem, s);
   if (x_dtype == kF32 && scale_dtype == kBF16)
-    return launch_vec<float, __nv_bfloat16>(x, scale, y, rows, d, block_rows,
+    return launch_any<float, __nv_bfloat16>(x, scale, y, rows, d, block_rows,
                                             eps, smem, s);
   if (x_dtype == kBF16 && scale_dtype == kBF16)
-    return launch_vec<__nv_bfloat16, __nv_bfloat16>(x, scale, y, rows, d,
+    return launch_any<__nv_bfloat16, __nv_bfloat16>(x, scale, y, rows, d,
                                                     block_rows, eps, smem, s);
   return cudaErrorInvalidValue;
 }

@@ -57,9 +57,11 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     """Where the library of ``csrc/<name>.cu`` is built: the file name
-    carries a hash of the source, the shared header and the flags."""
+    carries a hash of the source, every header under ``csrc/`` and the
+    flags, so a changed header rebuilds every library."""
     h = hashlib.sha256()
-    for part in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
+    for part in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
+        h.update(part.name.encode())
         h.update(part.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"

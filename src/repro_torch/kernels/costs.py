@@ -69,8 +69,9 @@ class DeviceModel:
 
 # NVIDIA H100 SXM5 80 GB (data sheet; dense rates, no sparsity) — the part
 # nvidia-smi reports as "NVIDIA H100 80GB HBM3".  The kernels this model
-# ranks compute in f32 on the CUDA cores (no tensor cores yet), so both rates
-# are the f32 ones: 67 TFLOP/s counts an FMA as two operations; elementwise
+# ranks run at EVAL_DTYPE, f32, where they compute on the CUDA cores (only
+# bf16 flash attention uses the tensor cores), so both rates are the f32
+# ones: 67 TFLOP/s counts an FMA as two operations; elementwise
 # work issues one operation a lane a cycle, half of that.  HBM3 at
 # 3.35 TB/s (``core.fitness.HBM_BW``).  Shared memory: 227 KB (232,448 bytes) a block.  A flash
 # block's warp covers 8 query rows, and its products are not padded along

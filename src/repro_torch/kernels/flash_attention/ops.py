@@ -12,8 +12,9 @@ import torch
 
 from ..build import DTYPE_CODES
 from ..cpu import init_vector_math
-from .flash_attention import (HEAD_DIMS, MAX_BLOCK_Q, flash_attention_launch,
-                              flash_attention_plain, smem_bytes)
+from .flash_attention import (BF16_BLOCK_K, HEAD_DIMS, MAX_BLOCK_Q,
+                              flash_attention_launch, flash_attention_plain,
+                              smem_bytes)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, block_q: int = 128,
@@ -49,6 +50,9 @@ def flash_attention(q, k, v, *, causal: bool = True, block_q: int = 128,
     if block_q % 8 or block_q > MAX_BLOCK_Q:
         raise ValueError(f"flash_attention: block_q {block_q} must be a "
                          f"multiple of 8 and at most {MAX_BLOCK_Q}")
+    if q.dtype == torch.bfloat16 and block_k not in BF16_BLOCK_K:
+        raise ValueError(f"flash_attention: bf16 block_k {block_k} not in "
+                         f"{BF16_BLOCK_K}")
     if not all(t.is_contiguous() and t.data_ptr() % 16 == 0
                for t in (q, k, v)):
         raise ValueError("flash_attention: q, k, v must be contiguous and "

@@ -1,7 +1,9 @@
 """The CUDA kernels on the card: each against its plain PyTorch version
-over every genome of its schedule space, launch counting, and refused
-launches.  Marked ``cuda``; they skip on hosts without a GPU.  On a machine
-with one:
+over every genome of its schedule space (and bf16 flash over the joint
+space's blocks at head dims 32, 64 and 128), outputs bit-identical across
+the knobs that only partition rows, tensor-core instructions in the built
+flash library, launch counting, and refused launches.  Marked ``cuda``;
+they skip on hosts without a GPU.  On a machine with one:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
@@ -27,6 +29,9 @@ pytestmark = pytest.mark.cuda
 
 # absolute f32 tolerances of tests/test_kernels.py
 TOL = {"rmsnorm": 1e-5, "flash_attention": 2e-5, "mamba_scan": 1e-4}
+# bf16: the plain version's tolerance, plus one rounding step of bf16
+# (relative 2**-7), as chip_smoke.py holds it
+BF16_ATOL, BF16_RTOL = 2e-2, 2.0 ** -7
 
 
 @pytest.fixture
@@ -125,3 +130,72 @@ def test_refused_launch_raises(cuda):
     q = torch.randn(1, 1, 1024, 128, device=cuda)
     with pytest.raises(build.KernelLaunchError):
         flash_attention(q, q, q, block_q=128, block_k=512)
+
+
+def test_refused_launch_leaves_the_next_one_unharmed(cuda):
+    """The refusal is not reported again by the launch after it."""
+    q = torch.randn(1, 1, 1024, 128, device=cuda)
+    with pytest.raises(build.KernelLaunchError):
+        flash_attention(q, q, q, block_q=128, block_k=512)
+    qb = q.to(torch.bfloat16)
+    got = flash_attention(qb, qb, qb, block_q=128, block_k=128)
+    want = flash_attention_plain(qb, qb, qb, causal=True, scale=128 ** -0.5,
+                                 block_q=128, block_k=128)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=BF16_ATOL,
+                               rtol=BF16_RTOL)
+
+
+@pytest.mark.parametrize("S,hd", [(256, 64), (512, 128), (384, 32), (384, 64),
+                                  (384, 128)])
+def test_flash_bf16_over_the_joint_blocks(cuda, S, hd):
+    """bf16 flash (the wgmma kernel) over every block_q x block_k of the
+    joint space that divides S: each genome within the bf16 tolerance of
+    its plain version, and one output per block_k, bit for bit, whatever
+    block_q.  S = 384 is where block_k 48 and 192 divide."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (torch.randn(1, 2, S, hd, generator=g, device=cuda)
+               .to(torch.bfloat16) for _ in range(3))
+    space = wl.joint_space()
+    bqs = [b for b in space.choices("flash_attention.block_q") if S % b == 0]
+    bks = [b for b in space.choices("flash_attention.block_k") if S % b == 0]
+    for bk in bks:
+        outs = []
+        for bq in bqs:
+            got, want = _pairs("flash_attention",
+                               {"block_q": bq, "block_k": bk},
+                               {"q": q, "k": k, "v": v})
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got.float(), want.float(),
+                                       atol=BF16_ATOL, rtol=BF16_RTOL,
+                                       msg=f"block_q {bq}, block_k {bk}")
+            outs.append(got)
+        for bq, out in zip(bqs[1:], outs[1:]):
+            assert torch.equal(outs[0], out), (bq, bk)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_bit_identical_across_block_rows(cuda, dtype):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    for rows, d in ((512, 512), (2048, 1024), (256, 30)):
+        x = torch.randn(rows, d, generator=g, device=cuda).to(dtype)
+        scale = torch.randn(d, generator=g, device=cuda)
+        brs = [b for b in wl.joint_space().choices("rmsnorm.block_rows")
+               if rows % b == 0]
+        outs = [rmsnorm(x, scale, block_rows=b) for b in brs]
+        torch.cuda.synchronize()
+        for b, out in zip(brs[1:], outs[1:]):
+            assert torch.equal(outs[0], out), (rows, d, b)
+
+
+def test_flash_library_runs_on_the_tensor_cores(cuda):
+    """The built flash library holds HGMMA (wgmma) instructions."""
+    import re
+    import shutil
+    import subprocess
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    build.build(("flash_attention",))
+    sass = subprocess.run([tool, "-sass",
+                           str(build.library_path("flash_attention"))],
+                          check=True, capture_output=True, text=True).stdout
+    assert re.search(r"\bHGMMA\.", sass)

@@ -205,3 +205,119 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         s = torch.ones(1, 24, 4)
         mamba_scan(s, s, -torch.ones(4, 2), torch.ones(1, 24, 2),
                    torch.ones(1, 24, 2), chunk=16)
+
+
+def test_flash_attention_bf16_hd128_block_k_48_matches_pallas():
+    """A shape the wgmma path has to handle: head dim 128 (two swizzle
+    panels) and block_k 48 (an N of 48 for QK^T, 3 k-steps for PV).  The
+    plain version rounds P to bf16 before P V; the Pallas kernel keeps P in
+    f32; both within the bf16 tolerance of tests/test_kernels.py."""
+    q, k, v = (_rand(i, (1, 2, 192, 128), BF16) for i in range(3))
+    got = flash_attention(_t(q, BF16), _t(k, BF16), _t(v, BF16), causal=True,
+                          block_q=64, block_k=48)
+    want = jax_flash(_j(q, BF16), _j(k, BF16), _j(v, BF16), causal=True,
+                     block_q=64, block_k=48)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(_np(got), _np(want), atol=2e-2)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_plain_bf16_bit_identical_across_block_q(causal):
+    """The plain version, like the bf16 kernel, gives one output per
+    block_k whatever block_q: a row's arithmetic does not see the block."""
+    q, k, v = (_t(_rand(i, (1, 2, 192, 64), BF16), BF16) for i in range(3))
+    for block_k in (16, 48, 64):
+        outs = [flash_attention(q, k, v, causal=causal, block_q=bq,
+                                block_k=block_k)
+                for bq in (16, 32, 48, 64, 96, 192)]
+        for out in outs[1:]:
+            assert torch.equal(outs[0], out), block_k
+
+
+def test_flash_plain_rounds_p_to_bf16():
+    """In bf16 the plain version feeds P V with P rounded to bf16, as the
+    tensor cores take it; in f32 P stays f32."""
+    from repro_torch.kernels.flash_attention.flash_attention import \
+        flash_attention_plain
+    q, k, v = (_t(_rand(i, (1, 1, 64, 32), BF16), BF16) for i in range(3))
+    got = flash_attention_plain(q, k, v, causal=False, scale=32 ** -0.5,
+                                block_q=64, block_k=64)
+    s = (q.float() @ k.float().transpose(-1, -2)) * 32 ** -0.5
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    rounded = (p.to(torch.bfloat16).float() @ v.float()) / p.sum(-1)[..., None]
+    assert torch.equal(got, rounded.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+def test_rmsnorm_plain_bit_identical_across_block_rows(dtype):
+    x = _t(_rand(0, (192, 96), dtype), dtype)
+    scale = _t(_rand(1, (96,)))
+    outs = [rmsnorm(x, scale, block_rows=b) for b in (16, 32, 48, 64, 192)]
+    for out in outs[1:]:
+        assert torch.equal(outs[0], out)
+
+
+def test_flash_bf16_shared_memory():
+    """The bf16 kernel's footprint (slack, barriers, Q slabs, as many
+    stages as fit, at least one) fits a block's shared memory for every
+    genome of the joint space at every head dim; the f32 value, which the
+    cost model's gate reads, is the two f32 tiles it always was."""
+    import importlib
+    from repro_torch.kernels import costs
+    fa = importlib.import_module(
+        "repro_torch.kernels.flash_attention.flash_attention")
+    assert fa.SMEM_PER_BLOCK == costs.H100.smem_per_block
+    from repro_torch.kernels.workloads import joint_space
+    space = joint_space()
+    for hd in fa.HEAD_DIMS:
+        shape = {"B": 1, "H": 1, "S": 768, "hd": hd}
+        for bq in space.choices("flash_attention.block_q"):
+            for bk in space.choices("flash_attention.block_k"):
+                knobs = {"block_q": bq, "block_k": bk}
+                used = fa.smem_bytes(knobs, shape, torch.bfloat16)
+                q_bytes = -(-bq // 64) * 64 * hd * 2
+                stage = 4 * bk * hd
+                stages = (used - fa.ALIGN_SLACK - fa.BARRIER_BYTES
+                          - q_bytes) / stage
+                assert used <= costs.H100.smem_per_block, knobs
+                assert stages == int(stages) and \
+                    1 <= stages <= fa.MAX_STAGES, knobs
+                assert used + stage > costs.H100.smem_per_block or \
+                    stages == fa.MAX_STAGES, knobs
+                assert fa.smem_bytes(knobs, shape, torch.float32) == \
+                    2 * bk * hd * 4
+
+
+def test_library_path_follows_every_header(tmp_path, monkeypatch):
+    """A library's name hashes its source and every header under csrc/, so
+    changing any header (the Hopper helpers included) rebuilds it rather
+    than loading a stale one."""
+    import shutil
+    from repro_torch.kernels import build
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    monkeypatch.setattr(build, "CSRC", csrc)
+    before = {n: build.library_path(n) for n in build.SOURCES}
+    assert before == {n: build.library_path(n) for n in build.SOURCES}
+    for header in sorted(csrc.glob("*.cuh")):
+        text = header.read_text()
+        header.write_text(text + "\n// changed\n")
+        after = {n: build.library_path(n) for n in build.SOURCES}
+        assert all(after[n] != before[n] for n in build.SOURCES), header.name
+        header.write_text(text)
+    (csrc / "extra.cuh").write_text("#pragma once\n")
+    assert all(build.library_path(n) != before[n] for n in build.SOURCES)
+
+
+def test_wgmma_header_is_generated():
+    """csrc/wgmma_ops.cuh is what its generator renders, with one wrapper
+    per block_k (QK^T) and per head dim (PV) the bf16 kernel takes."""
+    from repro_torch.kernels import wgmma_gen
+    from repro_torch.kernels.flash_attention.flash_attention import \
+        BF16_BLOCK_K, HEAD_DIMS
+    assert wgmma_gen.HEADER.read_text() == wgmma_gen.render()
+    assert wgmma_gen.SS_SHAPES == BF16_BLOCK_K
+    assert wgmma_gen.RS_SHAPES == HEAD_DIMS
+    text = wgmma_gen.render()
+    for n in BF16_BLOCK_K:
+        assert f"m64n{n}k16" in text and f'"+f"(d[{n // 2 - 1}])' in text
