@@ -9,7 +9,8 @@ Phases, each printing one JSON line:
                     three CUDA kernels from ``src/repro_torch/csrc`` (one
                     ``nvcc`` per source, started together); the count of
                     ``HGMMA`` (tensor-core) instructions in the built flash
-                    library (``cuobjdump -sass``) and the ``ptxas``
+                    library and of ``MUFU.EX2`` (ex2-unit) instructions in
+                    the scan's (``cuobjdump -sass``), and the ``ptxas``
                     registers and spills of every kernel instantiation.
 2. ``search_shapes`` — every kernel genome of the three schedule spaces at
                     the search's evaluation shapes in float32, and the
@@ -21,10 +22,14 @@ Phases, each printing one JSON line:
                     space that divides S, at head dims 32, 64 and 128,
                     against the plain version and bit-identical across
                     block_q for each block_k; rmsnorm bit-identical across
-                    block_rows in float32 and bfloat16.
+                    block_rows, and the scan across chunk, in float32 and
+                    bfloat16.
 3. ``full_width`` — each kernel at the width of a configured model, bf16,
                     default schedule: times of the kernel, its plain
-                    version and the library call, the bound, the error.
+                    version and the library call, the bound, the error;
+                    for the scan also the floor its exponentials set
+                    (``exp_floor_ms``) and its device time from
+                    torch.profiler beside the CUDA-event time.
 4. ``overheads``  — the per-block and per-timestep costs of the cost
                     model's H100 record, measured.
 5. ``search``     — the main path: the measured kernel-schedule search
@@ -101,9 +106,9 @@ def emit(doc: dict) -> None:
     print(json.dumps(doc), flush=True)
 
 
-def nvidia_smi() -> str:
+def nvidia_smi(query: str = "name,power.limit") -> str:
     return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
+        ["nvidia-smi", f"--query-gpu={query}",
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True, timeout=60).stdout.strip().splitlines()[0]
 
@@ -229,6 +234,13 @@ def phase_device(torch, build) -> dict:
     if hgmma == 0:
         raise AssertionError("flash_attention: no HGMMA instruction in the "
                              "built library")
+    sass = subprocess.run(
+        [_tool("cuobjdump"), "-sass", str(build.library_path("mamba_scan"))],
+        check=True, capture_output=True, text=True, timeout=300).stdout
+    ex2 = len(re.findall(r"\bMUFU\.EX2\b", sass))
+    if ex2 == 0:
+        raise AssertionError("mamba_scan: no MUFU.EX2 instruction in the "
+                             "built library")
     doc = {"phase": "device", "gpu": nvidia_smi(),
            "kind": torch.cuda.get_device_name(0),
            "count": torch.cuda.device_count(),
@@ -237,6 +249,7 @@ def phase_device(torch, build) -> dict:
            "build_s": {k: round(v, 2) for k, v in per_source.items()},
            "build_total_s": round(total, 2),
            "flash_hgmma_instructions": hgmma,
+           "scan_mufu_ex2_instructions": ex2,
            "ptxas_spill_reports": spills, "ptxas": ptxas}
     emit(doc)
     return doc
@@ -332,6 +345,7 @@ def phase_search_shapes(torch, wl) -> dict:
     out["flash_attention_bf16"] = [flash_bf16_sweep(torch, wl, s)
                                    for s in FLASH_BF16_SHAPES]
     out["rmsnorm_block_rows_bit_identical"] = rmsnorm_bit_identity(torch, wl)
+    out["mamba_scan_chunk_bit_identical"] = scan_bit_identity(torch, wl)
     emit({"phase": "search_shapes", "tolerances": {"atol": ATOL,
                                                    "rtol": RTOL},
           "kernels": out})
@@ -432,6 +446,39 @@ def rmsnorm_bit_identity(torch, wl) -> dict:
     return out
 
 
+def scan_bit_identity(torch, wl) -> dict:
+    """The scan's output at every chunk of the joint space that divides L,
+    at the search shape and at Bt 2, L 384, D 40 (where chunk 12 and 48
+    divide, and D is not a multiple of a block's channels), in f32 and
+    bf16: one output, bit for bit."""
+    out = {}
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    choices = wl.joint_space().choices("mamba_scan.chunk")
+    for s in (wl.SHAPES["mamba_scan"], {"Bt": 2, "L": 384, "D": 40, "N": 16}):
+        seq = (s["Bt"], s["L"], s["D"])
+        base = {"dt": torch.nn.functional.softplus(
+                    torch.randn(seq, generator=gen, device="cuda")),
+                "x": torch.randn(seq, generator=gen, device="cuda"),
+                "A": -torch.exp(0.3 * torch.randn((s["D"], s["N"]),
+                                                  generator=gen,
+                                                  device="cuda")),
+                "B": torch.randn((s["Bt"], s["L"], s["N"]), generator=gen,
+                                 device="cuda"),
+                "C": torch.randn((s["Bt"], s["L"], s["N"]), generator=gen,
+                                 device="cuda")}
+        for dtype in (torch.float32, torch.bfloat16):
+            inputs = to_dtype(torch, "mamba_scan", base, dtype)
+            chunks = [c for c in choices if s["L"] % c == 0]
+            outs = [run_kernel("mamba_scan", {"chunk": c}, inputs,
+                               plain=False) for c in chunks]
+            if not all(torch.equal(outs[0], o) for o in outs[1:]):
+                raise AssertionError(f"mamba_scan {s} {dtype}: chunk changes "
+                                     "the output")
+            out[f"{s['Bt']}x{s['L']}x{s['D']}x{s['N']} {str(dtype)[6:]}"] = \
+                chunks
+    return out
+
+
 def full_inputs(torch, kernel, gen):
     dev = torch.device("cuda")
     s = FULL[kernel]
@@ -479,6 +526,40 @@ def bound(kernel, rates) -> tuple[float, str, float, float]:
     return max(t_bytes, t_ops) * 1e3, by, nbytes, ops
 
 
+def exp_floor(torch) -> dict:
+    """The least time of the scan's exponentials at full width: one for
+    each of Bt L D N elements, on the special-function units at 16 a clock
+    an SM, on every SM, at the card's maximum SM clock."""
+    s = FULL["mamba_scan"]
+    mhz = float(nvidia_smi("clocks.max.sm").split()[0])  # "1980 MHz"
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    n = s["Bt"] * s["L"] * s["D"] * s["N"]
+    return {"exp_floor_ms": n / (16 * sms * mhz * 1e6) * 1e3,
+            "exponentials": n, "sms": sms, "sm_clock_max_mhz": mhz}
+
+
+def profiler_ms(torch, fn, name: str, *, reps: int, flush=None) -> float:
+    """Median device time in ms of the kernels whose name holds ``name``,
+    one a call of ``fn``, from torch.profiler over ``reps`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            if flush is not None:
+                flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and name in e.name]
+    if len(spans) != reps:
+        raise AssertionError(f"profiler: {len(spans)} device spans of "
+                             f"{name!r} for {reps} calls")
+    return statistics.median(spans) / 1e3
+
+
 def library_call(torch, kernel, inputs):
     F = torch.nn.functional
     i = inputs
@@ -524,6 +605,11 @@ def phase_full_width(torch, wl) -> dict:
                        "library_ms": library_ms, "bound_ms": bound_ms,
                        "bound_by": bound_by, "bytes": nbytes,
                        "operations": ops}
+        if kernel == "mamba_scan":
+            out[kernel].update(exp_floor(torch))
+            out[kernel]["profiler_ms"] = profiler_ms(
+                torch, lambda: run_kernel(kernel, knobs, inputs, plain=False),
+                "scan_kernel", reps=20, flush=flush)
         del inputs
         torch.cuda.empty_cache()
     emit({"phase": "full_width", "rates": rates,
@@ -707,7 +793,9 @@ def main() -> int:
          "max_abs_err": full[k]["max_abs_err"], "ms": full[k]["kernel_ms"],
          "plain_ms": full[k]["plain_ms"], "bound_ms": full[k]["bound_ms"],
          "bound_by": full[k]["bound_by"],
-         "library_ms": full[k]["library_ms"]} for k in wl.KERNELS]})
+         "library_ms": full[k]["library_ms"],
+         **{key: full[k][key] for key in ("exp_floor_ms", "profiler_ms")
+            if key in full[k]}} for k in wl.KERNELS]})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

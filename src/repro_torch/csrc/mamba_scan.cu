@@ -7,128 +7,435 @@
 // exp(dt A) and the drive dt x B are formed in registers and never reach
 // HBM.
 //
-// Bound on the H100: bytes.  Per (t, d) the kernel reads dt and x and writes
-// y; B and C are shared by all channels.  Against that it does ~6N flops
-// and N exponentials, under the f32 ridge at N = 16.  Design: one thread
-// per (channel, state) pair, so a block of 128 threads owns 128 / N
-// channels and the state lives in one register of each thread; the
-// sequential loop over t runs inside the block (Hopper runs blocks in no
-// order, so no state may carry from one block to another).  Each step of
-// ``chunk`` timesteps first stages dt and x for the block's channels and B
-// and C into shared memory with coalesced loads, then scans the chunk,
-// reducing y over the N state threads of a channel with a fixed butterfly,
-// and writes the chunk's y back coalesced.  ``chunk`` sets how much is
-// staged per barrier: a short chunk pays more barriers, a long one more
-// shared memory per block and so fewer resident blocks.  Every output is the
-// same arithmetic whatever the chunk.
+// What bounds it on the H100, in order:
+// * the bytes: per (t, d) the kernel reads dt and x and writes y, and B and
+//   C are shared by all channels, so a call moves about 3 L D elements;
+// * the exponentials: one per (t, d, n), and the SM's special-function
+//   units give 16 a clock.  At Falcon-Mamba-7B's width (L 4096, D 8192,
+//   N 16) that is 5.4e8 exponentials, more time than the bytes take;
+// * then the issue slots: the rest of an element's work is four f32
+//   operations, and the warps of a scheduler must hide the latency of each
+//   step's loads and dependent chain.
+//
+// Design, against each:
+// * A thread owns one channel and S = N / P consecutive states, with
+//   P = min(N, 4) lanes a channel, adjacent in the warp.  h[S] and
+//   A log2(e) stay in registers for the whole sequence.  A step's y is
+//   summed over the thread's S states in registers; over the P lanes, the
+//   y of kUnroll steps are summed at once by a reduce-scatter (each lane
+//   keeps half its values at every stage and ends with kUnroll / P of
+//   them), so the shuffles and the stores of y cost well under one
+//   instruction an element.
+// * exp(dt A) is ex2.approx of dt (A log2 e): one multiply and one MUFU.EX2
+//   an element.  Its error, a few ulp, is far inside the tolerances.
+// * The time loop is unrolled over kUnroll steps, whose y stay in
+//   registers until the last is summed: no shared-memory store sits
+//   between the steps' loads, so the exponentials and drives of all of
+//   them are in flight and only the FMA on h is serial.
+// * A block owns kChannels = 32 channels, so a row of dt, x or y is 64
+//   (bf16) or 128 (f32) bytes: whole sectors.  Each tile of `chunk`
+//   timesteps of dt, x, B and C is copied to shared memory with 16-byte
+//   cp.async into one of two stages, so tile k + 1 is in flight while tile
+//   k is scanned; B and C are staged once for all 32 channels.  When a tile
+//   has arrived the block converts it once to f32 ((dt, dt x) pairs, B, C);
+//   y goes through a shared tile and leaves with 16-byte stores.  Rows that
+//   rule out 16-byte copies (D * sizeof(T) not a multiple of 16, unaligned
+//   pointers) take a plain load-and-store path into the same buffers.
+//
+// Every step is the same arithmetic, written with explicit rounding
+// intrinsics (no contraction is left to the compiler), in the unrolled loop
+// and in the remainder loop alike, so the output is bit-identical whatever
+// `chunk`: it only sets the timesteps a stage holds.  Hopper runs blocks in
+// no order, so no state carries from one block to another: each block walks
+// the whole sequence for its channels.
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kChannels = 32;  // G: channels a block
+constexpr int kUnroll = 16;    // timesteps a step of the unrolled loop
+constexpr float kLog2e = 1.4426950408889634f;
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-scan_kernel(const T* __restrict__ dt, const T* __restrict__ x,
-            const float* __restrict__ A, const T* __restrict__ B,
-            const T* __restrict__ C, T* __restrict__ y, int L, int D, int N,
-            int chunk) {
-  const int cpb = kThreads / N;  // channels per block
-  const int c = threadIdx.x / N;
-  const int n = threadIdx.x % N;
-  const int d0 = blockIdx.x * cpb;
-  const int d = d0 + c;
-  const long bL = static_cast<long>(blockIdx.y) * L;
+__host__ __device__ constexpr int round16(int bytes) {
+  return (bytes + 15) & ~15;
+}
 
-  extern __shared__ float smem[];
-  float* dt_s = smem;                // [chunk][cpb]
-  float* x_s = dt_s + chunk * cpb;   // [chunk][cpb]
-  float* y_s = x_s + chunk * cpb;    // [chunk][cpb]
-  float* B_s = y_s + chunk * cpb;    // [chunk][N]
-  float* C_s = B_s + chunk * N;      // [chunk][N]
+// Byte offsets of the dynamic shared memory (smem_bytes in
+// repro_torch/kernels/mamba_scan/mamba_scan.py computes `total` alike):
+// two stages of raw tiles (dt, x [chunk][G]; B, C [chunk][N], in T), the
+// converted tile ((dt, dt x) [chunk][G] as float2; B, C [chunk][N] as f32)
+// and two y tiles [chunk][G] in T.  Every region starts 16-byte aligned.
+struct Smem {
+  int rows, bc, bcf, stage, dtf, bf, y, total;
+  __host__ __device__ Smem(int chunk, int N, int esize)
+      : rows(round16(chunk * kChannels * esize)),
+        bc(round16(chunk * N * esize)),
+        bcf(round16(chunk * N * 4)),
+        stage(2 * rows + 2 * bc),
+        dtf(2 * stage),
+        bf(dtf + chunk * kChannels * 8),
+        y(bf + 2 * bcf),
+        total(y + 2 * rows) {}
+};
 
-  const float a = d < D ? A[static_cast<long>(d) * N + n] : 0.f;
-  float h = 0.f;
+__device__ __forceinline__ float ex2(float v) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
+  return r;
+}
 
-  for (int t0 = 0; t0 < L; t0 += chunk) {
-    for (int i = threadIdx.x; i < chunk * cpb; i += kThreads) {
-      const int t = i / cpb;
-      const int dd = d0 + i % cpb;
-      float dv = 0.f, xv = 0.f;
-      if (dd < D) {
-        const long off = (bL + t0 + t) * D + dd;
-        dv = to_float(dt[off]);
-        xv = to_float(x[off]);
-      }
-      dt_s[i] = dv;
-      x_s[i] = xv;
+// 16 bytes global -> shared, of which the first `src_bytes` are read and
+// the rest filled with zeros
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile(
+      "cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+          static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+      "l"(src), "r"(src_bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most one group of this thread's copies is in flight
+__device__ __forceinline__ void cp_async_wait_all_but_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// S consecutive f32 of shared memory, 4 * S-byte aligned
+template <int S>
+__device__ __forceinline__ void load_states(const float* p, float (&v)[S]) {
+  if constexpr (S == 1) {
+    v[0] = p[0];
+  } else if constexpr (S == 2) {
+    const float2 a = *reinterpret_cast<const float2*>(p);
+    v[0] = a.x; v[1] = a.y;
+  } else {
+#pragma unroll
+    for (int i = 0; i < S; i += 4) {
+      const float4 a = *reinterpret_cast<const float4*>(p + i);
+      v[i] = a.x; v[i + 1] = a.y; v[i + 2] = a.z; v[i + 3] = a.w;
     }
-    for (int i = threadIdx.x; i < chunk * N; i += kThreads) {
-      const long off = (bL + t0) * N + i;  // the chunk's rows are contiguous
-      B_s[i] = to_float(B[off]);
-      C_s[i] = to_float(C[off]);
-    }
-    __syncthreads();
-
-    for (int t = 0; t < chunk; ++t) {
-      const float dtv = dt_s[t * cpb + c];
-      const float decay = expf(dtv * a);
-      const float drive = (dtv * x_s[t * cpb + c]) * B_s[t * N + n];
-      h = decay * h + drive;
-      float yv = h * C_s[t * N + n];
-      for (int off = N / 2; off > 0; off >>= 1) {
-        yv += __shfl_xor_sync(0xffffffffu, yv, off);
-      }
-      if (n == 0) y_s[t * cpb + c] = yv;
-    }
-    __syncthreads();
-
-    for (int i = threadIdx.x; i < chunk * cpb; i += kThreads) {
-      const int dd = d0 + i % cpb;
-      if (dd < D) y[(bL + t0 + i / cpb) * D + dd] = from_float<T>(y_s[i]);
-    }
-    // the next chunk's staging writes dt_s, x_s, B_s and C_s only; y_s is
-    // written again only after the next barrier
   }
 }
 
-template <typename T>
+// One timestep of one thread's S states: h advances, and the thread's part
+// of y_t (its S products h C, summed in order) is returned.  dd is the
+// channel's (dt, dt x).
+template <int S>
+__device__ __forceinline__ float scan_step(float (&h)[S],
+                                           const float (&a2)[S], float2 dd,
+                                           const float* Bt, const float* Ct) {
+  float b[S], c[S];
+  load_states<S>(Bt, b);
+  load_states<S>(Ct, c);
+  float yv = 0.f;
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    const float decay = ex2(__fmul_rn(dd.x, a2[s]));
+    h[s] = __fmaf_rn(decay, h[s], __fmul_rn(dd.y, b[s]));
+    yv = s == 0 ? __fmul_rn(h[s], c[s]) : __fmaf_rn(h[s], c[s], yv);
+  }
+  return yv;
+}
+
+// y_t of the channel from its P lanes' parts: an xor butterfly, lanes P / 2
+// apart first.  Every lane gets the same bits (each pair is added on both
+// sides), the same as reduce_scatter's.
+template <int P>
+__device__ __forceinline__ float reduce_all(float yv) {
+#pragma unroll
+  for (int off = P / 2; off > 0; off >>= 1) {
+    yv = __fadd_rn(yv, __shfl_xor_sync(0xffffffffu, yv, off));
+  }
+  return yv;
+}
+
+// The same sums for U steps at once, split over the P lanes: at each stage
+// a lane keeps half of its values and sends the other half to the lane
+// `Off` apart, so lane p ends with y of steps p U/P ... (p+1) U/P - 1 in
+// v[0 .. U/P).  Each y is the same pairs added in the same order as in
+// reduce_all, with U (P - 1) / P shuffles for U values where reduce_all
+// needs U log2(P).
+template <int P, int U, int Off = P / 2>
+__device__ __forceinline__ void reduce_scatter(float (&v)[U], int p) {
+  if constexpr (Off > 0) {
+    constexpr int n = U * Off / P;  // values a lane keeps at this stage
+    const bool upper = p & Off;
+#pragma unroll
+    for (int i = 0; i < n; ++i) {
+      const float send = upper ? v[i] : v[i + n];
+      const float keep = upper ? v[i + n] : v[i];
+      v[i] = __fadd_rn(keep, __shfl_xor_sync(0xffffffffu, send, Off));
+    }
+    reduce_scatter<P, U, Off / 2>(v, p);
+  }
+}
+
+// The lanes a channel's N states are split over.  geometry() in
+// repro_torch/kernels/mamba_scan/mamba_scan.py holds the same rule;
+// mamba_scan_fwd refuses a launch made for another.
+__host__ __device__ constexpr int lanes_for(int N) { return N < 4 ? N : 4; }
+
+template <typename T, int N>
+__global__ void __launch_bounds__(kChannels * lanes_for(N))
+scan_kernel(const T* __restrict__ dt, const T* __restrict__ x,
+            const float* __restrict__ A, const T* __restrict__ B,
+            const T* __restrict__ C, T* __restrict__ y, int L, int D,
+            int chunk, bool vec_rows, bool vec_bc) {
+  constexpr int P = lanes_for(N);
+  constexpr int S = N / P;
+  constexpr int kThreads = kChannels * P;
+  constexpr int E = 16 / static_cast<int>(sizeof(T));  // elements a piece
+  constexpr int kPieces = kChannels / E;               // pieces a row
+  const int tid = threadIdx.x;
+  const int c = tid / P;  // the thread's channel in the block
+  const int p = tid % P;
+  const int d0 = blockIdx.x * kChannels;
+  const long bL = static_cast<long>(blockIdx.y) * L;
+  const Smem lay(chunk, N, sizeof(T));
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  float2* dtf = reinterpret_cast<float2*>(smem + lay.dtf);
+  float* Bf = reinterpret_cast<float*>(smem + lay.bf);
+  float* Cf = reinterpret_cast<float*>(smem + lay.bf + lay.bcf);
+
+  // the raw tiles of stage s: dt, x, then B, C
+  auto raw_rows = [&](int s, int which) {
+    return reinterpret_cast<T*>(smem + s * lay.stage + which * lay.rows);
+  };
+  auto raw_bc = [&](int s, int which) {
+    return reinterpret_cast<T*>(smem + s * lay.stage + 2 * lay.rows +
+                                which * lay.bc);
+  };
+  auto y_tile = [&](int k) {
+    return reinterpret_cast<T*>(smem + lay.y + (k & 1) * lay.rows);
+  };
+
+  // issue the copies of tile k into stage k % 2, as one cp.async group
+  auto load_tile = [&](int k) {
+    T* dt_r = raw_rows(k & 1, 0);
+    T* x_r = raw_rows(k & 1, 1);
+    T* B_r = raw_bc(k & 1, 0);
+    T* C_r = raw_bc(k & 1, 1);
+    const long row0 = bL + static_cast<long>(k) * chunk;
+    if (vec_rows) {
+      for (int i = tid; i < chunk * kPieces; i += kThreads) {
+        const int t = i / kPieces;
+        const int dd = d0 + (i % kPieces) * E;
+        const int valid = min(max(D - dd, 0), E);
+        const long off = (row0 + t) * D + (valid > 0 ? dd : d0);
+        const int at = t * kChannels + (i % kPieces) * E;
+        const int bytes = valid * static_cast<int>(sizeof(T));
+        cp_async16(dt_r + at, dt + off, bytes);
+        cp_async16(x_r + at, x + off, bytes);
+      }
+    } else {
+      for (int i = tid; i < chunk * kChannels; i += kThreads) {
+        const int dd = d0 + i % kChannels;
+        T dv = from_float<T>(0.f), xv = dv;
+        if (dd < D) {
+          const long off = (row0 + i / kChannels) * D + dd;
+          dv = dt[off];
+          xv = x[off];
+        }
+        dt_r[i] = dv;
+        x_r[i] = xv;
+      }
+    }
+    const long bc0 = row0 * N;  // a tile's rows of B and C are contiguous
+    if (vec_bc) {
+      for (int i = tid; i < chunk * N / E; i += kThreads) {
+        cp_async16(B_r + i * E, B + bc0 + i * E, 16);
+        cp_async16(C_r + i * E, C + bc0 + i * E, 16);
+      }
+    } else {
+      for (int i = tid; i < chunk * N; i += kThreads) {
+        B_r[i] = B[bc0 + i];
+        C_r[i] = C[bc0 + i];
+      }
+    }
+    cp_async_commit();
+  };
+
+  // tile k, arrived in stage k % 2, to f32 once for the whole block, four
+  // values a load
+  auto convert_tile = [&](int k) {
+    const T* dt_r = raw_rows(k & 1, 0);
+    const T* x_r = raw_rows(k & 1, 1);
+    const T* B_r = raw_bc(k & 1, 0);
+    const T* C_r = raw_bc(k & 1, 1);
+    for (int i = 4 * tid; i < chunk * kChannels; i += 4 * kThreads) {
+      float dv[4], xv[4], pairs[8];
+      load4(dt_r + i, dv);
+      load4(x_r + i, xv);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        pairs[2 * j] = dv[j];
+        pairs[2 * j + 1] = __fmul_rn(dv[j], xv[j]);
+      }
+      store4(reinterpret_cast<float*>(dtf + i), pairs);
+      store4(reinterpret_cast<float*>(dtf + i + 2), pairs + 4);
+    }
+    const int quads = chunk * N / 4;
+    for (int i = 4 * tid; i < 4 * quads; i += 4 * kThreads) {
+      float v[4];
+      load4(B_r + i, v);
+      store4(Bf + i, v);
+      load4(C_r + i, v);
+      store4(Cf + i, v);
+    }
+    for (int i = 4 * quads + tid; i < chunk * N; i += kThreads) {
+      Bf[i] = to_float(B_r[i]);
+      Cf[i] = to_float(C_r[i]);
+    }
+  };
+
+  // y of tile k, from its shared tile to HBM
+  auto store_tile = [&](int k) {
+    const T* ys = y_tile(k);
+    const long row0 = bL + static_cast<long>(k) * chunk;
+    if (vec_rows) {
+      for (int i = tid; i < chunk * kPieces; i += kThreads) {
+        const int t = i / kPieces;
+        const int dd = d0 + (i % kPieces) * E;
+        const T* src = ys + t * kChannels + (i % kPieces) * E;
+        T* dst = y + (row0 + t) * D + dd;
+        if (dd + E <= D) {
+          *reinterpret_cast<int4*>(dst) = *reinterpret_cast<const int4*>(src);
+        } else {
+          for (int e = 0; dd + e < D; ++e) dst[e] = src[e];
+        }
+      }
+    } else {
+      for (int i = tid; i < chunk * kChannels; i += kThreads) {
+        const int dd = d0 + i % kChannels;
+        if (dd < D) y[(row0 + i / kChannels) * D + dd] = ys[i];
+      }
+    }
+  };
+
+  float a2[S], h[S];
+  const int d = d0 + c;
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    a2[s] = d < D ? __fmul_rn(A[static_cast<long>(d) * N + p * S + s], kLog2e)
+                  : 0.f;
+    h[s] = 0.f;
+  }
+
+  const int tiles = L / chunk;
+  load_tile(0);
+  for (int k = 0; k < tiles; ++k) {
+    if (k + 1 < tiles) {
+      load_tile(k + 1);
+    } else {
+      cp_async_commit();  // an empty group, so the wait below means tile k
+    }
+    cp_async_wait_all_but_one();
+    __syncthreads();  // tile k has arrived for all; y of tile k - 1 is whole
+    if (k > 0) store_tile(k - 1);
+    convert_tile(k);
+    __syncthreads();
+
+    const float2* dtp = dtf + c;
+    const float* Bp = Bf + p * S;
+    const float* Cp = Cf + p * S;
+    T* ys = y_tile(k) + c;
+    int t = 0;
+    for (; t + kUnroll <= chunk; t += kUnroll) {
+      // every step's y is held in registers until the last one is summed,
+      // so no store to shared memory sits between the steps' loads
+      float yv[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int tu = t + u;
+        yv[u] = scan_step<S>(h, a2, dtp[tu * kChannels], Bp + tu * N,
+                             Cp + tu * N);
+      }
+      reduce_scatter<P, kUnroll>(yv, p);
+      constexpr int kMine = kUnroll / P;  // y values this lane stores
+#pragma unroll
+      for (int i = 0; i < kMine; ++i) {
+        ys[(t + p * kMine + i) * kChannels] = from_float<T>(yv[i]);
+      }
+    }
+    for (; t < chunk; ++t) {
+      const float yv = reduce_all<P>(scan_step<S>(
+          h, a2, dtp[t * kChannels], Bp + t * N, Cp + t * N));
+      if (p == 0) ys[t * kChannels] = from_float<T>(yv);
+    }
+  }
+  __syncthreads();
+  store_tile(tiles - 1);
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+template <typename T, int N>
 cudaError_t launch(const void* dt, const void* x, const void* A,
                    const void* B, const void* C, void* y, int Bt, int L,
-                   int D, int N, int chunk, int smem, cudaStream_t stream) {
-  auto kernel = scan_kernel<T>;
+                   int D, int chunk, int smem, cudaStream_t stream) {
+  auto kernel = scan_kernel<T, N>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  const int cpb = kThreads / N;
-  dim3 grid((D + cpb - 1) / cpb, Bt);
-  kernel<<<grid, kThreads, smem, stream>>>(
+  const bool vec_rows = (D * sizeof(T)) % 16 == 0 && aligned16(dt) &&
+                        aligned16(x) && aligned16(y);
+  const bool vec_bc =
+      (chunk * N * sizeof(T)) % 16 == 0 && aligned16(B) && aligned16(C);
+  dim3 grid((D + kChannels - 1) / kChannels, Bt);
+  kernel<<<grid, kChannels * lanes_for(N), smem, stream>>>(
       static_cast<const T*>(dt), static_cast<const T*>(x),
       static_cast<const float*>(A), static_cast<const T*>(B),
-      static_cast<const T*>(C), static_cast<T*>(y), L, D, N, chunk);
+      static_cast<const T*>(C), static_cast<T*>(y), L, D, chunk, vec_rows,
+      vec_bc);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch(const void* dt, const void* x, const void* A,
+                     const void* B, const void* C, void* y, int Bt, int L,
+                     int D, int N, int chunk, int smem, cudaStream_t s) {
+  switch (N) {
+    case 1: return launch<T, 1>(dt, x, A, B, C, y, Bt, L, D, chunk, smem, s);
+    case 2: return launch<T, 2>(dt, x, A, B, C, y, Bt, L, D, chunk, smem, s);
+    case 4: return launch<T, 4>(dt, x, A, B, C, y, Bt, L, D, chunk, smem, s);
+    case 8: return launch<T, 8>(dt, x, A, B, C, y, Bt, L, D, chunk, smem, s);
+    case 16: return launch<T, 16>(dt, x, A, B, C, y, Bt, L, D, chunk, smem, s);
+    case 32: return launch<T, 32>(dt, x, A, B, C, y, Bt, L, D, chunk, smem, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 // dt, x, y: (Bt, L, D); A: (D, N) f32; B, C: (Bt, L, N); all contiguous.
-// N is a power of two up to 32.  smem must be at least
-// chunk * (3 * (128 / N) + 2 * N) * 4 bytes (smem_bytes in
-// repro_torch/kernels/mamba_scan/mamba_scan.py).
+// N is a power of two up to 32.  `lanes` and `channels` are the geometry of
+// geometry() in repro_torch/kernels/mamba_scan/mamba_scan.py (lanes a
+// channel, channels a block), checked against this kernel's; smem must be
+// at least its smem_bytes.
 extern "C" int mamba_scan_fwd(const void* dt, const void* x, const void* A,
                               const void* B, const void* C, void* y, int Bt,
                               int L, int D, int N, int chunk, int dtype,
-                              int smem, void* stream) {
+                              int lanes, int channels, int smem,
+                              void* stream) {
+  const int esize = dtype == kF32 ? 4 : 2;
   if (Bt <= 0 || L <= 0 || D <= 0 || N <= 0 || N > 32 || (N & (N - 1)) ||
-      chunk <= 0 || L % chunk != 0 ||
-      smem < chunk * (3 * (kThreads / N) + 2 * N) * 4) {
+      chunk <= 0 || L % chunk != 0 || lanes != lanes_for(N) ||
+      channels != kChannels ||
+      smem < Smem(chunk, N, esize).total) {
     return cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kF32)
-    return launch<float>(dt, x, A, B, C, y, Bt, L, D, N, chunk, smem, s);
+    return dispatch<float>(dt, x, A, B, C, y, Bt, L, D, N, chunk, smem, s);
   if (dtype == kBF16)
-    return launch<__nv_bfloat16>(dt, x, A, B, C, y, Bt, L, D, N, chunk, smem,
-                                 s);
+    return dispatch<__nv_bfloat16>(dt, x, A, B, C, y, Bt, L, D, N, chunk,
+                                   smem, s);
   return cudaErrorInvalidValue;
 }

@@ -81,15 +81,15 @@ class DeviceModel:
 # chip_smoke.py on an NVIDIA H100 80GB HBM3 with a 700 W power limit: one
 # more block at equal work (rmsnorm, 65536 vs 256 blocks) and one more step
 # of the sequential scan (one block, L 4096 vs 256).  Blocks run in
-# parallel on the card, so a block costs next to nothing; a scan step is a
-# dependent chain of a load, an exp, an FMA and a 4-stage shuffle.
+# parallel on the card, so a block costs next to nothing; PERF.md names
+# the run of each.
 H100 = DeviceModel(
     name="NVIDIA H100 80GB HBM3",
     peak_flops=67e12,
     hbm_bw=HBM_BW,
     vector_flops=33.5e12,
     grid_step_s=1.2990195126108388e-10,
-    seq_step_s=2.0880833617411554e-07,
+    seq_step_s=4.2166665662080046e-08,
     smem_per_block=232448,
     tile_m=8,
     tile_n=1,
@@ -276,6 +276,11 @@ def _mamba_ref(xp, dev: DeviceModel, *, Bt: int, L: int, D: int, N: int):
 
 def _mamba_kernel(xp, dev: DeviceModel, chunk_in, *, Bt: int, L: int,
                   D: int, N: int):
+    """The kernel of ``csrc/mamba_scan.cu``: each block walks all L steps
+    for its 32 channels with the state in registers (``seq_step_s`` a
+    step), staging ``chunk`` timesteps at a time in two shared-memory
+    stages (``grid_step_s`` a stage).  The capacity gate is the kernel's own
+    ``smem_bytes``: both stages, the f32 tile and two y tiles."""
     elems = Bt * L * D * N
     chunk = xp.minimum(chunk_in, L)
     shape = {"Bt": Bt, "L": L, "D": D, "N": N}
@@ -294,7 +299,8 @@ def mamba_scan_time(genome: dict, *, Bt: int, L: int, D: int, N: int,
                     device: DeviceModel = None) -> float:
     """(Bt, L, D) selective scan with state (D, N).  ``ref`` materializes
     the (Bt, L, D, N) decay/drive tensors in HBM; the kernel keeps the state
-    in registers across sequence chunks."""
+    in registers for the whole sequence and stages ``chunk`` timesteps of
+    its inputs at a time."""
     dev = device or H100
     if genome["impl"] == "ref":
         return float(_mamba_ref(np, dev, Bt=Bt, L=L, D=D, N=N))

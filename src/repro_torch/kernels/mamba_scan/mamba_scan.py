@@ -1,14 +1,15 @@
 """Mamba-1 selective scan: the hand-written CUDA kernel
-(``csrc/mamba_scan.cu``), its shared-memory size, and its plain PyTorch
-version.
+(``csrc/mamba_scan.cu``), its launch geometry and shared-memory size, and
+its plain PyTorch version.
 
 The kernel replaces the Pallas TPU kernel of
 ``src/repro/kernels/mamba_scan/mamba_scan.py`` (``_scan_kernel``).  It
 computes ``h_t = exp(dt_t A) h_{t-1} + dt_t x_t B_t``, ``y_t = C_t . h_t``
 with the (D, N) state in f32, forming the decay and drive in registers so
-the (Bt, L, D, N) tensors never reach HBM.  One CUDA block carries the
-state of 128 / N channels through the whole sequence, staging ``chunk``
-timesteps of dt/x/B/C in shared memory at a time.
+the (Bt, L, D, N) tensors never reach HBM.  A block carries 32 channels
+through the whole sequence, each channel's states split over ``min(N, 4)``
+lanes; ``chunk`` timesteps of dt/x/B/C are staged in shared memory at a
+time, in two stages so the next tile loads while this one is scanned.
 """
 
 from __future__ import annotations
@@ -19,40 +20,62 @@ import torch
 
 from .. import build
 
-THREADS = 128   # threads a block, one per (channel, state) pair
+CHANNELS = 32   # channels a block
+MAX_LANES = 4   # lanes a channel
 
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+
+
+def geometry(shape: dict) -> dict:
+    """The kernel's launch geometry for ``shape`` (Bt, L, D, N): lanes a
+    channel and states a lane (together N), channels and threads a block,
+    and the grid (blocks over D, then Bt).  ``csrc/mamba_scan.cu`` refuses
+    a launch whose lanes or channels differ from its own rule."""
+    n = shape["N"]
+    lanes = min(n, MAX_LANES)
+    return {"lanes": lanes, "states": n // lanes, "channels": CHANNELS,
+            "threads": CHANNELS * lanes,
+            "grid": (-(-shape["D"] // CHANNELS), shape["Bt"])}
+
+
+def _round16(nbytes):
+    return -(-nbytes // 16) * 16
 
 
 def smem_bytes(knobs: dict, shape: dict, dtype: torch.dtype):
-    """Dynamic shared memory of one block: ``chunk`` timesteps of dt, x and
-    y for the block's channels and of B and C, all as f32.  Pure arithmetic
-    on the values, so the cost model evaluates it on arrays of genomes
-    too."""
-    n = shape["N"]
-    return 4 * knobs["chunk"] * (3 * (THREADS // n) + 2 * n)
+    """Dynamic shared memory of one block: two stages of ``chunk``
+    timesteps of dt and x for the block's channels and of B and C, in the
+    inputs' dtype; the tile converted to f32 ((dt, dt x) pairs, B, C); and
+    two tiles of y in the output dtype.  Each region is rounded up to 16
+    bytes.  Pure arithmetic on the values, so the cost model evaluates it on
+    arrays of genomes too."""
+    chunk, n, esize = knobs["chunk"], shape["N"], dtype.itemsize
+    rows = _round16(chunk * CHANNELS * esize)
+    bc = _round16(chunk * n * esize)
+    return (2 * (2 * rows + 2 * bc) + 8 * chunk * CHANNELS
+            + 2 * _round16(4 * chunk * n) + 2 * rows)
 
 
 def mamba_scan_plain(dt, x, A, B, C, *, chunk: int) -> torch.Tensor:
     """The kernel's algorithm in plain PyTorch: ``chunk`` timesteps staged
     as f32 at a time, then scanned one step after another with the (D, N)
-    state in f32."""
+    state in f32; the decay is ``exp2(dt * (A log2 e))``, as the kernel
+    forms it."""
     Bt, L, D = x.shape
     y = torch.empty_like(x)
-    A32 = A.to(torch.float32)
+    A2 = A.to(torch.float32) * 1.4426950408889634
     h = torch.zeros((Bt, D, A.shape[1]), dtype=torch.float32,
                     device=x.device)
     for t0 in range(0, L, chunk):
         dts = dt[:, t0:t0 + chunk].to(torch.float32)
-        xs = x[:, t0:t0 + chunk].to(torch.float32)
+        dtx = dts * x[:, t0:t0 + chunk].to(torch.float32)
         Bs = B[:, t0:t0 + chunk].to(torch.float32)
         Cs = C[:, t0:t0 + chunk].to(torch.float32)
         ys = torch.empty((Bt, chunk, D), dtype=torch.float32,
                          device=x.device)
         for t in range(chunk):
-            decay = torch.exp(dts[:, t, :, None] * A32)
-            drive = (dts[:, t] * xs[:, t])[:, :, None] * Bs[:, t, None, :]
-            h = decay * h + drive
+            decay = torch.exp2(dts[:, t, :, None] * A2)
+            h = decay * h + dtx[:, t, :, None] * Bs[:, t, None, :]
             ys[:, t] = (h * Cs[:, t, None, :]).sum(-1)
         y[:, t0:t0 + chunk] = ys.to(x.dtype)
     return y
@@ -63,7 +86,10 @@ def mamba_scan_launch(dt, x, A, B, C, y, *, chunk: int, smem: int) -> None:
     checked the arguments (``ops.mamba_scan``)."""
     fn = build.function("mamba_scan", "mamba_scan_fwd", _ARGTYPES)
     Bt, L, D = x.shape
+    N = A.shape[1]
+    geo = geometry({"Bt": Bt, "L": L, "D": D, "N": N})
     err = fn(dt.data_ptr(), x.data_ptr(), A.data_ptr(), B.data_ptr(),
-             C.data_ptr(), y.data_ptr(), Bt, L, D, A.shape[1], chunk,
-             build.DTYPE_CODES[x.dtype], smem, build.stream_ptr(x.device))
+             C.data_ptr(), y.data_ptr(), Bt, L, D, N, chunk,
+             build.DTYPE_CODES[x.dtype], geo["lanes"], geo["channels"], smem,
+             build.stream_ptr(x.device))
     build.check("mamba_scan", err, "mamba_scan_fwd")

@@ -307,3 +307,39 @@ def test_shared_memory_gate_raises_with_the_one_message():
     assert [kind for kind, *_ in gates] == ["block", "block", "smem"]
     assert costs.schedule_gates("flash_attention", dict(g, impl="ref"),
                                 **shape) == ()
+
+
+@pytest.mark.parametrize("N", [1, 2, 4, 8, 16, 32])
+def test_scan_geometry_covers_every_channel_and_fits(N):
+    """The scan's launch geometry gives every channel a block and every
+    state a lane, and its shared memory (both stages) fits a block's
+    232,448 bytes, for every chunk of both spaces that passes the
+    divisibility gate at the search shape, and at Falcon-Mamba-7B's width,
+    in f32 and bf16; the capacity gate reads the same smem_bytes."""
+    import torch
+    from repro_torch.kernels.mamba_scan.mamba_scan import geometry, smem_bytes
+    chunks = set(workloads.kernel_space("mamba_scan").choices("chunk")) | \
+        set(workloads.joint_space().choices("mamba_scan.chunk"))
+    for shape in (dict(workloads.SHAPES["mamba_scan"], N=N),
+                  {"Bt": 1, "L": 4096, "D": 8192, "N": N},
+                  {"Bt": 2, "L": 384, "D": 40, "N": N}):
+        geo = geometry(shape)
+        assert geo["lanes"] * geo["states"] == N
+        assert geo["threads"] == geo["channels"] * geo["lanes"]
+        assert geo["threads"] % 32 == 0 and geo["threads"] <= 1024
+        blocks, batch = geo["grid"]
+        assert batch == shape["Bt"]
+        assert (blocks - 1) * geo["channels"] < shape["D"] \
+            <= blocks * geo["channels"]
+        for chunk in sorted(chunks):
+            if shape["L"] % chunk:
+                continue
+            for dtype in (torch.float32, torch.bfloat16):
+                used = smem_bytes({"chunk": chunk}, shape, dtype)
+                assert used % 16 == 0 and \
+                    used <= costs.H100.smem_per_block, (shape, chunk, dtype)
+            g = {"impl": "pallas", "chunk": chunk}
+            assert costs.schedule_features("mamba_scan", g, **shape)[
+                "smem_frac"] == smem_bytes({"chunk": chunk}, shape,
+                                           torch.float32) \
+                / costs.H100.smem_per_block

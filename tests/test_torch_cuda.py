@@ -199,3 +199,78 @@ def test_flash_library_runs_on_the_tensor_cores(cuda):
                            str(build.library_path("flash_attention"))],
                           check=True, capture_output=True, text=True).stdout
     assert re.search(r"\bHGMMA\.", sass)
+
+
+def _scan_inputs(device, Bt, L, D, N, dtype, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    seq = (Bt, L, D)
+    dt = torch.nn.functional.softplus(
+        torch.randn(seq, generator=g, device=device))
+    return (dt.to(dtype), torch.randn(seq, generator=g, device=device)
+            .to(dtype),
+            -torch.exp(0.3 * torch.randn((D, N), generator=g, device=device)),
+            torch.randn((Bt, L, N), generator=g, device=device).to(dtype),
+            torch.randn((Bt, L, N), generator=g, device=device).to(dtype))
+
+
+def _assert_scan_close(got, want, dtype):
+    torch.cuda.synchronize()
+    if dtype == torch.float32:
+        assert (got - want).abs().max().item() <= TOL["mamba_scan"]
+    else:
+        torch.testing.assert_close(got.float(), want.float(), atol=5e-2,
+                                   rtol=BF16_RTOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N", [1, 2, 4, 8, 16, 32])
+@pytest.mark.parametrize("D", [40, 30])
+def test_scan_ragged_channels_and_state_sizes(cuda, D, N, dtype):
+    """Every state size the kernel takes, Bt 2, D not a multiple of a
+    block's 32 channels (40: the 16-byte copies with a zero-filled edge;
+    30: rows that rule 16-byte copies out), chunk 12 (a remainder after
+    the unrolled steps; at N 1 in bf16 B and C tiles that rule 16-byte
+    copies out), against the plain version."""
+    args = _scan_inputs(cuda, 2, 96, D, N, dtype)
+    _assert_scan_close(mamba_scan(*args, chunk=12),
+                       mamba_scan_plain(*args, chunk=12), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scan_state_carried_through_64_tiles(cuda, dtype):
+    args = _scan_inputs(cuda, 1, 4096, 64, 16, dtype)
+    _assert_scan_close(mamba_scan(*args, chunk=64),
+                       mamba_scan_plain(*args, chunk=64), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scan_bit_identical_across_chunk(cuda, dtype):
+    """Every chunk of the joint space that divides L gives one output, bit
+    for bit, and two calls give the same bits."""
+    args = _scan_inputs(cuda, 2, 384, 40, 16, dtype)
+    chunks = [c for c in wl.joint_space().choices("mamba_scan.chunk")
+              if 384 % c == 0]
+    assert 12 in chunks and 48 in chunks
+    outs = [mamba_scan(*args, chunk=c) for c in chunks]
+    again = mamba_scan(*args, chunk=chunks[0])
+    torch.cuda.synchronize()
+    for c, out in zip(chunks[1:], outs[1:]):
+        assert torch.equal(outs[0], out), c
+    assert torch.equal(outs[0], again)
+
+
+def test_scan_unaligned_inputs(cuda):
+    """Contiguous views that start 4 bytes past an aligned address take
+    the plain load-and-store path and give the aligned inputs' output."""
+    args = _scan_inputs(cuda, 1, 64, 64, 16, torch.float32)
+    shifted = []
+    for a in args:
+        buf = torch.empty(a.numel() + 1, device=cuda)
+        view = buf[1:].view(a.shape)
+        view.copy_(a)
+        shifted.append(view)
+    assert shifted[1].data_ptr() % 16 != 0
+    got = mamba_scan(*shifted, chunk=16)
+    want = mamba_scan(*args, chunk=16)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)

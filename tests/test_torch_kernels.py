@@ -108,6 +108,8 @@ def _scan_inputs(Bt, L, D, N, dtype):
     (1, 64, 8, 4, 16, F32),
     (2, 128, 16, 8, 32, BF16),
     (2, 96, 4, 16, 32, F32),
+    (1, 64, 40, 32, 16, F32),
+    (2, 96, 40, 32, 48, BF16),
 ])
 def test_mamba_scan_matches_pallas(Bt, L, D, N, chunk, dtype):
     dt, x, A, B, C = _scan_inputs(Bt, L, D, N, dtype)
@@ -140,6 +142,22 @@ def test_mamba_scan_state_carries_across_chunks():
     ref = mamba_scan_ref(dt, x, A, B, C)
     np.testing.assert_allclose(out.numpy(), ref.numpy(), rtol=1e-4)
     assert float(out[0, -1, 0]) > float(out[0, 15, 0])
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+def test_mamba_scan_plain_version_bit_identical_across_chunk(dtype):
+    """``chunk`` only sets how many timesteps a stage holds: the plain
+    version's output is the same, bit for bit, at every chunk that divides
+    L, as the kernel's is (D 40 is not a multiple of a block's 32
+    channels)."""
+    L = 48
+    args = [_t(a, dt) for a, dt in zip(_scan_inputs(2, L, 40, 16, dtype),
+                                         (dtype, dtype, F32, dtype, dtype))]
+    outs = {c: mamba_scan(*args, chunk=c) for c in range(1, L + 1)
+            if L % c == 0}
+    first = outs[L]
+    for c, out in outs.items():
+        assert torch.equal(out, first), c
 
 
 @pytest.mark.parametrize("rows,d,dtype", [(128, 64, F32), (256, 512, BF16),
@@ -307,6 +325,24 @@ def test_library_path_follows_every_header(tmp_path, monkeypatch):
         header.write_text(text)
     (csrc / "extra.cuh").write_text("#pragma once\n")
     assert all(build.library_path(n) != before[n] for n in build.SOURCES)
+
+
+def test_scan_ab_variants_apply_to_the_shipped_source():
+    """Every variant of tools/scan_ab.py is a substitution that still finds
+    its text in csrc/mamba_scan.cu (or another source that exists), so the
+    A/B stays runnable as the kernel changes."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "tools" / "scan_ab.py"
+    spec = importlib.util.spec_from_file_location("scan_ab", path)
+    scan_ab = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(scan_ab)
+    shipped = scan_ab.SHIPPED.read_text()
+    assert scan_ab.variant_source("shipped") == shipped
+    for name in scan_ab.VARIANTS:
+        text = scan_ab.variant_source(name)
+        assert "extern \"C\" int mamba_scan_fwd(" in text
+        assert (text != shipped) == (name != "shipped"), name
 
 
 def test_wgmma_header_is_generated():
