@@ -65,7 +65,12 @@ __host__ __device__ constexpr int round16(int bytes) {
 // repro_torch/kernels/mamba_scan/mamba_scan.py computes `total` alike):
 // two stages of raw tiles (dt, x [chunk][G]; B, C [chunk][N], in T), the
 // converted tile ((dt, dt x) [chunk][G] as float2; B, C [chunk][N] as f32)
-// and two y tiles [chunk][G] in T.  Every region starts 16-byte aligned.
+// and two y tiles [chunk][G] in T.  One y tile would be enough (the store
+// of tile k - 1 reads it before the barrier after which the scan of tile k
+// writes it), but the kernel built that way took 0.296 ms against 0.282 ms
+// at L 4096, D 8192, N 16, bf16, chunk 64 on an NVIDIA H100 80GB HBM3
+// (700 W), and 14% longer with one block, with the same 80 registers.
+// Every region starts 16-byte aligned.
 struct Smem {
   int rows, bc, bcf, stage, dtf, bf, y, total;
   __host__ __device__ Smem(int chunk, int N, int esize)

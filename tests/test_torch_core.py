@@ -309,6 +309,28 @@ def test_shared_memory_gate_raises_with_the_one_message():
                                 **shape) == ()
 
 
+@pytest.mark.parametrize("chunk,N,dtype,want", [
+    (64, 16, "bfloat16", 57_344),    # Falcon-Mamba-7B's default schedule
+    (128, 32, "float32", 229_376),   # the largest genome of the spaces
+    (8, 1, "float32", 8_384),        # the smallest chunk and state size
+])
+def test_scan_smem_bytes_counts_each_region(chunk, N, dtype, want):
+    """The scan's shared memory is two stages of raw dt, x, B and C, the
+    tile converted to f32 ((dt, dt x) pairs, B, C) and two y tiles, each
+    region rounded up to 16 bytes."""
+    import torch
+    from repro_torch.kernels.mamba_scan.mamba_scan import CHANNELS, smem_bytes
+    dt = getattr(torch, dtype)
+    esize = dt.itemsize
+    up = lambda n: -(-n // 16) * 16  # noqa: E731
+    rows, bc = up(chunk * CHANNELS * esize), up(chunk * N * esize)
+    regions = {"stages": 2 * (2 * rows + 2 * bc),
+               "pairs": chunk * CHANNELS * 8, "bc_f32": 2 * up(chunk * N * 4),
+               "y": 2 * rows}
+    assert sum(regions.values()) == want
+    assert smem_bytes({"chunk": chunk}, {"N": N}, dt) == want
+
+
 @pytest.mark.parametrize("N", [1, 2, 4, 8, 16, 32])
 def test_scan_geometry_covers_every_channel_and_fits(N):
     """The scan's launch geometry gives every channel a block and every

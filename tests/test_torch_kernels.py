@@ -327,24 +327,6 @@ def test_library_path_follows_every_header(tmp_path, monkeypatch):
     assert all(build.library_path(n) != before[n] for n in build.SOURCES)
 
 
-def test_scan_ab_variants_apply_to_the_shipped_source():
-    """Every variant of tools/scan_ab.py is a substitution that still finds
-    its text in csrc/mamba_scan.cu (or another source that exists), so the
-    A/B stays runnable as the kernel changes."""
-    import importlib.util
-    from pathlib import Path
-    path = Path(__file__).resolve().parents[1] / "tools" / "scan_ab.py"
-    spec = importlib.util.spec_from_file_location("scan_ab", path)
-    scan_ab = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(scan_ab)
-    shipped = scan_ab.SHIPPED.read_text()
-    assert scan_ab.variant_source("shipped") == shipped
-    for name in scan_ab.VARIANTS:
-        text = scan_ab.variant_source(name)
-        assert "extern \"C\" int mamba_scan_fwd(" in text
-        assert (text != shipped) == (name != "shipped"), name
-
-
 def test_wgmma_header_is_generated():
     """csrc/wgmma_ops.cuh is what its generator renders, with one wrapper
     per block_k (QK^T) and per head dim (PV) the bf16 kernel takes."""
