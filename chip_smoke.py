@@ -40,6 +40,18 @@ Phases, each printing one JSON line:
 6. ``profile``    — where the main path's time goes: a measured search
                     under torch.profiler, and the host cost of a wrapper
                     call at the search shapes.
+7. ``programs``   — the paper's own loop on IR programs at full width:
+                    2fcNet training (784-128-10, batch 32, 200 SGD steps)
+                    and MobileNet prediction at alpha 1.0 (MobileNetV1's
+                    widths, batch 64 on 32x32 inputs, pretrained here,
+                    2048 images scored).  Each program and 32 seeded
+                    mutants of it through the interpreter on the card
+                    against the interpreter on the CPU (same verdict,
+                    outputs within tolerance, two runs on the card bit
+                    for bit); a measured GEVO search (pop 12, 2
+                    generations) on each, with its kernel launches per
+                    evaluation and the device's idle share from
+                    torch.profiler; one unmutated evaluation of each.
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit, and
 the last line ``{"ok": true, "device": {...}}``.  Any failure raises and
@@ -759,6 +771,210 @@ def phase_profile(torch, wl) -> dict:
     return doc
 
 
+# The programs phase: f32 dot and conv chains on the card against the CPU,
+# |card - cpu| <= PROGRAM_RTOL |cpu| + PROGRAM_ATOL max(1, max |cpu|) per
+# output (NaN and inf where the CPU has them).
+PROGRAM_RTOL, PROGRAM_ATOL = 1e-4, 1e-5
+MUTANTS = 32
+
+
+def bits(torch, t):
+    """``t``'s bits, so NaNs compare equal to themselves."""
+    view = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    return t.view(view[t.dtype]) if t.dtype in view else t
+
+
+def seeded_mutants(program, n: int, seed: int = 0) -> list:
+    """``n`` patches of 1 to 3 edits each, sampled with the port's edit
+    registry over every universal operator, from one seed."""
+    import numpy as np
+    from repro_torch.core.edits import (EditError, OperatorWeights, Patch,
+                                        sample_edit)
+    rng = np.random.default_rng(seed)
+    weights = OperatorWeights.parse("all")
+    patches = []
+    while len(patches) < n:
+        patch = Patch()
+        for _ in range(int(rng.integers(1, 4))):
+            try:
+                nxt = patch.append(sample_edit(patch.apply(program), rng,
+                                               weights))
+                nxt.apply(program)
+            except EditError:
+                continue
+            patch = nxt
+        if len(patch):
+            patches.append(patch)
+    return patches
+
+
+def run_program(torch, program, inputs, device):
+    """(outputs, None) or (None, error) of one program on ``device``."""
+    from repro_torch.core.fitness import DEVICE_FAULTS
+    from repro_torch.core.interp import jit_program
+    try:
+        outs = jit_program(program, device)(inputs)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        return outs, None
+    except DEVICE_FAULTS:
+        raise
+    except Exception as e:  # the variant fails, as the reference counts it
+        return None, f"{type(e).__name__}: {e}"
+
+
+def cross_check(torch, name, program, inputs, patches) -> dict:
+    """The program and each mutant on the card (twice) and on the CPU:
+    the same verdict, outputs within the tolerance, the card's two runs
+    bit for bit.  ``max_share_of_tolerance`` is the largest
+    |card - cpu| / (rtol |cpu| + atol max(1, max |cpu|)) seen: at most 1."""
+    worst_abs, worst_share, invalid, repeats = 0.0, 0.0, 0, 0
+    for patch in [None] + list(patches):
+        prog = program if patch is None else patch.apply(program)
+        what = f"{name} {'original' if patch is None else patch.describe()}"
+        cpu, cpu_err = run_program(torch, prog, inputs, "cpu")
+        gpu, gpu_err = run_program(torch, prog, inputs, "cuda")
+        again, _ = run_program(torch, prog, inputs, "cuda")
+        if (cpu is None) != (gpu is None):
+            raise AssertionError(f"{what}: the CPU says {cpu_err}, the card "
+                                 f"says {gpu_err}")
+        if cpu is None:
+            invalid += 1
+            continue
+        for c, g, g2 in zip(cpu, gpu, again):
+            if c.dtype != g.dtype or c.shape != g.shape:
+                raise AssertionError(f"{what}: {g.dtype} {tuple(g.shape)} on "
+                                     f"the card, {c.dtype} {tuple(c.shape)} "
+                                     "on the CPU")
+            if not torch.equal(bits(torch, g), bits(torch, g2)):
+                raise AssertionError(f"{what}: two runs on the card differ")
+            gc, cf = g.cpu().to(torch.float64), c.to(torch.float64)
+            if not (torch.equal(torch.isnan(gc), torch.isnan(cf))
+                    and torch.equal(torch.isinf(gc), torch.isinf(cf))):
+                raise AssertionError(f"{what}: NaN or inf where the CPU "
+                                     "has none")
+            ok = torch.isfinite(cf)
+            if not bool(ok.any()):
+                continue
+            scale = max(1.0, float(cf[ok].abs().max()))
+            diff = (gc[ok] - cf[ok]).abs()
+            share = float((diff / (PROGRAM_RTOL * cf[ok].abs()
+                                   + PROGRAM_ATOL * scale)).max())
+            if share > 1.0:
+                raise AssertionError(f"{what}: card and CPU disagree (max "
+                                     f"|diff| {float(diff.max()):.3e})")
+            worst_abs = max(worst_abs, float(diff.max()))
+            worst_share = max(worst_share, share)
+        repeats += 1
+    return {"programs": len(patches) + 1, "invalid_on_both": invalid,
+            "max_abs_err": worst_abs, "max_share_of_tolerance": worst_share,
+            "bit_identical_repeats": repeats}
+
+
+def profile_evaluation(torch, w) -> dict:
+    """One measured evaluation of ``w``'s program under torch.profiler:
+    the kernels it launched, the device's busy time and idle share."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        w.evaluate(w.program)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    copies = sum(1 for _, _, n in spans if n.startswith(("Memcpy", "Memset")))
+    busy_us, cur = 0.0, None
+    for start, end, _ in spans:
+        if cur is None or start > cur[1]:
+            busy_us += 0.0 if cur is None else cur[1] - cur[0]
+            cur = [start, end]
+        else:
+            cur[1] = max(cur[1], end)
+    busy_us += 0.0 if cur is None else cur[1] - cur[0]
+    if not spans:
+        raise AssertionError(f"{w.name}: the profiler saw no device work")
+    return {"kernel_launches": len(spans) - copies, "copies": copies,
+            "window_us": wall_us, "device_busy_us": busy_us,
+            "device_idle_share": 1 - busy_us / wall_us}
+
+
+def measured_search(torch, w) -> dict:
+    """GevoML on ``w`` (pop 12, 2 generations, measured time) through
+    ``make_evaluator``: wall time, evaluations per second, the front."""
+    from repro_torch.core.evaluator import make_evaluator
+    from repro_torch.core.search import GevoML
+    evaluator = make_evaluator(w)
+    t0 = time.perf_counter()
+    try:
+        search = GevoML(w, pop_size=12, n_elite=6, seed=0, operators="all",
+                        evaluator=evaluator)
+        res = search.run(generations=2)
+    finally:
+        evaluator.close()
+    wall = time.perf_counter() - t0
+    return {"wall_s": wall, "evaluations": search.n_evals,
+            "evaluations_per_s": search.n_evals / wall,
+            "invalid": search.n_invalid,
+            "original": list(res.original_fitness),
+            "pareto": [{"fitness": list(i.fitness),
+                        "patch": i.patch.describe()} for i in res.pareto]}
+
+
+def phase_programs(torch) -> dict:
+    """The paper's loop on IR programs at full width (see the module
+    docstring): 2fcNet training at the builder's defaults, MobileNet
+    prediction at alpha 1.0."""
+    import numpy as np
+    from repro_torch.core.fitness import static_time
+    from repro_torch.workloads.mobilenet import \
+        build_mobilenet_prediction_workload
+    from repro_torch.workloads.twofc import build_twofc_training_workload
+    t0 = time.perf_counter()
+    twofc = build_twofc_training_workload(time_mode="measured")
+    t1 = time.perf_counter()
+    mobilenet = build_mobilenet_prediction_workload(
+        alpha=1.0, batch=64, n_eval=2048, n_pretrain=6000, pretrain_epochs=3,
+        time_mode="measured")
+    t2 = time.perf_counter()
+    eye = np.eye(twofc.num_classes, dtype=np.float32)
+    inputs = {"twofc": {**twofc.init_weights, "x": twofc.train_x[:32],
+                        "y_onehot": eye[twofc.train_y[:32]]},
+              "mobilenet": {"images": mobilenet.images[:mobilenet.batch]}}
+    out = {"phase": "programs", "gpu": nvidia_smi(),
+           "build_s": {"twofc": t1 - t0,
+                       "mobilenet_with_pretraining": t2 - t1},
+           "tolerance": {"rtol": PROGRAM_RTOL, "atol_of_max": PROGRAM_ATOL}}
+    for name, w in (("twofc", twofc), ("mobilenet", mobilenet)):
+        ops = len(w.program.ops)
+        cc = cross_check(torch, name, w.program, inputs[name],
+                         seeded_mutants(w.program, MUTANTS))
+        emit({"phase": "programs", "step": "card_vs_cpu", "workload": name,
+              "ops": ops, **cc})
+        t, e = w.evaluate(w.program)
+        if not (np.isfinite(t) and 0.0 <= e < 0.9):
+            raise AssertionError(f"{name}: unmutated fitness ({t}, {e})")
+        unmutated = {"measured_s": t, "error": e,
+                     "static_s": static_time(w.program) *
+                     (w.steps if name == "twofc" else
+                      len(w.images) // w.batch)}
+        search = measured_search(torch, w)
+        prof = profile_evaluation(torch, w)
+        emit({"phase": "programs", "step": "search", "workload": name,
+              "gpu": out["gpu"], "unmutated": unmutated, **search,
+              "profiled_evaluation": prof})
+        out[name] = {"ops": ops, "programs_checked": cc["programs"],
+                     "max_abs_err": cc["max_abs_err"],
+                     "unmutated": unmutated,
+                     "search_wall_s": search["wall_s"],
+                     "evaluations_per_s": search["evaluations_per_s"],
+                     "launches_per_evaluation": prof["kernel_launches"],
+                     "device_idle_share": prof["device_idle_share"]}
+    emit(out)
+    return out
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels").is_dir():
         print("chip_smoke.py: run it from a checkout of the repository "
@@ -783,6 +999,7 @@ def main() -> int:
                 "mamba_scan": mamba_scan}
     launches = phase_search(torch, wl, counters)
     phase_profile(torch, wl)
+    phase_programs(torch)
 
     # launches: in the kernel's own measured search; launches_joint_static:
     # in the joint static search

@@ -1,8 +1,9 @@
-"""GEVO-ML core on PyTorch: the IR, the edit registry and Patch algebra,
-schedule genomes, NSGA-II search, and the cached evaluation engine.
+"""GEVO-ML core on PyTorch: the IR, its builder and interpreter, the edit
+registry and Patch algebra, schedule genomes, NSGA-II search, and the cached
+evaluation engine.
 
-Modules of later slices (the IR interpreter, islands, the tensorized
-engine, static analysis, surrogates, deployment) are listed in ROADMAP.md.
+Modules of later slices (islands, the tensorized engine, static analysis,
+surrogates, deployment) are listed in ROADMAP.md.
 """
 
 from .edits import (Edit, EditError, EditOp, OperatorStats, OperatorWeights,
@@ -10,7 +11,8 @@ from .edits import (Edit, EditError, EditOp, OperatorStats, OperatorWeights,
                     sample_edit)
 from .evaluator import (EvalOutcome, FitnessCache, ParallelEvaluator,
                         SerialEvaluator, WorkloadSpec, make_evaluator)
-from .fitness import DeviceFault, InvalidVariant, KernelWorkload
+from .fitness import (DeviceFault, InvalidVariant, KernelWorkload,
+                      PredictionWorkload, TrainingWorkload)
 from .schedule import ScheduleError, ScheduleSpace
 from .search import GevoML, Individual, SearchResult
 
@@ -21,6 +23,7 @@ __all__ = [
     "EvalOutcome", "FitnessCache", "ParallelEvaluator", "SerialEvaluator",
     "WorkloadSpec", "make_evaluator",
     "DeviceFault", "InvalidVariant", "KernelWorkload",
+    "PredictionWorkload", "TrainingWorkload",
     "ScheduleError", "ScheduleSpace",
     "GevoML", "Individual", "SearchResult",
 ]

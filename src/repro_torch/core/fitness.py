@@ -8,9 +8,11 @@ error is an objective, not a validity gate.  Two time modes:
 * ``static``  — a deterministic roofline estimate.  Used in CI and on hosts
   without a GPU so search results are reproducible.
 
-This slice carries the kernel-schedule task (:class:`KernelWorkload`); the
-IR-program tasks of the reference (``PredictionWorkload``,
-``TrainingWorkload``) need the IR interpreter and come with it.
+Three tasks: inference (:class:`PredictionWorkload`) and training
+(:class:`TrainingWorkload`) of an IR program, which
+:mod:`~repro_torch.core.interp` executes, and the kernel-schedule task
+(:class:`KernelWorkload`).  The IR tasks run on their ``device``: the GPU
+unless the builder was told otherwise.
 """
 
 from __future__ import annotations
@@ -22,6 +24,8 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..device import resolve_device
+from .interp import jit_program
 from .ir import Program, op_bytes, op_flops
 from .schedule import ScheduleSpace
 
@@ -106,6 +110,55 @@ def _check_finite_scalar(x) -> float:
 
 
 @dataclass
+class PredictionWorkload:
+    """Inference task (MobileNet/CIFAR10 in the paper): minimize forward-pass
+    time and prediction error on a held-in dataset.  The data moves to the
+    device once an evaluation; the correct predictions are counted there."""
+
+    name: str
+    program: Program                 # inputs: {"images"}; outputs: [logits]
+    images: np.ndarray               # (N, ...) held-in eval data
+    labels: np.ndarray               # (N,)
+    batch: int = 256
+    time_mode: str = "static"
+    kind: str = "prediction"
+    # rebuild recipe for ParallelEvaluator workers (see core/evaluator.py);
+    # optional — this workload also pickles whole
+    spec: object | None = None
+    device: str | None = None        # None: the GPU
+
+    def evaluate(self, program: Program) -> tuple[float, float]:
+        dev = resolve_device(self.device)   # no GPU is not the variant's fault
+        try:
+            fn = jit_program(program, dev)
+            n = (len(self.images) // self.batch) * self.batch
+            images = torch.as_tensor(self.images[:n]).to(dev)
+            labels = torch.as_tensor(self.labels[:n]).to(dev)
+            correct = torch.zeros((), dtype=torch.int64, device=dev)
+            t_meas = 0.0
+            for i in range(0, n, self.batch):
+                inp = {"images": images[i:i + self.batch]}
+                if self.time_mode == "measured" and i == 0:
+                    t_meas = measured_time(fn, inp) * (n // self.batch)
+                out = fn(inp)[0]
+                if out.ndim != 2 or out.shape[0] != self.batch:
+                    raise InvalidVariant(
+                        f"bad logits shape {tuple(out.shape)}")
+                # np.nan_to_num and np.argmax of the reference, on the device
+                pred = torch.nan_to_num(out.to(torch.float32),
+                                        nan=-1e30).argmax(-1)
+                correct += (pred == labels[i:i + self.batch]).sum()
+            error = 1.0 - int(correct) / max(n, 1)
+            t = t_meas if self.time_mode == "measured" else \
+                static_time(program) * (n // self.batch)
+            return _check_finite_scalar(t), _check_finite_scalar(error)
+        except (InvalidVariant, *DEVICE_FAULTS):
+            raise
+        except Exception as e:  # any execution failure invalidates the variant
+            raise InvalidVariant(str(e)) from e
+
+
+@dataclass
 class KernelWorkload:
     """Kernel-schedule task: ``program`` is a schedule genome encoded as
     HLO-lite constant ops (:mod:`repro_torch.core.schedule`), and fitness is
@@ -148,4 +201,82 @@ class KernelWorkload:
         except (InvalidVariant, *DEVICE_FAULTS):
             raise
         except Exception as e:  # ScheduleError, rejected schedule, numerics
+            raise InvalidVariant(str(e)) from e
+
+
+@dataclass
+class TrainingWorkload:
+    """Training task (2fcNet/MNIST in the paper): the IR program is ONE full
+    SGD step (forward + backward + update, Figure 5).  Fitness retrains from
+    the initial weights with the *variant* step on the device, then measures
+    error with the reference forward pass on the final weights."""
+
+    name: str
+    program: Program                 # inputs: weights... + {"x","y_onehot"}
+    weight_names: tuple[str, ...]    # program inputs that are weights, in
+                                     # 1:1 order with program outputs
+    init_weights: dict[str, np.ndarray]
+    train_x: np.ndarray
+    train_y: np.ndarray              # int labels
+    eval_fn: Callable[[dict[str, np.ndarray]], float]  # -> error in [0,1]
+    batch: int = 32
+    steps: int = 200
+    num_classes: int = 10
+    time_mode: str = "static"
+    kind: str = "training"
+    # rebuild recipe for ParallelEvaluator workers (see core/evaluator.py);
+    # required for parallel eval: eval_fn is a closure and does not pickle
+    spec: object | None = None
+    device: str | None = None        # None: the GPU
+
+    def _batches(self, xs: torch.Tensor, ys: torch.Tensor):
+        n = (len(self.train_x) // self.batch) * self.batch
+        i = 0
+        while True:
+            j = i % n
+            yield xs[j:j + self.batch], ys[j:j + self.batch]
+            i += self.batch
+
+    def evaluate(self, program: Program) -> tuple[float, float]:
+        dev = resolve_device(self.device)   # no GPU is not the variant's fault
+        try:
+            fn = jit_program(program, dev)
+            weights = {k: torch.as_tensor(v).to(dev)
+                       for k, v in self.init_weights.items()}
+            expected_shapes = {k: tuple(v.shape)
+                               for k, v in self.init_weights.items()}
+            onehot = torch.eye(self.num_classes, dtype=torch.float32,
+                               device=dev)
+            batches = self._batches(
+                torch.as_tensor(self.train_x).to(dev),
+                onehot[torch.as_tensor(self.train_y).to(dev).long()])
+            t_meas = 0.0
+            for step in range(self.steps):
+                x, y1h = next(batches)
+                inputs = dict(weights)
+                inputs["x"] = x
+                inputs["y_onehot"] = y1h
+                if self.time_mode == "measured" and step == 1:
+                    t_meas = measured_time(fn, inputs) * self.steps
+                outs = fn(inputs)
+                if len(outs) != len(self.weight_names):
+                    raise InvalidVariant("variant lost weight outputs")
+                for k, o in zip(self.weight_names, outs):
+                    if tuple(o.shape) != expected_shapes[k]:
+                        # the variant changed a weight shape: the training
+                        # feedback loop is broken -> invalid individual
+                        raise InvalidVariant(
+                            f"weight {k} shape drifted to {tuple(o.shape)}")
+                    weights[k] = o
+            final = {k: v.to(torch.float32).cpu().numpy()
+                     for k, v in weights.items()}
+            if any(not np.all(np.isfinite(v)) for v in final.values()):
+                raise InvalidVariant("weights diverged to non-finite")
+            error = self.eval_fn(final)
+            t = t_meas if self.time_mode == "measured" else \
+                static_time(program) * self.steps
+            return _check_finite_scalar(t), _check_finite_scalar(error)
+        except (InvalidVariant, *DEVICE_FAULTS):
+            raise
+        except Exception as e:
             raise InvalidVariant(str(e)) from e

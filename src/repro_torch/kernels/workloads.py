@@ -36,6 +36,7 @@ import torch
 from ..core.evaluator import WorkloadSpec
 from ..core.fitness import KernelWorkload, measured_time
 from ..core.schedule import ScheduleSpace
+from ..device import resolve_device
 from .costs import schedule_features, schedule_time
 from .cpu import init_vector_math
 from .flash_attention.ops import flash_attention
@@ -99,18 +100,6 @@ def kernel_space(kernel: str) -> ScheduleSpace:
     if kernel not in _SPACES:
         raise KeyError(f"unknown kernel {kernel!r}; choose from {KERNELS}")
     return ScheduleSpace.of(f"kernel/{kernel}", _SPACES[kernel])
-
-
-def resolve_device(device=None) -> torch.device:
-    """The device an entry point runs on: the GPU unless the caller names
-    another.  With no GPU and no ``device``, this raises rather than
-    quietly running the plain versions on the host."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is available; pass device='cpu' "
-                           "to run the kernels' plain versions on the host")
-    return torch.device("cuda")
 
 
 def numpy_inputs(kernel: str, seed: int) -> dict[str, np.ndarray]:

@@ -2,8 +2,11 @@
 over every genome of its schedule space (and bf16 flash over the joint
 space's blocks at head dims 32, 64 and 128), outputs bit-identical across
 the knobs that only partition rows, tensor-core instructions in the built
-flash library, launch counting, and refused launches.  Marked ``cuda``;
-they skip on hosts without a GPU.  On a machine with one:
+flash library, launch counting, and refused launches.  The IR interpreter
+on the card: every opcode and SAME padding against the interpreter on the
+CPU, full f32 (no TF32), bit-identical repeats, pretraining that repeats,
+and one unmutated evaluation of each IR workload.  Marked ``cuda``; they
+skip on hosts without a GPU.  On a machine with one:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
@@ -274,3 +277,283 @@ def test_scan_unaligned_inputs(cuda):
     want = mamba_scan(*args, chunk=16)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+# --------------------------------------------------------------------------
+# the IR interpreter on the card
+# --------------------------------------------------------------------------
+
+_IR_DTYPES = ("f32", "bf16", "i32", "bool")
+# two operands per dtype, special values included (bool and bf16 are
+# converted from the float rows on the CPU)
+_IR_FLOATS = ([1.5, -2.0, 0.0, -0.0, float("nan"), float("inf"), 3.0e10,
+               0.375], [0.5, 2.0, 0.0, 3.0, 1.0, float("-inf"), -7.0, 2.5],
+              [4.0, -1.0, 0.5, 2.0, -3.0, 1.0, 0.0, -0.25])
+_IR_INTS = ([3, -2, 0, 7, -2 ** 31, 2 ** 31 - 1, 16842753, 1],
+            [2, -3, 0, -1, 1, 2, 3, 5], [1, 0, -4, 9, 2, -7, 0, 3])
+# ops whose float result must equal the CPU's bit for bit; the others
+# (transcendentals, reductions, dot, conv, avg_pool) are held to relative
+# 1e-5 in f32 and one bf16 step (2**-7) in bf16
+_IR_EXACT = {"add", "subtract", "multiply", "divide", "maximum", "minimum",
+             "negate", "abs", "sign", "select", "compare", "convert",
+             "reshape", "transpose", "broadcast_in_dim", "pad", "slice",
+             "reduce_max", "max_pool"}
+
+
+def _ir_operand(slot, dtype):
+    from repro_torch.core.interp import convert
+    if dtype == "i32":
+        return torch.tensor(_IR_INTS[slot], dtype=torch.int32)
+    return convert(torch.tensor(_IR_FLOATS[slot]), dtype)
+
+
+def _ir_cases():
+    pairs = list(itertools.product(_IR_DTYPES, _IR_DTYPES))
+    for op in ("add", "subtract", "multiply", "divide", "maximum", "minimum",
+               "power"):
+        for a, b in pairs:
+            yield op, (a, b), {}
+    for op in ("exponential", "log", "negate", "tanh", "rsqrt", "abs",
+               "sign"):
+        for a in _IR_DTYPES:
+            yield op, (a,), {}
+    for a, b in pairs:
+        yield "compare", (a, b), {"direction": "LT"}
+        yield "convert", (a,), {"new_dtype": b}
+    for a in _IR_DTYPES:
+        yield "select", ("bool", a, a), {}
+        for dims in ((0,), ()):
+            yield "reduce_sum", (a,), {"dims": dims}
+            yield "reduce_max", (a,), {"dims": dims}
+        yield "pad", (a,), {"low": (-1,), "high": (3,), "value": 1.5}
+
+
+def _ir_operands(opcode, dtypes, device):
+    xs = [_ir_operand(i, d).to(device) for i, d in enumerate(dtypes)]
+    if opcode in ("reduce_sum", "reduce_max"):
+        return [x.reshape(2, 4) for x in xs]
+    return xs
+
+
+def _ir_check(got, want, exact):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    got = got.cpu()
+    if exact or got.dtype in (torch.int32, torch.bool):
+        assert torch.equal(torch.isnan(got.float()),
+                           torch.isnan(want.float()))
+        ok = ~torch.isnan(want.float())
+        assert torch.equal(got[ok], want[ok])
+    else:
+        rtol = 2.0 ** -7 if got.dtype == torch.bfloat16 else 1e-5
+        torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                                   atol=0.0, equal_nan=True)
+
+
+@pytest.mark.parametrize("opcode,dtypes,attrs", list(_ir_cases()),
+                         ids=[f"{o}-{'-'.join(d)}-{i}" for i, (o, d, _)
+                              in enumerate(_ir_cases())])
+def test_interp_op_on_the_card_matches_the_cpu(cuda, opcode, dtypes, attrs):
+    """Every opcode over the IR's dtypes and the mixed ones variants make:
+    the same verdict, dtype and result as the interpreter on the CPU."""
+    from repro_torch.core.interp import eval_op
+    try:
+        want = eval_op(opcode, _ir_operands(opcode, dtypes, "cpu"), attrs)
+    except Exception:
+        with pytest.raises(Exception):
+            eval_op(opcode, _ir_operands(opcode, dtypes, cuda), attrs)
+        return
+    got = eval_op(opcode, _ir_operands(opcode, dtypes, cuda), attrs)
+    torch.cuda.synchronize()
+    _ir_check(got, want, opcode in _IR_EXACT)
+
+
+@pytest.mark.parametrize("dtype", _IR_DTYPES)
+def test_interp_structured_ops_on_the_card(cuda, dtype):
+    """dot_general, conv (grouped), the pools and the data movers."""
+    from repro_torch.core.interp import TORCH_DTYPE, eval_op
+    g = torch.Generator().manual_seed(0)
+    t = TORCH_DTYPE[dtype]
+
+    def ints(*shape):
+        return torch.randint(-2, 3, shape, generator=g).to(t)
+
+    cases = [
+        ("dot", [ints(2, 3, 4, 5), ints(5, 2, 6, 3)],
+         {"dims": (((3, 1), (0, 3)), ((0,), (1,)))}),
+        ("conv", [ints(2, 7, 8, 4), ints(3, 3, 2, 4)],
+         {"strides": (2, 1), "padding": "SAME", "feature_group_count": 2}),
+        ("max_pool", [ints(2, 7, 8, 4)],
+         {"window": (3, 2), "strides": (2, 2), "padding": "SAME"}),
+        ("avg_pool", [ints(2, 7, 8, 4)],
+         {"window": (3, 2), "strides": (2, 2), "padding": "SAME"}),
+        ("slice", [ints(4, 6)],
+         {"start": (1, 0), "limit": (4, 6), "strides": (2, 4)}),
+        ("transpose", [ints(2, 3, 4)], {"permutation": (2, 0, 1)}),
+        ("broadcast_in_dim", [ints(3, 1)],
+         {"shape": (2, 3, 4), "broadcast_dimensions": (1, 2)}),
+    ]
+    for opcode, xs, attrs in cases:
+        try:
+            want = eval_op(opcode, xs, attrs)
+        except TypeError:       # avg_pool of bool, as the reference
+            with pytest.raises(TypeError):
+                eval_op(opcode, [x.to(cuda) for x in xs], attrs)
+            continue
+        got = eval_op(opcode, [x.to(cuda) for x in xs], attrs)
+        torch.cuda.synchronize()
+        _ir_check(got, want, opcode not in ("dot", "conv", "avg_pool"))
+
+
+@pytest.mark.parametrize("size", [7, 8])
+@pytest.mark.parametrize("stride", [1, 2])
+def test_interp_same_padding_on_the_card(cuda, size, stride):
+    """XLA's SAME padding, asymmetric at stride 2, for full and depthwise
+    convs and both pools: the card against the CPU, relative 1e-5."""
+    from repro_torch.core.interp import eval_op
+    g = torch.Generator().manual_seed(size * stride)
+    x = torch.randn(2, size, size, 8, generator=g)
+    for w, groups in ((torch.randn(3, 3, 8, 8, generator=g), 1),
+                      (torch.randn(3, 3, 1, 8, generator=g), 8)):
+        attrs = {"strides": (stride, stride), "padding": "SAME",
+                 "feature_group_count": groups}
+        want = eval_op("conv", [x, w], attrs)
+        got = eval_op("conv", [x.to(cuda), w.to(cuda)], attrs)
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+    for kind in ("max_pool", "avg_pool"):
+        attrs = {"window": (3, 3), "strides": (stride, stride),
+                 "padding": "SAME"}
+        want = eval_op(kind, [x], attrs)
+        got = eval_op(kind, [x.to(cuda)], attrs)
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-6)
+
+
+def test_interp_runs_f32_without_tf32(cuda):
+    """A 1024-deep dot and a 3x3x256 conv in f32 on the card stay within
+    1e-5 (relative to the largest output) of float64: TF32 would be off
+    by about 1e-3.  The caller's TF32 settings come back after the call."""
+    from repro_torch.core.interp import conv, eval_op, full_f32
+    g = torch.Generator().manual_seed(1)
+    a, b = torch.randn(256, 1024, generator=g), torch.randn(1024, 256,
+                                                            generator=g)
+    x, w = torch.randn(4, 16, 16, 256, generator=g), \
+        torch.randn(3, 3, 256, 64, generator=g)
+    cudnn = torch.backends.cudnn
+    saved = cudnn.conv.fp32_precision
+    try:
+        cudnn.conv.fp32_precision = "tf32"
+        got = eval_op("dot", [a.to(cuda), b.to(cuda)],
+                      {"dims": (((1,), (0,)), ((), ()))}).cpu().double()
+        want = a.double() @ b.double()
+        assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+        with full_f32():
+            want = conv(x.double(), w.double(), (1, 1), "SAME", 1)
+        got = eval_op("conv", [x.to(cuda), w.to(cuda)], {}).cpu().double()
+        assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+        assert cudnn.conv.fp32_precision == "tf32"
+    finally:
+        cudnn.conv.fp32_precision = saved
+
+
+def _ir_workloads(device):
+    from repro_torch.workloads.mobilenet import \
+        build_mobilenet_prediction_workload
+    from repro_torch.workloads.tinyformer import \
+        build_tinyformer_prediction_workload
+    from repro_torch.workloads.twofc import build_twofc_training_workload
+    return {
+        "twofc": build_twofc_training_workload(
+            hidden=64, steps=80, n_train=2048, n_test=1024, device=device),
+        "mobilenet": build_mobilenet_prediction_workload(n_eval=512,
+                                                         device=device),
+        "tinyformer": build_tinyformer_prediction_workload(
+            n_eval=512, n_pretrain=2048, steps=400, device=device),
+    }
+
+
+def test_ir_programs_repeat_bit_for_bit_on_the_card(cuda):
+    """Two runs of each workload's program on the card give the same bits
+    (the fitness cache and --resume rely on it), and agree with the CPU
+    within relative 1e-4."""
+    from repro_torch.core.interp import jit_program
+    import numpy as np
+    ws = _ir_workloads(cuda)
+    tw = ws["twofc"]
+    inputs = {"twofc": {**tw.init_weights, "x": tw.train_x[:32],
+                        "y_onehot": np.eye(10, dtype=np.float32)[
+                            tw.train_y[:32]]},
+              "mobilenet": {"images": ws["mobilenet"].images[:64]},
+              "tinyformer": {"images": ws["tinyformer"].images[:64]}}
+    for name, w in ws.items():
+        fn = jit_program(w.program, cuda)
+        first, second = fn(inputs[name]), fn(inputs[name])
+        cpu = jit_program(w.program, "cpu")(inputs[name])
+        torch.cuda.synchronize()
+        for a, b, c in zip(first, second, cpu):
+            assert torch.equal(a, b), name
+            torch.testing.assert_close(a.cpu(), c, rtol=1e-4, atol=1e-5)
+
+
+def test_pretraining_repeats_on_the_card(cuda):
+    """MobileNet pretraining on the card gives the same weights twice, so
+    a rebuilt workload (a resumed search, a spawned worker) bakes the same
+    program."""
+    from repro_torch.workloads import mobilenet
+    from repro_torch.workloads.datasets import cifar10_train_head
+    x, y = cifar10_train_head(256)
+    params = mobilenet.init_mobilenet(alpha=0.25)
+    a = mobilenet.pretrain(params, x, y, epochs=1, batch=64, device=cuda)
+    b = mobilenet.pretrain(params, x, y, epochs=1, batch=64, device=cuda)
+    for k in a:
+        if isinstance(a[k], dict):
+            for kk in a[k]:
+                assert (a[k][kk] == b[k][kk]).all(), (k, kk)
+        else:
+            assert (a[k] == b[k]).all(), k
+
+
+def test_one_unmutated_evaluation_of_each_ir_workload(cuda):
+    """Each IR workload evaluates its own program on the card (static and
+    measured time), with an error well under chance (0.9, 0.9 and 0.75;
+    on the CPU these sizes give about 0.65, 0.03-0.07 and 0.63), and, for
+    the prediction workloads, the same static time as on the CPU and an
+    error within 1/n of it for the same program."""
+    from repro_torch.core.fitness import PredictionWorkload
+    ws = _ir_workloads(cuda)
+    bound = {"twofc": 0.8, "mobilenet": 0.5, "tinyformer": 0.72}
+    for name, w in ws.items():
+        t, e = w.evaluate(w.program)
+        assert t > 0 and 0.0 <= e < bound[name], (name, t, e)
+        w.time_mode = "measured"
+        tm, em = w.evaluate(w.program)
+        assert 0 < tm and em == e, (name, tm, em)
+        if isinstance(w, PredictionWorkload):
+            host = PredictionWorkload(w.name, w.program, w.images, w.labels,
+                                      batch=w.batch, device="cpu")
+            th, eh = host.evaluate(host.program)
+            assert th == t and abs(eh - e) <= 1 / len(w.images) + 1e-12
+
+
+def test_ir_search_in_spawned_workers_on_the_card(cuda):
+    """Two spawned workers, each with its own CUDA context, rebuild the
+    2fcNet workload from its WorkloadSpec; in static mode the search equals
+    the serial one."""
+    from repro_torch.core.evaluator import ParallelEvaluator
+    from repro_torch.core.search import GevoML
+    from repro_torch.workloads.twofc import build_twofc_training_workload
+    w = build_twofc_training_workload(hidden=64, steps=40, n_train=1024,
+                                      n_test=512)
+    assert dict(w.spec.kwargs)["device"] == "cuda"
+    kw = dict(pop_size=4, n_elite=2, seed=0, operators="all")
+    serial = GevoML(w, **kw).run(generations=2)
+    with ParallelEvaluator(w, n_workers=2) as ev:
+        par = GevoML(w, evaluator=ev, **kw).run(generations=2)
+    assert [i.fitness for i in par.population] == \
+        [i.fitness for i in serial.population]
+
+
+def test_ir_cli_runs_on_the_card(cuda, capsys):
+    from repro_torch.workloads import __main__ as cli
+    cli.main(["--workload", "twofc", "--time-mode", "measured",
+              "--generations", "1", "--pop", "4"])
+    out = capsys.readouterr().out
+    assert "on cuda" in out and "Pareto front" in out
