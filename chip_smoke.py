@@ -33,13 +33,21 @@ Phases, each printing one JSON line:
 4. ``overheads``  — the per-block and per-timestep costs of the cost
                     model's H100 record, measured.
 5. ``search``     — the main path: the measured kernel-schedule search
-                    (``evolve_kernel_schedule``) on each kernel, and the
-                    joint three-kernel workload in static mode, each with
-                    the launch counts set to 0 before it; each measured
-                    search must launch its kernel, the joint one all three.
+                    (``evolve_kernel_schedule``; each variant timed as a
+                    CUDA graph whose replays add their launches to the
+                    wrappers' counts) on each kernel, and the joint
+                    three-kernel workload in static mode, each with the
+                    launch counts set to 0 before it; each measured search
+                    must launch its kernel, the joint one all three.  Then
+                    a measured flash-attention search with the static
+                    screen and the surrogate pre-rank, each statically
+                    invalid verdict held against the message executing the
+                    patch on the card gives, byte for byte.
 6. ``profile``    — where the main path's time goes: a measured search
-                    under torch.profiler, and the host cost of a wrapper
-                    call at the search shapes.
+                    under torch.profiler; per kernel, the host cost of a
+                    wrapper call at the search shapes and the measured
+                    fitness of the default schedule beside the kernel's
+                    device time from torch.profiler.
 7. ``programs``   — the paper's own loop on IR programs at full width:
                     2fcNet training (784-128-10, batch 32, 200 SGD steps)
                     and MobileNet prediction at alpha 1.0 (MobileNetV1's
@@ -47,11 +55,17 @@ Phases, each printing one JSON line:
                     2048 images scored).  Each program and 32 seeded
                     mutants of it through the interpreter on the card
                     against the interpreter on the CPU (same verdict,
-                    outputs within tolerance, two runs on the card bit
-                    for bit); a measured GEVO search (pop 12, 2
-                    generations) on each, with its kernel launches per
-                    evaluation and the device's idle share from
-                    torch.profiler; one unmutated evaluation of each.
+                    outputs within tolerance, two eager runs on the card
+                    and the measured fitness's CUDA graph bit for bit);
+                    three measured evaluations of each unmutated program,
+                    each beside the device's busy time over the graph's
+                    replays (torch.profiler); a measured GEVO search (pop
+                    12, 2 generations) on each, whose reserved device
+                    memory must stay flat, with its kernel and graph
+                    launches per evaluation and the device's idle share;
+                    a measured 2fcNet search with the static screen and
+                    the surrogate pre-rank, its invalid verdicts held
+                    against the card's messages.
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit, and
 the last line ``{"ok": true, "device": {...}}``.  Any failure raises and
@@ -700,6 +714,10 @@ def phase_search(torch, wl, counters) -> dict:
                        for i in res.pareto],
             "best": w.space.decode(best.patch.apply(w.program)),
             "within_tol": ok, "evals": search.n_evals}
+    screened = screened_guided_search(
+        torch, wl.build_kernel_workload("flash_attention",
+                                        time_mode="measured"),
+        kernel_screened_search)
     reset()
     wj = wl.build_joint_kernel_workload()
     search, res, best, ok = wl.evolve_kernel_schedule(
@@ -711,8 +729,34 @@ def phase_search(torch, wl, counters) -> dict:
         "pareto": [list(i.fitness) for i in res.pareto],
         "evals": search.n_evals}
     emit({"phase": "search", "seconds": time.perf_counter() - t0,
-          "launches": launches, "fronts": fronts})
+          "launches": launches, "fronts": fronts,
+          "screened_guided_flash_attention": screened})
     return launches
+
+
+# The kernel of each wrapper, by a part of its name in a profile.
+KERNEL_NAMES = {"rmsnorm": "rmsnorm_", "flash_attention": "flash_",
+                "mamba_scan": "scan_kernel"}
+
+
+def graph_timing(torch, wl, kernel) -> dict:
+    """The measured fitness of ``kernel``'s default schedule at the search
+    shapes (its CUDA graph's replays, per call) beside the kernel's device
+    time a call that torch.profiler reads over the same evaluation."""
+    from torch.profiler import ProfilerActivity, profile
+    w = wl.build_kernel_workload(kernel, time_mode="measured")
+    w.evaluate(w.program)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        measured_s, _ = w.evaluate(w.program)
+        torch.cuda.synchronize()
+    spans = [end - start for start, end, name in device_spans(torch, prof)
+             if KERNEL_NAMES[kernel] in name]
+    kernel_us = statistics.median(spans)
+    return {"measured_us_per_call": measured_s * 1e6,
+            "profiler_kernel_us_per_call": kernel_us,
+            "measured_over_kernel": measured_s * 1e6 / kernel_us,
+            "kernel_spans": len(spans)}
 
 
 def phase_profile(torch, wl) -> dict:
@@ -731,19 +775,11 @@ def phase_profile(torch, wl) -> dict:
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     search.close()
-    spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    spans = device_spans(torch, prof)
     by_name: dict[str, float] = {}
-    busy_us, cur = 0.0, None
     for start, end, name in spans:
         by_name[name] = by_name.get(name, 0.0) + (end - start)
-        if cur is None or start > cur[1]:
-            busy_us += 0.0 if cur is None else cur[1] - cur[0]
-            cur = [start, end]
-        else:
-            cur[1] = max(cur[1], end)
-    busy_us += 0.0 if cur is None else cur[1] - cur[0]
+    busy = busy_us(spans)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
 
     dispatch = {}
@@ -761,11 +797,12 @@ def phase_profile(torch, wl) -> dict:
         host_us = (time.perf_counter() - t0) / 200 * 1e6
         event_us = time_ms(torch, lambda: fn(inputs), reps=50) * 1e3
         dispatch[kernel] = {"loop_us_per_call": host_us,
-                            "event_us_per_call": event_us}
+                            "event_us_per_call": event_us,
+                            **graph_timing(torch, wl, kernel)}
     doc = {"phase": "profile", "window_us": wall_us,
            "device_events": len(spans),
-           "device_busy_us": busy_us if spans else None,
-           "device_idle_share": (1 - busy_us / wall_us) if spans else None,
+           "device_busy_us": busy if spans else None,
+           "device_idle_share": (1 - busy / wall_us) if spans else None,
            "device_us_by_kernel": dict(top), "dispatch": dispatch}
     emit(doc)
     return doc
@@ -776,6 +813,12 @@ def phase_profile(torch, wl) -> dict:
 # output (NaN and inf where the CPU has them).
 PROGRAM_RTOL, PROGRAM_ATOL = 1e-4, 1e-5
 MUTANTS = 32
+# Reserved device memory may differ between generations of a measured
+# search by one segment of torch's caching allocator (2 MiB) at most.
+RESERVED_SLACK = 2 * 2 ** 20
+# The unmutated program's measured time over three evaluations: the
+# spread (max / min - 1) the acceptance asks for.
+REPEAT_SPREAD = 0.05
 
 
 def bits(torch, t):
@@ -808,12 +851,40 @@ def seeded_mutants(program, n: int, seed: int = 0) -> list:
     return patches
 
 
-def run_program(torch, program, inputs, device):
-    """(outputs, None) or (None, error) of one program on ``device``."""
+def sampled_patches(program, n: int, seed: int) -> list:
+    """``n`` patches of 1 to 3 edits each sampled on ``program`` itself
+    (as the reference's property tests draw them), kept whether or not the
+    edits compose: one that does not is an invalid variant."""
+    import numpy as np
+    from repro_torch.core.edits import (EditError, OperatorWeights, Patch,
+                                        sample_edit)
+    rng = np.random.default_rng(seed)
+    weights = OperatorWeights.parse("all")
+    patches = []
+    while len(patches) < n:
+        try:
+            patches.append(Patch(tuple(
+                sample_edit(program, rng, weights)
+                for _ in range(int(rng.integers(1, 4))))))
+        except EditError:
+            continue
+    return patches
+
+
+def run_program(torch, program, inputs, device, graph: bool = False):
+    """(outputs, None) or (None, error) of one program on ``device``:
+    eagerly, or with ``graph`` through the measured fitness's CUDA graph
+    (two replays, the second returned)."""
     from repro_torch.core.fitness import DEVICE_FAULTS
-    from repro_torch.core.interp import jit_program
+    from repro_torch.core.interp import ProgramGraph, jit_program
     try:
-        outs = jit_program(program, device)(inputs)
+        if graph:
+            with ProgramGraph(program, device) as g:
+                g.load(inputs)
+                g.run()
+                outs = [o.clone() for o in g.run()]
+        else:
+            outs = jit_program(program, device)(inputs)
         if device != "cpu":
             torch.cuda.synchronize()
         return outs, None
@@ -824,9 +895,10 @@ def run_program(torch, program, inputs, device):
 
 
 def cross_check(torch, name, program, inputs, patches) -> dict:
-    """The program and each mutant on the card (twice) and on the CPU:
-    the same verdict, outputs within the tolerance, the card's two runs
-    bit for bit.  ``max_share_of_tolerance`` is the largest
+    """The program and each mutant on the card (twice eagerly, once as the
+    measured fitness's CUDA graph) and on the CPU: the same verdict,
+    outputs within the tolerance, the card's two eager runs and the graph's
+    replay bit for bit.  ``max_share_of_tolerance`` is the largest
     |card - cpu| / (rtol |cpu| + atol max(1, max |cpu|)) seen: at most 1."""
     worst_abs, worst_share, invalid, repeats = 0.0, 0.0, 0, 0
     for patch in [None] + list(patches):
@@ -835,19 +907,28 @@ def cross_check(torch, name, program, inputs, patches) -> dict:
         cpu, cpu_err = run_program(torch, prog, inputs, "cpu")
         gpu, gpu_err = run_program(torch, prog, inputs, "cuda")
         again, _ = run_program(torch, prog, inputs, "cuda")
+        replay, replay_err = run_program(torch, prog, inputs, "cuda",
+                                         graph=True)
         if (cpu is None) != (gpu is None):
             raise AssertionError(f"{what}: the CPU says {cpu_err}, the card "
                                  f"says {gpu_err}")
+        if gpu_err != replay_err:
+            raise AssertionError(f"{what}: eagerly the card says {gpu_err}, "
+                                 f"through the graph {replay_err}")
         if cpu is None:
             invalid += 1
             continue
-        for c, g, g2 in zip(cpu, gpu, again):
+        for c, g, g2, r in zip(cpu, gpu, again, replay, strict=True):
             if c.dtype != g.dtype or c.shape != g.shape:
                 raise AssertionError(f"{what}: {g.dtype} {tuple(g.shape)} on "
                                      f"the card, {c.dtype} {tuple(c.shape)} "
                                      "on the CPU")
             if not torch.equal(bits(torch, g), bits(torch, g2)):
                 raise AssertionError(f"{what}: two runs on the card differ")
+            if r.dtype != g.dtype or not torch.equal(bits(torch, g),
+                                                     bits(torch, r)):
+                raise AssertionError(f"{what}: the graph's replay differs "
+                                     "from the eager run on the card")
             gc, cf = g.cpu().to(torch.float64), c.to(torch.float64)
             if not (torch.equal(torch.isnan(gc), torch.isnan(cf))
                     and torch.equal(torch.isinf(gc), torch.isinf(cf))):
@@ -868,58 +949,200 @@ def cross_check(torch, name, program, inputs, patches) -> dict:
         repeats += 1
     return {"programs": len(patches) + 1, "invalid_on_both": invalid,
             "max_abs_err": worst_abs, "max_share_of_tolerance": worst_share,
-            "bit_identical_repeats": repeats}
+            "bit_identical_repeats": repeats,
+            "graph_replays_bit_identical_to_eager": repeats}
+
+
+def device_spans(torch, prof) -> list:
+    """(start, end, name) of every device event of a profile, in order,
+    but for the spin ``measured_time`` holds the stream with while the host
+    enqueues the timed calls (``torch.cuda._sleep``'s ``spin_kernel``)."""
+    return sorted((e.time_range.start, e.time_range.end, e.name)
+                  for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and "spin_kernel" not in e.name)
+
+
+def busy_us(spans) -> float:
+    """Microseconds in which at least one of ``spans`` ran."""
+    total, cur = 0.0, None
+    for start, end, *_ in spans:
+        if cur is None or start > cur[1]:
+            total += 0.0 if cur is None else cur[1] - cur[0]
+            cur = [start, end]
+        else:
+            cur[1] = max(cur[1], end)
+    return total + (0.0 if cur is None else cur[1] - cur[0])
+
+
+def graph_launches(prof) -> int:
+    return sum(1 for e in prof.events() if e.name == "cudaGraphLaunch")
 
 
 def profile_evaluation(torch, w) -> dict:
     """One measured evaluation of ``w``'s program under torch.profiler:
-    the kernels it launched, the device's busy time and idle share."""
+    the kernels it ran on the device, the graph launches that ran most of
+    them, the device's busy time and idle share."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        w.evaluate(w.program)
+        measured_s, _ = w.evaluate(w.program)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    spans = device_spans(torch, prof)
     copies = sum(1 for _, _, n in spans if n.startswith(("Memcpy", "Memset")))
-    busy_us, cur = 0.0, None
-    for start, end, _ in spans:
-        if cur is None or start > cur[1]:
-            busy_us += 0.0 if cur is None else cur[1] - cur[0]
-            cur = [start, end]
-        else:
-            cur[1] = max(cur[1], end)
-    busy_us += 0.0 if cur is None else cur[1] - cur[0]
     if not spans:
         raise AssertionError(f"{w.name}: the profiler saw no device work")
+    busy = busy_us(spans)
     return {"kernel_launches": len(spans) - copies, "copies": copies,
-            "window_us": wall_us, "device_busy_us": busy_us,
-            "device_idle_share": 1 - busy_us / wall_us}
+            "graph_launches": graph_launches(prof), "measured_s": measured_s,
+            "window_us": wall_us, "device_busy_us": busy,
+            "device_idle_share": 1 - busy / wall_us}
+
+
+def replay_profile(torch, w, inputs, per_eval: int) -> dict:
+    """The measured fitness's timing of ``w``'s program, repeated outside
+    the workload: the program's graph on ``inputs``, timed by
+    ``measured_time`` as an evaluation times it, under torch.profiler.
+    Beside the measured time a replay, the device's busy time a replay over
+    the same replays; both also scaled by the replays an evaluation counts
+    (``per_eval``: steps or batches)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.fitness import measured_time
+    from repro_torch.core.interp import ProgramGraph
+    with ProgramGraph(w.program, "cuda") as g:
+        g.load(inputs)
+        g.run()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            per_replay = measured_time(g.run, "cuda")
+            torch.cuda.synchronize()
+    replays = graph_launches(prof)
+    busy = busy_us(device_spans(torch, prof)) * 1e-6 / replays
+    return {"replays": replays, "measured_s_per_replay": per_replay,
+            "device_busy_s_per_replay": busy,
+            "measured_s": per_replay * per_eval,
+            "device_busy_s": busy * per_eval,
+            "measured_over_busy": per_replay / busy}
 
 
 def measured_search(torch, w) -> dict:
     """GevoML on ``w`` (pop 12, 2 generations, measured time) through
-    ``make_evaluator``: wall time, evaluations per second, the front."""
+    ``make_evaluator``: wall time, evaluations per second, the front, and
+    the device memory torch holds reserved after each generation, which
+    must not grow with the variants evaluated (each variant's graph and
+    its memory pool are released after its evaluation)."""
     from repro_torch.core.evaluator import make_evaluator
     from repro_torch.core.search import GevoML
     evaluator = make_evaluator(w)
+    reserved = [torch.cuda.memory_reserved()]
+
+    def on_generation(gen, row):
+        reserved.append(torch.cuda.memory_reserved())
+
     t0 = time.perf_counter()
     try:
         search = GevoML(w, pop_size=12, n_elite=6, seed=0, operators="all",
                         evaluator=evaluator)
-        res = search.run(generations=2)
+        res = search.run(generations=2, on_generation=on_generation)
     finally:
         evaluator.close()
     wall = time.perf_counter() - t0
+    if max(reserved[1:]) > reserved[1] + RESERVED_SLACK:
+        raise AssertionError(f"{w.name}: reserved device memory grew over "
+                             f"the search: {reserved}")
     return {"wall_s": wall, "evaluations": search.n_evals,
             "evaluations_per_s": search.n_evals / wall,
             "invalid": search.n_invalid,
+            "reserved_bytes_by_generation": reserved,
             "original": list(res.original_fitness),
             "pareto": [{"fitness": list(i.fitness),
                         "patch": i.patch.describe()} for i in res.pareto]}
+
+
+def recording_invalid(screen) -> list:
+    """Make ``screen`` record each patch it calls invalid, with its
+    message; returns the list it appends ``(patch, message)`` to."""
+    seen = []
+    classify = screen.classify
+
+    def recorded(patch):
+        res = classify(patch)
+        if res.label == "invalid":
+            seen.append((patch, res.outcome.error))
+        return res
+
+    screen.classify = recorded
+    return seen
+
+
+def check_invalid_messages(w, verdicts) -> int:
+    """Execute each statically invalid patch on the card: it must fail
+    with the screen's message, byte for byte."""
+    from repro_torch.core.edits import EditError
+    from repro_torch.core.fitness import InvalidVariant
+    for patch, message in verdicts:
+        try:
+            w.evaluate(patch.apply(w.program))
+            got = None
+        except (EditError, InvalidVariant) as e:
+            got = str(e)
+        if got != message:
+            raise AssertionError(f"{w.name} {patch.describe()}: the screen "
+                                 f"says {message!r}, the card {got!r}")
+    return len(verdicts)
+
+
+def screened_guided_search(torch, w, search_fn) -> dict:
+    """A measured search with the static screen and the surrogate pre-rank
+    (``search_fn(w)`` runs it and returns the search), then every
+    statically invalid verdict it handed out, and those of 64 sampled
+    patches, held against the message executing the patch on the card
+    gives."""
+    from repro_torch.core.analysis import make_screen
+    t0 = time.perf_counter()
+    holder = {}
+    search = search_fn(w, holder)
+    wall = time.perf_counter() - t0
+    ev = search.evaluator
+    verdicts = holder["invalid"]
+    sampled = make_screen(w)
+    extra = recording_invalid(sampled)
+    for patch in sampled_patches(w.program, 2 * MUTANTS, seed=2):
+        sampled.classify(patch)
+    checked = check_invalid_messages(w, verdicts + extra)
+    out = {"wall_s": wall, "evaluations": ev.n_evals,
+           "evaluations_per_s": ev.n_evals / wall,
+           "n_screened": ev.n_screened,
+           "screened_by": dict(ev.screened_by),
+           "surrogate": search.guide.stats(),
+           "invalid_verdicts_in_search": len(verdicts),
+           "invalid_verdicts_sampled": len(extra),
+           "invalid_messages_equal_on_the_card": checked}
+    search.close()
+    return out
+
+
+def kernel_screened_search(w, holder):
+    from repro_torch.core.evaluator import make_evaluator
+    from repro_torch.kernels.workloads import evolve_kernel_schedule
+    ev = make_evaluator(w, screen=True)
+    holder["invalid"] = recording_invalid(ev.screen)
+    search, *_ = evolve_kernel_schedule(w, generations=4, pop_size=8,
+                                        seed=2, evaluator=ev, surrogate=True)
+    return search
+
+
+def ir_screened_search(w, holder):
+    from repro_torch.core.search import GevoML
+    search = GevoML(w, pop_size=12, n_elite=6, seed=1, operators="all",
+                    screen=True, surrogate=True)
+    holder["invalid"] = recording_invalid(search.evaluator.screen)
+    search.run(generations=3)
+    return search
 
 
 def phase_programs(torch) -> dict:
@@ -952,24 +1175,43 @@ def phase_programs(torch) -> dict:
                          seeded_mutants(w.program, MUTANTS))
         emit({"phase": "programs", "step": "card_vs_cpu", "workload": name,
               "ops": ops, **cc})
-        t, e = w.evaluate(w.program)
-        if not (np.isfinite(t) and 0.0 <= e < 0.9):
-            raise AssertionError(f"{name}: unmutated fitness ({t}, {e})")
-        unmutated = {"measured_s": t, "error": e,
-                     "static_s": static_time(w.program) *
-                     (w.steps if name == "twofc" else
-                      len(w.images) // w.batch)}
+        per_eval = w.steps if name == "twofc" else len(w.images) // w.batch
+        repeats = []
+        for _ in range(3):
+            t, e = w.evaluate(w.program)
+            if not (np.isfinite(t) and 0.0 <= e < 0.9):
+                raise AssertionError(f"{name}: unmutated fitness ({t}, {e})")
+            repeats.append({"measured_s": t, "error": e,
+                            **replay_profile(torch, w, inputs[name],
+                                             per_eval)})
+        times = [r["measured_s"] for r in repeats]
+        unmutated = {"measured_s": times, "error": e,
+                     "spread": max(times) / min(times) - 1,
+                     "within_spread": max(times) / min(times) - 1
+                     <= REPEAT_SPREAD,
+                     "static_s": static_time(w.program) * per_eval,
+                     "replays_profiled": repeats}
         search = measured_search(torch, w)
         prof = profile_evaluation(torch, w)
         emit({"phase": "programs", "step": "search", "workload": name,
               "gpu": out["gpu"], "unmutated": unmutated, **search,
               "profiled_evaluation": prof})
+        screened = (screened_guided_search(torch, w, ir_screened_search)
+                    if name == "twofc" else None)
+        if screened is not None:
+            emit({"phase": "programs", "step": "screened_guided_search",
+                  "workload": name, **screened})
         out[name] = {"ops": ops, "programs_checked": cc["programs"],
                      "max_abs_err": cc["max_abs_err"],
-                     "unmutated": unmutated,
+                     "unmutated_measured_s": times,
+                     "unmutated_device_busy_s": [r["device_busy_s"]
+                                                 for r in repeats],
                      "search_wall_s": search["wall_s"],
                      "evaluations_per_s": search["evaluations_per_s"],
-                     "launches_per_evaluation": prof["kernel_launches"],
+                     "kernel_launches_per_evaluation":
+                         prof["kernel_launches"],
+                     "graph_launches_per_evaluation":
+                         prof["graph_launches"],
                      "device_idle_share": prof["device_idle_share"]}
     emit(out)
     return out

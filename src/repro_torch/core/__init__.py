@@ -7,23 +7,23 @@ surrogates, deployment) are listed in ROADMAP.md.
 """
 
 from .edits import (Edit, EditError, EditOp, OperatorStats, OperatorWeights,
-                    Patch, minimize_patch, register_edit, registered_ops,
-                    sample_edit)
+                    Patch, apply_patch, minimize_patch, register_edit,
+                    registered_ops, sample_edit)
 from .evaluator import (EvalOutcome, FitnessCache, ParallelEvaluator,
                         SerialEvaluator, WorkloadSpec, make_evaluator)
 from .fitness import (DeviceFault, InvalidVariant, KernelWorkload,
                       PredictionWorkload, TrainingWorkload)
 from .schedule import ScheduleError, ScheduleSpace
-from .search import GevoML, Individual, SearchResult
+from .search import GevoML, Individual, SearchResult, describe_patch
 
 __all__ = [
     "Edit", "EditError", "EditOp", "OperatorStats", "OperatorWeights",
-    "Patch", "minimize_patch", "register_edit", "registered_ops",
-    "sample_edit",
+    "Patch", "apply_patch", "minimize_patch", "register_edit",
+    "registered_ops", "sample_edit",
     "EvalOutcome", "FitnessCache", "ParallelEvaluator", "SerialEvaluator",
     "WorkloadSpec", "make_evaluator",
     "DeviceFault", "InvalidVariant", "KernelWorkload",
     "PredictionWorkload", "TrainingWorkload",
     "ScheduleError", "ScheduleSpace",
-    "GevoML", "Individual", "SearchResult",
+    "GevoML", "Individual", "SearchResult", "describe_patch",
 ]

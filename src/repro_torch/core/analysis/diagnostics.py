@@ -1,9 +1,10 @@
-"""Structured diagnostics — one message type for the launch gates.
+"""Structured diagnostics — one message type for gates and the linter.
 
-The cost model's gate raisers (``kernels/costs.py``) build their
-:class:`~repro_torch.core.fitness.InvalidVariant` text through the
-constructors below, so a failed gate always reads the same wherever it is
-reported.  The block-divisibility text is byte-identical to the reference
+The cost model's gate raisers (``kernels/costs.py``) and the schedule
+linter (:mod:`.lint`) build their text through the constructors below, so
+the message a failed config raises at evaluation time is byte-identical to
+the one ``python -m repro_torch.core.analysis lint`` prints next to its
+fix hint.  The block-divisibility text is byte-identical to the reference
 package's; the capacity gate names the GPU's shared memory per block, which
 is what bounds a CUDA kernel's launch.
 """
@@ -14,9 +15,11 @@ from dataclasses import dataclass
 
 SEVERITIES = ("error", "warning", "info")
 
-# diagnostic codes used by the launch gates
+# diagnostic codes used by the launch gates and the linter
 BLOCK_DIVISIBILITY = "block-divisibility"
 SMEM_CAPACITY = "smem-capacity"
+SCHEDULE_DECODE = "schedule-decode"
+KNOB_INERT = "knob-inert"
 
 
 @dataclass(frozen=True)

@@ -116,7 +116,7 @@ class FitnessCache:
     re-evaluating invalid variants on each fresh run).
 
     Records may carry a ``features`` vector (the surrogate layer's
-    training signal — see the reference's surrogate layer): feature-bearing
+    training signal — see :mod:`repro_torch.core.surrogate`): feature-bearing
     outcomes turn the cache into a ready-made regression dataset of
     ``(features, fitness)`` pairs, loadable from any cache JSONL."""
 
@@ -385,21 +385,32 @@ class Evaluator:
     within the batch, serves cache hits without dispatch, and records every
     fresh outcome (valid or invalid) back into the cache.
 
-    The reference's static patch screen and surrogate featurizer are later
-    work; ``n_screened`` / ``screened_by`` stay in the stats (always 0) so
-    checkpoint and history documents keep the reference's keys."""
+    Attaching a patch ``screen`` (see
+    :func:`repro_torch.core.analysis.make_screen`) adds a static
+    pre-execution triage on cache misses: patches the screen resolves —
+    ``invalid`` / ``noop`` / ``equivalent`` — skip execution, carry their
+    verdict on the outcome, and are cached under an ``analysis:`` writer
+    tag; only ``novel`` patches dispatch.  Screening is fitness-transparent:
+    resolved outcomes are exactly what execution would have produced (the
+    screens only resolve when that is statically certain)."""
 
     def __init__(self, workload, cache: FitnessCache | None = None):
         self.workload = workload
         self.cache = cache if cache is not None else FitnessCache()
+        self.screen = None  # optional static patch screen (core.analysis)
+        self.featurizer = None  # optional patch featurizer (core.surrogate)
         self.fingerprint = workload_fingerprint(workload)
         self.n_evals = 0    # actual executions (cache misses evaluated)
         self.n_invalid = 0  # executions that came back invalid
-        self.n_screened = 0  # always 0: no static screen in this slice
-        self.screened_by: dict[str, int] = {}
+        self.n_screened = 0  # misses resolved statically, no execution
+        self.screened_by: dict[str, int] = {}  # verdict -> count
 
     def key(self, patch) -> str:
         return patch_key(self.fingerprint, patch)
+
+    def _screen_writer(self) -> str:
+        w = self.cache.writer
+        return f"analysis:{w}" if w is not None else "analysis"
 
     def evaluate_batch(self, patches) -> list[EvalOutcome]:
         patches = [Patch.coerce(p) for p in patches]
@@ -416,19 +427,74 @@ class Evaluator:
                     self.cache.misses += 1
                 fresh.setdefault(k, []).append(i)
         if fresh:
-            results = self._evaluate_misses(
-                [patches[ixs[0]] for ixs in fresh.values()])
-            for (k, ixs), out in zip(fresh.items(), results):
-                self.cache.put(k, out)
-                self.n_evals += 1
-                if not out.ok:
-                    self.n_invalid += 1
+            screened, executed = self._triage(
+                {k: patches[ixs[0]] for k, ixs in fresh.items()})
+            for k, ixs in fresh.items():
+                feats = self._features_of(patches[ixs[0]])
+                if k in screened:
+                    out = screened[k]
+                    self.n_screened += 1
+                    self.screened_by[out.verdict] = \
+                        self.screened_by.get(out.verdict, 0) + 1
+                    self.cache.put(k, out, writer=self._screen_writer(),
+                                   features=feats)
+                else:
+                    out = executed[k]
+                    self.cache.put(k, out, features=feats)
+                    self.n_evals += 1
+                    if not out.ok:
+                        self.n_invalid += 1
                 for i in ixs:
                     outcomes[i] = out
         return outcomes  # type: ignore[return-value]
 
     def evaluate_one(self, patch) -> EvalOutcome:
         return self.evaluate_batch([patch])[0]
+
+    def _features_of(self, patch) -> list[float] | None:
+        """The patch's surrogate feature vector, or None (no featurizer
+        attached, or the patch does not featurize — e.g. fails to apply)."""
+        if self.featurizer is None:
+            return None
+        try:
+            return self.featurizer(patch)
+        except Exception:
+            return None
+
+    def _triage(self, fresh: dict[str, Patch]
+                ) -> tuple[dict[str, EvalOutcome], dict[str, EvalOutcome]]:
+        """Split cache-missing patches into statically resolved outcomes and
+        executed ones.  Without a screen every patch executes."""
+        if self.screen is None:
+            results = self._evaluate_misses(list(fresh.values()))
+            return {}, dict(zip(fresh.keys(), results))
+        screened: dict[str, EvalOutcome] = {}
+        deferred: list[tuple[str, object]] = []  # inherit from this batch
+        pending: set[str] = set()  # canonical classes executing in-batch
+        todo_keys: list[str] = []
+        todo_res: list[object] = []
+        for k, patch in fresh.items():
+            res = self.screen.classify(patch)
+            if res.resolved:
+                screened[k] = replace(res.outcome, verdict=res.label)
+            elif res.canon is not None and res.canon in pending:
+                deferred.append((k, res))
+            else:
+                if res.canon is not None:
+                    pending.add(res.canon)
+                todo_keys.append(k)
+                todo_res.append(res)
+        executed = dict(zip(
+            todo_keys,
+            self._evaluate_misses([fresh[k] for k in todo_keys])
+            if todo_keys else []))   # fully screened batch: no dispatch
+        for k, res in zip(todo_keys, todo_res):
+            self.screen.observe(res, executed[k])
+        for k, res in deferred:
+            rep = self.screen.seen[res.canon]
+            screened[k] = replace(self.screen.inherit(res, rep),
+                                  verdict=self.screen.label_for(res.canon))
+        return screened, executed
 
     def _evaluate_misses(self, patches) -> list[EvalOutcome]:
         raise NotImplementedError
@@ -567,19 +633,23 @@ def make_evaluator(workload, *, parallel: int = 0,
                    screen: bool = False,
                    features: bool = False) -> Evaluator:
     """Convenience constructor used by the CLI surfaces: ``parallel`` <= 1
-    gives a SerialEvaluator.  ``screen`` and ``features`` (the reference's
-    static patch screen and surrogate featurizer) belong to later slices of
-    the port and raise ``NotImplementedError``."""
-    if screen:
-        raise NotImplementedError(
-            "the static patch screen is not ported yet "
-            "(ROADMAP.md, queue 3, slice 3: core/analysis)")
-    if features:
-        raise NotImplementedError(
-            "the surrogate featurizer is not ported yet "
-            "(ROADMAP.md, queue 3, slice 3: core/surrogate)")
+    gives a SerialEvaluator.  ``screen=True`` attaches the static patch
+    screen (``core.analysis``) so invalid / noop / equivalent mutants
+    resolve without execution.  ``features=True`` attaches the surrogate
+    featurizer (``core.surrogate``) so every fresh outcome lands in the
+    cache with its feature vector — the cache then doubles as surrogate
+    training data."""
     cache = FitnessCache(cache_path)
     if parallel and parallel > 1:
-        return ParallelEvaluator(workload, n_workers=parallel, cache=cache,
-                                 inline_static=inline_static)
-    return SerialEvaluator(workload, cache=cache)
+        ev: Evaluator = ParallelEvaluator(
+            workload, n_workers=parallel, cache=cache,
+            inline_static=inline_static)
+    else:
+        ev = SerialEvaluator(workload, cache=cache)
+    if screen:
+        from .analysis import make_screen   # local: analysis imports us
+        ev.screen = make_screen(workload)
+    if features:
+        from .surrogate import make_featurizer   # local: surrogate imports us
+        ev.featurizer = make_featurizer(workload)
+    return ev

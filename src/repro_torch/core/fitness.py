@@ -3,8 +3,11 @@
 Section 4.3: individuals are only required to *execute successfully*; output
 error is an objective, not a validity gate.  Two time modes:
 
-* ``measured`` — the variant's run time on the device its inputs live on:
-  CUDA-event timings on a GPU, the host clock on the CPU.
+* ``measured`` — the variant's run time on its device: on a GPU the
+  variant is captured once as a CUDA graph and its replays are timed with
+  CUDA events (the counterpart of the reference timing the one XLA
+  executable it compiles per variant); on the CPU the host clock times the
+  eager call.
 * ``static``  — a deterministic roofline estimate.  Used in CI and on hosts
   without a GPU so search results are reproducible.
 
@@ -24,8 +27,8 @@ from typing import Callable
 import numpy as np
 import torch
 
-from ..device import resolve_device
-from .interp import jit_program
+from ..device import DeviceFault, resolve_device
+from .interp import ProgramGraph
 from .ir import Program, op_bytes, op_flops
 from .schedule import ScheduleSpace
 
@@ -39,12 +42,6 @@ HBM_BW = 3.35e12
 
 class InvalidVariant(Exception):
     """The variant failed to execute (or broke the training feedback loop)."""
-
-
-class DeviceFault(RuntimeError):
-    """A kernel failed to build, or the device refused or faulted a launch
-    that passed every gate.  That says nothing about the variant, so it is
-    never folded into :class:`InvalidVariant`: it stops the evaluation."""
 
 
 # faults of the device or the build that evaluation lets through; torch
@@ -64,42 +61,61 @@ def static_time(program: Program, peak_flops: float = PEAK_FLOPS,
     return t
 
 
-def _device_of(out) -> torch.device:
-    if isinstance(out, torch.Tensor):
-        return out.device
-    if isinstance(out, (tuple, list)) and out:
-        return _device_of(out[0])
-    if isinstance(out, dict) and out:
-        return _device_of(next(iter(out.values())))
-    return torch.device("cpu")
+# The spin ``measured_time`` holds the stream with: at least _SPIN_CYCLES,
+# and twice what the host took to enqueue as many warm-up calls as there are
+# timed ones, counted at _SPIN_HZ (at least the H100's top SM clock, 1.98
+# GHz, so the spin lasts no shorter than that); it may grow fourfold
+# _SPIN_TRIES - 1 times until the host has enqueued every timed call before
+# the device reaches them.
+_SPIN_CYCLES = 1_000_000
+_SPIN_HZ = 2e9
+_SPIN_TRIES = 6
 
 
-def measured_time(fn, inputs, repeats: int = 5, warmup: int = 2) -> float:
-    """Median seconds of ``fn(inputs)`` after ``warmup`` calls.  On a CUDA
-    device each call is bracketed by CUDA events and the device is
-    synchronised before reading them; on the CPU the host clock times it."""
-    out = None
+def measured_time(run, device, repeats: int = 5, warmup: int = 2) -> float:
+    """Median seconds of one ``run()`` after ``warmup`` calls.
+
+    On a CUDA device each timed call (a graph replay, on the measured
+    paths) is bracketed by a pair of CUDA events, and the device first
+    spins on the stream (``torch.cuda._sleep``) while the host enqueues
+    every pair, so the calls run back to back and the events read the
+    device's time, not the host's rate of launching; the spin grows until
+    the host gets ahead of it.  On the CPU the host clock times each
+    call."""
+    device = torch.device(device)
+    t0 = _time.perf_counter()
     for _ in range(warmup):
-        out = fn(inputs)
-    device = _device_of(out)
-    if device.type == "cuda":
+        run()
+    host_s = (_time.perf_counter() - t0) / max(warmup, 1)
+    if device.type != "cuda":
+        times = []
+        for _ in range(repeats):
+            t0 = _time.perf_counter()
+            run()
+            times.append(_time.perf_counter() - t0)
+        return float(np.median(times))
+    cycles = max(_SPIN_CYCLES, int(2 * repeats * host_s * _SPIN_HZ))
+    for _ in range(_SPIN_TRIES):
+        torch.cuda._sleep(cycles)
+        spun = torch.cuda.Event()
+        spun.record()
         pairs = []
         for _ in range(repeats):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            fn(inputs)
+            run()
             end.record()
             pairs.append((start, end))
+        ahead = not spun.query()
         torch.cuda.synchronize(device)
-        times = [s.elapsed_time(e) * 1e-3 for s, e in pairs]
-    else:
-        times = []
-        for _ in range(repeats):
-            t0 = _time.perf_counter()
-            fn(inputs)
-            times.append(_time.perf_counter() - t0)
-    return float(np.median(times))
+        if ahead:
+            return float(np.median([s.elapsed_time(e) * 1e-3
+                                    for s, e in pairs]))
+        cycles *= 4
+    raise DeviceFault(f"measured_time: the host did not enqueue {repeats} "
+                      f"timed calls while the device spun {cycles // 4} "
+                      "cycles")
 
 
 def _check_finite_scalar(x) -> float:
@@ -130,25 +146,27 @@ class PredictionWorkload:
     def evaluate(self, program: Program) -> tuple[float, float]:
         dev = resolve_device(self.device)   # no GPU is not the variant's fault
         try:
-            fn = jit_program(program, dev)
             n = (len(self.images) // self.batch) * self.batch
             images = torch.as_tensor(self.images[:n]).to(dev)
             labels = torch.as_tensor(self.labels[:n]).to(dev)
             correct = torch.zeros((), dtype=torch.int64, device=dev)
             t_meas = 0.0
-            for i in range(0, n, self.batch):
-                inp = {"images": images[i:i + self.batch]}
-                if self.time_mode == "measured" and i == 0:
-                    t_meas = measured_time(fn, inp) * (n // self.batch)
-                out = fn(inp)[0]
-                if out.ndim != 2 or out.shape[0] != self.batch:
-                    raise InvalidVariant(
-                        f"bad logits shape {tuple(out.shape)}")
-                # np.nan_to_num and np.argmax of the reference, on the device
-                pred = torch.nan_to_num(out.to(torch.float32),
-                                        nan=-1e30).argmax(-1)
-                correct += (pred == labels[i:i + self.batch]).sum()
-            error = 1.0 - int(correct) / max(n, 1)
+            with ProgramGraph(program, dev) as graph:
+                for i in range(0, n, self.batch):
+                    graph.load({"images": images[i:i + self.batch]})
+                    out = graph.run()[0]
+                    if out.ndim != 2 or out.shape[0] != self.batch:
+                        raise InvalidVariant(
+                            f"bad logits shape {tuple(out.shape)}")
+                    if self.time_mode == "measured" and i == 0:
+                        t_meas = measured_time(graph.run, dev) * \
+                            (n // self.batch)
+                    # np.nan_to_num and np.argmax of the reference, on the
+                    # device
+                    pred = torch.nan_to_num(out.to(torch.float32),
+                                            nan=-1e30).argmax(-1)
+                    correct += (pred == labels[i:i + self.batch]).sum()
+                error = 1.0 - int(correct) / max(n, 1)
             t = t_meas if self.time_mode == "measured" else \
                 static_time(program) * (n // self.batch)
             return _check_finite_scalar(t), _check_finite_scalar(error)
@@ -240,9 +258,6 @@ class TrainingWorkload:
     def evaluate(self, program: Program) -> tuple[float, float]:
         dev = resolve_device(self.device)   # no GPU is not the variant's fault
         try:
-            fn = jit_program(program, dev)
-            weights = {k: torch.as_tensor(v).to(dev)
-                       for k, v in self.init_weights.items()}
             expected_shapes = {k: tuple(v.shape)
                                for k, v in self.init_weights.items()}
             onehot = torch.eye(self.num_classes, dtype=torch.float32,
@@ -251,25 +266,28 @@ class TrainingWorkload:
                 torch.as_tensor(self.train_x).to(dev),
                 onehot[torch.as_tensor(self.train_y).to(dev).long()])
             t_meas = 0.0
-            for step in range(self.steps):
-                x, y1h = next(batches)
-                inputs = dict(weights)
-                inputs["x"] = x
-                inputs["y_onehot"] = y1h
-                if self.time_mode == "measured" and step == 1:
-                    t_meas = measured_time(fn, inputs) * self.steps
-                outs = fn(inputs)
-                if len(outs) != len(self.weight_names):
-                    raise InvalidVariant("variant lost weight outputs")
-                for k, o in zip(self.weight_names, outs):
-                    if tuple(o.shape) != expected_shapes[k]:
-                        # the variant changed a weight shape: the training
-                        # feedback loop is broken -> invalid individual
-                        raise InvalidVariant(
-                            f"weight {k} shape drifted to {tuple(o.shape)}")
-                    weights[k] = o
-            final = {k: v.to(torch.float32).cpu().numpy()
-                     for k, v in weights.items()}
+            with ProgramGraph(program, dev) as graph:
+                graph.load(self.init_weights)
+                outs = [torch.as_tensor(self.init_weights[k])
+                        for k in self.weight_names]
+                for step in range(self.steps):
+                    x, y1h = next(batches)
+                    graph.load({"x": x, "y_onehot": y1h})
+                    outs = graph.run()
+                    if len(outs) != len(self.weight_names):
+                        raise InvalidVariant("variant lost weight outputs")
+                    for k, o in zip(self.weight_names, outs):
+                        if tuple(o.shape) != expected_shapes[k]:
+                            # the variant changed a weight shape: the
+                            # training feedback loop is broken -> invalid
+                            raise InvalidVariant(
+                                f"weight {k} shape drifted to "
+                                f"{tuple(o.shape)}")
+                    if self.time_mode == "measured" and step == 1:
+                        t_meas = measured_time(graph.run, dev) * self.steps
+                    graph.load(dict(zip(self.weight_names, outs)))
+                final = {k: o.to(torch.float32).cpu().numpy()
+                         for k, o in zip(self.weight_names, outs)}
             if any(not np.all(np.isfinite(v)) for v in final.values()):
                 raise InvalidVariant("weights diverged to non-finite")
             error = self.eval_fn(final)

@@ -3,8 +3,11 @@
 Plays the role the reference package gives XLA (and the paper IREE): it
 executes (mutated) IR programs.  Each op becomes one or a few torch calls on
 the device of the inputs.  ``jit_program`` puts the program's constants on
-the device once and returns a callable that runs the op list eagerly; there
-is no CUDA-graph capture and no ``torch.compile``.
+the device once and returns a callable that runs the op list eagerly.
+:class:`ProgramGraph` runs it over static input buffers: on a GPU the op
+list is captured once as a CUDA graph and replayed, which is what the
+measured fitness times (the counterpart of the reference compiling each
+variant into one XLA executable); there is no ``torch.compile``.
 
 Results follow ``jnp``/``lax`` semantics, not torch's, so a variant computes
 the same function as in the reference (up to rounding) and raises where the
@@ -39,7 +42,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..device import resolve_device
+from ..device import CudaGraph, resolve_device
 from .ir import Program
 
 TORCH_DTYPE = {"f32": torch.float32, "bf16": torch.bfloat16,
@@ -422,13 +425,9 @@ def _input(x, ttype, device) -> torch.Tensor:
     return t
 
 
-def jit_program(program: Program, device=None):
-    """The program as a callable ``(dict of named inputs) -> list of
-    outputs`` on ``device`` (the GPU unless told otherwise).  The constants
-    go to the device here, once; each call runs the op list eagerly under
-    :func:`full_f32`.  Inputs may be numpy arrays or tensors on any device;
-    each is cast to its declared dtype, as the reference casts it."""
-    dev = resolve_device(device)
+def _lower(program: Program, dev):
+    """The program's constants on ``dev`` (by value id) and its other ops
+    as ``(result, fn, operands, attrs)`` steps."""
     env0: dict[int, torch.Tensor] = {}
     steps = []
     for op in program.ops:
@@ -438,6 +437,23 @@ def jit_program(program: Program, device=None):
         else:
             steps.append((op.result, _op_fn(op.opcode), tuple(op.operands),
                           op.attrs))
+    return env0, steps
+
+
+def _execute(env: dict, steps) -> None:
+    with full_f32():
+        for result, fn, operands, attrs in steps:
+            env[result] = fn([env[o] for o in operands], attrs)
+
+
+def jit_program(program: Program, device=None):
+    """The program as a callable ``(dict of named inputs) -> list of
+    outputs`` on ``device`` (the GPU unless told otherwise).  The constants
+    go to the device here, once; each call runs the op list eagerly under
+    :func:`full_f32`.  Inputs may be numpy arrays or tensors on any device;
+    each is cast to its declared dtype, as the reference casts it."""
+    dev = resolve_device(device)
+    env0, steps = _lower(program, dev)
     inputs_decl = tuple(program.inputs)
     outputs = tuple(program.outputs)
 
@@ -450,14 +466,94 @@ def jit_program(program: Program, device=None):
                 env[vid] = _input(inputs[name], ttype, dev)
             except ValueError as e:
                 raise ValueError(f"input {name!r}: {e}") from None
-        with full_f32():
-            for result, fn, operands, attrs in steps:
-                env[result] = fn([env[o] for o in operands], attrs)
+        _execute(env, steps)
         return [env[o] for o in outputs]
 
     call.input_names = tuple(name for name, _, _ in inputs_decl)
     call.device = dev
     return call
+
+
+class ProgramGraph:
+    """The program over static input buffers on ``device`` (the GPU unless
+    told otherwise): :meth:`load` copies named inputs in (cast to their
+    declared dtypes, as :func:`jit_program` casts them), :meth:`run`
+    computes the outputs of what is loaded into static output tensors.
+
+    On the CPU every run executes the op list.  On a GPU the first run
+    executes it eagerly, which is the validity gate: a variant raises there
+    with the exception and message an eager call gives.  Only then is the
+    op list captured as a CUDA graph (under :func:`full_f32`, constants
+    kept outside it), and every run replays it.  An output that shares
+    memory with an input buffer or a constant (torch returns views where
+    XLA returns copies, e.g. a ``transpose`` of a weight) is copied inside
+    the run, so writing outputs back into the input buffers (a training
+    step's feedback) never reads what it overwrites.  :meth:`close` (or leaving a ``with`` block) frees the
+    buffers, the graph and its memory pool."""
+
+    def __init__(self, program: Program, device=None):
+        self.device = resolve_device(device)
+        self._env0, self._steps = _lower(program, self.device)
+        self._decl = {name: (vid, ttype) for name, vid, ttype in
+                      program.inputs}
+        self._outputs = tuple(program.outputs)
+        self._buffers: dict[str, torch.Tensor] = {}
+        self._graph = None
+        self._static: list[torch.Tensor] | None = None
+
+    def load(self, inputs: dict[str, Any]) -> None:
+        for name, value in inputs.items():
+            if name not in self._decl:
+                raise KeyError(f"unknown program input {name!r}")
+            ttype = self._decl[name][1]
+            try:
+                t = _input(value, ttype, self.device)
+            except ValueError as e:
+                raise ValueError(f"input {name!r}: {e}") from None
+            buf = self._buffers.get(name)
+            if buf is None:
+                self._buffers[name] = t.clone(
+                    memory_format=torch.contiguous_format)
+            else:
+                buf.copy_(t)
+
+    def _outputs_of_run(self) -> list[torch.Tensor]:
+        env = dict(self._env0)
+        for name, (vid, _) in self._decl.items():
+            if name not in self._buffers:
+                raise KeyError(f"missing program input {name!r}")
+            env[vid] = self._buffers[name]
+        _execute(env, self._steps)
+        held = {t.untyped_storage().data_ptr()
+                for t in (*self._buffers.values(), *self._env0.values())}
+        return [o.clone() if o.untyped_storage().data_ptr() in held else o
+                for o in (env[v] for v in self._outputs)]
+
+    def run(self) -> list[torch.Tensor]:
+        if self.device.type != "cuda":
+            return self._outputs_of_run()
+        if self._graph is None:
+            graph = CudaGraph(self.device)
+            graph.eager(self._outputs_of_run)
+            self._static = graph.capture(self._outputs_of_run)
+            self._graph = graph
+        self._graph.replay()
+        return list(self._static)
+
+    def close(self) -> None:
+        graph, self._graph = self._graph, None
+        self._static = None
+        self._buffers.clear()
+        self._env0.clear()
+        if graph is not None:
+            graph.release()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        return False
 
 
 def evaluate(program: Program, inputs: dict[str, Any],

@@ -46,7 +46,8 @@ import numpy as np
 from .crossover import messy_crossover
 from .edits import (Edit, EditError, OperatorStats, OperatorWeights, Patch,
                     sample_edit)
-from .evaluator import Evaluator, FitnessCache, SerialEvaluator
+from .evaluator import (Evaluator, EvalOutcome, FitnessCache,
+                        SerialEvaluator)
 from .fitness import InvalidVariant
 from .nsga2 import pareto_front, rank_select, tournament
 from .serialize import (atomic_write_json, patch_doc, patch_from_doc,
@@ -93,10 +94,11 @@ class SearchResult:
 
     def to_front(self, origin: str = "search"):
         """The deployable Pareto front of the reference package; the
-        deployment layer is not ported yet."""
+        deployment layer is ported only in part (its front and registry),
+        so this waits for slice 4."""
         raise NotImplementedError(
-            "SearchResult.to_front needs the deployment layer, which is not "
-            "ported yet (ROADMAP.md, queue 3, slice 4: core/deploy)")
+            "SearchResult.to_front waits for slice 4 of the port, the rest "
+            "of the deployment layer (ROADMAP.md, queue 1: core/deploy)")
 
 
 class GevoML:
@@ -114,10 +116,22 @@ class GevoML:
     ``checkpoint_dir`` enables per-generation snapshots and
     ``run(resume=True)``.
 
-    ``engine="tensor"``, ``screen=True`` and ``surrogate=True`` select the
-    reference's tensorized engine, static patch screen and surrogate
-    pre-rank; they belong to later slices of the port and raise
-    ``NotImplementedError``.
+    ``screen=True`` adds the static patch screen
+    (:mod:`repro_torch.core.analysis`): invalid, noop and equivalent
+    mutants resolve without execution, with the fitness execution would
+    give (in measured time mode only invalid ones).
+
+    ``surrogate=True`` adds the cache-trained pre-rank stage
+    (:mod:`repro_torch.core.surrogate`): offspring are generated at the
+    normal rate but only the predicted-Pareto slice — ``surrogate_keep`` of
+    the fill, at least 1 — is executed each generation, after the cache
+    lookup and the static screen have resolved what they can exactly.
+    Guided runs trade bit-exact replay for executed-evaluation savings:
+    resuming one reproduces counters, not RNG-identical populations, unless
+    the cache is persistent.
+
+    ``engine="tensor"`` selects the reference's tensorized engine, which is
+    not ported yet and raises ``NotImplementedError``.
     """
 
     ENGINES = ("python", "tensor")
@@ -139,15 +153,7 @@ class GevoML:
         if engine == "tensor":
             raise NotImplementedError(
                 "engine='tensor' is not ported yet "
-                "(ROADMAP.md, queue 3, slice 3: core/tensor_evo)")
-        if screen:
-            raise NotImplementedError(
-                "the static patch screen is not ported yet "
-                "(ROADMAP.md, queue 3, slice 3: core/analysis)")
-        if surrogate or surrogate_live:
-            raise NotImplementedError(
-                "the surrogate pre-rank is not ported yet "
-                "(ROADMAP.md, queue 3, slice 3: core/surrogate)")
+                "(ROADMAP.md, queue 1: core/tensor_evo)")
         self.engine = engine
         self.w = workload
         self.pop_size = pop_size
@@ -168,6 +174,28 @@ class GevoML:
             raise ValueError("pass cache_path OR a pre-built evaluator "
                              "(give its FitnessCache the path), not both")
         self.evaluator = evaluator
+        if screen and getattr(self.evaluator, "screen", None) is None:
+            # static pre-execution triage (invalid/noop/equivalent mutants
+            # skip evaluation; fitness outcomes are unchanged bit-for-bit)
+            from .analysis import make_screen
+            self.evaluator.screen = make_screen(workload)
+        self.guide = None
+        if surrogate:
+            # surrogate pre-rank: offspring are over-generated, the cache-
+            # trained cost model keeps the predicted-Pareto slice, and only
+            # that slice is executed.  Runs AFTER the cache lookup and the
+            # static screen — the model prioritizes among unknowns, it never
+            # overrides an exact verdict.
+            # surrogate_live makes the guide reload the cache before every
+            # refit, folding in rows other writers (the live-loop serving
+            # fleet) appended since the last read
+            from .surrogate import SurrogateGuide
+            self.guide = SurrogateGuide(workload, keep=surrogate_keep,
+                                        live=surrogate_live)
+            if getattr(self.evaluator, "featurizer", None) is None:
+                # record features on every measured outcome so the cache
+                # this search writes is itself surrogate training data
+                self.evaluator.featurizer = self.guide.featurizer
         self.checkpoint_dir = checkpoint_dir
         self._n_invalid_outcomes = 0
 
@@ -250,6 +278,7 @@ class GevoML:
     # -- batched fill: speculate candidates, evaluate as one dispatch ------
     def _fill(self, n: int, candidate_fn, what: str) -> list[Individual]:
         filled: list[Individual] = []
+        counted: dict[int, EvalOutcome] = {}  # freshly screened, by identity
         for _ in range(self.max_tries):
             if len(filled) >= n:
                 break
@@ -261,6 +290,14 @@ class GevoML:
             if not batch:
                 continue
             for patch, out in zip(batch, self.evaluator.evaluate_batch(batch)):
+                if (out.verdict is not None and not out.cached
+                        and id(out) not in counted):
+                    # freshly screened this call: per-operator attribution.
+                    # Duplicate patches in a batch share one outcome object,
+                    # so identity dedupes them (the dict holds the reference,
+                    # keeping ids stable for the loop's lifetime).
+                    counted[id(out)] = out
+                    self.stats.count_screened(patch.kinds(), out.verdict)
                 if out.ok:
                     filled.append(Individual(patch, out.fitness))
                     self.stats.count_valid(patch.kinds())
@@ -270,6 +307,76 @@ class GevoML:
             raise RuntimeError(f"could not build {n} valid {what} "
                                f"in {self.max_tries} rounds")
         return filled
+
+    # -- surrogate pre-rank: over-generate, keep the predicted slice --------
+    def _prerank(self, batch: list[Patch], room: int
+                 ) -> tuple[list[Patch], int]:
+        """The slice of a candidate batch that reaches the evaluator, plus
+        how many of them are novel (cache-missing) executions.  Cached
+        patches always pass (re-looking them up costs nothing); novel ones
+        are ranked by the trained model and cut to ``room``.  Candidates the
+        featurizer cannot see pass through unranked — the surrogate only
+        prioritizes what it can predict."""
+        cached, novel = [], []
+        for p in batch:
+            (cached if self.evaluator.key(p) in self.cache
+             else novel).append(p)
+        if not self.guide.model.trained or len(novel) <= room:
+            return cached + novel, len(novel)
+        feats, rankable, passthrough = [], [], []
+        for p in novel:
+            try:
+                feats.append(self.guide.featurizer(p))
+                rankable.append(p)
+            except Exception:
+                passthrough.append(p)
+        kept_ix = self.guide.select(feats, max(0, room - len(passthrough)))
+        keep = []
+        for i, p in enumerate(rankable):
+            self.stats.count_ranked(p.kinds(), kept=i in kept_ix)
+            if i in kept_ix:
+                keep.append(p)
+        return cached + passthrough + keep, len(passthrough) + len(keep)
+
+    def _fill_guided(self, n: int, candidate_fn, what: str
+                     ) -> list[Individual]:
+        """The surrogate-guided fill: generate candidates at the unguided
+        rate, but spend at most ``keep_of(n)`` novel executions on them.
+        May return fewer than ``n`` individuals — that is the point (the
+        budget, not the population slot count, is the binding constraint);
+        at least one is guaranteed (falling back to an unguided fill when
+        the model starved the generation entirely)."""
+        guide = self.guide
+        guide.refit(self.cache)
+        budget = guide.keep_of(n)
+        spent = 0
+        filled: list[Individual] = []
+        counted: dict[int, EvalOutcome] = {}  # freshly screened, by identity
+        for _ in range(self.max_tries):
+            if len(filled) >= n or (spent >= budget and filled):
+                break
+            batch: list[Patch] = []
+            for _ in range(n - len(filled)):
+                c = candidate_fn()
+                if c is not None:
+                    batch.append(c)
+            if not batch:
+                continue
+            keep, n_novel = self._prerank(batch, budget - spent)
+            spent += n_novel
+            for patch, out in zip(keep, self.evaluator.evaluate_batch(keep)):
+                if (out.verdict is not None and not out.cached
+                        and id(out) not in counted):
+                    counted[id(out)] = out
+                    self.stats.count_screened(patch.kinds(), out.verdict)
+                if out.ok:
+                    filled.append(Individual(patch, out.fitness))
+                    self.stats.count_valid(patch.kinds())
+                else:
+                    self._n_invalid_outcomes += 1
+        if not filled:
+            return self._fill(1, candidate_fn, what)
+        return filled[:n]
 
     # -- checkpoint/resume --------------------------------------------------
     def _checkpoint_path(self, name: str) -> str:
@@ -290,6 +397,8 @@ class GevoML:
             "counters": {"n_invalid": self._n_invalid_outcomes,
                          "evaluator": self.evaluator.stats()},
         }
+        if self.guide is not None:
+            doc["counters"]["surrogate"] = self.guide.stats()
         atomic_write_json(self._checkpoint_path(f"gen_{gen:04d}.json"), doc)
         atomic_write_json(self._checkpoint_path("latest.json"), doc)
 
@@ -367,6 +476,8 @@ class GevoML:
             self.evaluator.cache.hits = ev_stats["hits"]
             self.evaluator.cache.misses = ev_stats["misses"]
             self.evaluator.cache.cross_hits = ev_stats.get("cross_hits", 0)
+            if self.guide is not None:
+                self.guide.restore(state["counters"].get("surrogate"))
             start_gen = state["gen"] + 1
             t0 = _time.perf_counter() - (history[-1]["wall_s"]
                                          if history else 0.0)
@@ -391,7 +502,8 @@ class GevoML:
             elites = [pop[i] for i in elite_idx]
             for ind in elites:
                 self.stats.count_elite(ind.patch.kinds())
-            offspring = self._fill(
+            fill = self._fill if self.guide is None else self._fill_guided
+            offspring = fill(
                 self.pop_size - len(elites),
                 lambda: self._offspring_candidate(pop, rank, crowd),
                 "offspring")
@@ -411,6 +523,10 @@ class GevoML:
                 "operators": self.stats.snapshot(),
                 "wall_s": _time.perf_counter() - t0,
             })
+            if self.guide is not None:
+                # only present on guided runs, so unguided history rows
+                # are unchanged
+                history[-1]["surrogate"] = self.guide.stats()
             if self.verbose:
                 h = history[-1]
                 print(f"[gen {gen:3d}] time={h['best_time']:.3e} "
@@ -432,3 +548,7 @@ class GevoML:
         return SearchResult(original_fitness=original, population=pop,
                             pareto=pareto, history=history)
 
+
+def describe_patch(edits) -> str:
+    """Deprecated: use ``Patch.describe()``.  Kept for pre-Patch callers."""
+    return Patch.coerce(edits).describe()

@@ -17,6 +17,10 @@ Flags:
                         (median CUDA-event time of the variant)
     --minimize          ddmin the best-by-time patch to its key tweaks
     --device DEV        cuda (default) | cpu
+    --screen            static patch screen (invalid variants resolve
+                        without a launch)
+    --surrogate         surrogate pre-rank of each generation's offspring;
+                        --surrogate-keep F keeps that fraction (0.5)
     --parallel N / --cache PATH / --generations G / --pop P
 """
 
@@ -43,6 +47,17 @@ def main(argv=None):
                     help="persistent fitness cache path (JSONL)")
     ap.add_argument("--device", default=None,
                     help="device to run on (default: cuda)")
+    ap.add_argument("--screen", action="store_true",
+                    help="static patch screen: invalid / noop / equivalent "
+                         "variants resolve without execution (in measured "
+                         "time, invalid ones only)")
+    ap.add_argument("--surrogate", action="store_true",
+                    help="surrogate pre-rank: a cache-trained cost model "
+                         "keeps only the predicted-Pareto slice of each "
+                         "generation's offspring for execution")
+    ap.add_argument("--surrogate-keep", type=float, default=0.5,
+                    help="fraction of generated offspring the surrogate "
+                         "lets through (default 0.5)")
     args = ap.parse_args(argv)
 
     print(f"Building {args.kernel} schedule workload "
@@ -58,11 +73,13 @@ def main(argv=None):
     print(f"Evolving schedules (NSGA-II, pop={args.pop}, "
           f"{args.generations} generations, operator=attr_tweak)...")
     evaluator = make_evaluator(w, parallel=args.parallel,
-                               cache_path=args.cache)
+                               cache_path=args.cache, screen=args.screen,
+                               features=args.surrogate)
     try:
         search, res, best, within_tol = evolve_kernel_schedule(
             w, generations=args.generations, pop_size=args.pop, seed=0,
-            evaluator=evaluator, verbose=True)
+            evaluator=evaluator, verbose=True, surrogate=args.surrogate,
+            surrogate_keep=args.surrogate_keep)
 
         # compare against the baseline sample the search itself used (in
         # measured mode the preamble's t0 is an independent measurement)
@@ -81,6 +98,14 @@ def main(argv=None):
               f"{(1 - best.fitness[0] / t0) * 100:.1f}%{gate} "
               f"({search.n_evals} evaluations, "
               f"cache hit rate {search.cache.hit_rate:.0%})")
+        if args.screen:
+            ev = search.evaluator
+            print(f"static screen: {ev.n_screened} variants resolved "
+                  f"without execution {dict(sorted(ev.screened_by.items()))}")
+        if args.surrogate:
+            st = search.guide.stats()
+            print(f"surrogate pre-rank: kept {st['kept']}/{st['ranked']} "
+                  f"ranked offspring across {st['refits']} refits")
         if args.minimize:
             small, _ = minimize_patch(best.patch, search.evaluator,
                                       expect_fitness=best.fitness)

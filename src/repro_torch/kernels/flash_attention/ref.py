@@ -17,7 +17,9 @@ def attention_ref(q, k, v, *, causal: bool = True,
         Sq, Sk = s.shape[-2:]
         qi = torch.arange(Sq, device=q.device)[:, None]
         kj = torch.arange(Sk, device=q.device)[None, :]
-        s = torch.where(kj <= qi, s, torch.tensor(-1e30, device=q.device))
+        # a fill on the device, not a copy from the host: a CUDA graph
+        # captures this function in the measured kernel search
+        s = torch.where(kj <= qi, s, torch.full((), -1e30, device=q.device))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", p,
                         v.to(torch.float32)).to(q.dtype)

@@ -18,8 +18,10 @@ Fitness = ``(time, max |out - ref|)``:
   is the real numerical gap against the kernel's ``ref.py`` oracle, which
   is evaluated once on the CPU from the same numpy inputs;
 * time is the schedule-aware roofline (``repro_torch.kernels.costs``) in
-  ``static`` mode (deterministic: parallel == serial), or the median
-  CUDA-event time of the variant in ``measured`` mode.
+  ``static`` mode (deterministic: parallel == serial), or in ``measured``
+  mode the device time of one call of the variant: ``GRAPH_CALLS`` calls
+  captured as one CUDA graph, its replays timed by CUDA events
+  (:func:`graph_time`); on the CPU, the host clock over the eager call.
 
 Builders are deterministic given their kwargs and attach a
 :class:`~repro_torch.core.evaluator.WorkloadSpec`, so ParallelEvaluator
@@ -36,7 +38,7 @@ import torch
 from ..core.evaluator import WorkloadSpec
 from ..core.fitness import KernelWorkload, measured_time
 from ..core.schedule import ScheduleSpace
-from ..device import resolve_device
+from ..device import CudaGraph, resolve_device
 from .costs import schedule_features, schedule_time
 from .cpu import init_vector_math
 from .flash_attention.ops import flash_attention
@@ -164,6 +166,51 @@ def _variant_fn(kernel: str, genome: dict):
                                 chunk=ch)
 
 
+# Calls of the scheduled computation in the one graph a measured evaluation
+# replays: one call at the search shapes runs for a few microseconds, about
+# what launching a graph costs the device, so a graph of one call would time
+# its launch as much as the kernel.
+GRAPH_CALLS = 16
+# The wrappers whose ``launches`` a replay adds to.
+COUNTERS = (rmsnorm, flash_attention, mamba_scan)
+
+
+def graph_time(fn, inputs) -> float:
+    """Seconds of one ``fn(inputs)`` on the inputs' device.  On a GPU,
+    ``GRAPH_CALLS`` calls are captured as one CUDA graph after one eager
+    run of them (outputs go to the graph's own memory, the inputs stay
+    where they are, so a kernel's pointers are the same on every replay),
+    and :func:`~repro_torch.core.fitness.measured_time` times its replays;
+    each replay adds the launches the capture recorded to the wrappers'
+    counts.  On the CPU, the host clock over the eager call."""
+    device = next(iter(inputs.values())).device
+    if device.type != "cuda":
+        return measured_time(lambda: fn(inputs), device)
+
+    def calls():
+        for _ in range(GRAPH_CALLS):
+            fn(inputs)
+
+    graph = CudaGraph(device)
+    try:
+        graph.eager(calls)
+        before = [c.launches for c in COUNTERS]
+        graph.capture(calls)
+        # the capture records launches; only replays make them
+        recorded = [c.launches - b for c, b in zip(COUNTERS, before)]
+        for c, b in zip(COUNTERS, before):
+            c.launches = b
+
+        def replay():
+            graph.replay()
+            for c, n in zip(COUNTERS, recorded):
+                c.launches += n
+
+        return measured_time(replay, device) / GRAPH_CALLS
+    finally:
+        graph.release()
+
+
 def _ref_output(kernel: str, arrays: dict) -> np.ndarray:
     """The oracle's output, evaluated on the CPU from the numpy inputs."""
     init_vector_math()
@@ -200,7 +247,7 @@ def build_kernel_workload(kernel: str = "rmsnorm", *,
         t = static_probe(genome)  # validates launchability
         err = _kernel_error(kernel, genome, inputs, ref_out)
         if time_mode == "measured":
-            t = measured_time(_variant_fn(kernel, genome), inputs)
+            t = graph_time(_variant_fn(kernel, genome), inputs)
         return t, err
 
     def feature_probe(genome: dict) -> dict:
@@ -319,8 +366,9 @@ def evolve_kernel_schedule(workload, *, generations: int = 6,
     error + ``err_tol`` — or, when nothing meets the gate
     (``within_tol=False``), the fastest member outright.  The caller owns
     ``evaluator`` (or, when None, the search's internal one — closed by
-    ``search.close()``).  ``surrogate`` is a later slice and raises
-    ``NotImplementedError``."""
+    ``search.close()``).  ``surrogate`` adds the cache-trained pre-rank
+    (:mod:`repro_torch.core.surrogate`), keeping ``surrogate_keep`` of each
+    generation's novel candidates."""
     from ..core.search import GevoML
     s = GevoML(workload, pop_size=pop_size, n_elite=pop_size // 2,
                seed=seed, init_mutations=2, mutation_rate=0.9,

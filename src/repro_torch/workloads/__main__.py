@@ -24,6 +24,10 @@ Flags:
     --resume            continue from the latest snapshot in --checkpoint
     --generations G / --pop P
     --device DEV        cuda (default) | cpu
+    --screen            static patch screen: invalid / noop / equivalent
+                        variants resolve without execution
+    --surrogate         surrogate pre-rank of each generation's offspring;
+                        --surrogate-keep F keeps that fraction (0.5)
 """
 
 import argparse
@@ -75,6 +79,17 @@ def main(argv=None):
     ap.add_argument("--pop", type=int, default=12)
     ap.add_argument("--device", default=None,
                     help="device to run on (default: cuda)")
+    ap.add_argument("--screen", action="store_true",
+                    help="static patch screen: invalid / noop / equivalent "
+                         "variants resolve without execution (in measured "
+                         "time, invalid ones only)")
+    ap.add_argument("--surrogate", action="store_true",
+                    help="surrogate pre-rank: a cache-trained cost model "
+                         "keeps only the predicted-Pareto slice of each "
+                         "generation's offspring for execution")
+    ap.add_argument("--surrogate-keep", type=float, default=0.5,
+                    help="fraction of generated offspring the surrogate "
+                         "lets through (default 0.5)")
     args = ap.parse_args(argv)
     if args.resume and not args.checkpoint:
         ap.error("--resume requires --checkpoint")
@@ -93,11 +108,14 @@ def main(argv=None):
           f"generations, operators={{{', '.join(weights.names())}}}, "
           f"{mode} evaluation)...")
     evaluator = make_evaluator(w, parallel=args.parallel,
-                               cache_path=args.cache)
+                               cache_path=args.cache, screen=args.screen,
+                               features=args.surrogate)
     try:
         search = GevoML(w, pop_size=args.pop, n_elite=args.pop // 2, seed=0,
                         verbose=True, operators=weights, evaluator=evaluator,
-                        checkpoint_dir=args.checkpoint)
+                        checkpoint_dir=args.checkpoint,
+                        surrogate=args.surrogate,
+                        surrogate_keep=args.surrogate_keep)
         res = search.run(generations=args.generations, resume=args.resume)
 
         # compare against the baseline the search itself measured
@@ -117,6 +135,14 @@ def main(argv=None):
               f"({search.n_evals} fitness evaluations, "
               f"{search.n_invalid} invalid variants resampled, "
               f"cache hit rate {search.cache.hit_rate:.0%})")
+        if args.screen:
+            ev = search.evaluator
+            print(f"static screen: {ev.n_screened} variants resolved "
+                  f"without execution {dict(sorted(ev.screened_by.items()))}")
+        if args.surrogate:
+            st = search.guide.stats()
+            print(f"surrogate pre-rank: kept {st['kept']}/{st['ranked']} "
+                  f"ranked offspring across {st['refits']} refits")
         print("per-operator proposed/applied/valid/elite:")
         for name, row in res.operator_stats().items():
             print(f"  {name:>14}: {row['proposed']:4d} / "

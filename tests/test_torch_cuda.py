@@ -5,8 +5,11 @@ the knobs that only partition rows, tensor-core instructions in the built
 flash library, launch counting, and refused launches.  The IR interpreter
 on the card: every opcode and SAME padding against the interpreter on the
 CPU, full f32 (no TF32), bit-identical repeats, pretraining that repeats,
-and one unmutated evaluation of each IR workload.  Marked ``cuda``; they
-skip on hosts without a GPU.  On a machine with one:
+and one unmutated evaluation of each IR workload.  The measured fitness's
+CUDA graphs: every opcode's replay against its eager call, IR programs and
+mutants through ``ProgramGraph``, a kernel variant's measured time against
+its profiler time, and a capture failure as a ``DeviceFault``.  Marked
+``cuda``; they skip on hosts without a GPU.  On a machine with one:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
@@ -557,3 +560,149 @@ def test_ir_cli_runs_on_the_card(cuda, capsys):
               "--generations", "1", "--pop", "4"])
     out = capsys.readouterr().out
     assert "on cuda" in out and "Pareto front" in out
+
+
+# --------------------------------------------------------------------------
+# the measured fitness's CUDA graphs
+# --------------------------------------------------------------------------
+
+def _bits(t):
+    """``t``'s bits, so NaNs compare equal to themselves."""
+    view = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    return t.view(view[t.dtype]) if t.dtype in view else t
+
+
+@pytest.mark.parametrize("opcode,dtypes,attrs", list(_ir_cases()),
+                         ids=[f"{o}-{'-'.join(d)}-{i}" for i, (o, d, _)
+                              in enumerate(_ir_cases())])
+def test_interp_op_graph_replay_equals_eager(cuda, opcode, dtypes, attrs):
+    """Every opcode over the IR's dtypes captures as a CUDA graph, and a
+    replay gives the eager call's bits; an op that raises eagerly raises
+    at the graph's eager run, before any capture."""
+    from repro_torch.core.interp import eval_op
+    from repro_torch.device import CudaGraph
+    xs = _ir_operands(opcode, dtypes, cuda)
+    graph = CudaGraph(cuda)
+    try:
+        try:
+            want = eval_op(opcode, xs, attrs)
+        except Exception as e:
+            with pytest.raises(type(e)):
+                graph.eager(lambda: eval_op(opcode, xs, attrs))
+            return
+        graph.eager(lambda: eval_op(opcode, xs, attrs))
+        got = graph.capture(lambda: eval_op(opcode, xs, attrs))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert got.dtype == want.dtype and got.shape == want.shape
+        assert torch.equal(_bits(got), _bits(want))
+    finally:
+        graph.release()
+
+
+def test_ir_programs_graph_replay_equals_eager(cuda):
+    """Each IR workload's program and seeded mutants of it, run through
+    ProgramGraph on the card: the same verdict as the eager interpreter and,
+    replay after replay, the eager outputs bit for bit."""
+    import numpy as np
+    from repro_torch.core.edits import (EditError, OperatorWeights, Patch,
+                                        sample_edit)
+    from repro_torch.core.interp import ProgramGraph, jit_program
+    ws = _ir_workloads(cuda)
+    tw = ws["twofc"]
+    inputs = {"twofc": {**tw.init_weights, "x": tw.train_x[:32],
+                        "y_onehot": np.eye(10, dtype=np.float32)[
+                            tw.train_y[:32]]},
+              "mobilenet": {"images": ws["mobilenet"].images[:64]},
+              "tinyformer": {"images": ws["tinyformer"].images[:64]}}
+    rng = np.random.default_rng(0)
+    weights = OperatorWeights.parse("all")
+    for name, w in ws.items():
+        progs = [w.program]
+        while len(progs) < 9:
+            try:
+                progs.append(Patch((sample_edit(w.program, rng, weights),))
+                             .apply(w.program))
+            except EditError:
+                continue
+        for prog in progs:
+            try:
+                want = jit_program(prog, cuda)(inputs[name])
+            except Exception as e:
+                with pytest.raises(type(e)):
+                    with ProgramGraph(prog, cuda) as g:
+                        g.load(inputs[name])
+                        g.run()
+                continue
+            with ProgramGraph(prog, cuda) as g:
+                g.load(inputs[name])
+                for _ in range(2):
+                    got = g.run()
+                    torch.cuda.synchronize()
+                    for a, b in zip(got, want, strict=True):
+                        assert torch.equal(_bits(a), _bits(b)), name
+
+
+# The measured time of a kernel variant is GRAPH_CALLS calls in one graph,
+# divided by GRAPH_CALLS: the kernel's own time plus the gap between
+# consecutive kernel nodes of a graph.  The profiler reads the kernel alone.
+KERNEL_NAMES = {"rmsnorm": "rmsnorm_", "flash_attention": "flash_",
+                "mamba_scan": "scan_kernel"}
+GRAPH_TIME_TOL = 0.5
+
+
+@pytest.mark.parametrize("kernel", wl.KERNELS)
+def test_measured_kernel_time_is_its_graphs_device_time(cuda, kernel):
+    """The measured fitness of a kernel's default schedule at the search
+    shapes is within GRAPH_TIME_TOL (relative) of the kernel's device time
+    per call that torch.profiler reads over the same evaluation, and every
+    replay adds its launches to the wrapper's count."""
+    from torch.profiler import ProfilerActivity, profile
+    counter = {"rmsnorm": rmsnorm, "flash_attention": flash_attention,
+               "mamba_scan": mamba_scan}[kernel]
+    w = wl.build_kernel_workload(kernel, time_mode="measured")
+    w.evaluate(w.program)            # builds and loads the library
+    before = counter.launches
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t, _ = w.evaluate(w.program)
+        torch.cuda.synchronize()
+    spans = [e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and KERNEL_NAMES[kernel] in e.name]
+    # one eager call for the error, GRAPH_CALLS eager calls before the
+    # capture, then 2 warm-up and 5 timed replays of GRAPH_CALLS calls (the
+    # profiler may drop the first event of a window)
+    assert counter.launches - before == 1 + wl.GRAPH_CALLS * 8
+    assert wl.GRAPH_CALLS * 8 <= len(spans) <= 1 + wl.GRAPH_CALLS * 8
+    kernel_s = sorted(spans)[len(spans) // 2] * 1e-6
+    assert abs(t - kernel_s) <= GRAPH_TIME_TOL * kernel_s, (t, kernel_s)
+
+
+def test_capture_failure_is_a_device_fault(cuda, monkeypatch):
+    """An op that runs eagerly but cannot be captured (here: one that reads
+    a value back to the host) stops the evaluation as a DeviceFault; it is
+    never an invalid variant.  The card works afterwards."""
+    import numpy as np
+    from repro_torch.core import interp
+    from repro_torch.core.builder import Builder
+    from repro_torch.core.edits import Patch
+    from repro_torch.core.evaluator import SerialEvaluator
+    from repro_torch.core.fitness import DeviceFault, PredictionWorkload
+    monkeypatch.setitem(interp._OPS, "negate",
+                        lambda xs, a: -xs[0] * float(xs[0].abs().max() > -1))
+    b = Builder("syncs")
+    b.output(b.op("negate", [b.input("images", (4, 3))]))
+    rng = np.random.default_rng(0)
+    w = PredictionWorkload("syncs", b.done(),
+                           rng.standard_normal((8, 3), dtype=np.float32),
+                           np.zeros(8, np.int64), batch=4,
+                           time_mode="measured", device="cuda")
+    with pytest.raises(DeviceFault, match="capture"):
+        w.evaluate(w.program)
+    with SerialEvaluator(w) as ev:
+        with pytest.raises(DeviceFault):
+            ev.evaluate_one(Patch())
+        assert ev.n_invalid == 0
+    x = torch.ones(4, device=cuda)
+    assert float((x + x).sum()) == 8.0

@@ -21,7 +21,7 @@ from repro.core.fitness import HBM_BW, PEAK_FLOPS
 from repro.core.fitness import KernelWorkload as RefKernelWorkload
 from repro_torch.core.edits import Patch
 from repro_torch.core.evaluator import (FitnessCache, ParallelEvaluator,
-                                        SerialEvaluator, make_evaluator)
+                                        SerialEvaluator)
 from repro_torch.core.fitness import KernelWorkload
 from repro_torch.core.search import GevoML
 from repro_torch.kernels import __main__ as cli
@@ -209,17 +209,47 @@ def test_cli_runs_on_the_host(capsys):
 
 def test_later_slices_raise_not_implemented():
     w = workloads.build_kernel_workload("rmsnorm", device="cpu")
-    for kwargs in ({"engine": "tensor"}, {"screen": True},
-                   {"surrogate": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            GevoML(w, **kwargs)
-    for kwargs in ({"screen": True}, {"features": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            make_evaluator(w, **kwargs)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1"):
+        GevoML(w, engine="tensor")
     res = GevoML(w, pop_size=2, n_elite=1, operators=TWEAK).run(
         generations=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1"):
         res.to_front()
+
+
+def _tweaks(w, n, seed=0):
+    from repro_torch.core.edits import OperatorWeights, sample_edit
+    rng = np.random.default_rng(seed)
+    weights = OperatorWeights.parse("attr_tweak=1")
+    return Patch(tuple(sample_edit(w.program, rng, weights)
+                       for _ in range(n)))
+
+
+def test_describe_patch_matches_reference():
+    """``describe_patch`` (the reference's pre-Patch helper) describes a
+    patch, an edit list or an empty list as the reference does."""
+    from repro.core.search import describe_patch as ref_describe_patch
+    from repro_torch.core import describe_patch
+    w = workloads.build_kernel_workload("rmsnorm", device="cpu")
+    patch = _tweaks(w, 3)
+    ref_patch = ref_serialize.patch_from_doc(serialize.patch_doc(patch))
+    assert describe_patch(patch) == ref_describe_patch(ref_patch)
+    assert describe_patch(list(patch.edits)) == patch.describe()
+    assert describe_patch([]) == ref_describe_patch([]) == "<original>"
+
+
+def test_core_exports_apply_patch():
+    """``repro_torch.core`` re-exports ``apply_patch`` as the reference's
+    core does; it applies an edit list as ``Patch.apply`` does."""
+    import repro_torch.core as core
+    from repro_torch.core.edits import apply_patch
+    assert core.apply_patch is apply_patch
+    assert {"apply_patch", "describe_patch"} <= set(core.__all__)
+    w = workloads.build_kernel_workload("rmsnorm", device="cpu")
+    patch = _tweaks(w, 2, seed=1)
+    assert serialize.program_fingerprint(
+        core.apply_patch(w.program, list(patch.edits))) == \
+        serialize.program_fingerprint(patch.apply(w.program))
 
 
 def test_device_faults_stop_evaluation_but_bad_schedules_are_invalid():
