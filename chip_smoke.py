@@ -66,6 +66,35 @@ Phases, each printing one JSON line:
                     a measured 2fcNet search with the static screen and
                     the surrogate pre-rank, its invalid verdicts held
                     against the card's messages.
+8. ``islands``    — the island model (``core/islands``): the device memory
+                    one more process takes on the card (its CUDA context
+                    and a built workload; ``plan()`` reserves
+                    ``CONTEXT_RESERVE_BYTES`` a context); 2fcNet in static
+                    time, 4 islands x pop 8, 4 generations, with the
+                    process backend as ``plan()`` chooses it here, against
+                    the same search in-process (manifests, populations and
+                    merged fronts bit for bit); a measured flash-attention
+                    search on 2 islands that ``plan()`` keeps in one
+                    process (no other process beside it, reserved memory
+                    flat), with its kernel launches counted from zero.
+9. ``tensor``     — the tensorized engine (``core/tensor_evo``) on the
+                    joint workload: ``TensorGevoML``, pop 1024, 10
+                    generations, counted from zero (every launch comes from
+                    filling the error tables, one a launchable error class
+                    of the kernel, and the count is asserted); the device
+                    step's time and validity bit for bit against the numpy
+                    path over one generation's lanes, its errors, ranks and
+                    selection order too; every reported fitness against
+                    ``SerialEvaluator``; a kill after generation 3 and a
+                    resume ending at the unbroken run's population; a
+                    4-island x 1024 ``backend="mesh"`` fleet, 6
+                    generations, migrating every 2, and its resume; the
+                    step's generations and lanes per second and the
+                    device's idle share over one generation
+                    (torch.profiler), for the engine and the fleet, and
+                    where a step's time goes (objectives, ranking with
+                    its fronts, selection order); the same search's
+                    evaluations per second under ``engine="python"``.
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit, and
 the last line ``{"ok": true, "device": {...}}``.  Any failure raises and
@@ -1217,6 +1246,447 @@ def phase_programs(torch) -> dict:
     return out
 
 
+# -- islands and the tensorized engine ----------------------------------------
+
+# The islands phase: 2fcNet at the builder's defaults in static time, 4
+# islands x pop 8, 4 generations; a measured flash-attention search on 2
+# islands.  The tensor phase: the joint workload, pop 1024.
+ISLANDS = {"n_islands": 4, "pop_size": 8, "generations": 4,
+           "migrate_every": 2, "n_migrants": 2}
+TENSOR_POP, TENSOR_GENERATIONS, TENSOR_KILL_AFTER = 1024, 10, 3
+FLEET = {"n_islands": 4, "pop_size": 1024, "generations": 6,
+         "migrate_every": 2, "n_migrants": 2}
+
+
+def context_probe(kind: str) -> int:
+    """In a spawned process: build ``kind``'s workload on the card and
+    evaluate it once; return the device memory in use on the card then
+    (every process's)."""
+    import torch
+    if kind == "twofc":
+        from repro_torch.workloads.twofc import build_twofc_training_workload
+        w = build_twofc_training_workload()
+    else:
+        from repro_torch.kernels.workloads import build_kernel_workload
+        w = build_kernel_workload(kind, time_mode="measured")
+    w.evaluate(w.program)
+    torch.cuda.synchronize()
+    free, total = torch.cuda.mem_get_info()
+    return total - free
+
+
+def context_bytes(torch, kind: str) -> int:
+    """The device memory one more process takes on the card: its CUDA
+    context, the kernel libraries and ``kind``'s workload, built and
+    evaluated once (what :data:`CONTEXT_RESERVE_BYTES` reserves)."""
+    import multiprocessing as mp
+    torch.cuda.synchronize()
+    free, total = torch.cuda.mem_get_info()
+    with mp.get_context("spawn").Pool(1) as pool:
+        used = pool.apply(context_probe, (kind,))
+    return used - (total - free)
+
+
+def island_key(res) -> dict:
+    """What two island runs must share bit for bit: the merged front,
+    every island's population and the migration log."""
+    from repro_torch.core.serialize import patch_doc
+    return {"pareto": [(patch_doc(i.patch), i.fitness) for i in res.pareto],
+            "sources": res.pareto_sources,
+            "populations": [[(patch_doc(i.patch), i.fitness)
+                             for i in isl.population] for isl in res.islands],
+            "migration_log": res.migration_log}
+
+
+def phase_islands(torch, wl, counters) -> dict:
+    """The island model on the card: 2fcNet in static time with the
+    process backend as ``plan()`` chooses it here, against the same search
+    in-process (manifests and fronts bit for bit); then a measured
+    flash-attention search on 2 islands, which ``plan()`` keeps in one
+    process, with reserved memory flat over its generations."""
+    import multiprocessing as mp
+    import tempfile
+
+    from repro_torch.core.islands import (CONTEXT_RESERVE_BYTES,
+                                          IslandOrchestrator,
+                                          default_island_specs, plan)
+    from repro_torch.workloads.twofc import build_twofc_training_workload
+    t0 = time.perf_counter()
+    contexts = {k: context_bytes(torch, k)
+                for k in ("twofc", "flash_attention")}
+    if max(contexts.values()) > CONTEXT_RESERVE_BYTES:
+        raise AssertionError(f"a context takes {contexts}, more than the "
+                             f"{CONTEXT_RESERVE_BYTES} plan() reserves")
+    w = build_twofc_training_workload()
+    chosen = plan(ISLANDS["n_islands"], time_mode="static")
+    kw = dict(n_islands=ISLANDS["n_islands"], pop_size=ISLANDS["pop_size"],
+              migrate_every=ISLANDS["migrate_every"],
+              n_migrants=ISLANDS["n_migrants"], topology="ring")
+    root = Path(tempfile.mkdtemp(prefix="islands_", dir=ROOT / "build"))
+    runs, walls, manifests = {}, {}, {}
+    for name, processes in (("planned", chosen.processes),
+                            ("in_process", False)):
+        t = time.perf_counter()
+        orch = IslandOrchestrator(w, root_dir=str(root / name),
+                                  processes=processes,
+                                  eval_workers=chosen.eval_workers
+                                  if processes else 0, **kw)
+        res = orch.run(generations=ISLANDS["generations"])
+        walls[name] = time.perf_counter() - t
+        runs[name] = res
+        manifests[name] = json.loads((root / name / "manifest.json")
+                                     .read_text())
+    same_manifest = manifests["planned"] == manifests["in_process"]
+    same_front = island_key(runs["planned"]) == island_key(
+        runs["in_process"])
+    if not (same_manifest and same_front):
+        raise AssertionError("process islands differ from in-process "
+                             f"islands (manifest equal: {same_manifest}, "
+                             f"fronts equal: {same_front})")
+
+    # measured time: plan() keeps the islands in this process
+    wf = wl.build_kernel_workload("flash_attention", time_mode="measured")
+    mplan = plan(2, time_mode="measured")
+    if mplan.processes or mplan.eval_workers:
+        raise AssertionError(f"measured islands left the process: "
+                             f"{mplan.describe()}")
+    reserved, children = [torch.cuda.memory_reserved()], []
+
+    def on_generation(island, gen, row):
+        reserved.append(torch.cuda.memory_reserved())
+        children.append(len(mp.active_children()))
+
+    for c in counters.values():
+        c.launches = 0
+    t = time.perf_counter()
+    morch = IslandOrchestrator(
+        wf, root_dir=str(root / "measured"), processes=mplan.processes,
+        specs=default_island_specs(2, operators={"attr_tweak": 1.0}),
+        pop_size=6, migrate_every=2, n_migrants=1)
+    mres = morch.run(generations=4, on_generation=on_generation)
+    mwall = time.perf_counter() - t
+    launches = {k: c.launches for k, c in counters.items()}
+    if launches["flash_attention"] <= 0:
+        raise AssertionError("measured islands never launched flash")
+    if any(children):
+        raise AssertionError(f"measured islands ran beside {children} "
+                             "other processes")
+    if max(reserved[1:]) > reserved[1] + RESERVED_SLACK:
+        raise AssertionError(f"reserved device memory grew over the "
+                             f"measured islands: {reserved}")
+    out = {"phase": "islands", "seconds": time.perf_counter() - t0,
+           "gpu": nvidia_smi(),
+           "context_bytes": contexts,
+           "context_reserve_bytes": CONTEXT_RESERVE_BYTES,
+           "plan": {"describe": chosen.describe(),
+                    "processes": chosen.processes,
+                    "eval_workers": chosen.eval_workers,
+                    "cores": chosen.cores, "cards": chosen.cards,
+                    "contexts": chosen.contexts,
+                    "max_contexts": chosen.max_contexts},
+           "twofc_static": {
+               "wall_s": walls, "manifest_equal": same_manifest,
+               "front_equal": same_front,
+               "pareto": [list(i.fitness) for i in runs["planned"].pareto],
+               "cross_island_hits": {
+                   k: r.cross_island_hits for k, r in runs.items()}},
+           "flash_measured": {
+               "plan": mplan.describe(), "wall_s": mwall,
+               "other_processes_by_generation": children,
+               "reserved_bytes_by_generation": reserved,
+               "cross_island_hits": mres.cross_island_hits,
+               "pareto": [list(i.fitness) for i in mres.pareto]},
+           "launches": launches}
+    emit(out)
+    return out
+
+
+def expected_fill_launches(batched) -> dict:
+    """Kernel launches that filling ``batched``'s error tables must make:
+    one for each error class whose implementation is the kernel and which
+    some completion of the class's other knobs makes launchable (the
+    unfused rmsnorm epilogue launches the kernel once too)."""
+    from repro_torch.core.fitness import InvalidVariant
+    from repro_torch.kernels.costs import schedule_time
+    enc = batched.encoding
+    out = {}
+    for block in batched.spec.blocks:
+        knobs = dict(block.knob_map)
+        space = {k: enc.space.choices(s) for k, s in knobs.items()}
+        classes = set()
+        for values in itertools.product(*space.values()):
+            genome = dict(zip(space, values))
+            if genome["impl"] != "pallas":
+                continue
+            try:
+                schedule_time(block.kernel, genome, **dict(block.shape))
+            except InvalidVariant:
+                continue
+            classes.add(tuple(genome[k] for k in block.error_knobs))
+        out[block.kernel] = len(classes)
+    return out
+
+
+def step_rate(torch, step, n: int) -> float:
+    """Generations per second of ``step()`` over ``n`` calls."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(n):
+        step()
+    torch.cuda.synchronize()
+    return n / (time.perf_counter() - t)
+
+
+def idle_share(torch, step) -> dict:
+    """One ``step()`` under torch.profiler: its wall time, the device's
+    busy time and the idle share."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t) * 1e6
+    spans = device_spans(torch, prof)
+    if not spans:
+        raise AssertionError("the profiler saw no device work in a step")
+    busy = busy_us(spans)
+    return {"window_us": wall_us, "device_busy_us": busy,
+            "device_kernels": len(spans),
+            "device_idle_share": 1 - busy / wall_us}
+
+
+def step_breakdown(torch, eng, idx, gen, n: int = 10) -> dict:
+    """Milliseconds a generation step spends, on average over ``n`` steps
+    (each part bracketed by synchronizations): the objectives, the ranking
+    and crowding (its front-peeling loop reads one flag back to the host
+    per front), the selection order, and the whole step."""
+    from repro_torch.core.tensor_evo import nsga2
+    step, parts, fronts = eng.step_fn(), {}, []
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        parts[name] = parts.get(name, 0.0) + time.perf_counter() - t
+        return out
+
+    for _ in range(n):
+        objs, _ = timed("objectives", lambda: eng.objectives_fn()(idx))
+        rank, crowd = timed("rank_crowd",
+                            lambda: nsga2.rank_crowd(objs, xp=eng.xp))
+        timed("selection_order",
+              lambda: nsga2.selection_order(rank, crowd, xp=eng.xp))
+        fronts.append(int(rank.max()) + 1)
+        idx, _ = timed("step", lambda: step(idx, gen, 0.8, 0.5))
+    out = {f"{k}_ms": v * 1e3 / n for k, v in parts.items()}
+    out["fronts"] = fronts
+    return out
+
+
+def phase_tensor(torch, wl, counters) -> dict:
+    """The tensorized engine on the card (see the module docstring)."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.core import GevoML, IslandOrchestrator
+    from repro_torch.core.evaluator import SerialEvaluator
+    from repro_torch.core.islands import default_island_specs
+    from repro_torch.core.tensor_evo import (TensorGevoML,
+                                             TensorIslandFleet, nsga2)
+    t0 = time.perf_counter()
+    root = Path(tempfile.mkdtemp(prefix="tensor_", dir=ROOT / "build"))
+    w = wl.build_joint_kernel_workload()
+
+    class Kill(Exception):
+        pass
+
+    def engine(name, **kw):
+        return TensorGevoML(w, pop_size=TENSOR_POP, n_elite=16, seed=0,
+                            checkpoint_dir=str(root / name), **kw)
+
+    def reset():
+        for c in counters.values():
+            c.launches = 0
+
+    # the main path: one engine, 10 generations, counted from zero
+    reset()
+    eng = engine("full")
+    t = time.perf_counter()
+    res = eng.run(generations=TENSOR_GENERATIONS)
+    wall = time.perf_counter() - t
+    launches = {k: c.launches for k, c in counters.items()}
+    expected = expected_fill_launches(eng.batched)
+    if launches != expected:
+        raise AssertionError(f"fill_error_tables launched {launches}, "
+                             f"expected {expected}")
+
+    # the device step against the numpy path on one generation's lanes
+    idx = torch.as_tensor(np.load(root / "full" / "state_latest.npz")["idx"],
+                          device="cuda")
+    idx_np = idx.cpu().numpy()
+    t_dev, v_dev = eng.batched.torch_terms_fn("cuda")(idx)
+    t_np, v_np, _ = eng.batched.terms(np, idx_np)
+    t_np = np.asarray(t_np, np.float64)
+    time_equal = bool(np.array_equal(t_dev.cpu().numpy().view(np.int64),
+                                     t_np.view(np.int64)))
+    valid_equal = bool(np.array_equal(v_dev.cpu().numpy(), v_np))
+    objs, valid = eng.objectives_fn()(idx)
+    err_np = eng.batched.errors_np(idx_np, v_np)
+    err_equal = bool(np.array_equal(
+        objs[:, 1].cpu().numpy()[v_np], err_np[v_np]))
+    rank, crowd = nsga2.rank_crowd(objs, xp=eng.xp)
+    order = nsga2.selection_order(rank, crowd, xp=eng.xp)
+    rank_np, crowd_np = nsga2.rank_crowd(objs.cpu().numpy())
+    order_np = nsga2.selection_order(rank_np, crowd_np)
+    rank_equal = bool(np.array_equal(rank.cpu().numpy(), rank_np))
+    order_equal = bool(np.array_equal(order.cpu().numpy(), order_np))
+    if not (time_equal and valid_equal and err_equal and rank_equal
+            and order_equal):
+        raise AssertionError(
+            f"the device step differs from the numpy path: time "
+            f"{time_equal}, validity {valid_equal}, error {err_equal}, "
+            f"rank {rank_equal}, selection order {order_equal}")
+
+    # the reported fitness against SerialEvaluator, member by member
+    with SerialEvaluator(w) as se:
+        serial = se.evaluate_batch([i.patch for i in res.population])
+    serial_equal = all(o.fitness == i.fitness
+                       for o, i in zip(serial, res.population))
+    if not serial_equal:
+        raise AssertionError("the engine's fitness differs from "
+                             "SerialEvaluator's")
+
+    # kill after generation 3, resume, and end where the unbroken run did
+    def bomb(gen, row):
+        if gen == TENSOR_KILL_AFTER:
+            raise Kill
+
+    try:
+        engine("killed").run(generations=TENSOR_GENERATIONS,
+                             on_generation=bomb)
+        raise AssertionError("the kill never fired")
+    except Kill:
+        pass
+    resumed = engine("killed").run(generations=TENSOR_GENERATIONS,
+                                   resume=True)
+    full_state = np.load(root / "full" / "state_latest.npz")
+    res_state = np.load(root / "killed" / "state_latest.npz")
+    resume_equal = (bool(np.array_equal(full_state["idx"],
+                                        res_state["idx"]))
+                    and [i.fitness for i in resumed.population]
+                    == [i.fitness for i in res.population])
+    if not resume_equal:
+        raise AssertionError("a resumed engine ended elsewhere than the "
+                             "unbroken run")
+
+    # the step's throughput and the device's idle share over a generation
+    step, gen = eng.step_fn(), torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    state = {"idx": idx}
+
+    def one():
+        state["idx"], _ = step(state["idx"], gen, 0.8, 0.5)
+
+    one()
+    engine_rate = step_rate(torch, one, 10)
+    engine_idle = idle_share(torch, one)
+    breakdown = step_breakdown(torch, eng, state["idx"], gen)
+
+    # the fleet: backend="mesh", 4 x 1024, 6 generations, counted from 0
+    reset()
+    specs = default_island_specs(FLEET["n_islands"],
+                                 operators={"attr_tweak": 1.0})
+    t = time.perf_counter()
+    orch = IslandOrchestrator(
+        w, root_dir=str(root / "mesh"), specs=specs,
+        pop_size=FLEET["pop_size"], n_elite=16,
+        migrate_every=FLEET["migrate_every"],
+        n_migrants=FLEET["n_migrants"], backend="mesh")
+    fres = orch.run(FLEET["generations"])
+    fleet_wall = time.perf_counter() - t
+    fleet_launches = {k: c.launches for k, c in counters.items()}
+    if min(fleet_launches.values()) <= 0:
+        raise AssertionError(f"the fleet left a kernel unlaunched: "
+                             f"{fleet_launches}")
+    fkw = dict(specs=specs, pop_size=FLEET["pop_size"], n_elite=16,
+               migrate_every=FLEET["migrate_every"],
+               n_migrants=FLEET["n_migrants"])
+    with TensorIslandFleet(w, root_dir=str(root / "fleet_killed"),
+                           **fkw) as fleet:
+        fleet.run(4)
+    with TensorIslandFleet(w, root_dir=str(root / "fleet_killed"),
+                           **fkw) as fleet:
+        fleet.run(FLEET["generations"], resume=True)
+        fstate = {k: torch.as_tensor(v) for k, v in
+                  np.load(fleet.state_path).items()}
+        generators = []
+        for rng in fstate["rng"]:
+            g = torch.Generator(device="cuda")
+            g.set_state(rng)
+            generators.append(g)
+        fidx = fstate["idx"].to("cuda")
+        cx = [s.crossover_rate for s in specs]
+        mut = [s.mutation_rate for s in specs]
+        fstate_ = {"idx": fidx}
+
+        def fleet_step():
+            fstate_["idx"], _ = fleet.step(fstate_["idx"], generators,
+                                           cx, mut)
+
+        fleet_step()
+        fleet_rate = step_rate(torch, fleet_step, 6)
+        fleet_idle = idle_share(torch, fleet_step)
+    mesh_state = np.load(root / "mesh" / "mesh_state.npz")
+    killed_state = np.load(root / "fleet_killed" / "mesh_state.npz")
+    fleet_resume_equal = bool(np.array_equal(mesh_state["idx"],
+                                             killed_state["idx"]))
+    if not fleet_resume_equal:
+        raise AssertionError("a resumed fleet ended elsewhere than the "
+                             "unbroken run")
+
+    # the same search under engine="python" on the card
+    t = time.perf_counter()
+    with GevoML(w, pop_size=128, n_elite=16, seed=0,
+                operators={"attr_tweak": 1.0}, engine="python") as py:
+        py.run(generations=2)
+        py_evals = py.n_evals
+    py_wall = time.perf_counter() - t
+
+    out = {"phase": "tensor", "seconds": time.perf_counter() - t0,
+           "gpu": nvidia_smi(),
+           "engine": {"pop": TENSOR_POP, "generations": TENSOR_GENERATIONS,
+                      "wall_s": wall, "launches": launches,
+                      "expected_launches": expected,
+                      "time_bits_equal": time_equal,
+                      "validity_equal": valid_equal,
+                      "error_equal": err_equal, "rank_equal": rank_equal,
+                      "selection_order_equal": order_equal,
+                      "fitness_equal_serial": serial_equal,
+                      "resume_equal": resume_equal,
+                      "generations_per_s": engine_rate,
+                      "lanes_per_s": engine_rate * TENSOR_POP,
+                      "step": engine_idle, "step_breakdown": breakdown,
+                      "pareto": [list(i.fitness) for i in res.pareto]},
+           "fleet": {**FLEET, "wall_s": fleet_wall,
+                     "launches": fleet_launches,
+                     "resume_equal": fleet_resume_equal,
+                     "generations_per_s": fleet_rate,
+                     "lanes_per_s": fleet_rate * FLEET["n_islands"]
+                     * FLEET["pop_size"],
+                     "step": fleet_idle,
+                     "cross_island_hits": fres.cross_island_hits,
+                     "pareto": [list(i.fitness) for i in fres.pareto]},
+           "python_engine": {"pop": 128, "generations": 2,
+                             "evaluations": py_evals, "wall_s": py_wall,
+                             "evaluations_per_s": py_evals / py_wall}}
+    emit(out)
+    return out
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels").is_dir():
         print("chip_smoke.py: run it from a checkout of the repository "
@@ -1242,13 +1712,20 @@ def main() -> int:
     launches = phase_search(torch, wl, counters)
     phase_profile(torch, wl)
     phase_programs(torch)
+    islands = phase_islands(torch, wl, counters)
+    tensor = phase_tensor(torch, wl, counters)
 
     # launches: in the kernel's own measured search; launches_joint_static:
-    # in the joint static search
+    # in the joint static search; launches_islands: in the measured
+    # flash-attention islands; launches_tensor and launches_fleet: in the
+    # tensorized engine's run and the mesh fleet's
     emit({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCES[k],
          "replaces": REPLACES[k], "launches": launches["measured"][k][k],
          "launches_joint_static": launches["joint_static"][k],
+         "launches_islands": islands["launches"][k],
+         "launches_tensor": tensor["engine"]["launches"][k],
+         "launches_fleet": tensor["fleet"]["launches"][k],
          "max_abs_err": full[k]["max_abs_err"], "ms": full[k]["kernel_ms"],
          "plain_ms": full[k]["plain_ms"], "bound_ms": full[k]["bound_ms"],
          "bound_by": full[k]["bound_by"],

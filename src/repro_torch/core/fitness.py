@@ -199,8 +199,8 @@ class KernelWorkload:
     # rebuild recipe for ParallelEvaluator workers (see core/evaluator.py);
     # required for parallel eval: runner is a closure and does not pickle
     spec: object | None = None
-    # batched-fitness recipe of the tensorized engine; None until that
-    # engine is ported.  Not part of the fingerprint.
+    # batched-fitness recipe of the tensorized engine
+    # (core.tensor_evo.TensorFitnessSpec).  Not part of the fingerprint.
     tensor_spec: object | None = None
     # launchability probe: the same static gate check the runner performs
     # first (``schedule_time`` raising InvalidVariant).  Optional and

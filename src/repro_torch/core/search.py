@@ -93,12 +93,22 @@ class SearchResult:
         return self.history[-1]["operators"] if self.history else {}
 
     def to_front(self, origin: str = "search"):
-        """The deployable Pareto front of the reference package; the
-        deployment layer is ported only in part (its front and registry),
-        so this waits for slice 4."""
-        raise NotImplementedError(
-            "SearchResult.to_front waits for slice 4 of the port, the rest "
-            "of the deployment layer (ROADMAP.md, queue 1: core/deploy)")
+        """This result's Pareto front as a deployable
+        :class:`~repro_torch.core.deploy.ParetoFront` (members carry
+        canonical patch docs, so the deployment layer can re-apply winners
+        without the workload)."""
+        from .deploy.front import FrontMember, ParetoFront
+        return ParetoFront.from_members(
+            (FrontMember(fitness=i.fitness, patch=tuple(patch_doc(i.patch)),
+                         source=origin) for i in self.pareto),
+            origin=origin,
+            meta={"original_fitness": list(self.original_fitness),
+                  "generations": len(self.history)})
+
+    def export_front(self, path: str, origin: str = "search") -> None:
+        """Write the front doc ``ParetoFront.load`` consumes — the handoff
+        from a finished search to deployment."""
+        self.to_front(origin).export(path)
 
 
 class GevoML:
@@ -130,8 +140,17 @@ class GevoML:
     resuming one reproduces counters, not RNG-identical populations, unless
     the cache is persistent.
 
-    ``engine="tensor"`` selects the reference's tensorized engine, which is
-    not ported yet and raises ``NotImplementedError``.
+    ``engine`` selects the evaluation/selection machinery: ``"python"`` is
+    the per-genome path above; ``"tensor"`` swaps in the batched evaluator
+    (:func:`~repro_torch.core.tensor_evo.make_tensor_evaluator` — one
+    vectorized fitness call per generation batch, with automatic fallback
+    for non-tensorizable workloads) and the array-native NSGA-II
+    (:class:`~repro_torch.core.tensor_evo.TensorNSGA2`), both on their
+    numpy paths.  Both are bit-exact twins of the Python path and the RNG
+    is consumed identically, so a seeded run produces the same
+    populations, elites, and Pareto front under either engine.  For the
+    generation loop on the device, see
+    :class:`~repro_torch.core.tensor_evo.TensorGevoML`.
     """
 
     ENGINES = ("python", "tensor")
@@ -150,10 +169,6 @@ class GevoML:
         if engine not in self.ENGINES:
             raise ValueError(f"unknown engine {engine!r}; "
                              f"choose from {self.ENGINES}")
-        if engine == "tensor":
-            raise NotImplementedError(
-                "engine='tensor' is not ported yet "
-                "(ROADMAP.md, queue 1: core/tensor_evo)")
         self.engine = engine
         self.w = workload
         self.pop_size = pop_size
@@ -168,8 +183,12 @@ class GevoML:
         self.stats = OperatorStats(self.operators.names())
         self._owns_evaluator = evaluator is None
         if evaluator is None:
-            evaluator = SerialEvaluator(workload,
-                                        cache=FitnessCache(cache_path))
+            cache = FitnessCache(cache_path)
+            if engine == "tensor":
+                from .tensor_evo.evaluator import make_tensor_evaluator
+                evaluator = make_tensor_evaluator(workload, cache=cache)
+            else:
+                evaluator = SerialEvaluator(workload, cache=cache)
         elif cache_path is not None:
             raise ValueError("pass cache_path OR a pre-built evaluator "
                              "(give its FitnessCache the path), not both")
@@ -196,6 +215,13 @@ class GevoML:
                 # record features on every measured outcome so the cache
                 # this search writes is itself surrogate training data
                 self.evaluator.featurizer = self.guide.featurizer
+        if engine == "tensor":
+            from .tensor_evo import nsga2 as _tnsga
+            self._rank_select = _tnsga.rank_select
+            self._pareto_front = _tnsga.pareto_front
+        else:
+            self._rank_select = rank_select
+            self._pareto_front = pareto_front
         self.checkpoint_dir = checkpoint_dir
         self._n_invalid_outcomes = 0
 
@@ -498,7 +524,7 @@ class GevoML:
 
         for gen in range(start_gen, generations):
             objs = np.array([i.fitness for i in pop])
-            rank, crowd, elite_idx = rank_select(objs, self.n_elite)
+            rank, crowd, elite_idx = self._rank_select(objs, self.n_elite)
             elites = [pop[i] for i in elite_idx]
             for ind in elites:
                 self.stats.count_elite(ind.patch.kinds())
@@ -509,7 +535,7 @@ class GevoML:
                 "offspring")
             pop = elites + offspring
             objs = np.array([i.fitness for i in pop])
-            pf = pareto_front(objs)
+            pf = self._pareto_front(objs)
             history.append({
                 "gen": gen,
                 "best_time": float(objs[:, 0].min()),
@@ -538,7 +564,7 @@ class GevoML:
             if on_generation is not None:
                 on_generation(gen, history[-1])
         objs = np.array([i.fitness for i in pop])
-        pf = [pop[i] for i in pareto_front(objs)]
+        pf = [pop[i] for i in self._pareto_front(objs)]
         # de-duplicate pareto members by fitness
         seen, pareto = set(), []
         for ind in sorted(pf, key=lambda i: i.fitness):

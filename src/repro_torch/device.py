@@ -32,6 +32,28 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def workload_device(workload) -> str | None:
+    """The device a workload's builder put it on (its WorkloadSpec's
+    ``device`` argument, else a ``device`` field), or None if it names
+    none."""
+    spec = getattr(workload, "spec", None)
+    if spec is not None:
+        kwargs = dict(spec.kwargs)
+        if "device" in kwargs:
+            return str(kwargs["device"])
+    device = getattr(workload, "device", None)
+    return None if device is None else str(device)
+
+
+def check_device(workload, device) -> None:
+    """Refuse a workload that runs on another kind of device than the
+    search that drives it."""
+    own = workload_device(workload)
+    if own is not None and torch.device(own).type != device.type:
+        raise ValueError(f"workload {getattr(workload, 'name', '?')!r} "
+                         f"runs on {own}, the search on {device}")
+
+
 class CudaGraph:
     """Some device work captured once as a CUDA graph and replayed.
 

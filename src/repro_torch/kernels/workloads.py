@@ -25,9 +25,11 @@ Fitness = ``(time, max |out - ref|)``:
 
 Builders are deterministic given their kwargs and attach a
 :class:`~repro_torch.core.evaluator.WorkloadSpec`, so ParallelEvaluator
-workers rebuild them.  Every block choice of the per-kernel spaces divides
-its evaluation dimension and fits the shared-memory gate, so every genome
-is launchable.
+workers and spawned islands rebuild them, and a
+:class:`~repro_torch.core.tensor_evo.TensorFitnessSpec`, the recipe of the
+tensorized engine's batched fitness (errors by class of ``ERROR_KNOBS``).
+Every block choice of the per-kernel spaces divides its evaluation
+dimension and fits the shared-memory gate, so every genome is launchable.
 """
 
 from __future__ import annotations
@@ -232,6 +234,8 @@ def build_kernel_workload(kernel: str = "rmsnorm", *,
     """One CUDA kernel as a GEVO scenario: schedule genome + (time, error)
     fitness.  Runs on the GPU unless ``device`` names another device.
     Deterministic given kwargs (required by WorkloadSpec)."""
+    from ..core.tensor_evo.fitness import KernelBlock, TensorFitnessSpec
+
     dev = resolve_device(device)
     space = kernel_space(kernel)
     shape = SHAPES[kernel]
@@ -264,6 +268,9 @@ def build_kernel_workload(kernel: str = "rmsnorm", *,
         spec=WorkloadSpec.make(
             "repro_torch.kernels.workloads:build_kernel_workload",
             kernel=kernel, time_mode=time_mode, seed=seed, device=str(dev)),
+        tensor_spec=TensorFitnessSpec(blocks=(KernelBlock.make(
+            kernel, shape, ERROR_KNOBS[kernel],
+            lambda g: _kernel_error(kernel, g, inputs, ref_out)),)),
     )
 
 
@@ -297,6 +304,8 @@ def build_joint_kernel_workload(*, time_mode: str = "static", seed: int = 0,
     max of kernel errors) over the prefixed joint space.  Static time only:
     a summed wall-clock of three separate launches measures dispatch, not
     schedules."""
+    from ..core.tensor_evo.fitness import KernelBlock, TensorFitnessSpec
+
     if time_mode != "static":
         raise ValueError("joint workload supports time_mode='static' only")
     dev = resolve_device(device)
@@ -335,6 +344,16 @@ def build_joint_kernel_workload(*, time_mode: str = "static", seed: int = 0,
             feats.update({f"{kernel}.{k}": v for k, v in sub.items()})
         return feats
 
+    def error_fn(kernel: str):
+        return lambda g: _kernel_error(kernel, g, inputs[kernel],
+                                       refs[kernel])
+
+    blocks = tuple(
+        KernelBlock.make(
+            kernel, SHAPES[kernel], ERROR_KNOBS[kernel], error_fn(kernel),
+            knob_map={knob: f"{kernel}.{knob}"
+                      for knob in _JOINT_SPACES[kernel]})
+        for kernel in KERNELS)
     baseline = {f"{kernel}.{knob}": BASELINES[kernel][knob]
                 for kernel in KERNELS
                 for knob in _JOINT_SPACES[kernel]}
@@ -349,6 +368,7 @@ def build_joint_kernel_workload(*, time_mode: str = "static", seed: int = 0,
         spec=WorkloadSpec.make(
             "repro_torch.kernels.workloads:build_joint_kernel_workload",
             time_mode=time_mode, seed=seed, device=str(dev)),
+        tensor_spec=TensorFitnessSpec(blocks=blocks),
     )
 
 
