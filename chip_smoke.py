@@ -22,8 +22,8 @@ Phases, each printing one JSON line:
                     space that divides S, at head dims 32, 64 and 128,
                     against the plain version and bit-identical across
                     block_q for each block_k; rmsnorm bit-identical across
-                    block_rows, and the scan across chunk, in float32 and
-                    bfloat16.
+                    block_rows, and the scan (output and final state)
+                    across chunk, in float32 and bfloat16.
 3. ``full_width`` — each kernel at the width of a configured model, bf16,
                     default schedule: times of the kernel, its plain
                     version and the library call, the bound, the error;
@@ -95,6 +95,28 @@ Phases, each printing one JSON line:
                     where a step's time goes (objectives, ranking with
                     its fronts, selection order); the same search's
                     evaluations per second under ``engine="python"``.
+10. ``serve``     — the model stack and the continuous-batching server
+                    (``models/``, ``core/deploy/engine.py``): the scan's
+                    final state against the plain version's (search shape
+                    f32 and bf16, full width bf16) and the scan's time at
+                    full width with and without it and in f32 at the
+                    model's prefill shape; qwen3-0.6b and falcon-mamba-7b
+                    at full width, 2 layers, f32, TF32 off: prefill (509
+                    tokens) and 4 decode steps on the card against the
+                    CPU, and the engine's greedy tokens against the direct
+                    loop's; both at full width and depth in bf16, weights
+                    made on the card: ``ServeEngine(max_slots=4,
+                    prefill_chunk=2)`` on 8 requests of 509 and 254
+                    prompt tokens and 32 generated, 2 arriving a tick,
+                    with the kernels' launches counted from zero (rmsnorm
+                    in both, flash in qwen3, the scan in falcon-mamba),
+                    each request's first-token logits and tokens against
+                    the direct loop, tokens/s, TTFT, s/token, peak memory
+                    and the device's idle share over one decode tick
+                    (torch.profiler); both in f32 at full depth, the
+                    engine's tokens against the direct loop's (reported);
+                    a measured GEVO search (pop 4, 2 generations) over
+                    qwen3-0.6b's serving plan.
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit, and
 the last line ``{"ok": true, "device": {...}}``.  Any failure raises and
@@ -502,10 +524,11 @@ def rmsnorm_bit_identity(torch, wl) -> dict:
 
 
 def scan_bit_identity(torch, wl) -> dict:
-    """The scan's output at every chunk of the joint space that divides L,
-    at the search shape and at Bt 2, L 384, D 40 (where chunk 12 and 48
-    divide, and D is not a multiple of a block's channels), in f32 and
-    bf16: one output, bit for bit."""
+    """The scan's output and final state at every chunk of the joint space
+    that divides L, at the search shape and at Bt 2, L 384, D 40 (where
+    chunk 12 and 48 divide, and D is not a multiple of a block's channels),
+    in f32 and bf16: one output and one state, bit for bit."""
+    from repro_torch.kernels.mamba_scan.ops import mamba_scan
     out = {}
     gen = torch.Generator(device="cuda").manual_seed(5)
     choices = wl.joint_space().choices("mamba_scan.chunk")
@@ -524,11 +547,12 @@ def scan_bit_identity(torch, wl) -> dict:
         for dtype in (torch.float32, torch.bfloat16):
             inputs = to_dtype(torch, "mamba_scan", base, dtype)
             chunks = [c for c in choices if s["L"] % c == 0]
-            outs = [run_kernel("mamba_scan", {"chunk": c}, inputs,
-                               plain=False) for c in chunks]
-            if not all(torch.equal(outs[0], o) for o in outs[1:]):
+            outs = [mamba_scan(*(inputs[k] for k in "dt x A B C".split()),
+                               chunk=c, return_state=True) for c in chunks]
+            if not all(torch.equal(outs[0][0], y) and torch.equal(
+                    outs[0][1], h) for y, h in outs[1:]):
                 raise AssertionError(f"mamba_scan {s} {dtype}: chunk changes "
-                                     "the output")
+                                     "the output or the final state")
             out[f"{s['Bt']}x{s['L']}x{s['D']}x{s['N']} {str(dtype)[6:]}"] = \
                 chunks
     return out
@@ -1687,6 +1711,401 @@ def phase_tensor(torch, wl, counters) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# 10. serve: the model stack and the continuous-batching server
+# --------------------------------------------------------------------------
+
+# The served models, at full width (configs/qwen3_0_6b.py,
+# configs/falcon_mamba_7b.py), and the trace: demo_requests alternates
+# prompts of 509 and 254 tokens (neither a multiple of a flash tile or the
+# scan's chunk, so both pad), 2 arrivals a tick.
+SERVE_ARCHS = ("qwen3-0.6b", "falcon-mamba-7b")
+SERVE_TRACE = {"n_requests": 8, "prompt_len": 509, "gen": 32}
+SERVE_ENGINE = {"max_slots": 4, "prefill_chunk": 2}
+SERVE_STAGGER = 2
+# Card against CPU: 2 layers at full width in f32, TF32 off, 4 decode steps
+# after a 509-token prefill.  |card - cpu| <= a |cpu| + b max(1, max |cpu|):
+# both sides sum the same products in other orders (cuBLAS against MKL over
+# up to 16384 terms, the flash kernel's tiles against the plain version's,
+# ex2.approx in the scan against exp2), about 1e-6 relative a matmul,
+# compounded over a dozen matmuls, softmax and the 151,936-way head; a = 1e-3
+# and b = 1e-4 leave room for that and none for a fault (a misplaced pad or
+# cache row moves logits by O(1)).
+CARD_CPU_LAYERS, CARD_CPU_STEPS = 2, 4
+CARD_CPU_RTOL, CARD_CPU_ATOL = 1e-3, 1e-4
+# bf16 at full depth: each request's first-token logits from the engine
+# against the direct loop's (one prompt a prefill).  A request the engine
+# prefilled alone ran the same kernels on the same shapes: bit for bit.
+# One prefilled beside another prompt of its length went through matmuls
+# that cuBLAS rounds unlike a batch of one, and bf16 carries that through
+# every layer (64 in falcon-mamba-7b): its logit vector is held to a
+# relative L2 error of 0.1, where another prompt's logits would be ~1.4
+# away (two independent vectors of equal norm).
+SERVE_BF16_REL_L2 = 0.1
+SERVE_GEVO = {"pop_size": 4, "generations": 2, "n_requests": 8,
+              "prompt_len": 64, "gen": 8}
+
+
+def within(torch, got, want, rtol, atol) -> float:
+    """Raise unless |got - want| <= rtol |want| + atol max(1, max |want|);
+    returns the largest |got - want|."""
+    g, w = got.float().cpu(), want.float().cpu()
+    if g.shape != w.shape or not bool(torch.isfinite(g).all()):
+        raise AssertionError(f"shape {tuple(g.shape)} against "
+                             f"{tuple(w.shape)}, or not finite")
+    diff = (g - w).abs()
+    bound = rtol * w.abs() + atol * max(1.0, float(w.abs().max()))
+    if not bool((diff <= bound).all()):
+        raise AssertionError(f"max |diff| {float(diff.max()):.3e} beyond "
+                             f"{rtol} |want| + {atol} max(1, max |want|)")
+    return float(diff.max())
+
+
+def splice_caches(T, cfg, pre: dict, P: int, total: int, device) -> dict:
+    """A prefill's caches in decode caches of ``total`` positions (the
+    direct loop's splice: token-indexed leaves take the P positions)."""
+    full = T.init_cache(cfg, pre[next(iter(pre))].shape[1], total,
+                        device=device)
+    for k, f in full.items():
+        p = pre[k]
+        if p.shape == f.shape:
+            f.copy_(p)
+        elif p.dim() == f.dim() and p.shape[2] == P and f.shape[2] == total:
+            f[:, :, :P] = p
+    return full
+
+
+def direct_loop(torch, T, cfg, params, prompt, gen: int, tokens=None):
+    """The engine-independent oracle: prefill one prompt, then ``gen - 1``
+    decode steps, greedy (or feeding ``tokens``).  Returns (first-token
+    logits, every step's logits, tokens, caches)."""
+    dev = params.device
+    P = len(prompt)
+    logits, pre = T.prefill(params, {"tokens": prompt[None]}, cfg)
+    caches = splice_caches(T, cfg, pre, P, P + gen, dev)
+    steps = [logits]
+    out = [int(logits.argmax(-1)[0]) if tokens is None else tokens[0]]
+    for t in range(gen - 1):
+        tb = {"tokens": torch.tensor([[out[-1]]], device=dev),
+              "positions": torch.tensor([[P + t]], device=dev)}
+        logits, caches = T.decode_step(params, tb, caches, P + t, cfg)
+        steps.append(logits)
+        out.append(int(logits.argmax(-1)[0]) if tokens is None
+                   else tokens[t + 1])
+    return steps[0], steps, out, caches
+
+
+def card_against_cpu(torch, arch: str) -> dict:
+    """The port's prefill and decode steps of ``arch`` at full width, 2
+    layers, f32, on the card against the same on the CPU (same weights,
+    same tokens); then the engine's greedy tokens against the direct loop's
+    on the card."""
+    import copy
+
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core.deploy import ServeEngine
+    from repro_torch.core.interp import full_f32
+    from repro_torch.core.liveloop.traces import demo_requests
+    from repro_torch.models import transformer as T
+    cfg = get_config(arch).scaled(n_layers=CARD_CPU_LAYERS, dtype="float32")
+    cpu = T.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                        device="cpu")
+    card = copy.deepcopy(cpu).to("cuda")
+    P = SERVE_TRACE["prompt_len"]
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab, P)
+    gen = CARD_CPU_STEPS + 1
+    t0 = time.perf_counter()
+    _, want, toks, want_caches = direct_loop(torch, T, cfg, cpu, prompt, gen)
+    cpu_s = time.perf_counter() - t0
+    with full_f32():
+        _, got, _, got_caches = direct_loop(torch, T, cfg, card, prompt, gen,
+                                            tokens=toks)
+        errs = {f"logits_{i}": within(torch, g, w, CARD_CPU_RTOL,
+                                      CARD_CPU_ATOL)
+                for i, (g, w) in enumerate(zip(got, want))}
+        errs.update({f"cache_{k}": within(torch, got_caches[k],
+                                          want_caches[k], CARD_CPU_RTOL,
+                                          CARD_CPU_ATOL)
+                     for k in want_caches})
+        # all at once: each tick prefills two prompts of one length as a
+        # batch, and the decode step runs four lanes
+        reqs = demo_requests(cfg, n_requests=4, prompt_len=P,
+                             gen=CARD_CPU_STEPS)
+        eng = ServeEngine(cfg, card, max_len=P + CARD_CPU_STEPS,
+                          **SERVE_ENGINE)
+        served = {r.uid: r.tokens for r in eng.run(reqs)}
+        direct = {r.uid: direct_loop(torch, T, cfg, card, r.tokens,
+                                     CARD_CPU_STEPS)[2] for r in reqs}
+    if served != direct:
+        raise AssertionError(f"{arch} f32: the engine's tokens {served} "
+                             f"differ from the direct loop's {direct}")
+    del card, cpu
+    torch.cuda.empty_cache()
+    return {"config": {"n_layers": cfg.n_layers, "d_model": cfg.d_model,
+                       "vocab": cfg.vocab, "dtype": "float32"},
+            "prompt_len": P, "decode_steps": CARD_CPU_STEPS,
+            "max_abs_err": errs, "cpu_s": cpu_s,
+            "engine_tokens_equal_direct": True}
+
+
+def full_depth_f32_agreement(torch, arch: str) -> dict:
+    """``arch`` at full width and depth in f32 (TF32 off) on the card: the
+    engine (all four requests at once, so prompts of one length share a
+    prefill and the decode step runs four lanes) against the direct loop,
+    token for token.  The bf16 server's disagreements are rounding only if
+    they vanish here; reported, held to nothing."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.deploy import ServeEngine
+    from repro_torch.core.interp import full_f32
+    from repro_torch.core.liveloop.traces import demo_requests
+    from repro_torch.models import transformer as T
+    cfg = get_config(arch).scaled(dtype="float32")
+    params = T.init_params(cfg, device="cuda")
+    gen = 8
+    reqs = demo_requests(cfg, n_requests=4,
+                         prompt_len=SERVE_TRACE["prompt_len"], gen=gen)
+    with full_f32():
+        eng = ServeEngine(cfg, params,
+                          max_len=SERVE_TRACE["prompt_len"] + gen,
+                          **SERVE_ENGINE)
+        served = {r.uid: r.tokens for r in eng.run(reqs)}
+        direct = {r.uid: direct_loop(torch, T, cfg, params, r.tokens,
+                                     gen)[2] for r in reqs}
+    del params, eng
+    torch.cuda.empty_cache()
+    agree = sum(a == b for r in reqs
+                for a, b in zip(served[r.uid], direct[r.uid]))
+    return {"n_layers": cfg.n_layers, "requests": len(reqs), "gen": gen,
+            "token_agreement": agree / (len(reqs) * gen)}
+
+
+def decode_idle_share(torch, engine, cfg, prompts) -> dict:
+    """One decode-only engine tick under torch.profiler: every prompt
+    admitted and prefilled in one tick, the next tick profiled."""
+    from repro_torch.core.deploy import ServeRequest
+    for i, p in enumerate(prompts):
+        engine.submit(ServeRequest(uid=f"idle{i}", tokens=p,
+                                   max_new_tokens=4))
+    engine.step()
+    if engine.queue:
+        raise AssertionError("the idle-share tick must find every prompt "
+                             "admitted")
+    out = idle_share(torch, engine.step)
+    while engine.busy:
+        engine.step()
+    return out
+
+
+def serve_model(torch, arch: str, counters) -> dict:
+    """``arch`` at full width and depth in bf16, weights made on the card:
+    the engine on the trace, its launches counted from zero, each
+    request's first-token logits and tokens against the direct loop."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core.deploy import ServeEngine
+    from repro_torch.core.liveloop.traces import demo_requests
+    from repro_torch.models import transformer as T
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    reqs = demo_requests(cfg, **SERVE_TRACE)
+    max_len = SERVE_TRACE["prompt_len"] + SERVE_TRACE["gen"]
+    # warm-up (library handles, first launches) outside the measured run
+    ServeEngine(cfg, params, max_len=max_len, **SERVE_ENGINE).run(
+        demo_requests(cfg, n_requests=2, prompt_len=max_len // 2, gen=2))
+    recorded = []
+    prefill = T.prefill
+
+    def recording(params_, batch, cfg_):
+        logits, caches = prefill(params_, batch, cfg_)
+        recorded.append((batch["tokens"].cpu().numpy(), logits.cpu()))
+        return logits, caches
+
+    engine = ServeEngine(cfg, params, max_len=max_len, **SERVE_ENGINE)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    T.prefill = recording
+    try:
+        results = engine.run(reqs, stagger=SERVE_STAGGER)
+        torch.cuda.synchronize()
+    finally:
+        T.prefill = prefill
+    launches = {k: fn.launches for k, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    stats = engine.stats()
+    want_kernels = ("rmsnorm", "flash_attention") if arch.startswith("qwen") \
+        else ("rmsnorm", "mamba_scan")
+    for k in want_kernels:
+        if launches[k] <= 0:
+            raise AssertionError(f"{arch}: the server never launched {k}")
+    first = {}   # prompt -> (first-token logits, prompts in its prefill)
+    for toks, logits in recorded:
+        for row, tk in zip(logits, toks):
+            first[np.asarray(tk, np.int64).tobytes()] = (row, len(toks))
+    by_uid = {r.uid: r for r in results}
+    if len(by_uid) != len(reqs):
+        raise AssertionError(f"{arch}: {len(by_uid)} of {len(reqs)} "
+                             "requests answered")
+    alone, grouped, agree, total = [], [], 0, 0
+    for req in reqs:
+        logits, _, toks, _ = direct_loop(torch, T, cfg, params, req.tokens,
+                                         SERVE_TRACE["gen"])
+        got, batch = first[np.asarray(req.tokens, np.int64).tobytes()]
+        want = logits[0].cpu()
+        if batch == 1:
+            if not torch.equal(got, want):
+                raise AssertionError(f"{arch} {req.uid}: a prefill of one "
+                                     "prompt differs from the direct loop's")
+            alone.append(req.uid)
+        else:
+            rel = float((got.float() - want.float()).norm()
+                        / want.float().norm())
+            if not rel <= SERVE_BF16_REL_L2:
+                raise AssertionError(f"{arch} {req.uid}: first-token logits "
+                                     f"{rel:.3f} (relative L2) from the "
+                                     "direct loop's")
+            grouped.append(rel)
+        served = by_uid[req.uid].tokens
+        if len(served) != SERVE_TRACE["gen"] or not all(
+                0 <= t < cfg.vocab for t in served):
+            raise AssertionError(f"{arch} {req.uid}: tokens {served}")
+        agree += sum(a == b for a, b in zip(served, toks))
+        total += len(toks)
+    per = stats["per_variant"]["default"]
+    idle = decode_idle_share(torch, ServeEngine(
+        cfg, params, max_len=max_len, max_slots=4, prefill_chunk=4),
+        cfg, [r.tokens for r in reqs[:4]])
+    del params, engine
+    torch.cuda.empty_cache()
+    return {"config": {"n_layers": cfg.n_layers, "d_model": cfg.d_model,
+                       "vocab": cfg.vocab, "dtype": cfg.dtype},
+            "init_s": init_s, "launches": launches,
+            "requests": len(results), "gen_tokens": stats["gen_tokens"],
+            "wall_s": stats["wall_s"],
+            "tokens_per_s": stats["throughput_tok_s"],
+            "mean_ttft_s": per["mean_ttft_s"],
+            "mean_latency_s": per["mean_latency_s"],
+            "s_per_token": per["s_per_token"],
+            "prefill_batches": stats["prefill_batches"],
+            "decode_batches": stats["decode_batches"],
+            "peak_allocated_bytes": peak,
+            "first_logits_bitwise_equal": alone,
+            "first_logits_rel_l2_grouped": grouped,
+            "token_agreement": agree / total, "tokens_compared": total,
+            "decode_tick": idle}
+
+
+def serve_gevo(torch) -> dict:
+    """A measured GEVO search over the serving plan of qwen3-0.6b at full
+    width on the card: its front."""
+    from repro_torch.core.deploy import build_serve_workload
+    from repro_torch.core.search import GevoML
+    g = SERVE_GEVO
+    wl = build_serve_workload("qwen3-0.6b", smoke=False,
+                              n_requests=g["n_requests"],
+                              prompt_len=g["prompt_len"], gen=g["gen"],
+                              device="cuda")
+    t0 = time.perf_counter()
+    res = GevoML(wl, pop_size=g["pop_size"], n_elite=2, seed=0,
+                 mutation_rate=1.0, operators={"attr_tweak": 1.0}).run(
+        generations=g["generations"])
+    wall = time.perf_counter() - t0
+    front = [{"genome": wl.space.decode(ind.patch.apply(wl.program)),
+              "s_per_token": ind.fitness[0],
+              "mean_latency_s": ind.fitness[1]} for ind in res.pareto]
+    if not front or not all(f["s_per_token"] > 0 for f in front):
+        raise AssertionError(f"serve GEVO: front {front}")
+    return {"workload": wl.name, **g, "wall_s": wall,
+            "original": list(res.original_fitness), "front": front}
+
+
+def scan_state(torch, wl) -> dict:
+    """The scan's final state (``return_state``) against the plain
+    version's, at the search shape in f32 and bf16 and at full width in
+    bf16, with the scan's tolerances; and the scan's time at full width
+    with and without it, and in f32 at the model's prefill shape (509
+    tokens padded to 512)."""
+    from repro_torch.kernels.mamba_scan.mamba_scan import mamba_scan_plain
+    from repro_torch.kernels.mamba_scan.ops import mamba_scan
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    out = {}
+    cases = [("search", wl.SHAPES["mamba_scan"], torch.float32),
+             ("search", wl.SHAPES["mamba_scan"], torch.bfloat16),
+             ("full", FULL["mamba_scan"], torch.bfloat16)]
+    for where, s, dtype in cases:
+        inputs = full_inputs(torch, "mamba_scan", gen) if where == "full" \
+            else to_dtype(torch, "mamba_scan",
+                          full_inputs_small(torch, s, gen), dtype)
+        args = [inputs[k] for k in ("dt", "x", "A", "B", "C")]
+        y, h = mamba_scan(*args, chunk=64, return_state=True)
+        yp, hp = mamba_scan_plain(*args, chunk=min(64, s["L"]),
+                                  return_state=True)
+        name = str(dtype)[6:]
+        out[f"{where} {name}"] = {
+            "y": check_close(torch, "mamba_scan", f"{where} y", y, yp, name),
+            "h_last": check_close(torch, "mamba_scan", f"{where} h_last",
+                                  h, hp, name)}
+        del inputs, args, y, h, yp, hp
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    inputs = full_inputs(torch, "mamba_scan", gen)
+    args = [inputs[k] for k in ("dt", "x", "A", "B", "C")]
+    out["full_bf16_ms"] = {
+        "y": time_ms(torch, lambda: mamba_scan(*args, chunk=64), reps=20,
+                     flush=flush),
+        "y_and_h_last": time_ms(torch, lambda: mamba_scan(
+            *args, chunk=64, return_state=True), reps=20, flush=flush)}
+    model = {"Bt": 1, "L": 512, "D": FULL["mamba_scan"]["D"],
+             "N": FULL["mamba_scan"]["N"]}
+    f32 = full_inputs_small(torch, model, gen)
+    args = [f32[k] for k in ("dt", "x", "A", "B", "C")]
+    out["model_f32_ms"] = {"shape": model, "y_and_h_last": time_ms(
+        torch, lambda: mamba_scan(*args, chunk=64, return_state=True),
+        reps=20, flush=flush)}
+    del flush, inputs, f32, args
+    torch.cuda.empty_cache()
+    return out
+
+
+def full_inputs_small(torch, s, gen):
+    dev = torch.device("cuda")
+    seq = (s["Bt"], s["L"], s["D"])
+    return {"dt": torch.nn.functional.softplus(
+                torch.randn(seq, generator=gen, device=dev)),
+            "x": torch.randn(seq, generator=gen, device=dev),
+            "A": -torch.exp(torch.randn((s["D"], s["N"]), generator=gen,
+                                        device=dev) * 0.3),
+            "B": torch.randn((s["Bt"], s["L"], s["N"]), generator=gen,
+                             device=dev),
+            "C": torch.randn((s["Bt"], s["L"], s["N"]), generator=gen,
+                             device=dev)}
+
+
+def phase_serve(torch, wl, counters) -> dict:
+    """The model stack and the server on the card (see the module
+    docstring)."""
+    out = {"phase": "serve", "gpu": nvidia_smi(),
+           "tolerance": {"card_cpu": {"rtol": CARD_CPU_RTOL,
+                                      "atol_of_max": CARD_CPU_ATOL},
+                         "first_logits_bf16_rel_l2": SERVE_BF16_REL_L2}}
+    out["scan_state"] = scan_state(torch, wl)
+    out["card_against_cpu"] = {a: card_against_cpu(torch, a)
+                               for a in SERVE_ARCHS}
+    out["server"] = {a: serve_model(torch, a, counters) for a in SERVE_ARCHS}
+    out["full_depth_f32"] = {a: full_depth_f32_agreement(torch, a)
+                             for a in SERVE_ARCHS}
+    out["gevo"] = serve_gevo(torch)
+    out["launches"] = {k: sum(m["launches"][k]
+                              for m in out["server"].values())
+                       for k in counters}
+    emit(out)
+    return out
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels").is_dir():
         print("chip_smoke.py: run it from a checkout of the repository "
@@ -1714,11 +2133,13 @@ def main() -> int:
     phase_programs(torch)
     islands = phase_islands(torch, wl, counters)
     tensor = phase_tensor(torch, wl, counters)
+    serve = phase_serve(torch, wl, counters)
 
     # launches: in the kernel's own measured search; launches_joint_static:
     # in the joint static search; launches_islands: in the measured
     # flash-attention islands; launches_tensor and launches_fleet: in the
-    # tensorized engine's run and the mesh fleet's
+    # tensorized engine's run and the mesh fleet's; launches_serve: in the
+    # server's runs of qwen3-0.6b and falcon-mamba-7b
     emit({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCES[k],
          "replaces": REPLACES[k], "launches": launches["measured"][k][k],
@@ -1726,6 +2147,7 @@ def main() -> int:
          "launches_islands": islands["launches"][k],
          "launches_tensor": tensor["engine"]["launches"][k],
          "launches_fleet": tensor["fleet"]["launches"][k],
+         "launches_serve": serve["launches"][k],
          "max_abs_err": full[k]["max_abs_err"], "ms": full[k]["kernel_ms"],
          "plain_ms": full[k]["plain_ms"], "bound_ms": full[k]["bound_ms"],
          "bound_by": full[k]["bound_by"],

@@ -2,14 +2,17 @@
 registry and Patch algebra, schedule genomes, NSGA-II search, the cached
 evaluation engine, the island-model orchestrator (multi-population search
 with migration over a shared cache), the tensorized engine (whole
-populations as index tensors on the device), the deployment layer's front
-and registry, and the surrogate layer.
+populations as index tensors on the device), the deployment layer
+(Pareto-front queries, the artifact registry, the continuous-batching
+serving engine and its KV plan), the live loop's traces, and the surrogate
+layer.
 
-Modules of later slices (the rest of deployment, the live loop, the model
-stack) are listed in ROADMAP.md.
+Modules of later slices (the router, the rest of the live loop, the mesh
+launch stack, training) are listed in ROADMAP.md.
 """
 
-from .deploy import Artifact, ArtifactRegistry, FrontMember, ParetoFront
+from .deploy import (Artifact, ArtifactRegistry, FrontMember, ParetoFront,
+                     ServeEngine, ServeRequest, ServeResult)
 from .edits import (Edit, EditError, EditOp, OperatorStats, OperatorWeights,
                     Patch, apply_patch, minimize_patch, register_edit,
                     registered_ops, sample_edit)
@@ -40,6 +43,7 @@ __all__ = [
     "IslandOrchestrator", "IslandResult", "IslandSpec",
     "default_island_specs", "plan_islands",
     "ParetoFront", "FrontMember", "Artifact", "ArtifactRegistry",
+    "ServeEngine", "ServeRequest", "ServeResult",
     "GenomeEncoding", "TensorNSGA2", "TensorEvaluator",
     "make_tensor_evaluator", "TensorGevoML", "TensorIslandFleet",
     "SurrogateGuide", "SurrogateModel", "make_featurizer",

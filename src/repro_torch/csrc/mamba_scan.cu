@@ -1,6 +1,10 @@
 // Mamba-1 selective scan for Hopper (sm_90a):
 //   h_t = exp(dt_t * A) . h_{t-1} + (dt_t * x_t) B_t,   y_t = h_t . C_t
-// with the (D, N) state in f32 registers for the whole sequence.
+// with the (D, N) state in f32 registers for the whole sequence, and, when
+// asked, the state after the last step (h_last, which a model's prefill
+// hands to its decode cache), written once after the time loop.  Whether
+// it is written is a template parameter, so the kernel that writes only y
+// does no more work than it did before h_last existed.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/mamba_scan/mamba_scan.py
 // (_scan_kernel, launched by mamba_scan_fwd).  As there, the decay
@@ -185,12 +189,13 @@ __device__ __forceinline__ void reduce_scatter(float (&v)[U], int p) {
 // mamba_scan_fwd refuses a launch made for another.
 __host__ __device__ constexpr int lanes_for(int N) { return N < 4 ? N : 4; }
 
-template <typename T, int N>
+template <typename T, int N, bool kState>
 __global__ void __launch_bounds__(kChannels * lanes_for(N))
 scan_kernel(const T* __restrict__ dt, const T* __restrict__ x,
             const float* __restrict__ A, const T* __restrict__ B,
-            const T* __restrict__ C, T* __restrict__ y, int L, int D,
-            int chunk, bool vec_rows, bool vec_bc) {
+            const T* __restrict__ C, T* __restrict__ y,
+            float* __restrict__ h_last, int L, int D, int chunk,
+            bool vec_rows, bool vec_bc) {
   constexpr int P = lanes_for(N);
   constexpr int S = N / P;
   constexpr int kThreads = kChannels * P;
@@ -376,6 +381,12 @@ scan_kernel(const T* __restrict__ dt, const T* __restrict__ x,
   }
   __syncthreads();
   store_tile(tiles - 1);
+  if constexpr (kState) {
+    if (d >= D) return;
+    float* hp = h_last + (static_cast<long>(blockIdx.y) * D + d) * N + p * S;
+#pragma unroll
+    for (int s = 0; s < S; ++s) hp[s] = h[s];
+  }
 }
 
 bool aligned16(const void* p) {
@@ -384,9 +395,11 @@ bool aligned16(const void* p) {
 
 template <typename T, int N>
 cudaError_t launch(const void* dt, const void* x, const void* A,
-                   const void* B, const void* C, void* y, int Bt, int L,
-                   int D, int chunk, int smem, cudaStream_t stream) {
-  auto kernel = scan_kernel<T, N>;
+                   const void* B, const void* C, void* y, void* h_last,
+                   int Bt, int L, int D, int chunk, int smem,
+                   cudaStream_t stream) {
+  auto kernel = h_last != nullptr ? scan_kernel<T, N, true>
+                                  : scan_kernel<T, N, false>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const bool vec_rows = (D * sizeof(T)) % 16 == 0 && aligned16(dt) &&
@@ -397,36 +410,43 @@ cudaError_t launch(const void* dt, const void* x, const void* A,
   kernel<<<grid, kChannels * lanes_for(N), smem, stream>>>(
       static_cast<const T*>(dt), static_cast<const T*>(x),
       static_cast<const float*>(A), static_cast<const T*>(B),
-      static_cast<const T*>(C), static_cast<T*>(y), L, D, chunk, vec_rows,
-      vec_bc);
+      static_cast<const T*>(C), static_cast<T*>(y),
+      static_cast<float*>(h_last), L, D, chunk, vec_rows, vec_bc);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch(const void* dt, const void* x, const void* A,
-                     const void* B, const void* C, void* y, int Bt, int L,
-                     int D, int N, int chunk, int smem, cudaStream_t s) {
+                     const void* B, const void* C, void* y, void* h, int Bt,
+                     int L, int D, int N, int chunk, int smem,
+                     cudaStream_t s) {
+#define SCAN_CASE(n) \
+  case n:            \
+    return launch<T, n>(dt, x, A, B, C, y, h, Bt, L, D, chunk, smem, s);
   switch (N) {
-    case 1: return launch<T, 1>(dt, x, A, B, C, y, Bt, L, D, chunk, smem, s);
-    case 2: return launch<T, 2>(dt, x, A, B, C, y, Bt, L, D, chunk, smem, s);
-    case 4: return launch<T, 4>(dt, x, A, B, C, y, Bt, L, D, chunk, smem, s);
-    case 8: return launch<T, 8>(dt, x, A, B, C, y, Bt, L, D, chunk, smem, s);
-    case 16: return launch<T, 16>(dt, x, A, B, C, y, Bt, L, D, chunk, smem, s);
-    case 32: return launch<T, 32>(dt, x, A, B, C, y, Bt, L, D, chunk, smem, s);
+    SCAN_CASE(1)
+    SCAN_CASE(2)
+    SCAN_CASE(4)
+    SCAN_CASE(8)
+    SCAN_CASE(16)
+    SCAN_CASE(32)
     default: return cudaErrorInvalidValue;
   }
+#undef SCAN_CASE
 }
 
 }  // namespace
 
 // dt, x, y: (Bt, L, D); A: (D, N) f32; B, C: (Bt, L, N); all contiguous.
+// h_last: (Bt, D, N) f32, the state after step L - 1, or null for none.
 // N is a power of two up to 32.  `lanes` and `channels` are the geometry of
 // geometry() in repro_torch/kernels/mamba_scan/mamba_scan.py (lanes a
 // channel, channels a block), checked against this kernel's; smem must be
 // at least its smem_bytes.
 extern "C" int mamba_scan_fwd(const void* dt, const void* x, const void* A,
-                              const void* B, const void* C, void* y, int Bt,
-                              int L, int D, int N, int chunk, int dtype,
+                              const void* B, const void* C, void* y,
+                              void* h_last, int Bt, int L, int D, int N,
+                              int chunk, int dtype,
                               int lanes, int channels, int smem,
                               void* stream) {
   const int esize = dtype == kF32 ? 4 : 2;
@@ -438,9 +458,10 @@ extern "C" int mamba_scan_fwd(const void* dt, const void* x, const void* A,
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kF32)
-    return dispatch<float>(dt, x, A, B, C, y, Bt, L, D, N, chunk, smem, s);
+    return dispatch<float>(dt, x, A, B, C, y, h_last, Bt, L, D, N, chunk,
+                           smem, s);
   if (dtype == kBF16)
-    return dispatch<__nv_bfloat16>(dt, x, A, B, C, y, Bt, L, D, N, chunk,
-                                   smem, s);
+    return dispatch<__nv_bfloat16>(dt, x, A, B, C, y, h_last, Bt, L, D, N,
+                                   chunk, smem, s);
   return cudaErrorInvalidValue;
 }

@@ -6,7 +6,9 @@ The kernel replaces the Pallas TPU kernel of
 ``src/repro/kernels/mamba_scan/mamba_scan.py`` (``_scan_kernel``).  It
 computes ``h_t = exp(dt_t A) h_{t-1} + dt_t x_t B_t``, ``y_t = C_t . h_t``
 with the (D, N) state in f32, forming the decay and drive in registers so
-the (Bt, L, D, N) tensors never reach HBM.  A block carries 32 channels
+the (Bt, L, D, N) tensors never reach HBM; on request it also writes the
+state after the last step (``h_last``, (Bt, D, N) f32), which a model's
+prefill hands to its decode cache.  A block carries 32 channels
 through the whole sequence, each channel's states split over ``min(N, 4)``
 lanes; ``chunk`` timesteps of dt/x/B/C are staged in shared memory at a
 time, in two stages so the next tile loads while this one is scanned.
@@ -23,7 +25,7 @@ from .. import build
 CHANNELS = 32   # channels a block
 MAX_LANES = 4   # lanes a channel
 
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
 
 
 def geometry(shape: dict) -> dict:
@@ -56,11 +58,13 @@ def smem_bytes(knobs: dict, shape: dict, dtype: torch.dtype):
             + 2 * _round16(4 * chunk * n) + 2 * rows)
 
 
-def mamba_scan_plain(dt, x, A, B, C, *, chunk: int) -> torch.Tensor:
+def mamba_scan_plain(dt, x, A, B, C, *, chunk: int,
+                     return_state: bool = False):
     """The kernel's algorithm in plain PyTorch: ``chunk`` timesteps staged
     as f32 at a time, then scanned one step after another with the (D, N)
     state in f32; the decay is ``exp2(dt * (A log2 e))``, as the kernel
-    forms it."""
+    forms it.  With ``return_state``, also the state after the last
+    step."""
     Bt, L, D = x.shape
     y = torch.empty_like(x)
     A2 = A.to(torch.float32) * 1.4426950408889634
@@ -78,18 +82,21 @@ def mamba_scan_plain(dt, x, A, B, C, *, chunk: int) -> torch.Tensor:
             h = decay * h + dtx[:, t, :, None] * Bs[:, t, None, :]
             ys[:, t] = (h * Cs[:, t, None, :]).sum(-1)
         y[:, t0:t0 + chunk] = ys.to(x.dtype)
-    return y
+    return (y, h) if return_state else y
 
 
-def mamba_scan_launch(dt, x, A, B, C, y, *, chunk: int, smem: int) -> None:
-    """Launch the CUDA kernel on PyTorch's current stream.  The caller has
-    checked the arguments (``ops.mamba_scan``)."""
+def mamba_scan_launch(dt, x, A, B, C, y, h_last, *, chunk: int,
+                      smem: int) -> None:
+    """Launch the CUDA kernel on PyTorch's current stream; ``h_last`` (a
+    (Bt, D, N) f32 tensor, or None) receives the final state.  The caller
+    has checked the arguments (``ops.mamba_scan``)."""
     fn = build.function("mamba_scan", "mamba_scan_fwd", _ARGTYPES)
     Bt, L, D = x.shape
     N = A.shape[1]
     geo = geometry({"Bt": Bt, "L": L, "D": D, "N": N})
     err = fn(dt.data_ptr(), x.data_ptr(), A.data_ptr(), B.data_ptr(),
-             C.data_ptr(), y.data_ptr(), Bt, L, D, N, chunk,
+             C.data_ptr(), y.data_ptr(),
+             None if h_last is None else h_last.data_ptr(), Bt, L, D, N, chunk,
              build.DTYPE_CODES[x.dtype], geo["lanes"], geo["channels"], smem,
              build.stream_ptr(x.device))
     build.check("mamba_scan", err, "mamba_scan_fwd")

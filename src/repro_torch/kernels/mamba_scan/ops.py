@@ -15,9 +15,12 @@ from ..cpu import init_vector_math
 from .mamba_scan import mamba_scan_launch, mamba_scan_plain, smem_bytes
 
 
-def mamba_scan(dt, x, A, B, C, *, chunk: int = 64) -> torch.Tensor:
+def mamba_scan(dt, x, A, B, C, *, chunk: int = 64,
+               return_state: bool = False):
     """Selective scan: h_t = exp(dt_t A) h_{t-1} + dt_t x_t B_t; y = C.h.
-    dt, x: (Bt, L, D); A: (D, N) float32; B, C: (Bt, L, N)."""
+    dt, x: (Bt, L, D); A: (D, N) float32; B, C: (Bt, L, N).  Returns y, or
+    ``(y, h_last)`` with ``return_state``: the (Bt, D, N) float32 state
+    after the last step, bit-identical across ``chunk`` as y is."""
     Bt, L, D = x.shape
     N = A.shape[1] if A.dim() == 2 else -1
     if dt.shape != x.shape or A.shape != (D, N) \
@@ -32,7 +35,8 @@ def mamba_scan(dt, x, A, B, C, *, chunk: int = 64) -> torch.Tensor:
     devices = {t.device for t in tensors}
     if devices == {torch.device("cpu")}:
         init_vector_math()
-        return mamba_scan_plain(dt, x, A, B, C, chunk=chunk)
+        return mamba_scan_plain(dt, x, A, B, C, chunk=chunk,
+                                return_state=return_state)
     if len(devices) != 1 or x.device.type != "cuda":
         raise ValueError(f"mamba_scan: tensors on "
                          f"{sorted(map(str, devices))}; the kernel takes one "
@@ -47,12 +51,14 @@ def mamba_scan(dt, x, A, B, C, *, chunk: int = 64) -> torch.Tensor:
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("mamba_scan: inputs must be contiguous")
     y = torch.empty_like(x)
-    mamba_scan_launch(dt, x, A, B, C, y, chunk=chunk,
+    h = (torch.empty((Bt, D, N), dtype=torch.float32, device=x.device)
+         if return_state else None)
+    mamba_scan_launch(dt, x, A, B, C, y, h, chunk=chunk,
                       smem=smem_bytes({"chunk": chunk},
                                       {"Bt": Bt, "L": L, "D": D, "N": N},
                                       x.dtype))
     mamba_scan.launches += 1
-    return y
+    return (y, h) if return_state else y
 
 
 mamba_scan.launches = 0

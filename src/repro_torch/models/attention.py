@@ -1,0 +1,299 @@
+"""Attention blocks: GQA (bias / qk-norm / RoPE / M-RoPE variants) and MLA
+(DeepSeek multi-head latent attention, with compressed-cache absorbed decode).
+
+The counterpart of ``src/repro/models/attention.py``.  Every full-sequence
+GQA attention runs on the flash-attention kernel's wrapper
+(``kernels/flash_attention/ops.py``), whichever ``attn_impl`` the config
+names: the reference's naive einsum softmax and its blockwise form compute
+the same function, and the two knobs only choose the kernel's tiles
+(:func:`attention_tiles`).  Decode attention (one query against the cache)
+and MLA are torch ops, as the reference computes them outside any kernel.
+
+Which path a call takes is decided by shape and config before any launch:
+
+* causal attention is padded at the end to the tile; a real query never
+  sees a padded key (its masked score is -1e30, so its weight is 0), and
+  the padded rows are sliced off;
+* non-causal attention (the encoder, hubert) is not padded, since every
+  query would see a padded key: its tile is the largest divisor of S at
+  most the tile;
+* on the card the kernel's gates apply as they are: a head dim it is not
+  built for (it takes 32, 64 and 128; hubert has 80, the smoke configs 16
+  or 18) raises the wrapper's ``ValueError``;
+* MLA's q/k head dim (192) differs from its v head dim (128), which the
+  kernel does not take: its attention is torch ops.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..kernels.flash_attention.ops import flash_attention
+from .common import ModelConfig
+from .layers import Params, apply_mrope, apply_rope, dense_init, rms_norm
+
+NEG_INF = -1e30
+
+# the kernel's shipped tile (kernels/workloads.py BASELINES), the tile
+# attn_impl="naive" takes; the largest tile each dtype's kernel takes at
+# every head dim it is built for (f32 stages one K and one V tile of
+# block_k rows in shared memory, which 256 rows of head dim 128 overflow)
+NAIVE_TILE = 128
+MAX_TILE = {torch.bfloat16: 256, torch.float32: 128}
+MIN_TILE = 16
+
+
+# --------------------------------------------------------------------------
+# init
+# --------------------------------------------------------------------------
+
+def init_attn(cfg: ModelConfig, dtype, *, generator, device) -> Params:
+    d, H, K, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+
+    def w(shape, in_axis=-2):
+        return dense_init(shape, generator=generator, device=device,
+                          in_axis=in_axis, dtype=dtype)
+
+    def const(fill, *shape):
+        return torch.full(shape, fill, dtype=dtype, device=device)
+
+    if cfg.mla:
+        r_q, r_kv = cfg.q_lora_rank, cfg.kv_lora_rank
+        nope, rope, vdim = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+        return Params(
+            wq_a=w((d, r_q)), q_norm=const(1.0, r_q),
+            wq_b=w((r_q, H, nope + rope)),
+            wkv_a=w((d, r_kv + rope)), kv_norm=const(1.0, r_kv),
+            wkv_b=w((r_kv, H, nope + vdim)),
+            wo=w((H, vdim, d), in_axis=0))
+    p = {"wq": w((d, H, hd), in_axis=0), "wk": w((d, K, hd), in_axis=0),
+         "wv": w((d, K, hd), in_axis=0), "wo": w((H, hd, d), in_axis=0)}
+    if cfg.qkv_bias:
+        p.update(bq=const(0.0, H, hd), bk=const(0.0, K, hd),
+                 bv=const(0.0, K, hd))
+    if cfg.qk_norm:
+        p.update(q_scale=const(1.0, hd), k_scale=const(1.0, hd))
+    return Params(**p)
+
+
+# --------------------------------------------------------------------------
+# core attention math
+# --------------------------------------------------------------------------
+
+def _proj(x, w):
+    """einsum("bsd,d...->bs...", x, w) as one matmul."""
+    return (x @ w.reshape(w.shape[0], -1)).reshape(
+        x.shape[:-1] + w.shape[1:])
+
+
+def _out(o, wo):
+    """einsum("bshk,hkd->bsd", o, wo) as one matmul."""
+    return o.reshape(o.shape[:2] + (-1,)) @ wo.reshape(-1, wo.shape[-1])
+
+
+def _sdpa(q, k, v, mask, scale):
+    """q:(B,S,H,hd) k/v:(B,T,K,*) grouped-query attention with fp32 softmax;
+    mask (B or 1, S, T), True where a query may attend."""
+    B, S, H, hd = q.shape
+    K = k.shape[2]
+    G = H // K
+    if G == 1:
+        logits = torch.einsum("bshk,bthk->bhst", q, k).to(torch.float32)
+        logits = (logits * scale).masked_fill(~mask[:, None], NEG_INF)
+        probs = torch.softmax(logits, dim=-1).to(v.dtype)
+        return torch.einsum("bhst,bthk->bshk", probs, v)
+    q = q.reshape(B, S, K, G, hd)
+    logits = torch.einsum("bskgh,btkh->bkgst", q, k).to(torch.float32)
+    logits = (logits * scale).masked_fill(~mask[:, None, None], NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgst,btkh->bskgh", probs, v)
+    return out.reshape(B, S, H, -1)
+
+
+def causal_mask(S: int, T: int, device=None):
+    """(1, S, T) True where query i may attend key j (j <= i)."""
+    qi = torch.arange(S, device=device)[:, None]
+    kj = torch.arange(T, device=device)[None, :]
+    return (kj <= qi)[None]
+
+
+def attention_tiles(cfg: ModelConfig, S: int, dtype) -> tuple[int, int]:
+    """The flash kernel's (tile, padded length) for a sequence of S, by one
+    rule: ``attn_impl="blockwise"`` asks for ``attn_block`` rows a tile,
+    ``"naive"`` for the kernel's shipped 128; the tile is the largest power
+    of two at most that, at most the dtype's ``MAX_TILE`` and at least 16,
+    halved while half of it still covers S.  ``block_q = block_k = tile``:
+    every such tile is one the kernel is instantiated for (a multiple of 8
+    up to 256; a bf16 ``block_k`` of its list).  Causal attention pads S up
+    to a multiple of the tile; non-causal takes the largest divisor of S at
+    most the tile, unpadded."""
+    want = cfg.attn_block if cfg.attn_impl == "blockwise" else NAIVE_TILE
+    cap = min(want, MAX_TILE.get(dtype, MAX_TILE[torch.float32]))
+    tile = MIN_TILE
+    while tile * 2 <= cap:
+        tile *= 2
+    while tile > MIN_TILE and tile // 2 >= S:
+        tile //= 2
+    if not cfg.causal:
+        tile = next(t for t in range(min(tile, S), 0, -1) if S % t == 0)
+        return tile, S
+    return tile, -(-S // tile) * tile
+
+
+def flash_sdpa(q, k, v, cfg: ModelConfig):
+    """Full-sequence attention of (B, S, H, hd) q, k, v (KV heads already
+    expanded) on the flash kernel: to (B, H, S, hd), padded at the end to
+    the tile when causal, and back."""
+    S = q.shape[1]
+    tile, Sp = attention_tiles(cfg, S, q.dtype)
+
+    def heads_first(t):
+        t = t.transpose(1, 2)
+        if Sp != S:
+            t = torch.nn.functional.pad(t, (0, 0, 0, Sp - S))
+        return t.contiguous()
+
+    out = flash_attention(heads_first(q), heads_first(k), heads_first(v),
+                          causal=cfg.causal, block_q=tile, block_k=tile)
+    return out[:, :, :S].transpose(1, 2)
+
+
+# --------------------------------------------------------------------------
+# GQA forward (train / prefill / decode)
+# --------------------------------------------------------------------------
+
+def _project_qkv(p, cfg: ModelConfig, x, positions):
+    q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_scale"], cfg.norm_eps)
+        k = rms_norm(k, p["k_scale"], cfg.norm_eps)
+    if cfg.mrope:
+        q = apply_mrope(q, positions, cfg.rope_theta)
+        k = apply_mrope(k, positions, cfg.rope_theta)
+    elif cfg.causal:  # encoder-only hubert uses no rotary (conv pos emb stub)
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def gqa_forward(p, cfg: ModelConfig, x, positions):
+    """Full-sequence attention (training / prefill). Returns (y, (k, v)).
+
+    KV heads are expanded to the full head count, as the reference does, so
+    the kernel runs plain MHA."""
+    q, k, v = _project_qkv(p, cfg, x, positions)
+    G = cfg.n_heads // cfg.n_kv_heads
+    ke = k.repeat_interleave(G, dim=2) if G > 1 else k
+    ve = v.repeat_interleave(G, dim=2) if G > 1 else v
+    out = flash_sdpa(q, ke, ve, cfg)
+    return _out(out, p["wo"]), (k, v)
+
+
+def lane_index(index, batch: int, device) -> torch.Tensor | int:
+    """A decode step's cache index: one for the whole batch (an int, as the
+    reference's direct loop passes it) or one a lane (a (batch,) tensor:
+    continuous batching)."""
+    if isinstance(index, torch.Tensor) and index.dim() == 1:
+        if index.shape != (batch,):
+            raise ValueError(f"decode index of shape {tuple(index.shape)} "
+                             f"for a batch of {batch}")
+        return index.to(device=device, dtype=torch.long)
+    return int(index)
+
+
+def _write_rows(cache, new, index):
+    """Write ``new`` (B, ...) at sequence position ``index`` of ``cache``
+    (B, T, ...) in place, per lane when ``index`` is a tensor."""
+    if isinstance(index, int):
+        cache[:, index] = new
+    else:
+        cache[torch.arange(cache.shape[0], device=cache.device),
+              index] = new
+
+
+def _decode_mask(index, T: int, device):
+    kj = torch.arange(T, device=device)
+    if isinstance(index, int):
+        return (kj <= index)[None, None]                  # (1, 1, T)
+    return (kj[None] <= index[:, None])[:, None]          # (B, 1, T)
+
+
+def gqa_decode(p, cfg: ModelConfig, x, cache_k, cache_v, index, positions):
+    """One-token decode against a (B, S_max, K, hd) KV cache.
+
+    ``index`` is the current length: an int, or one a lane as a (B,)
+    tensor; the new token's K/V are written at ``index`` (in place: the
+    caches passed in are the ones returned) and attention spans positions
+    <= index."""
+    q, k, v = _project_qkv(p, cfg, x, positions)           # S == 1
+    index = lane_index(index, x.shape[0], x.device)
+    _write_rows(cache_k, k[:, 0], index)
+    _write_rows(cache_v, v[:, 0], index)
+    mask = _decode_mask(index, cache_k.shape[1], x.device)
+    out = _sdpa(q, cache_k, cache_v, mask, 1.0 / np.sqrt(cfg.hd))
+    return _out(out, p["wo"]), (cache_k, cache_v)
+
+
+# --------------------------------------------------------------------------
+# MLA (DeepSeek-V3)
+# --------------------------------------------------------------------------
+
+def _mla_query(p, cfg: ModelConfig, x, positions):
+    nope = cfg.qk_nope_dim
+    q = rms_norm(_proj(x, p["wq_a"]), p["q_norm"], cfg.norm_eps)
+    q = _proj(q, p["wq_b"])
+    return q[..., :nope], apply_rope(q[..., nope:], positions,
+                                     cfg.rope_theta)
+
+
+def _mla_latent(p, cfg: ModelConfig, x, positions):
+    kv = _proj(x, p["wkv_a"])
+    c_kv = rms_norm(kv[..., :cfg.kv_lora_rank], p["kv_norm"], cfg.norm_eps)
+    k_rope = apply_rope(kv[..., None, cfg.kv_lora_rank:], positions,
+                        cfg.rope_theta)
+    return c_kv, k_rope
+
+
+def mla_forward(p, cfg: ModelConfig, x, positions):
+    """Full-sequence MLA. Returns (y, (c_kv, k_rope)) — the compressed
+    cache.  Torch ops for either ``attn_impl``: the kernel takes no q/k
+    head dim that differs from v's."""
+    nope, rope = cfg.qk_nope_dim, cfg.qk_rope_dim
+    q_nope, q_rope = _mla_query(p, cfg, x, positions)
+    c_kv, k_rope = _mla_latent(p, cfg, x, positions)
+    kvu = _proj(c_kv, p["wkv_b"])
+    k_nope, v = kvu[..., :nope], kvu[..., nope:]
+    k = torch.cat([k_nope, k_rope.expand(k_nope.shape[:-1] + (rope,))], -1)
+    qk = torch.cat([q_nope, q_rope], -1)
+    S = x.shape[1]
+    out = _sdpa(qk, k, v, causal_mask(S, S, device=x.device),
+                1.0 / np.sqrt(nope + rope))
+    return _out(out, p["wo"]), (c_kv, k_rope[..., 0, :])
+
+
+def mla_decode(p, cfg: ModelConfig, x, cache_ckv, cache_krope, index,
+               positions):
+    """Absorbed-weight MLA decode: attention runs in the compressed
+    kv_lora space, so the cache is (B, S, r_kv) + (B, S, rope) only.
+    ``index`` as for :func:`gqa_decode`; the caches are written in place."""
+    nope, rope = cfg.qk_nope_dim, cfg.qk_rope_dim
+    q_nope, q_rope = _mla_query(p, cfg, x, positions)
+    # absorb k_nope projection into the query:  q' = q_nope @ W_kv_b[:, :, :nope]^T
+    q_abs = torch.einsum("bshk,rhk->bshr", q_nope, p["wkv_b"][..., :nope])
+    c_kv, k_rope = _mla_latent(p, cfg, x, positions)
+    index = lane_index(index, x.shape[0], x.device)
+    _write_rows(cache_ckv, c_kv[:, 0], index)
+    _write_rows(cache_krope, k_rope[:, 0, 0], index)
+    logits = (torch.einsum("bshr,btr->bhst", q_abs, cache_ckv)
+              + torch.einsum("bshk,btk->bhst", q_rope, cache_krope))
+    logits = logits.to(torch.float32) / np.sqrt(nope + rope)
+    mask = _decode_mask(index, cache_ckv.shape[1], x.device)   # (B|1,1,T)
+    logits = logits.masked_fill(~mask[:, None], NEG_INF)
+    probs = torch.softmax(logits, -1).to(x.dtype)
+    ctx = torch.einsum("bhst,btr->bshr", probs, cache_ckv)
+    # un-absorb the value projection
+    out = torch.einsum("bshr,rhk->bshk", ctx, p["wkv_b"][..., nope:])
+    return _out(out, p["wo"]), (cache_ckv, cache_krope)

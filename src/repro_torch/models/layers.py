@@ -1,0 +1,132 @@
+"""Shared neural-net layers: norms, rotary embeddings, MLPs, initializers,
+and the parameter container every block is made of.
+
+The counterpart of ``src/repro/models/layers.py``.  ``rms_norm`` runs on the
+fused RMSNorm kernel's wrapper (``kernels/rmsnorm/ops.py``): the hand-written
+CUDA kernel on the card, its plain PyTorch version on CPU tensors.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..kernels.rmsnorm.ops import rmsnorm
+
+MAX_NORM_BLOCK_ROWS = 128
+
+
+class Params(nn.Module):
+    """A named group of parameters, read by key as the reference's parameter
+    dicts are (``p["wq"]``, ``"bq" in p``).  Tensors become frozen
+    ``nn.Parameter``s (the port has no backward yet); modules nest."""
+
+    def __init__(self, **members):
+        super().__init__()
+        for name, value in members.items():
+            if isinstance(value, nn.Module):
+                self.add_module(name, value)
+            else:
+                self.register_parameter(
+                    name, nn.Parameter(value, requires_grad=False))
+
+    def __getitem__(self, name: str):
+        return getattr(self, name)
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._parameters or name in self._modules
+
+
+def dense_init(shape, *, generator, device, in_axis: int = -2,
+               dtype=torch.float32) -> torch.Tensor:
+    """Normal weights at ``1/sqrt(fan_in)`` scale, as the reference's
+    ``dense_init``, drawn from ``generator`` on ``device`` (a ``meta``
+    device gives the empty tensor of the shape: the skeleton the weight
+    converter fills)."""
+    fan_in = shape[in_axis] if len(shape) > 1 else shape[0]
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
+    w = torch.randn(shape, generator=generator, device=device)
+    return (w / float(np.sqrt(fan_in))).to(dtype)
+
+
+def norm_block_rows(rows: int) -> int:
+    """The rmsnorm kernel's ``block_rows`` for ``rows`` rows: the largest
+    divisor of ``rows`` at most 128 (the kernel's shipped schedule).  Token
+    counts can be prime; one row a block runs as fast as 256 on the H100."""
+    for b in range(min(MAX_NORM_BLOCK_ROWS, rows), 1, -1):
+        if rows % b == 0:
+            return b
+    return 1
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    """``x * rsqrt(mean(x^2) + eps) * scale`` over the last axis, in f32,
+    cast back to x's dtype: one launch of the rmsnorm kernel over all rows."""
+    d = x.shape[-1]
+    x2 = x.reshape(-1, d).contiguous()
+    y = rmsnorm(x2, scale, eps=eps, block_rows=norm_block_rows(x2.shape[0]))
+    return y.reshape(x.shape)
+
+
+def rope_freqs(hd: int, theta: float):
+    return 1.0 / (theta ** (np.arange(0, hd, 2) / hd))
+
+
+@functools.lru_cache(maxsize=64)
+def _freqs(hd: int, theta: float, device: torch.device) -> torch.Tensor:
+    return torch.tensor(rope_freqs(hd, theta), dtype=torch.float32,
+                        device=device)
+
+
+def _rotate(x, cos, sin):
+    x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1)
+    return out.to(x.dtype)
+
+
+def apply_rope(x, positions, theta: float = 1e4):
+    """x: (..., S, H, hd); positions: broadcastable to (..., S)."""
+    freqs = _freqs(x.shape[-1], float(theta), x.device)
+    ang = positions[..., None].to(torch.float32) * freqs    # (..., S, hd/2)
+    return _rotate(x, torch.cos(ang)[..., None, :],
+                   torch.sin(ang)[..., None, :])
+
+
+def apply_mrope(x, positions3, theta: float = 1e4,
+                sections=(0.25, 0.375, 0.375)):
+    """M-RoPE (Qwen2-VL): rotary frequency channels split into temporal /
+    height / width sections, each driven by its own position id.
+
+    x: (B, S, H, hd); positions3: (B, S, 3)."""
+    hd = x.shape[-1]
+    half = hd // 2
+    bounds = np.cumsum([int(half * s) for s in sections])
+    bounds[-1] = half
+    sec = np.zeros(half, np.int64)
+    sec[bounds[0]:bounds[1]] = 1
+    sec[bounds[1]:] = 2
+    index = torch.as_tensor(sec, device=x.device).expand(
+        positions3.shape[:2] + (half,))
+    pos = torch.gather(positions3.to(torch.float32), -1, index)  # (B,S,half)
+    ang = pos * _freqs(hd, float(theta), x.device)
+    return _rotate(x, torch.cos(ang)[..., None, :],
+                   torch.sin(ang)[..., None, :])
+
+
+def swiglu(x, w_gate, w_up, w_down):
+    """SwiGLU MLP: down( silu(x@gate) * (x@up) )."""
+    return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+
+
+def softmax_cross_entropy(logits, labels):
+    """logits: (..., V) fp32-accumulated; labels: int (...,)."""
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return logz - gold

@@ -1,0 +1,366 @@
+"""Top-level model: init / train_loss / prefill / decode_step for all
+assigned architecture families, on one device.
+
+The counterpart of ``src/repro/models/transformer.py``, with its names,
+semantics and return structures: caches are keyed as the reference keys
+them and stacked on a leading layer axis (``k``/``v``, ``ckv``/``krope``,
+``conv``/``ssm``, ``shared_k``/``shared_v``).  Families:
+
+  dense / vlm / encoder : attention + SwiGLU MLP
+  moe / mla_moe         : attention (GQA or MLA) + MoE FFN
+  ssm                   : mamba1 blocks (attention-free)
+  hybrid                : mamba2 backbone + ONE weight-shared attention+MLP
+                          block applied every ``attn_every`` layers (zamba2),
+                          then the trailing mamba-only layers
+
+The parameters are a :class:`Model`, an ``nn.Module`` of one block module a
+layer (the reference stacks layers on a leading axis for ``lax.scan``;
+here a Python loop drives them, and only ``models/weights.py`` knows the
+stacked layout).  The reference's distribution context, ``remat`` and
+``fsdp`` have no effect on one card, so the port takes no ``dist``.
+
+``train_loss`` is a forward only: the kernel wrappers have no backward yet
+(training is a later slice).  ``decode_step`` takes one cache index for
+the batch (an int) or one a lane (a (B,) tensor) and writes the caches it
+is given in place, returning them.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..device import resolve_device
+from .attention import gqa_decode, gqa_forward, init_attn, mla_decode, \
+    mla_forward
+from .common import ModelConfig
+from .layers import Params, dense_init, rms_norm, softmax_cross_entropy, \
+    swiglu
+from .mamba import init_mamba, mamba1_decode, mamba1_seq, mamba2_decode, \
+    mamba2_seq, mamba2_seq_naive
+from .moe import init_moe, moe_dense, moe_gather
+
+
+def _dtype(cfg: ModelConfig):
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+# --------------------------------------------------------------------------
+# blocks
+# --------------------------------------------------------------------------
+
+
+class AttnBlock(Params):
+    """Pre-norm attention (GQA or MLA) + SwiGLU MLP or MoE: one layer of the
+    attention families, and zamba2's weight-shared block."""
+
+    def forward(self, cfg: ModelConfig, x, positions):
+        h = rms_norm(x, self.ln1, cfg.norm_eps)
+        fwd = mla_forward if cfg.mla else gqa_forward
+        a, cache = fwd(self.attn, cfg, h, positions)
+        return self._ffn(cfg, x + a, decoding=False), cache
+
+    def decode(self, cfg: ModelConfig, x, positions, cache, index):
+        h = rms_norm(x, self.ln1, cfg.norm_eps)
+        dec = mla_decode if cfg.mla else gqa_decode
+        a, cache = dec(self.attn, cfg, h, cache[0], cache[1], index,
+                       positions)
+        return self._ffn(cfg, x + a, decoding=True), cache
+
+    def _ffn(self, cfg: ModelConfig, x, decoding: bool):
+        h = rms_norm(x, self.ln2, cfg.norm_eps)
+        if "moe" in self:
+            moe = moe_gather if decoding else moe_dense
+            return x + moe(self.moe, cfg, h)
+        m = self.mlp
+        return x + swiglu(h, m.gate, m.up, m.down)
+
+
+class MambaBlock(Params):
+    """Pre-norm mamba1 or mamba2 mixer with a residual."""
+
+    def forward(self, cfg: ModelConfig, x):
+        if cfg.ssm_version == 1:
+            seq = mamba1_seq
+        else:
+            seq = mamba2_seq if cfg.ssm_impl == "ssd" else mamba2_seq_naive
+        y, cache = seq(self.mamba, cfg, rms_norm(x, self.ln, cfg.norm_eps))
+        return x + y, cache
+
+    def decode(self, cfg: ModelConfig, x, cache):
+        dec = mamba1_decode if cfg.ssm_version == 1 else mamba2_decode
+        y, cache = dec(self.mamba, cfg, rms_norm(x, self.ln, cfg.norm_eps),
+                       cache[0], cache[1])
+        return x + y, cache
+
+
+class Model(Params):
+    """The parameters of one model: ``embed``, ``ln_f``, ``out``, the
+    ``layers`` (an ``nn.ModuleList`` of blocks) and, for the hybrid, the
+    ``shared`` attention block."""
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+
+# --------------------------------------------------------------------------
+# init
+# --------------------------------------------------------------------------
+
+
+def _init_mlp(cfg, dtype, **rng):
+    d, ff = cfg.d_model, cfg.d_ff
+    return Params(gate=dense_init((d, ff), dtype=dtype, **rng),
+                  up=dense_init((d, ff), dtype=dtype, **rng),
+                  down=dense_init((ff, d), dtype=dtype, **rng))
+
+
+def _init_layer(cfg: ModelConfig, dtype, **rng):
+    ones = torch.ones((cfg.d_model,), dtype=dtype, device=rng["device"])
+    if cfg.family in ("ssm", "hybrid"):
+        return MambaBlock(ln=ones, mamba=init_mamba(cfg, dtype, **rng))
+    p = {"ln1": ones, "ln2": ones.clone(),
+         "attn": init_attn(cfg, dtype, **rng)}
+    if cfg.n_experts:
+        p["moe"] = init_moe(cfg, dtype, n_expert_shards=cfg.expert_shards,
+                            **rng)
+    else:
+        p["mlp"] = _init_mlp(cfg, dtype, **rng)
+    return AttnBlock(**p)
+
+
+def init_params(cfg: ModelConfig, *, generator: torch.Generator | None = None,
+                device=None, dtype=None) -> Model:
+    """Random weights for ``cfg``, drawn on ``device`` (the GPU unless the
+    caller names another) from ``generator`` (default: seed 0 on that
+    device).  The reference draws from ``jax.random``, whose bits torch
+    cannot reproduce: parity with it goes through
+    :func:`~repro_torch.models.weights.params_from_reference`.  A ``meta``
+    device gives the empty skeleton of the parameters."""
+    device = (torch.device("meta") if str(device) == "meta"
+              else resolve_device(device))
+    if generator is None and device.type != "meta":
+        generator = torch.Generator(device=device).manual_seed(0)
+    dtype = dtype or _dtype(cfg)
+    rng = {"generator": generator, "device": device}
+    members = {
+        "embed": dense_init((cfg.vocab, cfg.d_model), in_axis=-1,
+                            dtype=dtype, **rng),
+        "ln_f": torch.ones((cfg.d_model,), dtype=dtype, device=device),
+        "out": dense_init((cfg.d_model, cfg.vocab), dtype=dtype, **rng),
+        "layers": nn.ModuleList(_init_layer(cfg, dtype, **rng)
+                                for _ in range(cfg.n_layers)),
+    }
+    if cfg.family == "hybrid":  # one weight-shared attention + MLP block
+        ones = torch.ones((cfg.d_model,), dtype=dtype, device=device)
+        members["shared"] = AttnBlock(
+            ln1=ones, ln2=ones.clone(), attn=init_attn(cfg, dtype, **rng),
+            mlp=_init_mlp(cfg, dtype, **rng))
+    return Model(**members)
+
+
+# --------------------------------------------------------------------------
+# cache construction
+# --------------------------------------------------------------------------
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
+               device=None) -> dict:
+    """Per-layer decode caches, stacked with a leading layer dim."""
+    dtype = dtype or _dtype(cfg)
+    device = resolve_device(device)
+    L = cfg.n_layers
+
+    def zeros(*shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    if cfg.family in ("ssm", "hybrid"):
+        di, n = cfg.d_inner, cfg.ssm_state
+        if cfg.ssm_version == 1:
+            h = zeros(L, batch, di, n, dt=torch.float32)
+        else:
+            H = cfg.ssm_heads or di // 64
+            h = zeros(L, batch, H, di // H, n, dt=torch.float32)
+        cache = {"conv": zeros(L, batch, cfg.ssm_conv - 1, di), "ssm": h}
+        if cfg.family == "hybrid":
+            G = cfg.n_layers // cfg.attn_every
+            cache["shared_k"] = zeros(G, batch, max_len, cfg.n_kv_heads,
+                                      cfg.hd)
+            cache["shared_v"] = zeros(G, batch, max_len, cfg.n_kv_heads,
+                                      cfg.hd)
+        return cache
+    if cfg.mla:
+        return {"ckv": zeros(L, batch, max_len, cfg.kv_lora_rank),
+                "krope": zeros(L, batch, max_len, cfg.qk_rope_dim)}
+    return {"k": zeros(L, batch, max_len, cfg.n_kv_heads, cfg.hd),
+            "v": zeros(L, batch, max_len, cfg.n_kv_heads, cfg.hd)}
+
+
+# --------------------------------------------------------------------------
+# full stack
+# --------------------------------------------------------------------------
+
+
+def _as_tensor(v, device, dtype=None):
+    if isinstance(v, torch.Tensor):
+        return v.to(device=device, dtype=dtype or v.dtype)
+    return torch.as_tensor(np.array(v), device=device, dtype=dtype)
+
+
+def _embed(params: Model, cfg: ModelConfig, batch: dict):
+    dev = params.device
+    if cfg.embedding_inputs:
+        x = _as_tensor(batch["embeds"], dev, _dtype(cfg))
+    else:
+        x = params.embed[_as_tensor(batch["tokens"], dev, torch.long)]
+    B, S = x.shape[:2]
+    if cfg.mrope:
+        positions = _as_tensor(batch["positions3"], dev)        # (B, S, 3)
+    elif "positions" in batch:
+        positions = _as_tensor(batch["positions"], dev)
+    else:
+        positions = torch.arange(S, device=dev)[None].expand(B, S)
+    return x, positions
+
+
+def _stack(per_layer: list) -> tuple:
+    """[(a, b) a layer] -> (stacked a, stacked b) on a new leading axis."""
+    return tuple(torch.stack(parts) for parts in zip(*per_layer))
+
+
+def _stack_attn(params, cfg, x, positions, decoding, caches, index):
+    names = ("ckv", "krope") if cfg.mla else ("k", "v")
+    if decoding:
+        for i, layer in enumerate(params.layers):
+            x, _ = layer.decode(cfg, x, positions,
+                                (caches[names[0]][i], caches[names[1]][i]),
+                                index)
+        return x, caches
+    per_layer = []
+    for layer in params.layers:
+        x, cache = layer(cfg, x, positions)
+        per_layer.append(cache)
+    return x, dict(zip(names, _stack(per_layer)))
+
+
+def _mamba_layers(layers, cfg, x, decoding, conv, ssm, out):
+    """Run mamba ``layers``; decoding writes their new states into the
+    stacked ``conv``/``ssm`` slices in place, else appends them to
+    ``out``."""
+    for i, layer in enumerate(layers):
+        if decoding:
+            x, (nconv, nh) = layer.decode(cfg, x, (conv[i], ssm[i]))
+            conv[i].copy_(nconv)
+            ssm[i].copy_(nh)
+        else:
+            x, cache = layer(cfg, x)
+            out.append(cache)
+    return x
+
+
+def _stack_ssm(params, cfg, x, decoding, caches):
+    if decoding:
+        x = _mamba_layers(params.layers, cfg, x, True, caches["conv"],
+                          caches["ssm"], None)
+        return x, caches
+    per_layer = []
+    x = _mamba_layers(params.layers, cfg, x, False, None, None, per_layer)
+    return x, dict(zip(("conv", "ssm"), _stack(per_layer)))
+
+
+def _stack_hybrid(params, cfg, x, positions, decoding, caches, index):
+    """zamba2: groups of ``attn_every`` mamba layers + shared attn block.
+    Leftover layers (n_layers % attn_every) run as trailing mamba-only
+    layers with no shared-block invocation."""
+    k = cfg.attn_every
+    G = cfg.n_layers // k
+    shared = params.shared
+    mamba_caches, shared_caches = [], []
+    conv = ssm = None
+    if decoding:
+        conv, ssm = caches["conv"], caches["ssm"]
+    for g in range(G + 1):
+        lo, hi = g * k, min((g + 1) * k, cfg.n_layers)
+        x = _mamba_layers(params.layers[lo:hi], cfg, x, decoding,
+                          None if conv is None else conv[lo:hi],
+                          None if ssm is None else ssm[lo:hi], mamba_caches)
+        if g == G:  # the trailing mamba-only layers
+            break
+        if decoding:
+            x, _ = shared.decode(cfg, x, positions,
+                                 (caches["shared_k"][g],
+                                  caches["shared_v"][g]), index)
+        else:
+            x, cache = shared(cfg, x, positions)
+            shared_caches.append(cache)
+    if decoding:
+        return x, caches
+    nconv, nssm = _stack(mamba_caches)
+    nsk, nsv = _stack(shared_caches)
+    return x, {"conv": nconv, "ssm": nssm, "shared_k": nsk, "shared_v": nsv}
+
+
+def _forward(params: Model, cfg: ModelConfig, batch: dict, decoding=False,
+             caches=None, index=None):
+    """Returns (final hidden states (B, S, d), new caches)."""
+    x, positions = _embed(params, cfg, batch)
+    if cfg.family == "ssm":
+        x, new_caches = _stack_ssm(params, cfg, x, decoding, caches)
+    elif cfg.family == "hybrid":
+        x, new_caches = _stack_hybrid(params, cfg, x, positions, decoding,
+                                      caches, index)
+    else:
+        x, new_caches = _stack_attn(params, cfg, x, positions, decoding,
+                                    caches, index)
+    return rms_norm(x, params.ln_f, cfg.norm_eps), new_caches
+
+
+def _head(params: Model, h):
+    return h @ params.out
+
+
+# --------------------------------------------------------------------------
+# public API
+# --------------------------------------------------------------------------
+
+
+@torch.no_grad()
+def train_loss(params: Model, batch: dict, cfg: ModelConfig) -> torch.Tensor:
+    """Mean next-token (or frame-label for encoders) cross-entropy.
+
+    With ``cfg.loss_chunk`` the vocabulary head + xent run per sequence
+    chunk, so the (B, S, V) logits tensor never materializes."""
+    h, _ = _forward(params, cfg, batch)
+    labels = _as_tensor(batch["labels"], h.device, torch.long)
+    B, S, d = h.shape
+    if cfg.loss_chunk and S % cfg.loss_chunk == 0 and S > cfg.loss_chunk:
+        total = torch.zeros((), dtype=torch.float32, device=h.device)
+        for c0 in range(0, S, cfg.loss_chunk):
+            c1 = c0 + cfg.loss_chunk
+            total = total + softmax_cross_entropy(
+                _head(params, h[:, c0:c1]), labels[:, c0:c1]).sum()
+        return total / (B * S)
+    return softmax_cross_entropy(_head(params, h), labels).mean()
+
+
+@torch.no_grad()
+def prefill(params: Model, batch: dict, cfg: ModelConfig):
+    """Full-sequence forward; returns (last-position logits, caches of
+    length S for continuation).  The vocab head runs on the LAST position
+    only — serving never needs the (B, S, V) logits."""
+    h, caches = _forward(params, cfg, batch)
+    return _head(params, h[:, -1]), caches
+
+
+@torch.no_grad()
+def decode_step(params: Model, token_batch: dict, caches: dict, index,
+                cfg: ModelConfig):
+    """One decode step.  ``token_batch`` holds (B, 1) tokens (or (B,1,d)
+    embeds) plus positions; ``index`` is the current cache length, an int
+    or a (B,) tensor of one a lane.  ``caches`` is updated in place and
+    returned."""
+    h, new_caches = _forward(params, cfg, token_batch, decoding=True,
+                             caches=caches, index=index)
+    return _head(params, h[:, -1]), new_caches
