@@ -117,6 +117,39 @@ Phases, each printing one JSON line:
                     engine's tokens against the direct loop's (reported);
                     a measured GEVO search (pop 4, 2 generations) over
                     qwen3-0.6b's serving plan.
+11. ``router``    — the multi-replica router (``core/deploy/router.py``)
+                    on the serve phase's weights (full width and depth,
+                    bf16) and trace: ``build_router(max_slots=4,
+                    prefill_chunk=2, replicas=2)`` (the KV plan clamps a
+                    replica to 1 slot at this length) with the kernels'
+                    launches counted from zero (rmsnorm in both, flash in
+                    qwen3, the scan in falcon-mamba), both replicas
+                    answering, each request's tokens against the single
+                    engine's (token agreement); tokens/s, mean TTFT and
+                    s/token of one engine of 4 slots against two replicas
+                    of 2 (in turns: one, two, two, one) and the device's
+                    idle share over one decode-only router tick
+                    (torch.profiler).  qwen3-0.6b at full width, 2 layers,
+                    f32, TF32 off, two replicas of 2 slots: replica 0
+                    killed at tick 4, every request's tokens equal to the
+                    direct loop's; then a launch rmsnorm's C entry refuses
+                    inside replica 1's step leaves ``Router.step`` as a
+                    ``DeviceFault``, both replicas alive.
+12. ``liveloop``  — the live loop (``core/liveloop``) on the card:
+                    ``python -m repro_torch.core.liveloop synth`` and ``run
+                    --mode real`` (qwen3-0.6b at its smoke config, head
+                    dim 16 run padded to the flash kernel's 32, 3 ticks,
+                    pop 4, one generation a tick) through ``main(argv)``,
+                    its journal and windows, its kernel launches counted
+                    from zero, and every distinct call it made of a
+                    kernel's wrapper held again against the plain version
+                    on the same inputs; 8 A/A canary
+                    windows of the incumbent against itself, with their
+                    throughput and TTFT ratios and how many fall under the
+                    real guardrail's 0.95 floor; ``python -m
+                    repro_torch.launch.serve --arch qwen3-0.6b --liveloop
+                    <root> --replicas 2`` at full width, every request
+                    answered.
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit, and
 the last line ``{"ok": true, "device": {...}}``.  Any failure raises and
@@ -126,6 +159,7 @@ the repository, it exits nonzero before printing a result.
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import re
@@ -1897,10 +1931,12 @@ def decode_idle_share(torch, engine, cfg, prompts) -> dict:
     return out
 
 
-def serve_model(torch, arch: str, counters) -> dict:
+def serve_model(torch, arch: str, counters, keep: dict) -> dict:
     """``arch`` at full width and depth in bf16, weights made on the card:
     the engine on the trace, its launches counted from zero, each
-    request's first-token logits and tokens against the direct loop."""
+    request's first-token logits and tokens against the direct loop.  The
+    config, the weights and the engine's tokens stay in ``keep[arch]`` for
+    the router."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.core.deploy import ServeEngine
@@ -1927,6 +1963,11 @@ def serve_model(torch, arch: str, counters) -> dict:
     engine = ServeEngine(cfg, params, max_len=max_len, **SERVE_ENGINE)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    # the weights that earlier models keep on the card for the router are
+    # taken off the peak: it is this model's alone
+    held = sum(t.numel() * t.element_size() for m in keep.values()
+               for t in itertools.chain(m["params"].parameters(),
+                                        m["params"].buffers()))
     for fn in counters.values():
         fn.launches = 0
     T.prefill = recording
@@ -1936,7 +1977,7 @@ def serve_model(torch, arch: str, counters) -> dict:
     finally:
         T.prefill = prefill
     launches = {k: fn.launches for k, fn in counters.items()}
-    peak = torch.cuda.max_memory_allocated()
+    peak = torch.cuda.max_memory_allocated() - held
     stats = engine.stats()
     want_kernels = ("rmsnorm", "flash_attention") if arch.startswith("qwen") \
         else ("rmsnorm", "mamba_scan")
@@ -1980,7 +2021,9 @@ def serve_model(torch, arch: str, counters) -> dict:
     idle = decode_idle_share(torch, ServeEngine(
         cfg, params, max_len=max_len, max_slots=4, prefill_chunk=4),
         cfg, [r.tokens for r in reqs[:4]])
-    del params, engine
+    keep[arch] = {"cfg": cfg, "params": params, "tokens": {
+        uid: r.tokens for uid, r in by_uid.items()}}
+    del engine
     torch.cuda.empty_cache()
     return {"config": {"n_layers": cfg.n_layers, "d_model": cfg.d_model,
                        "vocab": cfg.vocab, "dtype": cfg.dtype},
@@ -2085,9 +2128,9 @@ def full_inputs_small(torch, s, gen):
                              device=dev)}
 
 
-def phase_serve(torch, wl, counters) -> dict:
+def phase_serve(torch, wl, counters, keep: dict) -> dict:
     """The model stack and the server on the card (see the module
-    docstring)."""
+    docstring); the served models' weights stay in ``keep``."""
     out = {"phase": "serve", "gpu": nvidia_smi(),
            "tolerance": {"card_cpu": {"rtol": CARD_CPU_RTOL,
                                       "atol_of_max": CARD_CPU_ATOL},
@@ -2095,13 +2138,345 @@ def phase_serve(torch, wl, counters) -> dict:
     out["scan_state"] = scan_state(torch, wl)
     out["card_against_cpu"] = {a: card_against_cpu(torch, a)
                                for a in SERVE_ARCHS}
-    out["server"] = {a: serve_model(torch, a, counters) for a in SERVE_ARCHS}
+    out["server"] = {a: serve_model(torch, a, counters, keep)
+                     for a in SERVE_ARCHS}
     out["full_depth_f32"] = {a: full_depth_f32_agreement(torch, a)
                              for a in SERVE_ARCHS}
     out["gevo"] = serve_gevo(torch)
     out["launches"] = {k: sum(m["launches"][k]
                               for m in out["server"].values())
                        for k in counters}
+    emit(out)
+    return out
+
+
+# The router (core/deploy/router.py) on the card.  The main path: the
+# served models' weights behind build_router with this genome, on the serve
+# phase's trace.  The KV plan's modeled 32 KiB budget clamps each replica
+# to the slots that fit at max_len 541 (one); the layouts compared beside
+# it are built from engines directly: one engine of 4 slots against two
+# replicas of 2, run in turns (one, two, two, one).
+ROUTER_GENOME = {"max_slots": 4, "prefill_chunk": 2, "replicas": 2}
+ROUTER_LAYOUTS = (("1x4", 1, 4), ("2x2", 2, 2), ("2x2", 2, 2),
+                  ("1x4", 1, 4))
+# failover: qwen3-0.6b at full width, 2 layers, f32, TF32 off, two
+# replicas of 2 slots; replica 0 killed at this tick of the trace's replay
+ROUTER_FAILOVER_LAYERS, ROUTER_KILL_TICK = 2, 4
+# the live loop: the real backend on the card, qwen3-0.6b (its smoke
+# config), then 8 A/A canary windows and the served plan
+LIVELOOP_RUN = ["--mode", "real", "--ticks", "3", "--pop", "4",
+                "--gens-per-tick", "1"]
+LIVELOOP_AA_WINDOWS = 8
+
+
+def layout(cfg, params, replicas: int, slots: int, max_len: int):
+    """One engine of ``slots`` slots, or a router over ``replicas`` such
+    engines, all on the weights ``params``."""
+    from repro_torch.core.deploy import Router, ServeEngine
+    engines = [ServeEngine(cfg, params, max_len=max_len, max_slots=slots,
+                           prefill_chunk=SERVE_ENGINE["prefill_chunk"],
+                           seed=i) for i in range(replicas)]
+    return engines[0] if replicas == 1 else Router(engines)
+
+
+def serving_numbers(stats: dict) -> dict:
+    per = stats["per_variant"]["default"]
+    return {"tokens_per_s": stats["throughput_tok_s"],
+            "mean_ttft_s": per["mean_ttft_s"],
+            "s_per_token": per["s_per_token"], "wall_s": stats["wall_s"],
+            "ticks": stats["ticks"]}
+
+
+def router_model(torch, arch: str, counters, model: dict) -> dict:
+    """``arch`` at full width and depth in bf16 on the serve phase's
+    weights: ``build_router`` on the trace, its launches counted from
+    zero, both replicas answering, every request's tokens against the
+    single engine's; then one engine of 4 slots against two replicas of 2,
+    and the device's idle share over one decode-only router tick."""
+    from repro_torch.core.deploy import build_router
+    from repro_torch.core.liveloop.traces import demo_requests
+    cfg, params = model["cfg"], model["params"]
+    max_len = SERVE_TRACE["prompt_len"] + SERVE_TRACE["gen"]
+    router = build_router(cfg, params, genome=ROUTER_GENOME,
+                          max_len=max_len)
+    slots = [r.engine.max_slots for r in router.replicas]
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    results = router.run(demo_requests(cfg, **SERVE_TRACE),
+                         stagger=SERVE_STAGGER)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    stats = router.stats()
+    want_kernels = ("rmsnorm", "flash_attention") if arch.startswith("qwen") \
+        else ("rmsnorm", "mamba_scan")
+    for k in want_kernels:
+        if launches[k] <= 0:
+            raise AssertionError(f"{arch}: the router never launched {k}")
+    if not all(r["n_completed"] > 0 for r in stats["per_replica"]):
+        raise AssertionError(f"{arch}: a replica answered nothing: "
+                             f"{stats['per_replica']}")
+    single = model["tokens"]
+    got = {r.uid: r.tokens for r in results}
+    if sorted(got) != sorted(single) or not all(
+            len(t) == SERVE_TRACE["gen"]
+            and all(0 <= x < cfg.vocab for x in t) for t in got.values()):
+        raise AssertionError(f"{arch}: the router answered {got}")
+    agree = sum(a == b for u in single for a, b in zip(got[u], single[u]))
+    runs = []
+    for name, replicas, n_slots in ROUTER_LAYOUTS:
+        target = layout(cfg, params, replicas, n_slots, max_len)
+        target.run(demo_requests(cfg, **SERVE_TRACE), stagger=SERVE_STAGGER)
+        torch.cuda.synchronize()
+        runs.append({"layout": name, **serving_numbers(target.stats())})
+    idle = decode_idle_share(torch, layout(cfg, params, 2, 2, max_len), cfg,
+                             [r.tokens for r in demo_requests(
+                                 cfg, **SERVE_TRACE)[:4]])
+    del router
+    torch.cuda.empty_cache()
+    return {"slots_a_replica": slots, "launches": launches,
+            "requests": len(results),
+            "per_replica_completed": [r["n_completed"]
+                                      for r in stats["per_replica"]],
+            "token_agreement_with_engine":
+                agree / (len(single) * SERVE_TRACE["gen"]),
+            "build_router": serving_numbers(stats), "layouts": runs,
+            "router_tick": idle}
+
+
+def router_failover(torch) -> dict:
+    """qwen3-0.6b at full width, 2 layers, f32, TF32 off: two replicas of
+    2 slots replaying the trace, replica 0 killed at ``ROUTER_KILL_TICK``;
+    every request completes with the direct loop's tokens.  Then a launch
+    that rmsnorm's C entry refuses (no shared memory granted, so nothing is
+    launched and the context stays sound) inside replica 1's step: it must
+    leave ``Router.step`` as a DeviceFault with both replicas alive."""
+    from collections import deque
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.interp import full_f32
+    from repro_torch.core.liveloop.traces import demo_requests
+    from repro_torch.device import DeviceFault
+    from repro_torch.kernels.rmsnorm import ops as rmsnorm_ops
+    from repro_torch.models import transformer as T
+    cfg = get_config("qwen3-0.6b").scaled(n_layers=ROUTER_FAILOVER_LAYERS,
+                                          dtype="float32")
+    params = T.init_params(cfg, device="cuda")
+    max_len = SERVE_TRACE["prompt_len"] + SERVE_TRACE["gen"]
+    reqs = demo_requests(cfg, **SERVE_TRACE)
+    with full_f32():
+        router = layout(cfg, params, 2, 2, max_len)
+        pending, tick = deque(reqs), 0
+        while pending or router.busy:
+            for _ in range(min(SERVE_STAGGER, len(pending))):
+                router.submit(pending.popleft())
+            if tick == ROUTER_KILL_TICK:
+                router.kill_replica(0)
+            router.step()
+            tick += 1
+        got = {r.uid: r.tokens for r in router.completed}
+        want = {r.uid: direct_loop(torch, T, cfg, params, r.tokens,
+                                   SERVE_TRACE["gen"])[2] for r in reqs}
+    if router.n_requeued <= 0 or router.n_live != 1:
+        raise AssertionError(f"failover: requeued {router.n_requeued}, "
+                             f"live {router.n_live}")
+    if got != want:
+        raise AssertionError(f"failover: tokens {got} differ from the "
+                             f"direct loop's {want}")
+    out = {"config": {"n_layers": cfg.n_layers, "d_model": cfg.d_model,
+                      "dtype": "float32"}, "kill_tick": ROUTER_KILL_TICK,
+           "requests": len(got), "requeued": router.n_requeued,
+           "ticks": router.n_ticks, "tokens_equal_direct": True}
+    router = layout(cfg, params, 2, 2, max_len)
+    victim = router.replicas[1].engine
+    begin, smem = victim.begin_step, rmsnorm_ops.smem_bytes
+
+    def refused():
+        rmsnorm_ops.smem_bytes = lambda *a: 0
+        try:
+            return begin()
+        finally:
+            rmsnorm_ops.smem_bytes = smem
+    victim.begin_step = refused
+    for r in reqs[:4]:
+        router.submit(r)
+    try:
+        router.step()
+    except DeviceFault as e:
+        out["device_fault"] = f"{type(e).__name__}: {e}"
+    else:
+        raise AssertionError("a refused launch in a replica's step did not "
+                             "leave Router.step")
+    if router.n_live != 2 or router.n_requeued:
+        raise AssertionError("a device fault failed a replica")
+    torch.cuda.synchronize()
+    del params, router, victim
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_router(torch, counters, keep: dict) -> dict:
+    """The multi-replica router on the card (see the module docstring)."""
+    out = {"phase": "router", "gpu": nvidia_smi(),
+           "models": {a: router_model(torch, a, counters, keep[a])
+                      for a in SERVE_ARCHS}}
+    out["failover"] = router_failover(torch)
+    out["launches"] = {k: sum(m["launches"][k]
+                              for m in out["models"].values())
+                       for k in counters}
+    emit(out)
+    return out
+
+
+def captured(main, argv) -> tuple:
+    """``main(argv)`` with its standard output captured: (value, output)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        value = main(argv)
+    return value, buf.getvalue()
+
+
+# the module that calls each kernel's wrapper in the model stack
+WRAPPER_SITES = {"rmsnorm": "repro_torch.models.layers",
+                 "flash_attention": "repro_torch.models.attention",
+                 "mamba_scan": "repro_torch.models.mamba"}
+
+
+@contextlib.contextmanager
+def recorded_calls(calls: dict):
+    """While open, the model stack's calls of the kernels' wrappers go
+    through as they are, and the first call of each distinct signature
+    (kernel, shapes, dtypes, keywords) leaves a copy of its inputs in
+    ``calls``."""
+    import importlib
+    saved = []
+    for name, module in WRAPPER_SITES.items():
+        mod = importlib.import_module(module)
+        wrapper = getattr(mod, name)
+
+        def recording(*args, _name=name, _wrapper=wrapper, **kw):
+            key = (_name, " ".join(f"{tuple(a.shape)}:{a.dtype}"
+                                   for a in args), repr(sorted(kw.items())))
+            if key not in calls:
+                calls[key] = ([a.detach().clone() for a in args], kw)
+            return _wrapper(*args, **kw)
+        saved.append((mod, name, wrapper))
+        setattr(mod, name, recording)
+    try:
+        yield calls
+    finally:
+        for mod, name, wrapper in saved:
+            setattr(mod, name, wrapper)
+
+
+def hold_calls(torch, counters, calls: dict) -> list:
+    """Each recorded call made again on the card: the wrapper (its kernel)
+    against the kernel's plain version on the same inputs, at the
+    tolerance of its dtype (``ATOL``, ``RTOL``).  Rows of kernel, input
+    shapes and dtype, keywords and max |diff|."""
+    from repro_torch.kernels.flash_attention.flash_attention import \
+        flash_attention_plain
+    from repro_torch.kernels.mamba_scan.mamba_scan import mamba_scan_plain
+    from repro_torch.kernels.rmsnorm.rmsnorm import rmsnorm_plain
+
+    def plain(name, args, kw):
+        if name == "rmsnorm":
+            x, scale = args
+            x2 = x.reshape(-1, x.shape[-1])
+            br = min(kw.get("block_rows", 128), x2.shape[0])
+            return rmsnorm_plain(x2, scale, eps=kw.get("eps", 1e-6),
+                                 block_rows=br).reshape(x.shape)
+        if name == "flash_attention":
+            q, k, v = args
+            return flash_attention_plain(
+                q, k, v, causal=kw.get("causal", True),
+                scale=q.shape[-1] ** -0.5,
+                block_q=min(kw.get("block_q", 128), q.shape[2]),
+                block_k=min(kw.get("block_k", 128), k.shape[2]))
+        return mamba_scan_plain(*args, chunk=min(kw.get("chunk", 64),
+                                                 args[1].shape[1]),
+                                return_state=kw.get("return_state", False))
+
+    rows = []
+    for (name, shapes, kws), (args, kw) in calls.items():
+        got, want = counters[name](*args, **kw), plain(name, args, kw)
+        got, want = ((got, want) if isinstance(got, torch.Tensor)
+                     else (got[0], want[0]))
+        dtype_name = str(args[0].dtype).removeprefix("torch.")
+        err = check_close(torch, name, f"liveloop call {shapes} {kws}", got,
+                          want, dtype_name)
+        rows.append({"kernel": name, "inputs": shapes, "keywords": kws,
+                     "max_abs_err": err})
+    return rows
+
+
+def phase_liveloop(torch, counters) -> dict:
+    """The live loop on the card (see the module docstring)."""
+    import tempfile
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.core.deploy.engine import DEFAULT_SERVE_PLAN
+    from repro_torch.core.liveloop import LiveLoopController
+    from repro_torch.core.liveloop.__main__ import main as liveloop_main
+    from repro_torch.launch.serve import main as serve_main
+    out = {"phase": "liveloop", "gpu": nvidia_smi()}
+    with tempfile.TemporaryDirectory() as tmp:
+        trace, root = f"{tmp}/trace.json", f"{tmp}/loop"
+        vocab = smoke_config("qwen3-0.6b").vocab
+        calls = {}
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        with recorded_calls(calls):
+            rc = [captured(liveloop_main, ["synth", "--out", trace,
+                                           "--vocab", str(vocab)])[0],
+                  captured(liveloop_main, ["run", "--root", root, "--trace",
+                                           trace, *LIVELOOP_RUN])[0]]
+            torch.cuda.synchronize()
+        out["run_s"] = time.perf_counter() - t0
+        out["launches"] = {k: fn.launches for k, fn in counters.items()}
+        if rc != [0, 0]:
+            raise AssertionError(f"liveloop: synth/run exited {rc}")
+        for k in ("rmsnorm", "flash_attention"):
+            if out["launches"][k] <= 0:
+                raise AssertionError(f"liveloop: the loop never launched {k}")
+        # every distinct call the loop made of a wrapper, against the plain
+        # version (these launches come after the count was read)
+        out["held"] = hold_calls(torch, counters, calls)
+        if {r["kernel"] for r in out["held"]} != {"rmsnorm",
+                                                   "flash_attention"}:
+            raise AssertionError("liveloop: recorded calls of "
+                                 f"{sorted({r['kernel'] for r in out['held']})}")
+        state = json.load(open(f"{root}/state.json"))
+        book = json.load(open(f"{root}/canary.json"))
+        if state["tick"] != 3 or state["mode"] != "real":
+            raise AssertionError(f"liveloop: state {state}")
+        out["state"] = state
+        out["canary"] = {k: book[k] for k in ("active", "promoted",
+                                              "blocked", "history")}
+        ctl = LiveLoopController(root)
+        incumbent = ctl.book.promoted
+        g = dict(incumbent["genome"] if incumbent else DEFAULT_SERVE_PLAN)
+        floor = ctl.book.rails.min_throughput_ratio
+        windows = []
+        for w in range(LIVELOOP_AA_WINDOWS):
+            base, cand = ctl.measure(g, g, 1000 + w)
+            windows.append({
+                "throughput": cand["throughput_tok_s"]
+                / base["throughput_tok_s"],
+                "ttft": cand["mean_ttft_s"] / base["mean_ttft_s"],
+                "n": base["n"]})
+        out["aa_canary"] = {
+            "genome": g, "floor": floor, "windows": windows,
+            "under_floor": sum(w["throughput"] < floor for w in windows)}
+        _, served = captured(serve_main, ["--arch", "qwen3-0.6b",
+                                          "--liveloop", root,
+                                          "--replicas", "2"])
+        if "requests=8" not in served or "replicas=2/2" not in served:
+            raise AssertionError(f"liveloop: serve printed {served!r}")
+        out["serve"] = served.splitlines()
     emit(out)
     return out
 
@@ -2133,13 +2508,20 @@ def main() -> int:
     phase_programs(torch)
     islands = phase_islands(torch, wl, counters)
     tensor = phase_tensor(torch, wl, counters)
-    serve = phase_serve(torch, wl, counters)
+    keep = {}
+    serve = phase_serve(torch, wl, counters, keep)
+    router = phase_router(torch, counters, keep)
+    keep.clear()
+    torch.cuda.empty_cache()
+    liveloop = phase_liveloop(torch, counters)
 
     # launches: in the kernel's own measured search; launches_joint_static:
     # in the joint static search; launches_islands: in the measured
     # flash-attention islands; launches_tensor and launches_fleet: in the
     # tensorized engine's run and the mesh fleet's; launches_serve: in the
-    # server's runs of qwen3-0.6b and falcon-mamba-7b
+    # server's runs of qwen3-0.6b and falcon-mamba-7b; launches_router: in
+    # build_router's runs of both; launches_liveloop: in the real live
+    # loop's three ticks
     emit({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCES[k],
          "replaces": REPLACES[k], "launches": launches["measured"][k][k],
@@ -2148,6 +2530,8 @@ def main() -> int:
          "launches_tensor": tensor["engine"]["launches"][k],
          "launches_fleet": tensor["fleet"]["launches"][k],
          "launches_serve": serve["launches"][k],
+         "launches_router": router["launches"][k],
+         "launches_liveloop": liveloop["launches"][k],
          "max_abs_err": full[k]["max_abs_err"], "ms": full[k]["kernel_ms"],
          "plain_ms": full[k]["plain_ms"], "bound_ms": full[k]["bound_ms"],
          "bound_by": full[k]["bound_by"],

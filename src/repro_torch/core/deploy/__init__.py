@@ -19,11 +19,17 @@ served traffic:
 * :class:`KVPlan` (:mod:`~repro_torch.core.deploy.kvplan`) — the KV memory
   plan (page size, cache dtype, replica layout) as searchable genome knobs
   merged into :func:`serve_schedule_space`, with the paged codec and its
-  measured decode-error oracle.
+  measured decode-error oracle;
+* :class:`Router` (:mod:`~repro_torch.core.deploy.router`) — fan traffic
+  over N engine replicas sharing one set of weights on the device, with
+  heartbeat-monitored failover and aggregate fitness feedback.  The
+  reference's placement of replicas on a launch mesh (``replica_meshes``)
+  waits for the port's ``launch/mesh`` and ``shardings`` (ROADMAP.md,
+  queue 1).
 
-The reference's multi-replica router (``Router``, ``build_router``,
-``replica_meshes``) and its ``python -m`` CLI are later work (ROADMAP.md,
-queue 1).
+``python -m repro_torch.core.deploy`` selects from recorded fronts and
+manages the registry; ``python -m repro_torch.core.deploy.router`` serves
+a synthesized trace through a router.
 """
 
 from .engine import (DEFAULT_ENGINE_SCHEDULE, DEFAULT_SERVE_PLAN,
@@ -37,6 +43,7 @@ from .kvplan import (DEFAULT_KV_PLAN, KV_ERROR_GATE, KV_SPACE, KVPlan,
                      PagedKVCache, cache_error, measure_cache_error,
                      quantize_pages, roundtrip_error)
 from .registry import Artifact, ArtifactRegistry, shape_tag
+from .router import Router, build_router
 
 __all__ = [
     "ParetoFront", "FrontMember",
@@ -50,4 +57,5 @@ __all__ = [
     "KVPlan", "PagedKVCache", "KV_SPACE", "DEFAULT_KV_PLAN",
     "KV_ERROR_GATE", "cache_error", "roundtrip_error", "quantize_pages",
     "measure_cache_error",
+    "Router", "build_router",
 ]

@@ -37,6 +37,18 @@ ALIGN_SLACK = 1024
 BARRIER_BYTES = 128
 MAX_STAGES = 4
 
+def launch_head_dim(hd: int) -> int:
+    """The head dim the kernel runs a head dim of ``hd`` at: the smallest
+    of ``HEAD_DIMS`` at least ``hd``.  Zero columns appended to q, k and v
+    add nothing to q.k and give zero output columns, so the wrapper pads
+    to it, keeps the scale of ``hd`` and drops the padding of the output.
+    Above the largest it raises."""
+    for d in HEAD_DIMS:
+        if d >= hd:
+            return d
+    raise ValueError(f"flash_attention: head dim {hd} above {HEAD_DIMS[-1]}")
+
+
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_void_p]

@@ -12,15 +12,16 @@ import torch
 
 from ..build import DTYPE_CODES
 from ..cpu import init_vector_math
-from .flash_attention import (BF16_BLOCK_K, HEAD_DIMS, MAX_BLOCK_Q,
+from .flash_attention import (BF16_BLOCK_K, MAX_BLOCK_Q,
                               flash_attention_launch, flash_attention_plain,
-                              smem_bytes)
+                              launch_head_dim, smem_bytes)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, block_q: int = 128,
                     block_k: int = 128) -> torch.Tensor:
     """q, k, v: (B, H, S, hd) -> (B, H, Sq, hd); k/v length may differ
-    from q's."""
+    from q's.  On the card a head dim the kernel is not built for runs
+    padded to the next one it is (``launch_head_dim``)."""
     if q.dim() != 4 or k.shape != v.shape or k.shape[:2] != q.shape[:2] \
             or k.shape[3] != q.shape[3]:
         raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, "
@@ -45,14 +46,16 @@ def flash_attention(q, k, v, *, causal: bool = True, block_q: int = 128,
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in DTYPE_CODES:
         raise ValueError("flash_attention: q, k, v must share one dtype, "
                          "float32 or bfloat16")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {hd} not in {HEAD_DIMS}")
+    hd_k = launch_head_dim(hd)
     if block_q % 8 or block_q > MAX_BLOCK_Q:
         raise ValueError(f"flash_attention: block_q {block_q} must be a "
                          f"multiple of 8 and at most {MAX_BLOCK_Q}")
     if q.dtype == torch.bfloat16 and block_k not in BF16_BLOCK_K:
         raise ValueError(f"flash_attention: bf16 block_k {block_k} not in "
                          f"{BF16_BLOCK_K}")
+    if hd_k != hd:
+        q, k, v = (torch.nn.functional.pad(t, (0, hd_k - hd))
+                   for t in (q, k, v))
     if not all(t.is_contiguous() and t.data_ptr() % 16 == 0
                for t in (q, k, v)):
         raise ValueError("flash_attention: q, k, v must be contiguous and "
@@ -62,9 +65,9 @@ def flash_attention(q, k, v, *, causal: bool = True, block_q: int = 128,
         q, k, v, o, causal=causal, scale=scale, block_q=block_q,
         block_k=block_k,
         smem=smem_bytes({"block_q": block_q, "block_k": block_k},
-                        {"B": B, "H": H, "S": Sq, "hd": hd}, q.dtype))
+                        {"B": B, "H": H, "S": Sq, "hd": hd_k}, q.dtype))
     flash_attention.launches += 1
-    return o
+    return o if hd_k == hd else o[..., :hd].contiguous()
 
 
 flash_attention.launches = 0

@@ -8,8 +8,10 @@ configuration and an evolved artifact resolved from an
 publishing the measured per-variant latency into a shared fitness cache
 under the ``serve`` writer tag.  It runs on the GPU unless ``--device``
 names another; without a GPU and without ``--device`` it exits with an
-error.  The reference's ``--replicas``/``--mesh`` (the router) and
-``--liveloop*`` (the live loop) are later work (ROADMAP.md).
+error.  ``--replicas N`` serves through the deploy router (N engines
+sharing the weights on the device), ``--liveloop ROOT`` with the live
+loop's promoted schedule.  The reference's ``--mesh`` waits for the port's
+``launch/mesh`` and ``shardings`` (ROADMAP.md, queue 1).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \
       --smoke --device cpu --requests 8 --prompt-len 24 --gen 8
@@ -24,6 +26,16 @@ error.  The reference's ``--replicas``/``--mesh`` (the router) and
   # the pre-engine one-shot behavior (correctness oracle)
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \
       --smoke --device cpu --oneshot --requests 4 --prompt-len 32 --gen 16
+
+  # two replicas behind the deploy router (see also
+  # `python -m repro_torch.core.deploy.router`)
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \
+      --smoke --device cpu --replicas 2 --requests 8 --prompt-len 16 --gen 6
+
+  # the live loop's promoted schedule (see `python -m
+  # repro_torch.core.liveloop`), after two more ticks of the loop
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \
+      --smoke --device cpu --liveloop /tmp/loop --liveloop-ticks 2
 """
 
 from __future__ import annotations
@@ -51,6 +63,10 @@ def main(argv=None) -> None:
     ap.add_argument("--prefill-chunk", type=int, default=None,
                     help="admissions micro-batched per tick")
     ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--replicas", type=int, default=None,
+                    help="engine replicas behind the deploy router "
+                         "(default: the resolved serve plan's replicas "
+                         "knob, usually 1)")
     ap.add_argument("--artifacts", default=None,
                     help="ArtifactRegistry directory (serve-schedule and "
                          "plan artifacts)")
@@ -67,14 +83,21 @@ def main(argv=None) -> None:
     ap.add_argument("--oneshot", action="store_true",
                     help="pre-engine one-shot path: batch prefill + "
                          "lockstep decode of --requests equal prompts")
+    ap.add_argument("--liveloop", default=None,
+                    help="live-loop root directory (see `python -m "
+                         "repro_torch.core.liveloop`): serve with the "
+                         "loop's promoted schedule, optionally advancing "
+                         "the loop first")
+    ap.add_argument("--liveloop-ticks", type=int, default=0,
+                    help="control-loop ticks to run before serving")
     args = ap.parse_args(argv)
 
     import numpy as np
 
     from ..configs import get_config, smoke_config
     from ..core.deploy import (ArtifactRegistry, ServeEngine,
-                               apply_plan_artifact, oneshot_generate,
-                               serve_plan_from)
+                               apply_plan_artifact, build_router,
+                               oneshot_generate, serve_plan_from)
     from ..core.evaluator import FitnessCache
     from ..core.liveloop.traces import demo_requests
     from ..device import resolve_device
@@ -108,13 +131,28 @@ def main(argv=None) -> None:
                                      else "full", kind="serve")
         plan_art = registry.resolve(cfg.name, args.plan_shape, kind="plan")
     schedule = serve_plan_from(serve_art)
+    if args.liveloop:
+        # the loop's promoted schedule wins over the static registry: this
+        # is the serving end of evolve->serve->measure->promote
+        from ..core.liveloop import LiveLoopController
+        ctl = LiveLoopController(args.liveloop, device=device)
+        if args.liveloop_ticks:
+            ctl.run(args.liveloop_ticks)
+        live = ctl.registry.resolve(ctl.arch, "live", kind="serve")
+        if live is not None:
+            schedule.update({k: live.genome[k] for k in schedule
+                             if k in live.genome})
+            print(f"liveloop: serving promoted schedule {schedule} "
+                  f"(fingerprint {live.meta['genome_fingerprint'][:12]})")
+        else:
+            print("liveloop: nothing promoted yet; serving the default "
+                  "schedule")
     if args.max_slots is not None:
         schedule["max_slots"] = args.max_slots
     if args.prefill_chunk is not None:
         schedule["prefill_chunk"] = args.prefill_chunk
-    if int(schedule.get("replicas", 1)) > 1:
-        print(f"serve: the plan asks for {schedule['replicas']} replicas; "
-              "this launcher serves one (the router is later work)")
+    if args.replicas is not None:
+        schedule["replicas"] = args.replicas
 
     evolved_cfg, ab = None, 0.0
     if args.variant in ("evolved", "ab"):
@@ -126,18 +164,26 @@ def main(argv=None) -> None:
         evolved_cfg = apply_plan_artifact(cfg, plan_art)
         ab = 1.0 if args.variant == "evolved" else args.ab_fraction
 
-    engine = ServeEngine(cfg, max_len=args.prompt_len + args.gen,
-                         max_slots=schedule["max_slots"],
-                         prefill_chunk=schedule["prefill_chunk"],
-                         evolved_cfg=evolved_cfg, ab_fraction=ab,
-                         temperature=args.temperature, device=device)
+    if int(schedule.get("replicas", 1)) > 1:
+        engine = build_router(cfg, genome=schedule,
+                              max_len=args.prompt_len + args.gen,
+                              device=device, evolved_cfg=evolved_cfg,
+                              ab_fraction=ab, temperature=args.temperature)
+    else:
+        engine = ServeEngine(cfg, max_len=args.prompt_len + args.gen,
+                             max_slots=schedule["max_slots"],
+                             prefill_chunk=schedule["prefill_chunk"],
+                             evolved_cfg=evolved_cfg, ab_fraction=ab,
+                             temperature=args.temperature, device=device)
     trace = demo_requests(cfg, n_requests=args.requests,
                           prompt_len=args.prompt_len, gen=args.gen)
     results = engine.run(trace, stagger=args.stagger or None)
 
     s = engine.stats()
+    replica_note = (f" replicas={s['n_live']}/{s['n_replicas']}"
+                    if "n_replicas" in s else "")
     print(f"arch={cfg.name} device={device} requests={len(results)} "
-          f"schedule={schedule} ticks={s['ticks']}")
+          f"schedule={schedule}{replica_note} ticks={s['ticks']}")
     print(f"wall={s['wall_s']:.2f}s throughput={s['throughput_tok_s']:.1f} "
           f"tok/s")
     for variant, rec in s["per_variant"].items():

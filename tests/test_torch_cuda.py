@@ -105,6 +105,31 @@ def test_flash_head_dim_128_matches_plain_version(cuda, block_q):
         assert (got - want).abs().max().item() <= TOL["flash_attention"], bk
 
 
+@pytest.mark.parametrize("hd,dtype", [(16, torch.float32),
+                                      (18, torch.bfloat16),
+                                      (80, torch.float32)])
+def test_flash_padded_head_dim_matches_plain_version(cuda, hd, dtype):
+    """A head dim the kernel is not built for (the smoke configs' 16 and
+    18, hubert's 80) runs padded to the next one it is: one launch, the
+    plain version's answer at ``hd``."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (torch.randn((1, 4, 64, hd), generator=g, device=cuda)
+               .to(dtype) for _ in range(3))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, block_q=32, block_k=32)
+    assert flash_attention.launches == before + 1
+    want = flash_attention_plain(q, k, v, causal=True, scale=hd ** -0.5,
+                                 block_q=32, block_k=32)
+    torch.cuda.synchronize()
+    assert got.shape == q.shape and got.is_contiguous()
+    if dtype == torch.float32:
+        assert (got - want).abs().max().item() <= TOL["flash_attention"]
+    else:
+        excess = ((got.float() - want.float()).abs()
+                  - BF16_RTOL * want.float().abs()).max().item()
+        assert excess <= BF16_ATOL
+
+
 @pytest.mark.parametrize("d,dtype", [(30, torch.float32),
                                      (1026, torch.bfloat16)])
 def test_rmsnorm_rows_not_a_multiple_of_four(cuda, d, dtype):

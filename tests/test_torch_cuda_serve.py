@@ -3,8 +3,8 @@ on the card against the CPU (prefill, then three decode steps), the
 kernels' launches a model call makes, the engine against the direct loop
 on the card, and the scan's final state against its plain version.
 
-The flash kernel is built for head dims 32, 64 and 128, so the smoke
-configs run here with ``head_dim=32`` (their own is 16 or 18).  Card
+The smoke configs run here with ``head_dim=32``, one the flash kernel is
+built for (their own 16 or 18 would run padded to it).  Card
 against CPU in float32 with TF32 off: |card - cpu| <= 1e-3 |cpu| + 1e-4
 max(1, max |cpu|) (both sum in other orders; a fault moves logits by
 O(1)).

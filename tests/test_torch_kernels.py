@@ -225,6 +225,30 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
                    torch.ones(1, 24, 2), chunk=16)
 
 
+@pytest.mark.parametrize("hd,causal", [(8, True), (16, True), (18, False),
+                                       (48, True), (80, False)])
+def test_flash_padded_head_dim_matches_pallas(hd, causal):
+    """On the card a head dim the kernel is not built for runs padded with
+    zero columns to the next one it is, at the scale of its own: the plain
+    version on such padded inputs, cut back to ``hd``, gives the
+    reference's attention at ``hd``."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        HEAD_DIMS, flash_attention_plain, launch_head_dim)
+    hd_k = launch_head_dim(hd)
+    assert hd_k in HEAD_DIMS and hd_k >= hd
+    assert all(d < hd for d in HEAD_DIMS if d < hd_k)
+    q, k, v = (_rand(i, (1, 2, 64, hd)) for i in range(3))
+    padded = (torch.nn.functional.pad(_t(a), (0, hd_k - hd))
+              for a in (q, k, v))
+    got = flash_attention_plain(*padded, causal=causal, scale=hd ** -0.5,
+                                block_q=32, block_k=32)
+    assert not got[..., hd:].any()
+    want = jax_attention(_j(q), _j(k), _j(v), causal=causal)
+    np.testing.assert_allclose(_np(got[..., :hd]), _np(want), atol=2e-5)
+    with pytest.raises(ValueError, match="head dim 129"):
+        launch_head_dim(129)
+
+
 def test_flash_attention_bf16_hd128_block_k_48_matches_pallas():
     """A shape the wgmma path has to handle: head dim 128 (two swizzle
     panels) and block_k 48 (an N of 48 for QK^T, 3 k-steps for PV).  The
