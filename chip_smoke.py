@@ -150,8 +150,36 @@ Phases, each printing one JSON line:
                     repro_torch.launch.serve --arch qwen3-0.6b --liveloop
                     <root> --replicas 2`` at full width, every request
                     answered.
+13. ``train``     — training (``optim/``, ``train/``, ``python -m
+                    repro_torch.launch.train``) and the three backward
+                    kernels: (a) each backward kernel against its plain
+                    version in f32 and bf16 at small ragged shapes, at
+                    the training runs' shapes and at full width (rmsnorm
+                    8192 x 1024 and flash B1 H16 S4096 hd128 in bf16, the
+                    scan Bt1 L4096 D8192 N16 in f32), on the forward
+                    kernel's outputs (its lse and tile-start states held
+                    against the plain forward's, its o, y and h_last the
+                    same bits with them), two calls the same bits, with
+                    its time, the plain version's, the library call's
+                    (the backward of ``F.rms_norm``, of SDPA) and the
+                    bound; (b) the loss and every gradient of qwen3-0.6b
+                    and falcon-mamba-7b at full width, 2 layers, f32, TF32
+                    off, on the card against the CPU, and in bf16 against
+                    the f32 card's; (c) qwen3-0.6b at full width and
+                    depth in bf16, AdamW, batch 8 x 1024 tokens, 30 steps
+                    through ``launch.train``'s main, and (d)
+                    falcon-mamba-7b at full width cut to 4 of 64 layers,
+                    batch 2 x 2048, 20 steps: the loss falling on the
+                    pipeline's Markov stream, every forward and backward
+                    kernel launched as often a step as the layers imply
+                    (counted from zero), s/step, tokens/s, peak memory and
+                    the idle share of a step; (e) 6 steps straight against
+                    3, a checkpoint, a restore and 3 more: parameters and
+                    losses bit for bit.  The serve, router and live-loop
+                    phases launch no backward kernel.
 
-Then a ``{"kernels": [...]}`` line, the card's name and power limit, and
+Then a ``{"kernels": [...]}`` line (the three kernels and their three
+backward kernels), the card's name and power limit, and
 the last line ``{"ok": true, "device": {...}}``.  Any failure raises and
 the script exits nonzero.  Without a CUDA device, or outside a checkout of
 the repository, it exits nonzero before printing a result.
@@ -1577,7 +1605,8 @@ def phase_tensor(torch, wl, counters) -> dict:
     res = eng.run(generations=TENSOR_GENERATIONS)
     wall = time.perf_counter() - t
     launches = {k: c.launches for k, c in counters.items()}
-    expected = expected_fill_launches(eng.batched)
+    expected = {**{k: 0 for k in counters},
+                **expected_fill_launches(eng.batched)}
     if launches != expected:
         raise AssertionError(f"fill_error_tables launched {launches}, "
                              f"expected {expected}")
@@ -1667,7 +1696,7 @@ def phase_tensor(torch, wl, counters) -> dict:
     fres = orch.run(FLEET["generations"])
     fleet_wall = time.perf_counter() - t
     fleet_launches = {k: c.launches for k, c in counters.items()}
-    if min(fleet_launches.values()) <= 0:
+    if min(fleet_launches[k] for k in wl.KERNELS) <= 0:
         raise AssertionError(f"the fleet left a kernel unlaunched: "
                              f"{fleet_launches}")
     fkw = dict(specs=specs, pop_size=FLEET["pop_size"], n_elite=16,
@@ -2128,6 +2157,14 @@ def full_inputs_small(torch, s, gen):
                              device=dev)}
 
 
+def inference_only(path: str, launches: dict) -> None:
+    """Serving records no autograd graph: a backward kernel launched on
+    ``path`` is a fault."""
+    bwd = {b: launches[b] for b in BWD_NAMES.values() if launches[b]}
+    if bwd:
+        raise AssertionError(f"{path}: backward kernels launched: {bwd}")
+
+
 def phase_serve(torch, wl, counters, keep: dict) -> dict:
     """The model stack and the server on the card (see the module
     docstring); the served models' weights stay in ``keep``."""
@@ -2146,6 +2183,7 @@ def phase_serve(torch, wl, counters, keep: dict) -> dict:
     out["launches"] = {k: sum(m["launches"][k]
                               for m in out["server"].values())
                        for k in counters}
+    inference_only("serve", out["launches"])
     emit(out)
     return out
 
@@ -2324,6 +2362,7 @@ def phase_router(torch, counters, keep: dict) -> dict:
     out["launches"] = {k: sum(m["launches"][k]
                               for m in out["models"].values())
                        for k in counters}
+    inference_only("router", out["launches"])
     emit(out)
     return out
 
@@ -2442,6 +2481,7 @@ def phase_liveloop(torch, counters) -> dict:
         for k in ("rmsnorm", "flash_attention"):
             if out["launches"][k] <= 0:
                 raise AssertionError(f"liveloop: the loop never launched {k}")
+        inference_only("liveloop", out["launches"])
         # every distinct call the loop made of a wrapper, against the plain
         # version (these launches come after the count was read)
         out["held"] = hold_calls(torch, counters, calls)
@@ -2481,6 +2521,492 @@ def phase_liveloop(torch, counters) -> dict:
     return out
 
 
+# Training (models/, optim/, train/, launch/train.py) on the card.  The
+# backward kernels against their plain versions, |card - plain| <= rtol
+# |plain| + atol max(1, max |plain|): in f32 1e-5 / 1e-4 (the same f32
+# products summed in other orders, over up to 4096 keys or steps), in bf16
+# 2**-7 (one rounding step of the output) / 1e-2 (the forward's bf16 scale).
+BWD_NAMES = {"rmsnorm": "rmsnorm_bwd",
+             "flash_attention": "flash_attention_bwd",
+             "mamba_scan": "mamba_scan_bwd"}
+BWD_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (2.0 ** -7, 1e-2)}
+# small ragged shapes: rows, lengths and channels no multiple of the tiles
+BWD_SMALL = {
+    "rmsnorm": ({"rows": 7, "d": 48}, {"rows": 130, "d": 1024},
+                {"rows": 33, "d": 10}),
+    "flash_attention": ({"B": 1, "H": 2, "S": 100, "hd": 64, "causal": True},
+                        {"B": 2, "H": 1, "S": 96, "hd": 32, "causal": False},
+                        {"B": 1, "H": 2, "S": 200, "hd": 128,
+                         "causal": True}),
+    "mamba_scan": ({"Bt": 2, "L": 24, "D": 40, "N": 4, "chunk": 8},
+                   {"Bt": 1, "L": 18, "D": 33, "N": 16, "chunk": 6})}
+# full width, timed: the layer norms of a qwen3-0.6b training step (8 x
+# 1024 tokens, d 1024) and its attention at 4096 tokens, bf16; the scan at
+# falcon-mamba-7b's width in f32, as mamba1 feeds it
+BWD_FULL = {"rmsnorm": ({"rows": 8192, "d": 1024}, "bfloat16"),
+            "flash_attention": ({"B": 1, "H": 16, "S": 4096, "hd": 128,
+                                 "causal": True}, "bfloat16"),
+            "mamba_scan": ({"Bt": 1, "L": 4096, "D": 8192, "N": 16,
+                            "chunk": 64}, "float32")}
+# the other shapes the training runs give each kernel, checked, not timed:
+# qwen3-0.6b's q/k norms (8 x 1024 tokens x 16 heads of 128) and
+# falcon-mamba-7b's norms (2 x 2048 tokens, d 4096), bf16; qwen3-0.6b's
+# attention (8 x 16 heads x 1024); falcon-mamba-7b's scan (2 x 2048)
+BWD_PATH = {"rmsnorm": (({"rows": 131072, "d": 128}, "bfloat16"),
+                        ({"rows": 4096, "d": 4096}, "bfloat16")),
+            "flash_attention": (({"B": 8, "H": 16, "S": 1024, "hd": 128,
+                                  "causal": True}, "bfloat16"),),
+            "mamba_scan": (({"Bt": 2, "L": 2048, "D": 8192, "N": 16,
+                             "chunk": 64}, "float32"),)}
+# the training runs through launch.train's main: qwen3-0.6b at full width
+# and depth; falcon-mamba-7b at full width cut to 4 of 64 layers (AdamW's
+# f32 moments of 7B parameters do not fit 80 GB beside the weights)
+TRAIN_RUNS = {
+    "qwen3-0.6b": ["--arch", "qwen3-0.6b", "--batch", "8", "--seq", "1024",
+                   "--steps", "30", "--log-every", "10"],
+    "falcon-mamba-7b": ["--arch", "falcon-mamba-7b", "--scale",
+                        "n_layers=4", "--batch", "2", "--seq", "2048",
+                        "--steps", "20", "--log-every", "10"]}
+TRAIN_RESUME = ["--arch", "qwen3-0.6b", "--scale", "n_layers=2", "--batch",
+                "2", "--seq", "256", "--lr", "1e-3", "--log-every", "100"]
+TRAIN_CARD_CPU = {"batch": 1, "seq": 100}
+# The same 2-layer gradients in bf16 (the training runs' dtype: bf16
+# weights rounded from the f32 ones, the bf16 kernels) against the f32
+# card's, leaf by leaf, |g16 - g32| / |g32| in L2 at most 0.1: the serve
+# phase's limit for bf16 logits, some 50 times bf16's unit roundoff
+# (2**-9), where a gradient that drops a term or a tile of a kernel's
+# output, or scales it wrongly, is off by O(1); the loss within 1e-2
+# relative (a few roundings of logits in bf16).
+TRAIN_BF16_REL_L2, TRAIN_BF16_LOSS_RTOL = 0.1, 1e-2
+
+
+def flash_tile(S: int, causal: bool) -> tuple[int, int]:
+    """The forward kernel's (tile, padded length) for S keys: the model's
+    rule (``attention_tiles``) when causal; else the largest bf16 block_k
+    up to 128 that divides S, unpadded."""
+    from types import SimpleNamespace
+
+    from repro_torch.kernels.flash_attention.flash_attention import \
+        BF16_BLOCK_K
+    from repro_torch.models.attention import attention_tiles
+    if causal:
+        cfg = SimpleNamespace(attn_impl="naive", attn_block=128, causal=True)
+        return attention_tiles(cfg, S, None)
+    return next(t for t in sorted(BF16_BLOCK_K, reverse=True)
+                if t <= 128 and S % t == 0), S
+
+
+def bwd_inputs(torch, kernel, s, dtype, gen, *, full: bool = False):
+    """Seeded inputs of a backward kernel on the card, with the forward
+    outputs it needs made by the forward kernel as the model makes them
+    (flash's o and lse on inputs padded at the end to the tile when
+    causal, cut back; the scan's tile-start states), and an output
+    gradient.  The forward's new outputs are held against the plain
+    forward's (o at the forward's tolerance, at full width ``FULL_ATOL``;
+    lse and the states at the f32 ``BWD_TOL``), and the outputs it had
+    before must keep their bits when they are asked for.  Returns (inputs,
+    the forward's max |diff| by output)."""
+    from repro_torch.kernels.flash_attention.flash_attention import \
+        flash_attention_plain
+    from repro_torch.kernels.flash_attention.ops import _launch
+    from repro_torch.kernels.mamba_scan.mamba_scan import mamba_scan_plain
+    from repro_torch.kernels.mamba_scan.ops import _forward as scan_forward
+    dev = torch.device("cuda")
+    dt = getattr(torch, dtype)
+
+    def rnd(*shape, d=dt):
+        return torch.randn(shape, generator=gen, device=dev).to(d)
+
+    if kernel == "rmsnorm":
+        # the scale in the model's dtype, as its norm weights are
+        return {"x": rnd(s["rows"], s["d"]), "scale": rnd(s["d"]),
+                "dy": rnd(s["rows"], s["d"])}, {}
+    if kernel == "flash_attention":
+        S, causal = s["S"], s["causal"]
+        shape = (s["B"], s["H"], S, s["hd"])
+        q, k, v, do = (rnd(*shape) for _ in range(4))
+        scale = s["hd"] ** -0.5
+        tile, Sp = flash_tile(S, causal)
+        pad = [torch.nn.functional.pad(t, (0, 0, 0, Sp - S)).contiguous()
+               for t in (q, k, v)]
+        kw = dict(causal=causal, scale=scale, block_q=tile, block_k=tile)
+        o, lse = _launch(*pad, **kw, want_lse=True)
+        if not torch.equal(o, _launch(*pad, **kw, want_lse=False)):
+            raise AssertionError(f"flash_attention {s} {dtype}: o changed "
+                                 "with lse requested")
+        o, lse = o[:, :, :S].contiguous(), lse[:, :, :S].contiguous()
+        blk = 128 if S % 128 == 0 else S
+        o_plain, lse_plain = flash_attention_plain(
+            q, k, v, causal=causal, scale=scale, block_q=blk, block_k=blk,
+            return_lse=True)
+        fwd = {"o": check_close(torch, "flash_attention",
+                                f"forward with lse {s}", o, o_plain, dtype,
+                                atol=FULL_ATOL["flash_attention"] if full
+                                else None),
+               "lse": within(torch, lse, lse_plain, *BWD_TOL["float32"])}
+        return {"q": q, "k": k, "v": v, "o": o, "do": do, "lse": lse,
+                "causal": causal, "scale": scale}, fwd
+    seq = (s["Bt"], s["L"], s["D"])
+    i = {"dt": torch.nn.functional.softplus(
+             torch.randn(seq, generator=gen, device=dev)).to(dt),
+         "x": rnd(*seq), "dy": rnd(*seq),
+         "A": -torch.exp(torch.randn((s["D"], s["N"]), generator=gen,
+                                     device=dev) * 0.3),
+         "B": rnd(s["Bt"], s["L"], s["N"]), "C": rnd(s["Bt"], s["L"], s["N"]),
+         "dh": rnd(s["Bt"], s["D"], s["N"], d=torch.float32),
+         "chunk": s["chunk"]}
+    ins = [i[n] for n in ("dt", "x", "A", "B", "C")]
+    y, h, i["hc"] = scan_forward(*ins, chunk=s["chunk"], return_state=True,
+                                 return_chunks=True)
+    y0, h0 = scan_forward(*ins, chunk=s["chunk"], return_state=True,
+                          return_chunks=False)
+    if not (torch.equal(y, y0) and torch.equal(h, h0)):
+        raise AssertionError(f"mamba_scan {s} {dtype}: y or h_last changed "
+                             "with the chunk states requested")
+    _, _, hc_plain = mamba_scan_plain(*ins, chunk=s["chunk"],
+                                      return_state=True, return_chunks=True)
+    return i, {"h_chunks": within(torch, i["hc"], hc_plain,
+                                  *BWD_TOL["float32"])}
+
+
+def run_bwd(kernel, i, *, plain: bool) -> tuple:
+    """The backward kernel (or its plain version) on ``i``."""
+    from repro_torch.kernels.flash_attention.flash_attention import \
+        flash_attention_bwd_plain
+    from repro_torch.kernels.flash_attention.ops import flash_attention_bwd
+    from repro_torch.kernels.mamba_scan.mamba_scan import \
+        mamba_scan_bwd_plain
+    from repro_torch.kernels.mamba_scan.ops import mamba_scan_bwd
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm_bwd
+    from repro_torch.kernels.rmsnorm.rmsnorm import rmsnorm_bwd_plain
+    if kernel == "rmsnorm":
+        fn = rmsnorm_bwd_plain if plain else rmsnorm_bwd
+        return fn(i["x"], i["scale"], i["dy"], eps=1e-6)
+    if kernel == "flash_attention":
+        fn = flash_attention_bwd_plain if plain else flash_attention_bwd
+        return fn(i["q"], i["k"], i["v"], i["o"], i["do"], i["lse"],
+                  causal=i["causal"], scale=i["scale"])
+    fn = mamba_scan_bwd_plain if plain else mamba_scan_bwd
+    return fn(i["dt"], i["x"], i["A"], i["B"], i["C"], i["dy"], i["hc"],
+              i["dh"], chunk=i["chunk"])
+
+
+def bwd_check(torch, kernel, i, dtype) -> float:
+    """The kernel against its plain version on ``i`` within BWD_TOL (f32
+    tolerances for the f32 outputs: the scan's dA), and the same bits from
+    a second call; the largest |diff|."""
+    got, want = run_bwd(kernel, i, plain=False), run_bwd(kernel, i,
+                                                          plain=True)
+    again = run_bwd(kernel, i, plain=False)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"{BWD_NAMES[kernel]} ({dtype}): two calls "
+                             "gave other bits")
+    errs = []
+    for g, w in zip(got, want):
+        name = "float32" if w.dtype == torch.float32 else dtype
+        errs.append(within(torch, g, w, *BWD_TOL[name]))
+    return max(errs)
+
+
+def bwd_library_call(torch, kernel, i):
+    """One PyTorch call computing the same gradient, or None: the
+    backward of ``F.rms_norm``, of SDPA."""
+    F = torch.nn.functional
+    if kernel == "rmsnorm":
+        x = i["x"].detach().requires_grad_()
+        w = i["scale"].to(x.dtype).detach().requires_grad_()
+        y = F.rms_norm(x, (x.shape[-1],), w, 1e-6)
+        return lambda: torch.autograd.grad(y, (x, w), i["dy"],
+                                           retain_graph=True)
+    if kernel == "flash_attention":
+        q, k, v = (i[n].detach().requires_grad_() for n in "qkv")
+        o = F.scaled_dot_product_attention(q, k, v, is_causal=i["causal"])
+        return lambda: torch.autograd.grad(o, (q, k, v), i["do"],
+                                           retain_graph=True)
+    return None
+
+
+def bwd_bound(kernel, s, dtype, rates) -> tuple[float, str, float, float]:
+    """(bound_ms, bound_by, bytes, operations) of one backward call: each
+    input read once (the forward's outputs it takes among them), each
+    output written once; the operations the gradient needs (flash: the
+    five products of FA2's backward over the causal half, 10 hd a pair;
+    rmsnorm ~10 and the scan ~13 f32 operations an element)."""
+    es = 2 if dtype == "bfloat16" else 4
+    if kernel == "rmsnorm":
+        n = s["rows"] * s["d"]
+        nbytes, ops, rate = 3 * n * es + 2 * s["d"] * es, 10 * n, rates["f32"]
+    elif kernel == "flash_attention":
+        B, H, S, hd = s["B"], s["H"], s["S"], s["hd"]
+        pairs = B * H * (S * (S + 1) // 2 if s["causal"] else S * S)
+        nbytes = 8 * B * H * S * hd * es + B * H * S * 4
+        ops = 10 * hd * pairs
+        rate = rates["bf16"] if dtype == "bfloat16" else rates["f32"]
+    else:
+        Bt, L, D, N = s["Bt"], s["L"], s["D"], s["N"]
+        nbytes = (5 * Bt * L * D * es + 4 * Bt * L * N * es + 2 * D * N * 4
+                  + Bt * (L // s["chunk"] + 1) * D * N * 4)
+        ops, rate = 13 * Bt * L * D * N, rates["f32"]
+    t_bytes, t_ops = nbytes / rates["bw"], ops / rate
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    return max(t_bytes, t_ops) * 1e3, by, nbytes, ops
+
+
+def train_kernels(torch) -> dict:
+    """(a): each backward kernel against its plain version at the small
+    ragged shapes in f32 and bf16, at the main path's shapes and at full
+    width, on inputs the forward kernel made, two calls the same bits; at
+    full width its time, the plain version's, the library call's and the
+    bound."""
+    rates = device_rates()
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    out = {}
+
+    def case(kernel, s, dtype, full=False):
+        i, fwd = bwd_inputs(torch, kernel, s, dtype, gen, full=full)
+        row = {"shape": s, "dtype": dtype, "forward_max_abs_err": fwd,
+               "max_abs_err": bwd_check(torch, kernel, i, dtype)}
+        return i, row
+
+    for kernel, name in BWD_NAMES.items():
+        checked = [case(kernel, s, dtype)[1] for s in BWD_SMALL[kernel]
+                   for dtype in ("float32", "bfloat16")]
+        for s, dtype in BWD_PATH[kernel]:
+            checked.append(case(kernel, s, dtype, full=True)[1])
+            torch.cuda.empty_cache()
+        s, dtype = BWD_FULL[kernel]
+        i, row = case(kernel, s, dtype, full=True)
+        ms = time_ms(torch, lambda: run_bwd(kernel, i, plain=False),
+                     reps=20, flush=flush)
+        plain_ms = time_ms(torch, lambda: run_bwd(kernel, i, plain=True),
+                           reps=1 if kernel == "mamba_scan" else 3,
+                           flush=flush)
+        lib = bwd_library_call(torch, kernel, i)
+        library_ms = (time_ms(torch, lib, reps=20, flush=flush)
+                      if lib is not None else None)
+        bound_ms, bound_by, nbytes, ops = bwd_bound(kernel, s, dtype, rates)
+        out[name] = {"checked": checked, **row, "kernel_ms": ms,
+                     "plain_ms": plain_ms, "library_ms": library_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "bytes": nbytes, "operations": ops}
+        del i, lib
+        torch.cuda.empty_cache()
+    del flush
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_card_against_cpu(torch, arch: str, counters) -> dict:
+    """(b): the loss and every gradient of ``arch`` at full width, 2
+    layers, f32, TF32 off, on the card against the CPU (same weights, a
+    ragged 100-token batch: flash pads to its tile, the scan to its
+    chunk), with the serve phase's card-against-CPU tolerance; the card's
+    backward kernels launched."""
+    import copy
+
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core.interp import full_f32
+    from repro_torch.models import transformer as T
+    from repro_torch.train.train_step import loss_and_grads
+    cfg = get_config(arch).scaled(n_layers=CARD_CPU_LAYERS, dtype="float32")
+    cpu = T.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                        device="cpu")
+    card = copy.deepcopy(cpu).to("cuda")
+    rng = np.random.default_rng(0)
+    shape = (TRAIN_CARD_CPU["batch"], TRAIN_CARD_CPU["seq"])
+    b = {"tokens": rng.integers(0, cfg.vocab, shape).astype(np.int32),
+         "labels": rng.integers(0, cfg.vocab, shape).astype(np.int32)}
+    t0 = time.perf_counter()
+    want_loss, want = loss_and_grads(cfg, cpu, b)
+    cpu_s = time.perf_counter() - t0
+    for fn in counters.values():
+        fn.launches = 0
+    with full_f32():
+        got_loss, got = loss_and_grads(cfg, card, b)
+        torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    want_k = ("rmsnorm", "flash_attention") if arch.startswith("qwen") \
+        else ("rmsnorm", "mamba_scan")
+    for k in want_k:
+        if not launches[k] or not launches[BWD_NAMES[k]]:
+            raise AssertionError(f"{arch}: a gradient on the card did not "
+                                 f"launch {k} and {BWD_NAMES[k]}")
+    errs = {"loss": within(torch, got_loss, want_loss, CARD_CPU_RTOL,
+                           CARD_CPU_ATOL)}
+    worst = max((within(torch, got[n], want[n], CARD_CPU_RTOL,
+                        CARD_CPU_ATOL), n) for n in want)
+    errs["grad_max_abs_err"], errs["grad_worst_leaf"] = worst
+    want_names = sorted(want)
+    del cpu, want
+    errs["bf16"] = bf16_against_f32(torch, arch, cfg, card, b, got_loss, got,
+                                    counters, want_k)
+    del card, got
+    torch.cuda.empty_cache()
+    return {"config": {"n_layers": cfg.n_layers, "d_model": cfg.d_model,
+                       "vocab": cfg.vocab, "dtype": "float32"},
+            "tokens": shape, "gradients": len(want_names),
+            "launches": launches, "cpu_s": cpu_s, **errs}
+
+
+def bf16_against_f32(torch, arch, cfg, card, b, loss32, grads32, counters,
+                     want_k) -> dict:
+    """The loss and gradients of ``card``'s weights rounded to bf16 (the
+    leaves the model keeps in f32 stay so) against the f32 card's, within
+    ``TRAIN_BF16_REL_L2`` and ``TRAIN_BF16_LOSS_RTOL``; the bf16 backward
+    kernels launched."""
+    from repro_torch.models import transformer as T
+    from repro_torch.train.train_step import loss_and_grads
+    cfg16 = cfg.scaled(dtype="bfloat16")
+    model = T.init_params(cfg16, device="cuda")
+    f32 = dict(card.named_parameters())
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            p.copy_(f32[n])
+    for fn in counters.values():
+        fn.launches = 0
+    loss, grads = loss_and_grads(cfg16, model, b)
+    torch.cuda.synchronize()
+    for k in want_k:
+        if not counters[BWD_NAMES[k]].launches:
+            raise AssertionError(f"{arch} bf16: no launch of {BWD_NAMES[k]}")
+    loss_rel = abs(float(loss) - float(loss32)) / abs(float(loss32))
+    rel = {}
+    for n, g32 in grads32.items():
+        g = grads[n].float()
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"{arch} bf16: gradient {n} not finite")
+        norm = float(g32.norm())
+        rel[n] = float((g - g32).norm()) / norm if norm else float(g.norm())
+    worst = max(rel, key=rel.get)
+    if not (loss_rel <= TRAIN_BF16_LOSS_RTOL
+            and rel[worst] <= TRAIN_BF16_REL_L2):
+        raise AssertionError(f"{arch} bf16 against f32: loss {loss_rel:.3e} "
+                             f"relative, gradient {worst} {rel[worst]:.3e} "
+                             f"(relative L2): {rel}")
+    del model, grads
+    return {"loss_rel": loss_rel, "grad_rel_l2": rel,
+            "grad_worst_leaf": worst}
+
+
+def expected_train_launches(cfg) -> dict:
+    """Forward (and, as many, backward) launches of each kernel a training
+    step of ``cfg`` makes: rmsnorm at each layer's norms and the final
+    one, flash once an attention layer, the scan once a mamba1 layer."""
+    if cfg.family == "ssm":
+        return {"rmsnorm": cfg.n_layers + 1, "flash_attention": 0,
+                "mamba_scan": cfg.n_layers}
+    per = 2 + (2 if cfg.qk_norm else 0)
+    return {"rmsnorm": cfg.n_layers * per + 1,
+            "flash_attention": cfg.n_layers, "mamba_scan": 0}
+
+
+def train_run(torch, arch: str, counters) -> dict:
+    """(c) and (d): ``launch.train``'s main on the card, its launches
+    counted from zero; falling loss, the launches a step the layer count
+    implies, s/step, tokens/s, peak memory, the idle share of one more
+    step."""
+    import numpy as np
+    from repro_torch.launch import train as L
+    argv = TRAIN_RUNS[arch]
+    stamps = []
+
+    def on_step(step, metrics):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    res, printed = captured(lambda a: L.main(a, on_step=on_step), argv)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    cfg, steps = res["cfg"], len(res["losses"])
+    losses = res["losses"]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{arch}: losses {losses}")
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    if not last < first:
+        raise AssertionError(f"{arch}: the loss did not fall ({first} -> "
+                             f"{last}): {losses}")
+    want = expected_train_launches(cfg)
+    for k, n in want.items():
+        for name in (k, BWD_NAMES[k]):
+            if launches[name] != n * steps:
+                raise AssertionError(f"{arch}: {launches[name]} launches of "
+                                     f"{name} in {steps} steps, the layers "
+                                     f"imply {n} a step")
+    step_s = np.diff([t0] + stamps)
+    steady = float(np.median(step_s[1:]))
+    B, S = res["batch"](0)["labels"].shape
+    idle = idle_share(torch, lambda: res["step_fn"](res["state"],
+                                                    res["batch"](steps)))
+    del res
+    torch.cuda.empty_cache()
+    return {"argv": argv, "config": {"n_layers": cfg.n_layers,
+                                     "d_model": cfg.d_model,
+                                     "vocab": cfg.vocab, "dtype": cfg.dtype},
+            "steps": steps, "losses": losses, "first5": first,
+            "last5": last, "first_step_s": float(step_s[0]),
+            "s_per_step": steady, "tokens_per_s": B * S / steady,
+            "peak_allocated_bytes": peak, "launches": launches,
+            "launches_per_step": {k: v / steps for k, v in launches.items()},
+            "step": idle, "printed": printed.splitlines()[-3:]}
+
+
+def train_resume(torch) -> dict:
+    """(e): 6 steps straight against 3, a checkpoint, a restore into a
+    fresh run and 3 more, all through ``launch.train``'s main: the
+    parameters and losses bit for bit."""
+    import tempfile
+
+    from repro_torch.launch import train as L
+    straight, _ = captured(L.main, TRAIN_RESUME + ["--steps", "6"])
+    with tempfile.TemporaryDirectory() as d:
+        captured(L.main, TRAIN_RESUME + ["--steps", "3", "--ckpt", d])
+        resumed, printed = captured(L.main, TRAIN_RESUME + [
+            "--steps", "6", "--ckpt", d, "--ckpt-every", "100"])
+    if resumed["start"] != 3 or "resumed from step 3" not in printed:
+        raise AssertionError(f"resume: {printed!r}")
+    a = dict(straight["state"]["params"].named_parameters())
+    unequal = [n for n, p in resumed["state"]["params"].named_parameters()
+               if not torch.equal(p, a[n])]
+    if unequal or resumed["losses"] != straight["losses"][3:]:
+        raise AssertionError(f"resume: parameters {unequal[:4]} or losses "
+                             f"{resumed['losses']} against "
+                             f"{straight['losses'][3:]}")
+    n = sum(p.numel() for p in a.values())
+    del straight, resumed, a
+    torch.cuda.empty_cache()
+    return {"argv": TRAIN_RESUME, "parameters": n,
+            "bit_identical_after_resume": True}
+
+
+def phase_train(torch, counters) -> dict:
+    """Training on the card (see the module docstring); ``counters`` holds
+    the three forward wrappers and the three backward ones."""
+    out = {"phase": "train", "gpu": nvidia_smi(),
+           "tolerance": {"bwd": BWD_TOL,
+                         "card_cpu": {"rtol": CARD_CPU_RTOL,
+                                      "atol_of_max": CARD_CPU_ATOL},
+                         "bf16_f32": {"grad_rel_l2": TRAIN_BF16_REL_L2,
+                                      "loss_rtol": TRAIN_BF16_LOSS_RTOL}}}
+    out["kernels"] = train_kernels(torch)
+    out["card_against_cpu"] = {a: train_card_against_cpu(torch, a, counters)
+                               for a in SERVE_ARCHS}
+    out["runs"] = {a: train_run(torch, a, counters) for a in TRAIN_RUNS}
+    out["resume"] = train_resume(torch)
+    out["launches"] = {k: sum(r["launches"][k] for r in out["runs"].values())
+                       for k in counters}
+    emit(out)
+    return out
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels").is_dir():
         print("chip_smoke.py: run it from a checkout of the repository "
@@ -2493,16 +3019,21 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     from repro_torch.kernels import build
     from repro_torch.kernels import workloads as wl
-    from repro_torch.kernels.flash_attention.ops import flash_attention
-    from repro_torch.kernels.mamba_scan.ops import mamba_scan
-    from repro_torch.kernels.rmsnorm.ops import rmsnorm
+    from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                         flash_attention_bwd)
+    from repro_torch.kernels.mamba_scan.ops import mamba_scan, mamba_scan_bwd
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm, rmsnorm_bwd
 
     phase_device(torch, build)
     phase_search_shapes(torch, wl)
     full = phase_full_width(torch, wl)
     phase_overheads(torch)
+    # every wrapper, forward and backward: each path's reset and read
+    # covers all six
     counters = {"rmsnorm": rmsnorm, "flash_attention": flash_attention,
-                "mamba_scan": mamba_scan}
+                "mamba_scan": mamba_scan, "rmsnorm_bwd": rmsnorm_bwd,
+                "flash_attention_bwd": flash_attention_bwd,
+                "mamba_scan_bwd": mamba_scan_bwd}
     launches = phase_search(torch, wl, counters)
     phase_profile(torch, wl)
     phase_programs(torch)
@@ -2514,30 +3045,42 @@ def main() -> int:
     keep.clear()
     torch.cuda.empty_cache()
     liveloop = phase_liveloop(torch, counters)
+    train = phase_train(torch, counters)
 
-    # launches: in the kernel's own measured search; launches_joint_static:
-    # in the joint static search; launches_islands: in the measured
-    # flash-attention islands; launches_tensor and launches_fleet: in the
-    # tensorized engine's run and the mesh fleet's; launches_serve: in the
-    # server's runs of qwen3-0.6b and falcon-mamba-7b; launches_router: in
-    # build_router's runs of both; launches_liveloop: in the real live
-    # loop's three ticks
-    emit({"kernels": [
-        {"name": k, "route": "cuda", "source": SOURCES[k],
-         "replaces": REPLACES[k], "launches": launches["measured"][k][k],
-         "launches_joint_static": launches["joint_static"][k],
-         "launches_islands": islands["launches"][k],
-         "launches_tensor": tensor["engine"]["launches"][k],
-         "launches_fleet": tensor["fleet"]["launches"][k],
-         "launches_serve": serve["launches"][k],
-         "launches_router": router["launches"][k],
-         "launches_liveloop": liveloop["launches"][k],
-         "max_abs_err": full[k]["max_abs_err"], "ms": full[k]["kernel_ms"],
-         "plain_ms": full[k]["plain_ms"], "bound_ms": full[k]["bound_ms"],
-         "bound_by": full[k]["bound_by"],
-         "library_ms": full[k]["library_ms"],
-         **({"profiler_ms": full[k]["profiler_ms"]}
-            if "profiler_ms" in full[k] else {})} for k in wl.KERNELS]})
+    # launches: in the kernel's own measured search (a backward kernel has
+    # none: its main path is training, so its row gives that count);
+    # launches_joint_static: in the joint static search; launches_islands:
+    # in the measured flash-attention islands; launches_tensor and
+    # launches_fleet: in the tensorized engine's run and the mesh fleet's;
+    # launches_serve: in the server's runs of qwen3-0.6b and
+    # falcon-mamba-7b; launches_router: in build_router's runs of both;
+    # launches_liveloop: in the real live loop's three ticks;
+    # launches_train: in the training runs of both models.  Every count
+    # was read from the wrapper's counter after that path alone.
+    forward_of = {b: k for k, b in BWD_NAMES.items()}
+    timed = {**{k: full[k] for k in wl.KERNELS}, **train["kernels"]}
+    rows = [
+        {"name": n, "route": "cuda",
+         "source": SOURCES[forward_of.get(n, n)],
+         "replaces": REPLACES[forward_of.get(n, n)],
+         "launches": (launches["measured"][n][n] if n in wl.KERNELS
+                      else train["launches"][n]),
+         "launches_joint_static": launches["joint_static"][n],
+         "launches_islands": islands["launches"][n],
+         "launches_tensor": tensor["engine"]["launches"][n],
+         "launches_fleet": tensor["fleet"]["launches"][n],
+         "launches_serve": serve["launches"][n],
+         "launches_router": router["launches"][n],
+         "launches_liveloop": liveloop["launches"][n],
+         "launches_train": train["launches"][n],
+         "max_abs_err": timed[n]["max_abs_err"], "ms": timed[n]["kernel_ms"],
+         "plain_ms": timed[n]["plain_ms"], "bound_ms": timed[n]["bound_ms"],
+         "bound_by": timed[n]["bound_by"],
+         "library_ms": timed[n]["library_ms"],
+         **({"profiler_ms": timed[n]["profiler_ms"]}
+            if "profiler_ms" in timed[n] else {})}
+        for n in (*wl.KERNELS, *BWD_NAMES.values())]
+    emit({"kernels": rows})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -71,8 +71,9 @@ constexpr int kBarrierBytes = 128;  // full[4], empty[4], q: 8 bytes each
 template <typename T, int HD, int kMaxThreads>
 __global__ void __launch_bounds__(kMaxThreads)
 flash_f32_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ o, int Sq, int Sk,
-             int block_q, int block_k, float scale, int causal) {
+             const T* __restrict__ v, T* __restrict__ o,
+             float* __restrict__ lse, int Sq, int Sk, int block_q,
+             int block_k, float scale, int causal) {
   constexpr int kVPT = HD / 4;  // dims per thread
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* ks = reinterpret_cast<T*>(smem_raw);  // [block_k][HD]
@@ -178,6 +179,8 @@ flash_f32_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int c = 0; c < 4; ++c) out[c] = acc[4 * i + c] * inv;
     store4(orow + 16 * i + 4 * sub, out);
   }
+  // the row's log-sum-exp of the scaled scores, for the backward
+  if (lse != nullptr && sub == 0) lse[bh * Sq + qpos] = m + logf(l);
 }
 
 
@@ -198,8 +201,9 @@ __global__ void __launch_bounds__(kWG * 128 + 32, 1)
 flash_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
                   const __grid_constant__ CUtensorMap tm_k,
                   const __grid_constant__ CUtensorMap tm_v,
-                  __nv_bfloat16* __restrict__ o, int Sq, int Sk, int block_q,
-                  float scale, int causal, int stages) {
+                  __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                  int Sq, int Sk, int block_q, float scale, int causal,
+                  int stages) {
   // a panel is one swizzle width of columns (64 bf16 = 128 B, or 32 = 64 B)
   constexpr int kPanelCols = HD >= 64 ? 64 : 32;
   constexpr uint32_t kRowBytes = 2 * kPanelCols;
@@ -433,52 +437,58 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
                                     acc[4 * g + 3] * inv1);
         }
       }
+      if (lse != nullptr && quad == 0) {  // log-sum-exp, for the backward
+        float* lb = lse + static_cast<long>(bh) * Sq;
+        if (row0 < end) lb[row0] = m0 + logf(l0);
+        if (row1 < end) lb[row1] = m1 + logf(l1);
+      }
     }
   }
 }
 
 template <int HD, int kMaxThreads>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
-                       int BH, int Sq, int Sk, int block_q, int block_k,
-                       float scale, int causal, int smem, cudaStream_t stream) {
+                       float* lse, int BH, int Sq, int Sk, int block_q,
+                       int block_k, float scale, int causal, int smem,
+                       cudaStream_t stream) {
   auto kernel = flash_f32_kernel<float, HD, kMaxThreads>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   dim3 grid(Sq / block_q, BH);
   kernel<<<grid, block_q * 4, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), Sq, Sk, block_q,
-      block_k, scale, causal);
+      static_cast<const float*>(v), static_cast<float*>(o), lse, Sq, Sk,
+      block_q, block_k, scale, causal);
   return cudaGetLastError();
 }
 
 template <int HD>
 cudaError_t launch_f32_threads(const void* q, const void* k, const void* v,
-                               void* o, int BH, int Sq, int Sk, int block_q,
-                               int block_k, float scale, int causal, int smem,
-                               cudaStream_t stream) {
+                               void* o, float* lse, int BH, int Sq, int Sk,
+                               int block_q, int block_k, float scale,
+                               int causal, int smem, cudaStream_t stream) {
   // a 512-thread bound leaves 128 registers a thread (no spills at hd 128);
   // block_q > 128 needs the 1024-thread bound, and so 64 registers
   if (block_q * 4 <= 512)
-    return launch_f32<HD, 512>(q, k, v, o, BH, Sq, Sk, block_q, block_k,
+    return launch_f32<HD, 512>(q, k, v, o, lse, BH, Sq, Sk, block_q, block_k,
                                scale, causal, smem, stream);
-  return launch_f32<HD, 1024>(q, k, v, o, BH, Sq, Sk, block_q, block_k, scale,
-                              causal, smem, stream);
+  return launch_f32<HD, 1024>(q, k, v, o, lse, BH, Sq, Sk, block_q, block_k,
+                              scale, causal, smem, stream);
 }
 
 cudaError_t launch_f32_hd(int hd, const void* q, const void* k, const void* v,
-                          void* o, int BH, int Sq, int Sk, int block_q,
-                          int block_k, float scale, int causal, int smem,
-                          cudaStream_t stream) {
+                          void* o, float* lse, int BH, int Sq, int Sk,
+                          int block_q, int block_k, float scale, int causal,
+                          int smem, cudaStream_t stream) {
   switch (hd) {
     case 32:
-      return launch_f32_threads<32>(q, k, v, o, BH, Sq, Sk, block_q, block_k,
-                                    scale, causal, smem, stream);
+      return launch_f32_threads<32>(q, k, v, o, lse, BH, Sq, Sk, block_q,
+                                    block_k, scale, causal, smem, stream);
     case 64:
-      return launch_f32_threads<64>(q, k, v, o, BH, Sq, Sk, block_q, block_k,
-                                    scale, causal, smem, stream);
+      return launch_f32_threads<64>(q, k, v, o, lse, BH, Sq, Sk, block_q,
+                                    block_k, scale, causal, smem, stream);
     case 128:
-      return launch_f32_threads<128>(q, k, v, o, BH, Sq, Sk, block_q,
+      return launch_f32_threads<128>(q, k, v, o, lse, BH, Sq, Sk, block_q,
                                      block_k, scale, causal, smem, stream);
     default:
       return cudaErrorInvalidValue;
@@ -487,8 +497,9 @@ cudaError_t launch_f32_hd(int hd, const void* q, const void* k, const void* v,
 
 template <int HD, int BK>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
-                        int BH, int Sq, int Sk, int block_q, float scale,
-                        int causal, int smem, cudaStream_t stream) {
+                        float* lse, int BH, int Sq, int Sk, int block_q,
+                        float scale, int causal, int smem,
+                        cudaStream_t stream) {
   constexpr int kWG = max_warpgroups<BK>();
   constexpr int kPanelCols = HD >= 64 ? 64 : 32;
   const int nslab = (block_q + 63) / 64;
@@ -511,20 +522,20 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
   const int nwg = std::min(nslab, kWG);
   dim3 grid(Sq / block_q, BH);
   kernel<<<grid, nwg * 128 + 32, smem, stream>>>(
-      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(o), Sq, Sk, block_q,
+      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(o), lse, Sq, Sk, block_q,
       scale, causal, stages);
   return cudaGetLastError();
 }
 
 template <int HD>
 cudaError_t launch_bf16_bk(int block_k, const void* q, const void* k,
-                           const void* v, void* o, int BH, int Sq, int Sk,
-                           int block_q, float scale, int causal, int smem,
-                           cudaStream_t stream) {
+                           const void* v, void* o, float* lse, int BH, int Sq,
+                           int Sk, int block_q, float scale, int causal,
+                           int smem, cudaStream_t stream) {
 #define REPRO_FLASH_BK(BK)                                                 \
   case BK:                                                                 \
-    return launch_bf16<HD, BK>(q, k, v, o, BH, Sq, Sk, block_q, scale,     \
-                               causal, smem, stream);
+    return launch_bf16<HD, BK>(q, k, v, o, lse, BH, Sq, Sk, block_q,       \
+                               scale, causal, smem, stream);
   switch (block_k) {
     REPRO_FLASH_BK(16)
     REPRO_FLASH_BK(32)
@@ -540,19 +551,356 @@ cudaError_t launch_bf16_bk(int block_k, const void* q, const void* k,
 }
 
 cudaError_t launch_bf16_hd(int hd, int block_k, const void* q, const void* k,
-                           const void* v, void* o, int BH, int Sq, int Sk,
-                           int block_q, float scale, int causal, int smem,
-                           cudaStream_t stream) {
+                           const void* v, void* o, float* lse, int BH, int Sq,
+                           int Sk, int block_q, float scale, int causal,
+                           int smem, cudaStream_t stream) {
   switch (hd) {
     case 32:
-      return launch_bf16_bk<32>(block_k, q, k, v, o, BH, Sq, Sk, block_q,
+      return launch_bf16_bk<32>(block_k, q, k, v, o, lse, BH, Sq, Sk, block_q,
                                 scale, causal, smem, stream);
     case 64:
-      return launch_bf16_bk<64>(block_k, q, k, v, o, BH, Sq, Sk, block_q,
+      return launch_bf16_bk<64>(block_k, q, k, v, o, lse, BH, Sq, Sk, block_q,
                                 scale, causal, smem, stream);
     case 128:
-      return launch_bf16_bk<128>(block_k, q, k, v, o, BH, Sq, Sk, block_q,
-                                 scale, causal, smem, stream);
+      return launch_bf16_bk<128>(block_k, q, k, v, o, lse, BH, Sq, Sk,
+                                 block_q, scale, causal, smem, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Backward (no TPU counterpart: the reference leaves the gradient of its
+// jnp attention to XLA; here the forward is this kernel, so its gradient is
+// one too).  With P = exp(s Q K^T - lse) recomputed from the forward's
+// log-sum-exp and D = rowsum(dO o O):
+//   dS = P o (dO V^T - D),  dV = P^T dO,  dK = s dS^T Q,  dQ = s dS K.
+// Three kernels, no atomics, so every call gives the same bits:
+// * flash_bwd_delta_kernel: D, one warp a row;
+// * flash_bwd_dkdv_kernel: a block per (bh, 64-key tile) walks the 64-row
+//   query tiles from the causal start, recomputes P and dS for the tile
+//   pair and accumulates dK and dV in registers;
+// * flash_bwd_dq_kernel: a block per (bh, 64-row query tile) walks the key
+//   tiles up to the causal end and accumulates dQ in registers.
+// Bound on the H100: operations (7 products of Sq x Sk x hd, the causal
+// half of them, against 4 tensors of Sq x hd read and 3 written).  This
+// first version runs them on the CUDA cores in f32 for both input types:
+// the tiles are converted to f32 in shared memory (rows padded by one
+// float, so the 16 threads that read 16 rows hit 16 banks), and each of
+// 256 threads owns a 4 x 4 block of the 64 x 64 scores (rows t / 16 + 16 i,
+// columns t % 16 + 16 j) and 4 rows x hd / 16 columns of its accumulator.
+// Rows past Sq or Sk are loaded as zeros and masked out of P, so any
+// sequence lengths work; keys past the causal diagonal get P = 0.
+// ---------------------------------------------------------------------------
+
+constexpr int kBwdTile = 64;
+constexpr int kBwdThreads = 256;
+
+// dynamic shared memory of both backward kernels (flash_bwd_smem_bytes in
+// repro_torch/kernels/flash_attention/flash_attention.py computes the same)
+__host__ __device__ constexpr int bwd_smem_bytes(int hd) {
+  return (4 * kBwdTile * (hd + 1) + 2 * kBwdTile * (kBwdTile + 1) +
+          2 * kBwdTile) * 4;
+}
+
+template <typename T>
+__global__ void flash_bwd_delta_kernel(const T* __restrict__ o,
+                                       const T* __restrict__ dout,
+                                       float* __restrict__ delta, long rows,
+                                       int hd) {
+  const long r = static_cast<long>(blockIdx.x) * (blockDim.x / 32) +
+                 threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (r >= rows) return;
+  float acc = 0.f;
+  for (int c = lane; c < hd; c += 32) {
+    acc += to_float(o[r * hd + c]) * to_float(dout[r * hd + c]);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  }
+  if (lane == 0) delta[r] = acc;
+}
+
+// rows [row0, row0 + 64) of a (rows, HD) matrix of T into a shared tile of
+// f32 rows of HD + 1; rows past `rows` are zeros
+template <typename T, int HD>
+__device__ __forceinline__ void bwd_load_tile(float* dst,
+                                              const T* __restrict__ src,
+                                              int row0, int rows) {
+  for (int i = threadIdx.x; i < kBwdTile * HD; i += kBwdThreads) {
+    const int r = i / HD, c = i % HD;
+    dst[r * (HD + 1) + c] =
+        row0 + r < rows ? to_float(src[static_cast<long>(row0 + r) * HD + c])
+                        : 0.f;
+  }
+}
+
+// P and dS of one (query tile, key tile) pair into shared memory,
+// [query][key] with rows of 65: s = Q K^T, dp = dO V^T over the head dim,
+// P = exp(scale s - lse) where the pair is in range and unmasked, else 0,
+// dS = P (dp - D)
+template <int HD>
+__device__ __forceinline__ void bwd_scores(
+    const float* qs, const float* ks, const float* dos, const float* vs,
+    const float* lse_s, const float* delta_s, float* ps, float* dss, int q0,
+    int k0, int Sq, int Sk, float scale, int causal) {
+  constexpr int st = HD + 1;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  float s[4][4], dp[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+  }
+#pragma unroll 4
+  for (int d = 0; d < HD; ++d) {
+    float a[4], b[4], g[4], w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      a[i] = qs[(ty + 16 * i) * st + d];
+      g[i] = dos[(ty + 16 * i) * st + d];
+      b[i] = ks[(tx + 16 * i) * st + d];
+      w[i] = vs[(tx + 16 * i) * st + d];
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] += a[i] * b[j];
+        dp[i][j] += g[i] * w[j];
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qi = ty + 16 * i, qpos = q0 + qi;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int kj = tx + 16 * j, kpos = k0 + kj;
+      const bool live = qpos < Sq && kpos < Sk && !(causal && kpos > qpos);
+      const float p = live ? expf(s[i][j] * scale - lse_s[qi]) : 0.f;
+      ps[qi * (kBwdTile + 1) + kj] = p;
+      dss[qi * (kBwdTile + 1) + kj] = p * (dp[i][j] - delta_s[qi]);
+    }
+  }
+}
+
+// the block's shared memory: Q, dO, K, V tiles, then P and dS, then lse
+// and D of the query tile
+struct BwdSmem {
+  float *qs, *dos, *ks, *vs, *ps, *dss, *lse, *delta;
+  template <int HD>
+  __device__ static BwdSmem make(float* base) {
+    constexpr int tile = kBwdTile * (HD + 1);
+    constexpr int pt = kBwdTile * (kBwdTile + 1);
+    BwdSmem m;
+    m.qs = base;
+    m.dos = base + tile;
+    m.ks = base + 2 * tile;
+    m.vs = base + 3 * tile;
+    m.ps = base + 4 * tile;
+    m.dss = m.ps + pt;
+    m.lse = m.dss + pt;
+    m.delta = m.lse + kBwdTile;
+    return m;
+  }
+};
+
+// lse and D of the query tile's rows (0 past Sq)
+__device__ __forceinline__ void bwd_load_rows(const BwdSmem& m,
+                                              const float* lse,
+                                              const float* delta, int q0,
+                                              int Sq) {
+  for (int i = threadIdx.x; i < kBwdTile; i += kBwdThreads) {
+    const bool in = q0 + i < Sq;
+    m.lse[i] = in ? lse[q0 + i] : 0.f;
+    m.delta[i] = in ? delta[q0 + i] : 0.f;
+  }
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, const T* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta, T* __restrict__ dk,
+                      T* __restrict__ dv, int Sq, int Sk, float scale,
+                      int causal) {
+  constexpr int st = HD + 1;
+  constexpr int kCols = HD / 16;  // accumulator columns a thread
+  extern __shared__ __align__(16) float bwd_smem[];
+  const BwdSmem m = BwdSmem::make<HD>(bwd_smem);
+  const long bh = blockIdx.y;
+  const int k0 = blockIdx.x * kBwdTile;  // the heaviest tiles come first
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const T* qb = q + bh * Sq * HD;
+  const T* dob = dout + bh * Sq * HD;
+  bwd_load_tile<T, HD>(m.ks, k + bh * Sk * HD, k0, Sk);
+  bwd_load_tile<T, HD>(m.vs, v + bh * Sk * HD, k0, Sk);
+  float dka[4][kCols], dva[4][kCols];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) dka[i][c] = dva[i][c] = 0.f;
+  }
+  const int first = causal ? k0 / kBwdTile : 0;
+  const int tiles = (Sq + kBwdTile - 1) / kBwdTile;
+  for (int t = first; t < tiles; ++t) {
+    const int q0 = t * kBwdTile;
+    __syncthreads();  // the previous tile's Q, dO, P, dS are used up
+    bwd_load_tile<T, HD>(m.qs, qb, q0, Sq);
+    bwd_load_tile<T, HD>(m.dos, dob, q0, Sq);
+    bwd_load_rows(m, lse + bh * Sq, delta + bh * Sq, q0, Sq);
+    __syncthreads();
+    bwd_scores<HD>(m.qs, m.ks, m.dos, m.vs, m.lse, m.delta, m.ps, m.dss, q0,
+                   k0, Sq, Sk, scale, causal);
+    __syncthreads();
+    // dV += P^T dO, dK += dS^T Q over the tile's 64 query rows
+    for (int r = 0; r < kBwdTile; ++r) {
+      float p[4], ds[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        p[i] = m.ps[r * (kBwdTile + 1) + ty + 16 * i];
+        ds[i] = m.dss[r * (kBwdTile + 1) + ty + 16 * i];
+      }
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) {
+        const float g = m.dos[r * st + tx + 16 * c];
+        const float a = m.qs[r * st + tx + 16 * c];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          dva[i][c] += p[i] * g;
+          dka[i][c] += ds[i] * a;
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = k0 + ty + 16 * i;
+    if (row >= Sk) continue;
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) {
+      const long at = (bh * Sk + row) * HD + tx + 16 * c;
+      dk[at] = from_float<T>(dka[i][c] * scale);
+      dv[at] = from_float<T>(dva[i][c]);
+    }
+  }
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, T* __restrict__ dq,
+                    int Sq, int Sk, float scale, int causal) {
+  constexpr int st = HD + 1;
+  constexpr int kCols = HD / 16;
+  extern __shared__ __align__(16) float bwd_smem[];
+  const BwdSmem m = BwdSmem::make<HD>(bwd_smem);
+  const long bh = blockIdx.y;
+  // the query tiles with the most causal key tiles start first
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBwdTile;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  bwd_load_tile<T, HD>(m.qs, q + bh * Sq * HD, q0, Sq);
+  bwd_load_tile<T, HD>(m.dos, dout + bh * Sq * HD, q0, Sq);
+  bwd_load_rows(m, lse + bh * Sq, delta + bh * Sq, q0, Sq);
+  float dqa[4][kCols];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) dqa[i][c] = 0.f;
+  }
+  int tiles = (Sk + kBwdTile - 1) / kBwdTile;
+  if (causal) {  // key tiles past the tile's last row are all masked
+    tiles = min(tiles, (min(q0 + kBwdTile, Sq) - 1) / kBwdTile + 1);
+  }
+  const T* kb = k + bh * Sk * HD;
+  const T* vb = v + bh * Sk * HD;
+  for (int t = 0; t < tiles; ++t) {
+    const int k0 = t * kBwdTile;
+    __syncthreads();  // the previous tile's K, V, dS are used up
+    bwd_load_tile<T, HD>(m.ks, kb, k0, Sk);
+    bwd_load_tile<T, HD>(m.vs, vb, k0, Sk);
+    __syncthreads();
+    bwd_scores<HD>(m.qs, m.ks, m.dos, m.vs, m.lse, m.delta, m.ps, m.dss, q0,
+                   k0, Sq, Sk, scale, causal);
+    __syncthreads();
+    // dQ += dS K over the tile's 64 keys
+    for (int r = 0; r < kBwdTile; ++r) {
+      float ds[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        ds[i] = m.dss[(ty + 16 * i) * (kBwdTile + 1) + r];
+      }
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) {
+        const float b = m.ks[r * st + tx + 16 * c];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) dqa[i][c] += ds[i] * b;
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ty + 16 * i;
+    if (row >= Sq) continue;
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) {
+      dq[(bh * Sq + row) * HD + tx + 16 * c] =
+          from_float<T>(dqa[i][c] * scale);
+    }
+  }
+}
+
+template <typename T, int HD>
+cudaError_t launch_bwd(const void* q, const void* k, const void* v,
+                       const void* o, const void* dout, const float* lse,
+                       float* delta, void* dq, void* dk, void* dv, int BH,
+                       int Sq, int Sk, float scale, int causal, int smem,
+                       cudaStream_t stream) {
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  const T* dot = static_cast<const T*>(dout);
+  const long rows = static_cast<long>(BH) * Sq;
+  flash_bwd_delta_kernel<T><<<(rows + 7) / 8, 256, 0, stream>>>(
+      static_cast<const T*>(o), dot, delta, rows, HD);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  auto dkdv = flash_bwd_dkdv_kernel<T, HD>;
+  auto dqk = flash_bwd_dq_kernel<T, HD>;
+  if ((err = allow_smem(dkdv, smem)) != cudaSuccess) return err;
+  if ((err = allow_smem(dqk, smem)) != cudaSuccess) return err;
+  dkdv<<<dim3((Sk + kBwdTile - 1) / kBwdTile, BH), kBwdThreads, smem,
+         stream>>>(qt, kt, vt, dot, lse, delta, static_cast<T*>(dk),
+                   static_cast<T*>(dv), Sq, Sk, scale, causal);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  dqk<<<dim3((Sq + kBwdTile - 1) / kBwdTile, BH), kBwdThreads, smem,
+        stream>>>(qt, kt, vt, dot, lse, delta, static_cast<T*>(dq), Sq, Sk,
+                  scale, causal);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_bwd_hd(int hd, const void* q, const void* k, const void* v,
+                          const void* o, const void* dout, const float* lse,
+                          float* delta, void* dq, void* dk, void* dv, int BH,
+                          int Sq, int Sk, float scale, int causal, int smem,
+                          cudaStream_t stream) {
+  switch (hd) {
+#define REPRO_FLASH_BWD_HD(HD)                                              \
+  case HD:                                                                  \
+    if (smem < bwd_smem_bytes(HD)) return cudaErrorInvalidValue;            \
+    return launch_bwd<T, HD>(q, k, v, o, dout, lse, delta, dq, dk, dv, BH,  \
+                             Sq, Sk, scale, causal, smem, stream);
+    REPRO_FLASH_BWD_HD(32)
+    REPRO_FLASH_BWD_HD(64)
+    REPRO_FLASH_BWD_HD(128)
+#undef REPRO_FLASH_BWD_HD
     default:
       return cudaErrorInvalidValue;
   }
@@ -561,28 +909,58 @@ cudaError_t launch_bf16_hd(int hd, int block_k, const void* q, const void* k,
 }  // namespace
 
 // q, o: (BH, Sq, hd); k, v: (BH, Sk, hd), all contiguous and 16-byte
-// aligned.  smem is the block's dynamic shared memory, smem_bytes in
+// aligned.  lse: (BH, Sq) f32, each row's log-sum-exp of its scaled scores
+// (m + log l), or null for none.  smem is the block's dynamic shared
+// memory, smem_bytes in
 // repro_torch/kernels/flash_attention/flash_attention.py: for f32 at least
 // 2 * block_k * hd * 4; for bf16 the alignment slack, the barriers, the Q
 // slabs and at least one stage (the kernel uses as many stages as smem
 // holds, up to 4).  bf16 takes block_k in {16, 32, 48, 64, 128, 192, 256}.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
-                                   const void* v, void* o, int BH, int Sq,
-                                   int Sk, int hd, int block_q, int block_k,
-                                   float scale, int causal, int dtype,
-                                   int smem, void* stream) {
+                                   const void* v, void* o, void* lse, int BH,
+                                   int Sq, int Sk, int hd, int block_q,
+                                   int block_k, float scale, int causal,
+                                   int dtype, int smem, void* stream) {
   if (BH <= 0 || block_q <= 0 || block_k <= 0 || block_q % 8 != 0 ||
       block_q > 256 || Sq % block_q != 0 || Sk % block_k != 0) {
     return cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (dtype == kF32) {
     if (smem < 2 * block_k * hd * 4) return cudaErrorInvalidValue;
-    return launch_f32_hd(hd, q, k, v, o, BH, Sq, Sk, block_q, block_k, scale,
-                         causal, smem, s);
+    return launch_f32_hd(hd, q, k, v, o, l, BH, Sq, Sk, block_q, block_k,
+                         scale, causal, smem, s);
   }
   if (dtype == kBF16)
-    return launch_bf16_hd(hd, block_k, q, k, v, o, BH, Sq, Sk, block_q, scale,
-                          causal, smem, s);
+    return launch_bf16_hd(hd, block_k, q, k, v, o, l, BH, Sq, Sk, block_q,
+                          scale, causal, smem, s);
+  return cudaErrorInvalidValue;
+}
+
+// The gradient of flash_attention_fwd: q, o, dout, dq: (BH, Sq, hd); k, v,
+// dk, dv: (BH, Sk, hd), all contiguous, one type (f32 or bf16); lse: the
+// forward's (BH, Sq) f32 log-sum-exp; delta: (BH, Sq) f32 scratch.  Any
+// Sq and Sk; hd in {32, 64, 128}; smem at least bwd_smem_bytes(hd).
+extern "C" int flash_attention_bwd(const void* q, const void* k,
+                                   const void* v, const void* o,
+                                   const void* dout, const void* lse,
+                                   void* delta, void* dq, void* dk, void* dv,
+                                   int BH, int Sq, int Sk, int hd,
+                                   float scale, int causal, int dtype,
+                                   int smem, void* stream) {
+  if (BH <= 0 || Sq <= 0 || Sk <= 0 || lse == nullptr) {
+    return cudaErrorInvalidValue;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* l = static_cast<const float*>(lse);
+  float* dl = static_cast<float*>(delta);
+  if (dtype == kF32)
+    return launch_bwd_hd<float>(hd, q, k, v, o, dout, l, dl, dq, dk, dv, BH,
+                                Sq, Sk, scale, causal, smem, s);
+  if (dtype == kBF16)
+    return launch_bwd_hd<__nv_bfloat16>(hd, q, k, v, o, dout, l, dl, dq, dk,
+                                        dv, BH, Sq, Sk, scale, causal, smem,
+                                        s);
   return cudaErrorInvalidValue;
 }

@@ -2,9 +2,11 @@
 //   h_t = exp(dt_t * A) . h_{t-1} + (dt_t * x_t) B_t,   y_t = h_t . C_t
 // with the (D, N) state in f32 registers for the whole sequence, and, when
 // asked, the state after the last step (h_last, which a model's prefill
-// hands to its decode cache), written once after the time loop.  Whether
-// it is written is a template parameter, so the kernel that writes only y
-// does no more work than it did before h_last existed.
+// hands to its decode cache), written once after the time loop, and the
+// state at the start of every chunk-step tile (h_chunks, which the backward
+// recomputes each tile's states from).  Whether each is written is a
+// template parameter, so the kernel that writes only y does no more work
+// than it did before they existed.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/mamba_scan/mamba_scan.py
 // (_scan_kernel, launched by mamba_scan_fwd).  As there, the decay
@@ -189,13 +191,13 @@ __device__ __forceinline__ void reduce_scatter(float (&v)[U], int p) {
 // mamba_scan_fwd refuses a launch made for another.
 __host__ __device__ constexpr int lanes_for(int N) { return N < 4 ? N : 4; }
 
-template <typename T, int N, bool kState>
+template <typename T, int N, bool kState, bool kChunks>
 __global__ void __launch_bounds__(kChannels * lanes_for(N))
 scan_kernel(const T* __restrict__ dt, const T* __restrict__ x,
             const float* __restrict__ A, const T* __restrict__ B,
             const T* __restrict__ C, T* __restrict__ y,
-            float* __restrict__ h_last, int L, int D, int chunk,
-            bool vec_rows, bool vec_bc) {
+            float* __restrict__ h_last, float* __restrict__ h_chunks, int L,
+            int D, int chunk, bool vec_rows, bool vec_bc) {
   constexpr int P = lanes_for(N);
   constexpr int S = N / P;
   constexpr int kThreads = kChannels * P;
@@ -351,6 +353,15 @@ scan_kernel(const T* __restrict__ dt, const T* __restrict__ x,
     convert_tile(k);
     __syncthreads();
 
+    if constexpr (kChunks) {  // the state this tile starts from
+      if (d < D) {
+        float* hc = h_chunks +
+                    ((static_cast<long>(blockIdx.y) * tiles + k) * D + d) * N +
+                    p * S;
+#pragma unroll
+        for (int s = 0; s < S; ++s) hc[s] = h[s];
+      }
+    }
     const float2* dtp = dtf + c;
     const float* Bp = Bf + p * S;
     const float* Cp = Cf + p * S;
@@ -396,10 +407,13 @@ bool aligned16(const void* p) {
 template <typename T, int N>
 cudaError_t launch(const void* dt, const void* x, const void* A,
                    const void* B, const void* C, void* y, void* h_last,
-                   int Bt, int L, int D, int chunk, int smem,
+                   void* h_chunks, int Bt, int L, int D, int chunk, int smem,
                    cudaStream_t stream) {
-  auto kernel = h_last != nullptr ? scan_kernel<T, N, true>
-                                  : scan_kernel<T, N, false>;
+  auto kernel = h_last != nullptr
+                    ? (h_chunks != nullptr ? scan_kernel<T, N, true, true>
+                                           : scan_kernel<T, N, true, false>)
+                    : (h_chunks != nullptr ? scan_kernel<T, N, false, true>
+                                           : scan_kernel<T, N, false, false>);
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const bool vec_rows = (D * sizeof(T)) % 16 == 0 && aligned16(dt) &&
@@ -411,18 +425,19 @@ cudaError_t launch(const void* dt, const void* x, const void* A,
       static_cast<const T*>(dt), static_cast<const T*>(x),
       static_cast<const float*>(A), static_cast<const T*>(B),
       static_cast<const T*>(C), static_cast<T*>(y),
-      static_cast<float*>(h_last), L, D, chunk, vec_rows, vec_bc);
+      static_cast<float*>(h_last), static_cast<float*>(h_chunks), L, D,
+      chunk, vec_rows, vec_bc);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch(const void* dt, const void* x, const void* A,
-                     const void* B, const void* C, void* y, void* h, int Bt,
-                     int L, int D, int N, int chunk, int smem,
-                     cudaStream_t s) {
+                     const void* B, const void* C, void* y, void* h,
+                     void* hc, int Bt, int L, int D, int N, int chunk,
+                     int smem, cudaStream_t s) {
 #define SCAN_CASE(n) \
   case n:            \
-    return launch<T, n>(dt, x, A, B, C, y, h, Bt, L, D, chunk, smem, s);
+    return launch<T, n>(dt, x, A, B, C, y, h, hc, Bt, L, D, chunk, smem, s);
   switch (N) {
     SCAN_CASE(1)
     SCAN_CASE(2)
@@ -439,16 +454,17 @@ cudaError_t dispatch(const void* dt, const void* x, const void* A,
 
 // dt, x, y: (Bt, L, D); A: (D, N) f32; B, C: (Bt, L, N); all contiguous.
 // h_last: (Bt, D, N) f32, the state after step L - 1, or null for none.
+// h_chunks: (Bt, L / chunk, D, N) f32, the state before the first step of
+// each tile of `chunk` steps, or null for none.
 // N is a power of two up to 32.  `lanes` and `channels` are the geometry of
 // geometry() in repro_torch/kernels/mamba_scan/mamba_scan.py (lanes a
 // channel, channels a block), checked against this kernel's; smem must be
 // at least its smem_bytes.
 extern "C" int mamba_scan_fwd(const void* dt, const void* x, const void* A,
                               const void* B, const void* C, void* y,
-                              void* h_last, int Bt, int L, int D, int N,
-                              int chunk, int dtype,
-                              int lanes, int channels, int smem,
-                              void* stream) {
+                              void* h_last, void* h_chunks, int Bt, int L,
+                              int D, int N, int chunk, int dtype, int lanes,
+                              int channels, int smem, void* stream) {
   const int esize = dtype == kF32 ? 4 : 2;
   if (Bt <= 0 || L <= 0 || D <= 0 || N <= 0 || N > 32 || (N & (N - 1)) ||
       chunk <= 0 || L % chunk != 0 || lanes != lanes_for(N) ||
@@ -458,10 +474,321 @@ extern "C" int mamba_scan_fwd(const void* dt, const void* x, const void* A,
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kF32)
-    return dispatch<float>(dt, x, A, B, C, y, h_last, Bt, L, D, N, chunk,
-                           smem, s);
+    return dispatch<float>(dt, x, A, B, C, y, h_last, h_chunks, Bt, L, D, N,
+                           chunk, smem, s);
   if (dtype == kBF16)
-    return dispatch<__nv_bfloat16>(dt, x, A, B, C, y, h_last, Bt, L, D, N,
-                                   chunk, smem, s);
+    return dispatch<__nv_bfloat16>(dt, x, A, B, C, y, h_last, h_chunks, Bt,
+                                   L, D, N, chunk, smem, s);
+  return cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// Backward (no TPU counterpart: the reference differentiates its jnp scan
+// with XLA; here the forward is this kernel, so its gradient is one too).
+// Walking time backward with dh = dL/dh_t (dh_last, or 0, after the last
+// step), each step t of a channel d and state n does
+//   dh += dy_t C_t                     (y_t = C_t . h_t)
+//   dC_t += dy_t h_t,  dB_t += dh dt_t x_t,  g += dh B_t
+//   ga = dh h_{t-1} a_t                (a_t = exp(dt_t A))
+//   ddt_t += g x_t + ga A,  dx_t += g dt_t,  dA += ga dt_t
+//   dh = a_t dh                        (to h_{t-1})
+// dt, x sum over n; B, C over d; A over the batch.
+//
+// The geometry is the forward's: a block owns 32 channels, a channel's N
+// states lie on min(N, 4) lanes, the state h and dh stay in registers.
+// The states of a tile of `chunk` steps are recomputed from the state the
+// forward saved at its start (h_chunks), with the forward's own arithmetic
+// (so bit for bit the forward's states), a sub-tile of kSub steps at a
+// time: each sub-tile's states and decays go to shared memory, then the
+// sub-tile is walked backward.  dt x B's partner sums over channels are
+// taken within a warp by shuffles, across the block's warps in warp order
+// through shared memory, and written as one f32 partial row per block;
+// dA as one partial per batch row.  A second kernel sums the partials in
+// order.  No atomics: every call gives the same bits.
+//
+// Bound on the H100: the exponentials (each element's decay is formed
+// twice or more by the recomputation) and the serial chain on dh, as the
+// forward; the bytes are the forward's plus dy, ddt, dx, dB, dC.
+// ---------------------------------------------------------------------------
+
+namespace {
+
+constexpr int kSub = 16;  // steps a sub-tile
+
+// dynamic shared memory of the backward kernel for a state size N: the
+// states before and after each step of a sub-tile, its decays, and the
+// warps' sums of dB and dC a step (mamba_scan_bwd_smem in
+// repro_torch/kernels/mamba_scan/mamba_scan.py computes the same)
+__host__ __device__ constexpr int bwd_smem_bytes(int N) {
+  return ((2 * kSub + 1) * kChannels * N + 2 * kSub * lanes_for(N) * N) * 4;
+}
+
+template <typename T, int N>
+__global__ void __launch_bounds__(kChannels * lanes_for(N))
+scan_bwd_kernel(const T* __restrict__ dt, const T* __restrict__ x,
+                const float* __restrict__ A, const T* __restrict__ B,
+                const T* __restrict__ C, const T* __restrict__ dy,
+                const float* __restrict__ dh_last,
+                const float* __restrict__ h_chunks, T* __restrict__ ddt,
+                T* __restrict__ dx, float* __restrict__ dA_part,
+                float* __restrict__ dB_part, float* __restrict__ dC_part,
+                int L, int D, int chunk) {
+  constexpr int P = lanes_for(N);
+  constexpr int S = N / P;
+  constexpr int kThreads = kChannels * P;
+  constexpr int kWarps = kThreads / 32;  // == P
+  constexpr int kRow = kThreads * S;     // floats of one step's states
+  const int tid = threadIdx.x;
+  const int c = tid / P;
+  const int p = tid % P;
+  const int warp = tid / 32, lane = tid % 32;
+  const int d = blockIdx.x * kChannels + c;
+  const bool live = d < D;
+  const long b = blockIdx.y;
+  const long bL = b * L;
+  const int tiles = L / chunk;
+
+  extern __shared__ __align__(16) float bwd_smem[];
+  float* hs = bwd_smem;                      // [kSub + 1][kRow]
+  float* as = hs + (kSub + 1) * kRow;        // [kSub][kRow]
+  float* redB = as + kSub * kRow;            // [kSub][kWarps][N]
+  float* redC = redB + kSub * kWarps * N;    // [kSub][kWarps][N]
+
+  float a2[S], Af[S], h[S], dh[S], dA[S];
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    const long at = static_cast<long>(d) * N + p * S + s;
+    Af[s] = live ? A[at] : 0.f;
+    a2[s] = __fmul_rn(Af[s], kLog2e);
+    dh[s] = live && dh_last != nullptr ? dh_last[(b * D + d) * N + p * S + s]
+                                       : 0.f;
+    dA[s] = 0.f;
+  }
+  auto ld = [&](const T* src, int t) {
+    return live ? to_float(src[(bL + t) * D + d]) : 0.f;
+  };
+  auto ld_states = [&](const T* src, int t, float (&v)[S]) {
+#pragma unroll
+    for (int s = 0; s < S; ++s) v[s] = to_float(src[(bL + t) * N + p * S + s]);
+  };
+
+  for (int k = tiles - 1; k >= 0; --k) {
+    const int t0 = k * chunk;
+    const float* hc = h_chunks + ((b * tiles + k) * D + (live ? d : 0)) * N +
+                      p * S;
+    for (int s0 = t0 + (chunk - 1) / kSub * kSub; s0 >= t0; s0 -= kSub) {
+      const int s1 = min(s0 + kSub, t0 + chunk);
+      // the tile's states from its start up to the sub-tile's end
+#pragma unroll
+      for (int s = 0; s < S; ++s) h[s] = live ? hc[s] : 0.f;
+      if (s0 == t0) {
+#pragma unroll
+        for (int s = 0; s < S; ++s) hs[tid * S + s] = h[s];
+      }
+      for (int t = t0; t < s1; ++t) {
+        const float dtv = ld(dt, t);
+        const float dtx = __fmul_rn(dtv, ld(x, t));
+        float bt[S];
+        ld_states(B, t, bt);
+        const int i = t - s0;  // the step's place in the sub-tile
+#pragma unroll
+        for (int s = 0; s < S; ++s) {
+          const float a = ex2(__fmul_rn(dtv, a2[s]));
+          h[s] = __fmaf_rn(a, h[s], __fmul_rn(dtx, bt[s]));
+          if (i >= 0) as[i * kRow + tid * S + s] = a;
+          if (i >= -1) hs[(i + 1) * kRow + tid * S + s] = h[s];
+        }
+      }
+      // the sub-tile, backward
+      for (int t = s1 - 1; t >= s0; --t) {
+        const int i = t - s0;
+        const float dyv = ld(dy, t);
+        const float dtv = ld(dt, t);
+        const float xv = ld(x, t);
+        const float dtx = __fmul_rn(dtv, xv);
+        float bt[S], ct[S], gB[S], gC[S];
+        ld_states(B, t, bt);
+        ld_states(C, t, ct);
+        float g = 0.f, ga_a = 0.f;
+#pragma unroll
+        for (int s = 0; s < S; ++s) {
+          const float ht = hs[(i + 1) * kRow + tid * S + s];
+          const float hp = hs[i * kRow + tid * S + s];
+          const float a = as[i * kRow + tid * S + s];
+          gC[s] = dyv * ht;
+          dh[s] += dyv * ct[s];
+          gB[s] = dh[s] * dtx;
+          g += dh[s] * bt[s];
+          const float ga = dh[s] * hp * a;
+          ga_a += ga * Af[s];
+          dA[s] += ga * dtv;
+          dh[s] *= a;
+        }
+        // ddt and dx of the channel: its P lanes' parts
+#pragma unroll
+        for (int off = P / 2; off > 0; off >>= 1) {
+          g += __shfl_xor_sync(0xffffffffu, g, off);
+          ga_a += __shfl_xor_sync(0xffffffffu, ga_a, off);
+        }
+        if (p == 0 && live) {
+          ddt[(bL + t) * D + d] = from_float<T>(g * xv + ga_a);
+          dx[(bL + t) * D + d] = from_float<T>(g * dtv);
+        }
+        // dB and dC over the warp's channels (lanes P apart share a state)
+#pragma unroll
+        for (int s = 0; s < S; ++s) {
+#pragma unroll
+          for (int off = P; off < 32; off <<= 1) {
+            gB[s] += __shfl_xor_sync(0xffffffffu, gB[s], off);
+            gC[s] += __shfl_xor_sync(0xffffffffu, gC[s], off);
+          }
+        }
+        if (lane < P) {
+#pragma unroll
+          for (int s = 0; s < S; ++s) {
+            redB[(i * kWarps + warp) * N + p * S + s] = gB[s];
+            redC[(i * kWarps + warp) * N + p * S + s] = gC[s];
+          }
+        }
+      }
+      __syncthreads();
+      // the sub-tile's rows of the block's dB and dC partials
+      const long row0 = (b * gridDim.x + blockIdx.x) * L + s0;
+      for (int e = tid; e < (s1 - s0) * N; e += kThreads) {
+        const int i = e / N, n = e % N;
+        float sb = 0.f, sc = 0.f;
+#pragma unroll
+        for (int w = 0; w < kWarps; ++w) {
+          sb += redB[(i * kWarps + w) * N + n];
+          sc += redC[(i * kWarps + w) * N + n];
+        }
+        dB_part[(row0 + i) * N + n] = sb;
+        dC_part[(row0 + i) * N + n] = sc;
+      }
+      __syncthreads();  // the next sub-tile overwrites the buffers
+    }
+  }
+  if (live) {
+#pragma unroll
+    for (int s = 0; s < S; ++s) dA_part[(b * D + d) * N + p * S + s] = dA[s];
+  }
+}
+
+// dB, dC (Bt, L, N): the blocks' partial rows summed in block order; dA
+// (D, N): the batch rows' partials summed in order
+template <typename T>
+__global__ void scan_bwd_sum_kernel(const float* __restrict__ dA_part,
+                                    const float* __restrict__ dB_part,
+                                    const float* __restrict__ dC_part,
+                                    float* __restrict__ dA,
+                                    T* __restrict__ dB, T* __restrict__ dC,
+                                    int Bt, int L, int D, int N, int blocks) {
+  const long e = static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const long bc = static_cast<long>(Bt) * L * N;
+  if (e < bc) {
+    const long b = e / (static_cast<long>(L) * N);
+    const long tn = e % (static_cast<long>(L) * N);
+    float sb = 0.f, sc = 0.f;
+    for (int k = 0; k < blocks; ++k) {
+      const long at = (b * blocks + k) * L * N + tn;
+      sb += dB_part[at];
+      sc += dC_part[at];
+    }
+    dB[e] = from_float<T>(sb);
+    dC[e] = from_float<T>(sc);
+  } else if (e < bc + static_cast<long>(D) * N) {
+    const long dn = e - bc;
+    float sa = 0.f;
+    for (int b = 0; b < Bt; ++b) {
+      sa += dA_part[b * static_cast<long>(D) * N + dn];
+    }
+    dA[dn] = sa;
+  }
+}
+
+template <typename T, int N>
+cudaError_t launch_bwd(const void* dt, const void* x, const void* A,
+                       const void* B, const void* C, const void* dy,
+                       const void* dh_last, const void* h_chunks, void* ddt,
+                       void* dx, void* dA, void* dB, void* dC, void* dA_part,
+                       void* dB_part, void* dC_part, int Bt, int L, int D,
+                       int chunk, cudaStream_t stream) {
+  auto kernel = scan_bwd_kernel<T, N>;
+  constexpr int smem = bwd_smem_bytes(N);
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const int blocks = (D + kChannels - 1) / kChannels;
+  kernel<<<dim3(blocks, Bt), kChannels * lanes_for(N), smem, stream>>>(
+      static_cast<const T*>(dt), static_cast<const T*>(x),
+      static_cast<const float*>(A), static_cast<const T*>(B),
+      static_cast<const T*>(C), static_cast<const T*>(dy),
+      static_cast<const float*>(dh_last), static_cast<const float*>(h_chunks),
+      static_cast<T*>(ddt), static_cast<T*>(dx),
+      static_cast<float*>(dA_part), static_cast<float*>(dB_part),
+      static_cast<float*>(dC_part), L, D, chunk);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const long total = static_cast<long>(Bt) * L * N + static_cast<long>(D) * N;
+  scan_bwd_sum_kernel<T><<<(total + 255) / 256, 256, 0, stream>>>(
+      static_cast<const float*>(dA_part), static_cast<const float*>(dB_part),
+      static_cast<const float*>(dC_part), static_cast<float*>(dA),
+      static_cast<T*>(dB), static_cast<T*>(dC), Bt, L, D, N, blocks);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch_bwd(const void* dt, const void* x, const void* A,
+                         const void* B, const void* C, const void* dy,
+                         const void* dh_last, const void* h_chunks,
+                         void* ddt, void* dx, void* dA, void* dB, void* dC,
+                         void* dA_part, void* dB_part, void* dC_part, int Bt,
+                         int L, int D, int N, int chunk, cudaStream_t s) {
+#define SCAN_BWD_CASE(n)                                                    \
+  case n:                                                                   \
+    return launch_bwd<T, n>(dt, x, A, B, C, dy, dh_last, h_chunks, ddt, dx, \
+                            dA, dB, dC, dA_part, dB_part, dC_part, Bt, L, D, \
+                            chunk, s);
+  switch (N) {
+    SCAN_BWD_CASE(1)
+    SCAN_BWD_CASE(2)
+    SCAN_BWD_CASE(4)
+    SCAN_BWD_CASE(8)
+    SCAN_BWD_CASE(16)
+    SCAN_BWD_CASE(32)
+    default: return cudaErrorInvalidValue;
+  }
+#undef SCAN_BWD_CASE
+}
+
+}  // namespace
+
+// The gradient of mamba_scan_fwd.  dt, x, dy, ddt, dx: (Bt, L, D); B, C,
+// dB, dC: (Bt, L, N), all of one type (f32 or bf16); A: (D, N) f32, dA:
+// (D, N) f32.  dh_last: (Bt, D, N) f32, the gradient of the final state, or
+// null for none; h_chunks: the forward's (Bt, L / chunk, D, N) f32 states
+// at the start of each tile, at the same chunk.  Scratch: dA_part (Bt, D,
+// N), dB_part and dC_part (Bt, ceil(D / 32), L, N), all f32.  lanes and
+// channels as for mamba_scan_fwd.
+extern "C" int mamba_scan_bwd(const void* dt, const void* x, const void* A,
+                              const void* B, const void* C, const void* dy,
+                              const void* dh_last, const void* h_chunks,
+                              void* ddt, void* dx, void* dA, void* dB,
+                              void* dC, void* dA_part, void* dB_part,
+                              void* dC_part, int Bt, int L, int D, int N,
+                              int chunk, int dtype, int lanes, int channels,
+                              void* stream) {
+  if (Bt <= 0 || L <= 0 || D <= 0 || N <= 0 || N > 32 || (N & (N - 1)) ||
+      chunk <= 0 || L % chunk != 0 || lanes != lanes_for(N) ||
+      channels != kChannels || h_chunks == nullptr) {
+    return cudaErrorInvalidValue;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kF32)
+    return dispatch_bwd<float>(dt, x, A, B, C, dy, dh_last, h_chunks, ddt, dx,
+                               dA, dB, dC, dA_part, dB_part, dC_part, Bt, L,
+                               D, N, chunk, s);
+  if (dtype == kBF16)
+    return dispatch_bwd<__nv_bfloat16>(dt, x, A, B, C, dy, dh_last, h_chunks,
+                                       ddt, dx, dA, dB, dC, dA_part, dB_part,
+                                       dC_part, Bt, L, D, N, chunk, s);
   return cudaErrorInvalidValue;
 }

@@ -28,6 +28,19 @@
 // butterfly) depends on d alone, not on block_rows or on how many warps a
 // block has, so outputs are bit-identical across block_rows -- the
 // contract of ERROR_KNOBS in repro_torch/kernels/workloads.py.
+//
+// The backward (rmsnorm_bwd, below) has no TPU counterpart: the reference
+// leaves the gradient of its jnp models to XLA, but here the forward of
+// every norm is this kernel, so its gradient is one too.  With
+// r = rsqrt(mean(x^2) + eps) and g = dy * scale it computes
+//   dx = r * (g - x * r^2 * mean(g * x)),   dscale = sum over rows dy * x * r.
+// Bound on the H100: bytes (x and dy read, dx written: 3 elements a value
+// against ~10 flops).  One warp a row, as the forward: a first pass over
+// the row takes sum(x^2) and sum(g x), a second (from L1/L2) writes dx and
+// adds dy x r to the warp's f32 row of dscale in shared memory.  Each block
+// walks a fixed set of rows and writes its warps' rows of dscale, summed
+// in warp order, as one f32 partial row; a second kernel sums the partials
+// in block order.  No atomics: the result is the same bits on every call.
 
 #include "common.cuh"
 
@@ -260,5 +273,160 @@ extern "C" int rmsnorm_fwd(const void* x, const void* scale, void* y,
   if (x_dtype == kBF16 && scale_dtype == kBF16)
     return launch_any<__nv_bfloat16, __nv_bfloat16>(x, scale, y, rows, d,
                                                     block_rows, eps, smem, s);
+  return cudaErrorInvalidValue;
+}
+
+namespace {
+
+// dscale's partial rows and the warps of one backward block: the geometry
+// is chosen by the wrapper (rmsnorm_bwd_geometry in
+// repro_torch/kernels/rmsnorm/rmsnorm.py) and passed in.
+constexpr int kBwdMaxWarps = 8;
+
+template <typename T, typename S, bool kVec4>
+__global__ void __launch_bounds__(kBwdMaxWarps * 32)
+rmsnorm_bwd_kernel(const T* __restrict__ x, const S* __restrict__ scale,
+                   const T* __restrict__ dy, T* __restrict__ dx,
+                   float* __restrict__ partial, int rows, int d, float eps) {
+  extern __shared__ float bwd_s[];
+  float* scale_s = bwd_s;      // d floats
+  float* acc_s = bwd_s + d;    // [warps][d] floats: this warp's dscale
+  const int warps = blockDim.x / 32;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  for (int i = threadIdx.x; i < d; i += blockDim.x) {
+    scale_s[i] = to_float(scale[i]);
+  }
+  float* acc = acc_s + static_cast<long>(warp) * d;
+  for (int i = lane; i < d; i += 32) acc[i] = 0.f;
+  __syncthreads();
+  const float inv_d = 1.f / static_cast<float>(d);
+  for (long r = static_cast<long>(blockIdx.x) * warps + warp; r < rows;
+       r += static_cast<long>(gridDim.x) * warps) {
+    const T* xr = x + r * d;
+    const T* dyr = dy + r * d;
+    T* dxr = dx + r * d;
+    float ss = 0.f, gx = 0.f;
+    if constexpr (kVec4) {
+      for (int i = 4 * lane; i < d; i += 128) {
+        float xv[4], gv[4];
+        load4(xr + i, xv);
+        load4(dyr + i, gv);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          ss += xv[c] * xv[c];
+          gx += gv[c] * scale_s[i + c] * xv[c];
+        }
+      }
+    } else {
+      for (int i = lane; i < d; i += 32) {
+        const float xv = to_float(xr[i]);
+        ss += xv * xv;
+        gx += to_float(dyr[i]) * scale_s[i] * xv;
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      ss += __shfl_xor_sync(0xffffffffu, ss, off);
+      gx += __shfl_xor_sync(0xffffffffu, gx, off);
+    }
+    const float rr = rsqrtf(ss * inv_d + eps);
+    const float c = rr * rr * (gx * inv_d);
+    if constexpr (kVec4) {
+      for (int i = 4 * lane; i < d; i += 128) {
+        float xv[4], gv[4], out[4];
+        load4(xr + i, xv);
+        load4(dyr + i, gv);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          out[k] = rr * (gv[k] * scale_s[i + k] - xv[k] * c);
+          acc[i + k] += gv[k] * xv[k] * rr;
+        }
+        store4(dxr + i, out);
+      }
+    } else {
+      for (int i = lane; i < d; i += 32) {
+        const float xv = to_float(xr[i]);
+        const float gv = to_float(dyr[i]);
+        dxr[i] = from_float<T>(rr * (gv * scale_s[i] - xv * c));
+        acc[i] += gv * xv * rr;
+      }
+    }
+  }
+  __syncthreads();
+  // the block's partial row: its warps' rows summed in warp order
+  float* out = partial + static_cast<long>(blockIdx.x) * d;
+  for (int i = threadIdx.x; i < d; i += blockDim.x) {
+    float s = 0.f;
+    for (int w = 0; w < warps; ++w) s += acc_s[static_cast<long>(w) * d + i];
+    out[i] = s;
+  }
+}
+
+// dscale[i] = the partial rows summed in block order
+template <typename S>
+__global__ void rmsnorm_bwd_sum_kernel(const float* __restrict__ partial,
+                                       S* __restrict__ dscale, int blocks,
+                                       int d) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= d) return;
+  float s = 0.f;
+  for (int b = 0; b < blocks; ++b) s += partial[static_cast<long>(b) * d + i];
+  dscale[i] = from_float<S>(s);
+}
+
+template <typename T, typename S>
+cudaError_t launch_bwd(const void* xv, const void* scalev, const void* dyv,
+                       void* dxv, void* dscalev, float* partial, int rows,
+                       int d, float eps, int blocks, int warps, int smem,
+                       cudaStream_t stream) {
+  const T* x = static_cast<const T*>(xv);
+  const T* dy = static_cast<const T*>(dyv);
+  T* dx = static_cast<T*>(dxv);
+  const bool vec4 = d % 4 == 0 &&
+                    reinterpret_cast<uintptr_t>(x) % (4 * sizeof(T)) == 0 &&
+                    reinterpret_cast<uintptr_t>(dy) % (4 * sizeof(T)) == 0 &&
+                    reinterpret_cast<uintptr_t>(dx) % (4 * sizeof(T)) == 0;
+  auto kernel = vec4 ? rmsnorm_bwd_kernel<T, S, true>
+                     : rmsnorm_bwd_kernel<T, S, false>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<blocks, warps * 32, smem, stream>>>(
+      x, static_cast<const S*>(scalev), dy, dx, partial, rows, d, eps);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  rmsnorm_bwd_sum_kernel<S><<<(d + 255) / 256, 256, 0, stream>>>(
+      partial, static_cast<S*>(dscalev), blocks, d);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// x, dy, dx: (rows, d) contiguous, x's type; scale, dscale: (d,), scale's
+// type; partial: (blocks, d) f32 scratch.  `blocks` blocks of `warps`
+// warps (at most 8); smem must be at least (warps + 1) * d * 4 bytes.
+extern "C" int rmsnorm_bwd(const void* x, const void* scale, const void* dy,
+                           void* dx, void* dscale, void* partial, int rows,
+                           int d, float eps, int x_dtype, int scale_dtype,
+                           int blocks, int warps, int smem, void* stream) {
+  if (rows <= 0 || d <= 0 || blocks <= 0 || warps <= 0 ||
+      warps > kBwdMaxWarps ||
+      static_cast<long>(smem) < (warps + 1L) * d * 4) {
+    return cudaErrorInvalidValue;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* p = static_cast<float*>(partial);
+  if (x_dtype == kF32 && scale_dtype == kF32)
+    return launch_bwd<float, float>(x, scale, dy, dx, dscale, p, rows, d, eps,
+                                    blocks, warps, smem, s);
+  if (x_dtype == kBF16 && scale_dtype == kF32)
+    return launch_bwd<__nv_bfloat16, float>(x, scale, dy, dx, dscale, p, rows,
+                                            d, eps, blocks, warps, smem, s);
+  if (x_dtype == kF32 && scale_dtype == kBF16)
+    return launch_bwd<float, __nv_bfloat16>(x, scale, dy, dx, dscale, p, rows,
+                                            d, eps, blocks, warps, smem, s);
+  if (x_dtype == kBF16 && scale_dtype == kBF16)
+    return launch_bwd<__nv_bfloat16, __nv_bfloat16>(
+        x, scale, dy, dx, dscale, p, rows, d, eps, blocks, warps, smem, s);
   return cudaErrorInvalidValue;
 }

@@ -1,1 +1,1 @@
-from .ops import flash_attention  # noqa: F401
+from .ops import flash_attention, flash_attention_bwd  # noqa: F401

@@ -10,7 +10,9 @@ one (batch, head) and sweeps the keys in ``block_k`` tiles staged in shared
 memory; the running max, denominator and accumulator are f32.  In bf16 the
 products run on the tensor cores (``wgmma``) with K/V tiles brought by TMA
 into a ring of stages, and P is rounded to bf16 before P V; in f32 they run
-on the CUDA cores.
+on the CUDA cores.  On request the forward also writes each row's
+log-sum-exp of its scaled scores, from which the backward kernel
+(``flash_attention_bwd`` in the same source) recomputes the probabilities.
 """
 
 from __future__ import annotations
@@ -49,9 +51,21 @@ def launch_head_dim(hd: int) -> int:
     raise ValueError(f"flash_attention: head dim {hd} above {HEAD_DIMS[-1]}")
 
 
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_void_p]
+_BWD_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [
+    ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_void_p]
+BWD_TILE = 64   # the backward's query and key tiles
+
+
+def bwd_smem_bytes(hd: int) -> int:
+    """Dynamic shared memory of a backward block (``bwd_smem_bytes`` in
+    ``csrc/flash_attention.cu``): Q, dO, K and V tiles of 64 rows as f32
+    rows of hd + 1, P and dS (64 x 65 f32), and the tile's lse and D."""
+    t = BWD_TILE
+    return (4 * t * (hd + 1) + 2 * t * (t + 1) + 2 * t) * 4
 
 
 def smem_bytes(knobs: dict, shape: dict, dtype: torch.dtype):
@@ -71,16 +85,19 @@ def smem_bytes(knobs: dict, shape: dict, dtype: torch.dtype):
 
 
 def flash_attention_plain(q, k, v, *, causal: bool, scale: float,
-                          block_q: int, block_k: int) -> torch.Tensor:
+                          block_q: int, block_k: int,
+                          return_lse: bool = False):
     """The kernel's algorithm in plain PyTorch: for each block of
     ``block_q`` query rows, an online softmax over ``block_k`` key tiles in
     f32, skipping the causal tiles that lie wholly above the diagonal.  For
     bf16 inputs P is rounded to bf16 before P V, as the tensor cores take
-    it (its row sum stays f32)."""
+    it (its row sum stays f32).  With ``return_lse``, also each row's
+    log-sum-exp of its scaled scores, (B, H, Sq) f32."""
     B, H, Sq, hd = q.shape
     Sk = k.shape[2]
     round_p = q.dtype == torch.bfloat16
     out = torch.empty_like(q)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     kf, vf = k.to(torch.float32), v.to(torch.float32)
     for q0 in range(0, Sq, block_q):
         qb = q[:, :, q0:q0 + block_q].to(torch.float32)
@@ -108,16 +125,69 @@ def flash_attention_plain(q, k, v, *, causal: bool, scale: float,
             m = m_new
         denom = torch.clamp(l, min=1e-30)
         out[:, :, q0:q0 + block_q] = (acc / denom[..., None]).to(q.dtype)
-    return out
+        lse[:, :, q0:q0 + block_q] = m + torch.log(l)
+    return (out, lse) if return_lse else out
+
+
+def flash_attention_bwd_plain(q, k, v, o, do, lse, *, causal: bool,
+                              scale: float):
+    """The backward kernel's arithmetic in plain PyTorch, in f32: D =
+    rowsum(dO o O); for each 64-row query tile against every key, P =
+    exp(scale Q K^T - lse) (0 where masked), dS = P (dO V^T - D), then
+    dQ = scale dS K, dK += scale dS^T Q, dV += P^T dO.  Returns (dq, dk,
+    dv) in q's dtype."""
+    B, H, Sq, hd = q.shape
+    Sk = k.shape[2]
+    f32 = torch.float32
+    qf, kf, vf, dof = (t.to(f32) for t in (q, k, v, do))
+    delta = (dof * o.to(f32)).sum(-1)
+    dq = torch.empty_like(qf)
+    dk = torch.zeros_like(kf)
+    dv = torch.zeros_like(vf)
+    kpos = torch.arange(Sk, device=q.device)
+    for q0 in range(0, Sq, BWD_TILE):
+        q1 = min(q0 + BWD_TILE, Sq)
+        s = qf[:, :, q0:q1] @ kf.transpose(-1, -2)
+        p = torch.exp(s * scale - lse[:, :, q0:q1, None])
+        if causal:
+            qpos = torch.arange(q0, q1, device=q.device)
+            p = torch.where(kpos[None, :] <= qpos[:, None], p,
+                            torch.zeros((), device=q.device))
+        dp = dof[:, :, q0:q1] @ vf.transpose(-1, -2)
+        ds = p * (dp - delta[:, :, q0:q1, None])
+        dq[:, :, q0:q1] = (ds @ kf) * scale
+        dk += (ds.transpose(-1, -2) @ qf[:, :, q0:q1]) * scale
+        dv += p.transpose(-1, -2) @ dof[:, :, q0:q1]
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
 def flash_attention_launch(q, k, v, o, *, causal: bool, scale: float,
-                           block_q: int, block_k: int, smem: int) -> None:
-    """Launch the CUDA kernel on PyTorch's current stream.  The caller has
-    checked the arguments (``ops.flash_attention``)."""
+                           block_q: int, block_k: int, smem: int,
+                           lse=None) -> None:
+    """Launch the CUDA kernel on PyTorch's current stream; ``lse`` (a (B,
+    H, Sq) f32 tensor, or None) receives each row's log-sum-exp.  The
+    caller has checked the arguments (``ops.flash_attention``)."""
     fn = build.function("flash_attention", "flash_attention_fwd", _ARGTYPES)
     B, H, Sq, hd = q.shape
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B * H,
-             Sq, k.shape[2], hd, block_q, block_k, scale, int(causal),
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+             None if lse is None else lse.data_ptr(), B * H, Sq, k.shape[2],
+             hd, block_q, block_k, scale, int(causal),
              build.DTYPE_CODES[q.dtype], smem, build.stream_ptr(q.device))
     build.check("flash_attention", err, "flash_attention_fwd")
+
+
+def flash_attention_bwd_launch(q, k, v, o, do, lse, dq, dk, dv, *,
+                               causal: bool, scale: float) -> None:
+    """Launch the backward kernels on PyTorch's current stream (D into a
+    scratch tensor, then dK/dV and dQ).  The caller has checked the
+    arguments (``ops.flash_attention_bwd``)."""
+    fn = build.function("flash_attention", "flash_attention_bwd",
+                        _BWD_ARGTYPES)
+    B, H, Sq, hd = q.shape
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+             dk.data_ptr(), dv.data_ptr(), B * H, Sq, k.shape[2], hd, scale,
+             int(causal), build.DTYPE_CODES[q.dtype], bwd_smem_bytes(hd),
+             build.stream_ptr(q.device))
+    build.check("flash_attention", err, "flash_attention_bwd")

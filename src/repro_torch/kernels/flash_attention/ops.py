@@ -1,9 +1,12 @@
-"""Public wrapper for the flash-attention kernel.
+"""Public wrappers for the flash-attention kernel and its backward.
 
-On CUDA tensors it launches the hand-written kernel (or raises); on CPU
-tensors it runs the kernel's plain PyTorch version, which is how the tests
-on hosts without a GPU reach it.  ``flash_attention.launches`` counts
-kernel launches.
+On CUDA tensors they launch the hand-written kernels (or raise); on CPU
+tensors they run the kernels' plain PyTorch versions, which is how the
+tests on hosts without a GPU reach them.  ``flash_attention`` is
+differentiable: when autograd records it, the forward also keeps each
+row's log-sum-exp and the gradient is :func:`flash_attention_bwd`, the
+backward kernel.  ``flash_attention.launches`` and
+``flash_attention_bwd.launches`` count kernel launches.
 """
 
 from __future__ import annotations
@@ -12,16 +15,117 @@ import torch
 
 from ..build import DTYPE_CODES
 from ..cpu import init_vector_math
-from .flash_attention import (BF16_BLOCK_K, MAX_BLOCK_Q,
+from .flash_attention import (BF16_BLOCK_K, HEAD_DIMS, MAX_BLOCK_Q,
+                              flash_attention_bwd_launch,
+                              flash_attention_bwd_plain,
                               flash_attention_launch, flash_attention_plain,
                               launch_head_dim, smem_bytes)
+
+
+def _on_cpu(what: str, tensors) -> bool:
+    """True for CPU tensors (the plain version); raise unless every tensor
+    lies on one CUDA device and q, k, v share a type the kernel takes."""
+    devices = {t.device for t in tensors}
+    if devices == {torch.device("cpu")}:
+        init_vector_math()
+        return True
+    if len(devices) != 1 or next(iter(devices)).type != "cuda":
+        raise ValueError(f"{what}: tensors on {sorted(map(str, devices))}; "
+                         "the kernel takes one CUDA device")
+    if len({t.dtype for t in tensors[:3]}) != 1 \
+            or tensors[0].dtype not in DTYPE_CODES:
+        raise ValueError(f"{what}: q, k, v must share one dtype, float32 or "
+                         "bfloat16")
+    return False
+
+
+def _launch(q, k, v, *, causal, scale, block_q, block_k, want_lse):
+    """The forward kernel on q, k, v already at a launch head dim; returns
+    o, or (o, lse) with ``want_lse``."""
+    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0
+               for t in (q, k, v)):
+        raise ValueError("flash_attention: q, k, v must be contiguous and "
+                         "16-byte aligned")
+    B, H, Sq, hd = q.shape
+    o = torch.empty_like(q)
+    lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+           if want_lse else None)
+    flash_attention_launch(
+        q, k, v, o, causal=causal, scale=scale, block_q=block_q,
+        block_k=block_k,
+        smem=smem_bytes({"block_q": block_q, "block_k": block_k},
+                        {"B": B, "H": H, "S": Sq, "hd": hd}, q.dtype),
+        lse=lse)
+    flash_attention.launches += 1
+    return (o, lse) if want_lse else o
+
+
+def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
+                        scale: float | None = None):
+    """The gradient of :func:`flash_attention`: q, o, do: (B, H, Sq, hd);
+    k, v: (B, H, Sk, hd); lse: the forward's (B, H, Sq) f32 log-sum-exp.
+    Returns (dq, dk, dv).  On the card hd must be one the kernel is built
+    for (the forward's wrapper pads to it before the recorded call)."""
+    B, H, Sq, hd = q.shape
+    Sk = k.shape[2]
+    scale = hd ** -0.5 if scale is None else scale
+    if k.shape != v.shape or k.shape[:2] != (B, H) or k.shape[3] != hd \
+            or o.shape != q.shape or do.shape != q.shape \
+            or lse.shape != (B, H, Sq):
+        raise ValueError(f"flash_attention_bwd: shapes q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}, o "
+                         f"{tuple(o.shape)}, do {tuple(do.shape)}, lse "
+                         f"{tuple(lse.shape)}")
+    if _on_cpu("flash_attention_bwd", (q, k, v, o, do, lse)):
+        return flash_attention_bwd_plain(q, k, v, o, do, lse, causal=causal,
+                                         scale=scale)
+    if hd not in HEAD_DIMS or not (o.dtype == do.dtype == q.dtype) \
+            or lse.dtype != torch.float32 or Sk < 1:
+        raise ValueError(f"flash_attention_bwd: head dim {hd} not in "
+                         f"{HEAD_DIMS}, or o/do not in q's dtype, or lse not "
+                         "float32")
+    if not all(t.is_contiguous() for t in (q, k, v, o, do, lse)):
+        raise ValueError("flash_attention_bwd: tensors must be contiguous")
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    flash_attention_bwd_launch(q, k, v, o, do, lse, dq, dk, dv,
+                               causal=causal, scale=scale)
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Flash attention at a launch head dim with the backward kernel as its
+    gradient; saves q, k, v, o and the log-sum-exp."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, block_q, block_k):
+        if q.device.type == "cpu":
+            o, lse = flash_attention_plain(q, k, v, causal=causal,
+                                           scale=scale, block_q=block_q,
+                                           block_k=block_k, return_lse=True)
+        else:
+            o, lse = _launch(q, k, v, causal=causal, scale=scale,
+                             block_q=block_q, block_k=block_k,
+                             want_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, do.contiguous(), lse,
+                                         causal=ctx.causal, scale=ctx.scale)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(q, k, v, *, causal: bool = True, block_q: int = 128,
                     block_k: int = 128) -> torch.Tensor:
     """q, k, v: (B, H, S, hd) -> (B, H, Sq, hd); k/v length may differ
     from q's.  On the card a head dim the kernel is not built for runs
-    padded to the next one it is (``launch_head_dim``)."""
+    padded to the next one it is (``launch_head_dim``): the pad and the
+    slice back are autograd ops around the kernel, so the gradient of the
+    padding columns is dropped.  Differentiable in q, k and v."""
     if q.dim() != 4 or k.shape != v.shape or k.shape[:2] != q.shape[:2] \
             or k.shape[3] != q.shape[3]:
         raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, "
@@ -34,18 +138,14 @@ def flash_attention(q, k, v, *, causal: bool = True, block_q: int = 128,
         raise ValueError(f"flash_attention: blocks ({block_q}, {block_k}) "
                          f"do not divide (Sq, Sk) = ({Sq}, {Sk})")
     scale = hd ** -0.5
-    devices = {t.device for t in (q, k, v)}
-    if devices == {torch.device("cpu")}:
-        init_vector_math()
+    grad = torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (q, k, v))
+    args = (causal, scale, block_q, block_k)
+    if _on_cpu("flash_attention", (q, k, v)):
+        if grad:
+            return _FlashAttention.apply(q, k, v, *args)
         return flash_attention_plain(q, k, v, causal=causal, scale=scale,
                                      block_q=block_q, block_k=block_k)
-    if len(devices) != 1 or q.device.type != "cuda":
-        raise ValueError(f"flash_attention: tensors on "
-                         f"{sorted(map(str, devices))}; the kernel takes one "
-                         "CUDA device")
-    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in DTYPE_CODES:
-        raise ValueError("flash_attention: q, k, v must share one dtype, "
-                         "float32 or bfloat16")
     hd_k = launch_head_dim(hd)
     if block_q % 8 or block_q > MAX_BLOCK_Q:
         raise ValueError(f"flash_attention: block_q {block_q} must be a "
@@ -56,18 +156,13 @@ def flash_attention(q, k, v, *, causal: bool = True, block_q: int = 128,
     if hd_k != hd:
         q, k, v = (torch.nn.functional.pad(t, (0, hd_k - hd))
                    for t in (q, k, v))
-    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0
-               for t in (q, k, v)):
-        raise ValueError("flash_attention: q, k, v must be contiguous and "
-                         "16-byte aligned")
-    o = torch.empty_like(q)
-    flash_attention_launch(
-        q, k, v, o, causal=causal, scale=scale, block_q=block_q,
-        block_k=block_k,
-        smem=smem_bytes({"block_q": block_q, "block_k": block_k},
-                        {"B": B, "H": H, "S": Sq, "hd": hd_k}, q.dtype))
-    flash_attention.launches += 1
+    if grad:
+        o = _FlashAttention.apply(q, k, v, *args)
+        return o if hd_k == hd else o[..., :hd]
+    o = _launch(q, k, v, causal=causal, scale=scale, block_q=block_q,
+                block_k=block_k, want_lse=False)
     return o if hd_k == hd else o[..., :hd].contiguous()
 
 
 flash_attention.launches = 0
+flash_attention_bwd.launches = 0

@@ -1,1 +1,1 @@
-from .ops import mamba_scan  # noqa: F401
+from .ops import mamba_scan, mamba_scan_bwd  # noqa: F401

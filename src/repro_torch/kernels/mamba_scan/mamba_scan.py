@@ -11,7 +11,10 @@ state after the last step (``h_last``, (Bt, D, N) f32), which a model's
 prefill hands to its decode cache.  A block carries 32 channels
 through the whole sequence, each channel's states split over ``min(N, 4)``
 lanes; ``chunk`` timesteps of dt/x/B/C are staged in shared memory at a
-time, in two stages so the next tile loads while this one is scanned.
+time, in two stages so the next tile loads while this one is scanned.  On
+request it also writes the state at the start of every such tile
+(``h_chunks``), from which the backward kernel (``mamba_scan_bwd`` in the
+same source) recomputes each tile's states as it walks time backward.
 """
 
 from __future__ import annotations
@@ -25,7 +28,9 @@ from .. import build
 CHANNELS = 32   # channels a block
 MAX_LANES = 4   # lanes a channel
 
-_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+_BWD_ARGTYPES = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 8 + [
+    ctypes.c_void_p]
 
 
 def geometry(shape: dict) -> dict:
@@ -59,18 +64,22 @@ def smem_bytes(knobs: dict, shape: dict, dtype: torch.dtype):
 
 
 def mamba_scan_plain(dt, x, A, B, C, *, chunk: int,
-                     return_state: bool = False):
+                     return_state: bool = False,
+                     return_chunks: bool = False):
     """The kernel's algorithm in plain PyTorch: ``chunk`` timesteps staged
     as f32 at a time, then scanned one step after another with the (D, N)
     state in f32; the decay is ``exp2(dt * (A log2 e))``, as the kernel
-    forms it.  With ``return_state``, also the state after the last
-    step."""
+    forms it.  With ``return_state``, also the state after the last step;
+    with ``return_chunks`` (after it), the (Bt, L / chunk, D, N) states at
+    the start of each tile."""
     Bt, L, D = x.shape
     y = torch.empty_like(x)
     A2 = A.to(torch.float32) * 1.4426950408889634
     h = torch.zeros((Bt, D, A.shape[1]), dtype=torch.float32,
                     device=x.device)
+    starts = []
     for t0 in range(0, L, chunk):
+        starts.append(h)
         dts = dt[:, t0:t0 + chunk].to(torch.float32)
         dtx = dts * x[:, t0:t0 + chunk].to(torch.float32)
         Bs = B[:, t0:t0 + chunk].to(torch.float32)
@@ -82,21 +91,98 @@ def mamba_scan_plain(dt, x, A, B, C, *, chunk: int,
             h = decay * h + dtx[:, t, :, None] * Bs[:, t, None, :]
             ys[:, t] = (h * Cs[:, t, None, :]).sum(-1)
         y[:, t0:t0 + chunk] = ys.to(x.dtype)
-    return (y, h) if return_state else y
+    out = (y, h) if return_state else (y,)
+    if return_chunks:
+        out += (torch.stack(starts, 1),)
+    return out if len(out) > 1 else y
+
+
+def mamba_scan_bwd_plain(dt, x, A, B, C, dy, h_chunks, dh_last=None, *,
+                         chunk: int):
+    """The backward kernel's arithmetic in plain PyTorch, in f32: for each
+    tile of ``chunk`` steps, last first, its states are recomputed from
+    ``h_chunks`` as the forward forms them, then time is walked backward
+    carrying dh (``dh_last``, or 0, after the last step):
+    dh += dy_t C_t; dC_t = sum_d dy_t h_t; dB_t = sum_d dh dt_t x_t;
+    g = sum_n dh B_t; ga = dh h_{t-1} a_t; ddt_t = g x_t + sum_n ga A;
+    dx_t = g dt_t; dA += sum_b ga dt_t; dh = a_t dh.  Returns (ddt, dx,
+    dA, dB, dC): ddt, dx, dB, dC in the inputs' dtype, dA f32."""
+    Bt, L, D = x.shape
+    f32 = torch.float32
+    A32 = A.to(f32)
+    A2 = A32 * 1.4426950408889634
+    dh = (torch.zeros((Bt, D, A.shape[1]), dtype=f32, device=x.device)
+          if dh_last is None else dh_last.to(f32).clone())
+    ddt, dx = (torch.empty((Bt, L, D), dtype=f32, device=x.device)
+               for _ in range(2))
+    dB, dC = (torch.empty((Bt, L, A.shape[1]), dtype=f32, device=x.device)
+              for _ in range(2))
+    dA = torch.zeros_like(A32)
+    for k in reversed(range(L // chunk)):
+        t0 = k * chunk
+        dts = dt[:, t0:t0 + chunk].to(f32)
+        xs = x[:, t0:t0 + chunk].to(f32)
+        dtx = dts * xs
+        Bs = B[:, t0:t0 + chunk].to(f32)
+        Cs = C[:, t0:t0 + chunk].to(f32)
+        dys = dy[:, t0:t0 + chunk].to(f32)
+        hs, decays = [h_chunks[:, k]], []
+        for t in range(chunk):
+            decays.append(torch.exp2(dts[:, t, :, None] * A2))
+            hs.append(decays[-1] * hs[-1]
+                      + dtx[:, t, :, None] * Bs[:, t, None, :])
+        for t in reversed(range(chunk)):
+            dC[:, t0 + t] = (dys[:, t, :, None] * hs[t + 1]).sum(1)
+            dh = dh + dys[:, t, :, None] * Cs[:, t, None, :]
+            dB[:, t0 + t] = (dh * dtx[:, t, :, None]).sum(1)
+            g = (dh * Bs[:, t, None, :]).sum(-1)
+            ga = dh * hs[t] * decays[t]
+            ddt[:, t0 + t] = g * xs[:, t] + (ga * A32).sum(-1)
+            dx[:, t0 + t] = g * dts[:, t]
+            dA += (ga * dts[:, t, :, None]).sum(0)
+            dh = dh * decays[t]
+    return (ddt.to(dt.dtype), dx.to(x.dtype), dA, dB.to(B.dtype),
+            dC.to(C.dtype))
 
 
 def mamba_scan_launch(dt, x, A, B, C, y, h_last, *, chunk: int,
-                      smem: int) -> None:
+                      smem: int, h_chunks=None) -> None:
     """Launch the CUDA kernel on PyTorch's current stream; ``h_last`` (a
-    (Bt, D, N) f32 tensor, or None) receives the final state.  The caller
-    has checked the arguments (``ops.mamba_scan``)."""
+    (Bt, D, N) f32 tensor, or None) receives the final state, ``h_chunks``
+    (a (Bt, L / chunk, D, N) f32 tensor, or None) the state at each tile's
+    start.  The caller has checked the arguments (``ops.mamba_scan``)."""
     fn = build.function("mamba_scan", "mamba_scan_fwd", _ARGTYPES)
     Bt, L, D = x.shape
     N = A.shape[1]
     geo = geometry({"Bt": Bt, "L": L, "D": D, "N": N})
     err = fn(dt.data_ptr(), x.data_ptr(), A.data_ptr(), B.data_ptr(),
              C.data_ptr(), y.data_ptr(),
-             None if h_last is None else h_last.data_ptr(), Bt, L, D, N, chunk,
-             build.DTYPE_CODES[x.dtype], geo["lanes"], geo["channels"], smem,
-             build.stream_ptr(x.device))
+             None if h_last is None else h_last.data_ptr(),
+             None if h_chunks is None else h_chunks.data_ptr(), Bt, L, D, N,
+             chunk, build.DTYPE_CODES[x.dtype], geo["lanes"],
+             geo["channels"], smem, build.stream_ptr(x.device))
     build.check("mamba_scan", err, "mamba_scan_fwd")
+
+
+def mamba_scan_bwd_launch(dt, x, A, B, C, dy, dh_last, h_chunks, ddt, dx,
+                          dA, dB, dC, *, chunk: int) -> None:
+    """Launch the backward kernels on PyTorch's current stream, with their
+    f32 scratch (dA a batch row, dB and dC a block of 32 channels).  The
+    caller has checked the arguments (``ops.mamba_scan_bwd``)."""
+    fn = build.function("mamba_scan", "mamba_scan_bwd", _BWD_ARGTYPES)
+    Bt, L, D = x.shape
+    N = A.shape[1]
+    geo = geometry({"Bt": Bt, "L": L, "D": D, "N": N})
+    f32 = {"dtype": torch.float32, "device": x.device}
+    dA_part = torch.empty((Bt, D, N), **f32)
+    dB_part = torch.empty((Bt, geo["grid"][0], L, N), **f32)
+    dC_part = torch.empty_like(dB_part)
+    err = fn(dt.data_ptr(), x.data_ptr(), A.data_ptr(), B.data_ptr(),
+             C.data_ptr(), dy.data_ptr(),
+             None if dh_last is None else dh_last.data_ptr(),
+             h_chunks.data_ptr(), ddt.data_ptr(), dx.data_ptr(),
+             dA.data_ptr(), dB.data_ptr(), dC.data_ptr(), dA_part.data_ptr(),
+             dB_part.data_ptr(), dC_part.data_ptr(), Bt, L, D, N, chunk,
+             build.DTYPE_CODES[x.dtype], geo["lanes"], geo["channels"],
+             build.stream_ptr(x.device))
+    build.check("mamba_scan", err, "mamba_scan_bwd")

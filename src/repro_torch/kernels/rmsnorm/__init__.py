@@ -1,1 +1,1 @@
-from .ops import rmsnorm  # noqa: F401
+from .ops import rmsnorm, rmsnorm_bwd  # noqa: F401

@@ -1,3 +1,4 @@
 """Launchers of the port: ``python -m repro_torch.launch.serve``, the
-continuous-batching server as a CLI.  The reference's mesh, sharding,
-dry-run and training launchers are later work (ROADMAP.md, queue 1)."""
+continuous-batching server, and ``python -m repro_torch.launch.train``, the
+trainer, as CLIs.  The reference's mesh, sharding and dry-run launchers
+are later work (ROADMAP.md, queue 1)."""

@@ -1,0 +1,169 @@
+"""Training launcher: any assigned arch (reduced or full config) on one
+device, with checkpoint/resume, async saves and the synthetic sharded data
+pipeline (the counterpart of ``src/repro/launch/train.py`` with ``--mesh
+none``).  It runs on the GPU unless ``--device`` names another; without a
+GPU and without ``--device`` it exits with an error.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \
+      --smoke --device cpu --steps 50 --batch 8 --seq 128 \
+      --ckpt /tmp/ckpt --ckpt-every 20
+
+  # the full config, on the GPU
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \
+      --steps 30 --batch 8 --seq 1024
+
+Weights are drawn from a ``torch.Generator`` seeded 0 on the device; the
+embedding-input and M-RoPE stubs of the reference take their noise from a
+generator seeded by the step, so a resumed run sees the batches an
+uninterrupted one does.  ``--mesh smoke`` waits for the port's mesh
+(ROADMAP.md, queue 1).
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen3-0.6b")
+    ap.add_argument("--smoke", action="store_true",
+                    help="use the reduced same-family config")
+    ap.add_argument("--scale", default=None,
+                    help="comma k=v config overrides, e.g. "
+                         "d_model=640,n_layers=10")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--optimizer", default="adamw",
+                    choices=["adamw", "sgd", "adafactor"])
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--schedule", default="none",
+                    choices=["none", "wsd", "cosine"])
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--mesh", default="none", choices=["none", "smoke"])
+    ap.add_argument("--ckpt", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--hosts", type=int, default=1)
+    ap.add_argument("--host-id", type=int, default=0)
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--device", default=None,
+                    help="torch device to train on (default: the GPU; "
+                         "without one, pass --device cpu)")
+    return ap
+
+
+def device_batch(cfg, pipe, step: int, device) -> dict:
+    """The pipeline's batch for ``step`` on ``device``, with the
+    reference's modality stubs: frame embeddings drawn from a generator
+    seeded by the step for an embedding-input arch, and M-RoPE positions
+    (every section the token position)."""
+    batch = pipe.batch_at(step)
+    B, S = batch["tokens"].shape
+    out = {"tokens": torch.as_tensor(batch["tokens"], device=device),
+           "labels": torch.as_tensor(batch["labels"], device=device)}
+    if cfg.embedding_inputs:  # modality stub: tokens -> frame embeddings
+        gen = torch.Generator(device=device).manual_seed(step)
+        out = {"embeds": torch.randn((B, S, cfg.d_model), generator=gen,
+                                     device=device) * 0.02,
+               "labels": out["labels"] % cfg.vocab}
+    if cfg.mrope:
+        pos = np.arange(S, dtype=np.int32)
+        out["positions3"] = torch.as_tensor(
+            np.ascontiguousarray(np.broadcast_to(pos[None, :, None],
+                                                 (B, S, 3))), device=device)
+    return out
+
+
+def main(argv=None, on_step=None) -> dict:
+    """Train as the arguments say; ``on_step(step, metrics)``, if given,
+    is called after every step.  Returns the final state, the step
+    function, a function giving the device batch of a step, and the losses
+    and gradient norms of the steps run (host floats)."""
+    args = build_parser().parse_args(argv)
+    from ..configs import get_config, smoke_config
+    from ..data.tokens import TokenPipeline
+    from ..device import resolve_device
+    from ..models.transformer import init_params
+    from ..optim.optimizers import OPTIMIZERS
+    from ..optim.schedules import cosine_schedule, wsd_schedule
+    from ..train.checkpoint import load_latest, restore_like, save_checkpoint
+    from ..train.train_step import MESH_ITEM, TrainState, make_train_step
+
+    if args.mesh == "smoke":
+        raise SystemExit(f"train: --mesh smoke: {MESH_ITEM}")
+    try:
+        device = resolve_device(args.device)
+    except RuntimeError as e:
+        raise SystemExit(f"train: {e}") from None
+    cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if args.scale:
+        kv = dict(s.split("=") for s in args.scale.split(","))
+        cfg = cfg.scaled(**{k: (int(v) if v.isdigit() else v)
+                            for k, v in kv.items()})
+    print(f"arch={cfg.name} params~{cfg.param_count()/1e6:.1f}M "
+          f"family={cfg.family} device={device}")
+
+    lr = args.lr
+    if args.schedule == "wsd":
+        lr = wsd_schedule(args.lr, args.steps // 10, args.steps * 7 // 10,
+                          args.steps // 5)
+    elif args.schedule == "cosine":
+        lr = cosine_schedule(args.lr, args.steps // 10, args.steps)
+    opt = OPTIMIZERS[args.optimizer](lr=lr)
+
+    params = init_params(
+        cfg, generator=torch.Generator(device=device).manual_seed(0),
+        device=device)
+    state = TrainState(params, opt.init(dict(params.named_parameters())))
+
+    start = 0
+    if args.ckpt:
+        found = load_latest(args.ckpt)
+        if found:
+            start, flat = found
+            state = restore_like(state, flat)
+            print(f"resumed from step {start}")
+
+    pipe = TokenPipeline(vocab=cfg.vocab, seq_len=args.seq,
+                         global_batch=args.batch, n_hosts=args.hosts,
+                         host_id=args.host_id)
+    step_fn = make_train_step(cfg, opt, microbatches=args.microbatches)
+
+    t0 = time.time()
+    pending_save = None
+    losses, gnorms = [], []
+    for step in range(start, args.steps):
+        state, metrics = step_fn(state, device_batch(cfg, pipe, step,
+                                                     device))
+        losses.append(metrics["loss"])
+        gnorms.append(metrics["grad_norm"])
+        if on_step is not None:
+            on_step(step, metrics)
+        if (step + 1) % args.log_every == 0 or step == start:
+            print(f"step {step+1:5d} loss={float(metrics['loss']):.4f} "
+                  f"gnorm={float(metrics['grad_norm']):.3f} "
+                  f"({(time.time()-t0)/(step-start+1):.2f}s/step)",
+                  flush=True)
+        if args.ckpt and (step + 1) % args.ckpt_every == 0:
+            if pending_save is not None:
+                pending_save.join()
+            pending_save = save_checkpoint(args.ckpt, state, step + 1,
+                                           async_save=True)
+    if pending_save is not None:
+        pending_save.join()
+    if args.ckpt:
+        save_checkpoint(args.ckpt, state, args.steps)
+    print(f"done: {args.steps - start} steps in {time.time()-t0:.1f}s")
+    return {"state": state, "step_fn": step_fn, "cfg": cfg,
+            "batch": lambda s: device_batch(cfg, pipe, s, device),
+            "losses": [float(x) for x in losses],
+            "grad_norms": [float(x) for x in gnorms], "start": start}
+
+
+if __name__ == "__main__":
+    main()

@@ -3,7 +3,8 @@ and the parameter container every block is made of.
 
 The counterpart of ``src/repro/models/layers.py``.  ``rms_norm`` runs on the
 fused RMSNorm kernel's wrapper (``kernels/rmsnorm/ops.py``): the hand-written
-CUDA kernel on the card, its plain PyTorch version on CPU tensors.
+CUDA kernel on the card, its plain PyTorch version on CPU tensors; its
+gradient is the backward kernel's.
 """
 
 from __future__ import annotations
@@ -22,8 +23,8 @@ MAX_NORM_BLOCK_ROWS = 128
 
 class Params(nn.Module):
     """A named group of parameters, read by key as the reference's parameter
-    dicts are (``p["wq"]``, ``"bq" in p``).  Tensors become frozen
-    ``nn.Parameter``s (the port has no backward yet); modules nest."""
+    dicts are (``p["wq"]``, ``"bq" in p``).  Tensors become trainable
+    ``nn.Parameter``s; modules nest."""
 
     def __init__(self, **members):
         super().__init__()
@@ -31,8 +32,7 @@ class Params(nn.Module):
             if isinstance(value, nn.Module):
                 self.add_module(name, value)
             else:
-                self.register_parameter(
-                    name, nn.Parameter(value, requires_grad=False))
+                self.register_parameter(name, nn.Parameter(value))
 
     def __getitem__(self, name: str):
         return getattr(self, name)

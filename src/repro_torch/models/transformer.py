@@ -19,10 +19,11 @@ here a Python loop drives them, and only ``models/weights.py`` knows the
 stacked layout).  The reference's distribution context, ``remat`` and
 ``fsdp`` have no effect on one card, so the port takes no ``dist``.
 
-``train_loss`` is a forward only: the kernel wrappers have no backward yet
-(training is a later slice).  ``decode_step`` takes one cache index for
-the batch (an int) or one a lane (a (B,) tensor) and writes the caches it
-is given in place, returning them.
+``train_loss`` records autograd's graph (the kernel wrappers'
+gradients are the backward kernels); ``prefill`` and ``decode_step`` run
+under ``no_grad``, so serving records none.  ``decode_step`` takes one
+cache index for the batch (an int) or one a lane (a (B,) tensor) and
+writes the caches it is given in place, returning them.
 """
 
 from __future__ import annotations
@@ -326,7 +327,6 @@ def _head(params: Model, h):
 # --------------------------------------------------------------------------
 
 
-@torch.no_grad()
 def train_loss(params: Model, batch: dict, cfg: ModelConfig) -> torch.Tensor:
     """Mean next-token (or frame-label for encoders) cross-entropy.
 

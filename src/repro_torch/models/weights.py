@@ -34,7 +34,7 @@ def _flatten(tree, prefix: str = "") -> dict:
     return out
 
 
-def _reference_key(name: str) -> tuple[str, int | None]:
+def reference_key(name: str) -> tuple[str, int | None]:
     """A parameter's path in the reference tree and its layer, if stacked:
     ``layers.3.attn.wq`` -> (``layers.attn.wq``, 3)."""
     parts = name.split(".")
@@ -60,7 +60,7 @@ def reference_layout(params: Model) -> dict:
     n_layers = len(params.layers)
     flat = {}
     for name, p in params.named_parameters():
-        key, layer = _reference_key(name)
+        key, layer = reference_key(name)
         if layer is None:
             flat[key] = (tuple(p.shape), _dtype_name(p.dtype))
         elif layer == 0:
@@ -86,7 +86,7 @@ def params_from_reference(tree: dict, cfg: ModelConfig, device=None
     flat = {k: np.asarray(v) for k, v in _flatten(tree).items()}
     state, used = {}, set()
     for name, p in model.named_parameters():
-        key, layer = _reference_key(name)
+        key, layer = reference_key(name)
         if key not in flat:
             raise ValueError(f"reference tree has no {key!r}")
         a = flat[key]
@@ -103,6 +103,4 @@ def params_from_reference(tree: dict, cfg: ModelConfig, device=None
         raise ValueError(f"reference tree has leaves the model lacks: "
                          f"{extra}")
     model.load_state_dict(state, strict=True, assign=True)
-    for p in model.parameters():
-        p.requires_grad_(False)
     return model

@@ -1,0 +1,140 @@
+"""Functional optimizers: SGD-momentum, AdamW, and Adafactor with factored
+second moments (the counterpart of ``src/repro/optim/optimizers.py``, with
+its arithmetic).
+
+Interface:  opt = adamw(lr=...);  state = opt.init(params);
+            params, state = opt.update(grads, state, params, step)
+``params`` and ``grads`` are dicts of tensors keyed by parameter name (a
+model's ``dict(named_parameters())``), the state nests dicts of the same
+keys.  ``lr`` may be a float or a schedule fn(step) -> float.
+
+Unlike the reference, whose JAX arrays are immutable, ``update`` writes
+the new values into the parameter tensors in place (under ``no_grad``) and
+returns the same dict, so a model's parameters step without a second copy
+of the weights; the moments are updated in place too.  Adafactor sees
+each parameter tensor as the reference sees a leaf: the reference stacks
+a model's layers on a leading axis, so there one leaf holds every layer
+(its factored moments and its update clipping span all of them), where
+here each layer's tensor is its own.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable
+
+import torch
+
+F32 = torch.float32
+
+
+@dataclass(frozen=True)
+class Optimizer:
+    init: Callable[[Any], Any]
+    update: Callable[[Any, Any, Any, Any], tuple]
+    state_bytes_per_param: float  # for memory-planning math
+
+
+def _lr_at(lr, step) -> float:
+    return float(lr(step)) if callable(lr) else lr
+
+
+def _count_pow(base: float, count: torch.Tensor) -> float:
+    """``base ** count`` in f32, as the reference forms its bias
+    corrections, as a host float."""
+    return float(torch.tensor(base, dtype=F32) ** count.to(F32))
+
+
+def sgd_momentum(lr=1e-2, momentum=0.9, weight_decay=0.0) -> Optimizer:
+    def init(params):
+        return {"mom": {k: torch.zeros_like(p) for k, p in params.items()}}
+
+    @torch.no_grad()
+    def update(grads, state, params, step):
+        lr_t = _lr_at(lr, step)
+        for k, p in params.items():
+            m = state["mom"][k]
+            m.copy_(momentum * m + grads[k])
+            p.copy_(p - lr_t * (m + weight_decay * p))
+        return params, state
+
+    return Optimizer(init, update, 4.0)
+
+
+def adamw(lr=3e-4, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1) -> Optimizer:
+    def init(params):
+        def f32(p):
+            return torch.zeros(p.shape, dtype=F32, device=p.device)
+        return {"m": {k: f32(p) for k, p in params.items()},
+                "v": {k: f32(p) for k, p in params.items()},
+                "count": torch.zeros((), dtype=torch.int32)}
+
+    @torch.no_grad()
+    def update(grads, state, params, step):
+        lr_t = _lr_at(lr, step)
+        count = state["count"] + 1
+        c1 = 1 - _count_pow(b1, count)
+        c2 = 1 - _count_pow(b2, count)
+        for k, p in params.items():
+            g = grads[k].to(F32)
+            m, v = state["m"][k], state["v"][k]
+            m.copy_(b1 * m + (1 - b1) * g)
+            v.copy_(b2 * v + (1 - b2) * torch.square(g))
+            upd = (m / c1) / (torch.sqrt(v / c2) + eps)
+            p32 = p.to(F32)
+            p.copy_((p32 - lr_t * (upd + weight_decay * p32)).to(p.dtype))
+        state["count"] = count
+        return params, state
+
+    return Optimizer(init, update, 8.0)
+
+
+def adafactor(lr=1e-2, decay=0.8, eps=1e-30, clip_threshold=1.0,
+              weight_decay=0.0) -> Optimizer:
+    """Adafactor (Shazeer & Stern): rank-2+ tensors store row/col second-
+    moment factors instead of the full moment — O(n+m) not O(nm) state."""
+
+    def init(params):
+        def leaf(p):
+            z = {"dtype": F32, "device": p.device}
+            if p.dim() >= 2:
+                return {"r": torch.zeros(p.shape[:-1], **z),
+                        "c": torch.zeros(p.shape[:-2] + p.shape[-1:], **z)}
+            return {"v": torch.zeros(p.shape, **z)}
+        return {"f": {k: leaf(p) for k, p in params.items()},
+                "count": torch.zeros((), dtype=torch.int32)}
+
+    @torch.no_grad()
+    def update(grads, state, params, step):
+        lr_t = _lr_at(lr, step)
+        count = state["count"] + 1
+        beta = 1.0 - float(count.to(F32) ** (-decay))
+        for k, p in params.items():
+            f = state["f"][k]
+            g32 = grads[k].to(F32)
+            g2 = torch.square(g32) + eps
+            if p.dim() >= 2:
+                r = beta * f["r"] + (1 - beta) * torch.mean(g2, dim=-1)
+                c = beta * f["c"] + (1 - beta) * torch.mean(g2, dim=-2)
+                rmean = torch.mean(r, dim=-1, keepdim=True)
+                vhat = (r[..., None] / (rmean[..., None] + eps)) \
+                    * c[..., None, :]
+                upd = g32 / (torch.sqrt(vhat) + eps)
+                f["r"].copy_(r)
+                f["c"].copy_(c)
+            else:
+                v = beta * f["v"] + (1 - beta) * g2
+                upd = g32 / (torch.sqrt(v) + eps)
+                f["v"].copy_(v)
+            # update clipping (RMS)
+            rms = torch.sqrt(torch.mean(torch.square(upd)) + eps)
+            upd = upd / torch.clamp(rms / clip_threshold, min=1.0)
+            p32 = p.to(F32)
+            p.copy_((p32 - lr_t * (upd + weight_decay * p32)).to(p.dtype))
+        state["count"] = count
+        return params, state
+
+    return Optimizer(init, update, 0.1)
+
+
+OPTIMIZERS = {"sgd": sgd_momentum, "adamw": adamw, "adafactor": adafactor}

@@ -1,0 +1,221 @@
+"""Training on the GPU: the three backward kernels against their plain
+versions, their determinism, the forwards' extra outputs leaving the
+forwards' bits alone, and the train step on the card against the CPU.
+
+Every test here is marked ``cuda`` and skips on hosts without a GPU.  It
+imports nothing of the reference package, so it runs where JAX is not
+installed:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_train.py
+
+Tolerances, |card - plain| <= RTOL |plain| + ATOL max(1, max |plain|): in
+f32 RTOL 1e-5, ATOL 1e-4 (both sum the same f32 products in other orders,
+over up to a few hundred terms); in bf16 RTOL 2**-7 (one rounding step of
+the output) and ATOL 1e-2 (the forward's bf16 scale).  The train step on
+the card against the CPU (smoke configs at head dim 32, f32, TF32 off, 2
+AdamW steps): losses within 1e-5 relative, parameters within 1e-4
+absolute (a tenth of lr 1e-3: a wrong gradient moves an element by
+O(lr)).
+"""
+
+import copy
+
+import pytest
+import torch
+
+from repro_torch.configs import smoke_config
+from repro_torch.core.interp import full_f32
+from repro_torch.data.tokens import TokenPipeline
+from repro_torch.kernels.flash_attention.flash_attention import \
+    flash_attention_bwd_plain, flash_attention_plain
+from repro_torch.kernels.flash_attention.ops import (_launch,
+                                                     flash_attention_bwd)
+from repro_torch.kernels.mamba_scan.mamba_scan import (mamba_scan_bwd_plain,
+                                                       mamba_scan_plain)
+from repro_torch.kernels.mamba_scan.ops import _forward as scan_forward
+from repro_torch.kernels.mamba_scan.ops import mamba_scan, mamba_scan_bwd
+from repro_torch.kernels.rmsnorm.ops import rmsnorm_bwd
+from repro_torch.kernels.rmsnorm.rmsnorm import rmsnorm_bwd_plain
+from repro_torch.models import transformer as T
+from repro_torch.optim import adamw
+from repro_torch.train.checkpoint import (load_latest, restore_like,
+                                          save_checkpoint)
+from repro_torch.train.train_step import TrainState, make_train_step
+
+pytestmark = pytest.mark.cuda
+
+TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (2.0 ** -7, 1e-2)}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    return torch.device("cuda")
+
+
+def close(got, want, dtype, what=""):
+    rtol, atol = TOL[dtype]
+    torch.cuda.synchronize()
+    g, w = got.float().cpu(), want.float().cpu()
+    assert g.shape == w.shape, what
+    assert bool(torch.isfinite(g).all()), what
+    bound = rtol * w.abs() + atol * max(1.0, float(w.abs().max()))
+    assert bool(((g - w).abs() <= bound).all()), \
+        f"{what}: max |diff| {float((g - w).abs().max()):.3e}"
+
+
+def _randn(gen, shape, dtype, dev):
+    return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,d,scale_dtype", [
+    (7, 48, torch.float32), (130, 1024, torch.float32),
+    (33, 128, torch.bfloat16), (5, 10, torch.float32)])
+def test_rmsnorm_bwd_kernel_matches_plain(cuda, dtype, rows, d, scale_dtype):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x, dy = (_randn(gen, (rows, d), dtype, cuda) for _ in range(2))
+    s = _randn(gen, (d,), scale_dtype, cuda)
+    before = rmsnorm_bwd.launches
+    dx, ds = rmsnorm_bwd(x, s, dy)
+    assert rmsnorm_bwd.launches == before + 1
+    pdx, pds = rmsnorm_bwd_plain(x, s, dy, eps=1e-6)
+    close(dx, pdx, dtype, "dx")
+    close(ds, pds, scale_dtype, "dscale")
+    dx2, ds2 = rmsnorm_bwd(x, s, dy)
+    assert torch.equal(dx, dx2) and torch.equal(ds, ds2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S,hd,block", [(128, 64, 64), (96, 32, 32),
+                                        (256, 128, 128)])
+def test_flash_bwd_kernel_matches_plain(cuda, dtype, causal, S, hd, block):
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    q, k, v, do = (_randn(gen, (2, 2, S, hd), dtype, cuda) for _ in range(4))
+    scale = hd ** -0.5
+    o, lse = _launch(q, k, v, causal=causal, scale=scale, block_q=block,
+                     block_k=block, want_lse=True)
+    o_plain, lse_plain = flash_attention_plain(
+        q, k, v, causal=causal, scale=scale, block_q=block, block_k=block,
+        return_lse=True)
+    close(lse, lse_plain, torch.float32, "lse")
+    o_alone = _launch(q, k, v, causal=causal, scale=scale, block_q=block,
+                      block_k=block, want_lse=False)
+    assert torch.equal(o, o_alone), "o changed with lse requested"
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, o, do, lse, causal=causal,
+                              scale=scale)
+    assert flash_attention_bwd.launches == before + 1
+    want = flash_attention_bwd_plain(q, k, v, o, do, lse, causal=causal,
+                                     scale=scale)
+    for g, w, name in zip(got, want, "qkv"):
+        close(g, w, dtype, f"d{name}")
+    again = flash_attention_bwd(q, k, v, o, do, lse, causal=causal,
+                                scale=scale)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Bt,L,D,N,chunk,with_dh", [
+    (2, 24, 40, 4, 8, True), (1, 64, 64, 16, 64, False),
+    (1, 18, 33, 1, 6, True), (2, 32, 32, 32, 16, True)])
+def test_scan_bwd_kernel_matches_plain(cuda, dtype, Bt, L, D, N, chunk,
+                                       with_dh):
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    dt = torch.nn.functional.softplus(
+        torch.randn((Bt, L, D), generator=gen, device=cuda)).to(dtype)
+    x, dy = (_randn(gen, (Bt, L, D), dtype, cuda) for _ in range(2))
+    A = -torch.exp(0.3 * torch.randn((D, N), generator=gen, device=cuda))
+    B, C = (_randn(gen, (Bt, L, N), dtype, cuda) for _ in range(2))
+    dh = (torch.randn((Bt, D, N), generator=gen, device=cuda) if with_dh
+          else None)
+    y, h, hc = scan_forward(dt, x, A, B, C, chunk=chunk, return_state=True,
+                            return_chunks=True)
+    y0, h0 = scan_forward(dt, x, A, B, C, chunk=chunk, return_state=True,
+                          return_chunks=False)
+    assert torch.equal(y, y0) and torch.equal(h, h0), \
+        "y or h_last changed with the chunk states requested"
+    _, _, hc_plain = mamba_scan_plain(dt, x, A, B, C, chunk=chunk,
+                                      return_state=True, return_chunks=True)
+    close(hc, hc_plain, torch.float32, "h_chunks")
+    before = mamba_scan_bwd.launches
+    got = mamba_scan_bwd(dt, x, A, B, C, dy, hc, dh, chunk=chunk)
+    assert mamba_scan_bwd.launches == before + 1
+    want = mamba_scan_bwd_plain(dt, x, A, B, C, dy, hc, dh, chunk=chunk)
+    for g, w, name in zip(got, want, ("dt", "x", "A", "B", "C")):
+        close(g, w, torch.float32 if name == "A" else dtype, f"d{name}")
+    again = mamba_scan_bwd(dt, x, A, B, C, dy, hc, dh, chunk=chunk)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_autograd_reaches_the_backward_kernels(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    dt = torch.rand((1, 16, 32), generator=gen, device=cuda)
+    x = torch.randn((1, 16, 32), generator=gen, device=cuda)
+    A = -torch.rand((32, 4), generator=gen, device=cuda) - 0.5
+    B, C = (torch.randn((1, 16, 4), generator=gen, device=cuda)
+            for _ in range(2))
+    ins = [t.requires_grad_() for t in (dt, x, A, B, C)]
+    before = mamba_scan_bwd.launches
+    mamba_scan(*ins, chunk=8).sum().backward()
+    assert mamba_scan_bwd.launches == before + 1
+    assert all(t.grad is not None for t in ins)
+
+
+def _cfg(arch):
+    cfg = smoke_config(arch).scaled(dtype="float32")
+    return cfg.scaled(head_dim=32) if cfg.n_heads else cfg
+
+
+def _steps(cfg, params, steps=2, start=0, state=None):
+    opt = adamw(lr=1e-3)
+    state = state or TrainState(params, opt.init(dict(
+        params.named_parameters())))
+    step_fn = make_train_step(cfg, opt)
+    pipe = TokenPipeline(vocab=cfg.vocab, seq_len=24, global_batch=2)
+    losses = []
+    for s in range(start, start + steps):
+        b = {k: torch.as_tensor(v, device=params.device)
+             for k, v in pipe.batch_at(s).items()}
+        state, m = step_fn(state, b)
+        losses.append(float(m["loss"]))
+    return state, losses
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "falcon-mamba-7b",
+                                  "zamba2-1.2b"])
+def test_train_steps_on_the_card_match_the_cpu(cuda, arch):
+    cfg = _cfg(arch)
+    cpu = T.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                        device="cpu")
+    card = copy.deepcopy(cpu).to(cuda)
+    _, want = _steps(cfg, cpu)
+    with full_f32():
+        _, got = _steps(cfg, card)
+    for g, w in zip(got, want):
+        assert abs(g - w) <= 1e-5 * abs(w)
+    ref = dict(cpu.named_parameters())
+    for name, p in card.named_parameters():
+        diff = float((p.detach().cpu() - ref[name].detach()).abs().max())
+        assert diff <= 1e-4, f"{name}: {diff:.3e}"
+
+
+def test_resume_on_the_card_is_bit_exact(cuda, tmp_path):
+    cfg = smoke_config("qwen3-0.6b").scaled(head_dim=32, dtype="bfloat16")
+
+    def fresh():
+        return T.init_params(cfg, generator=torch.Generator(
+            device=cuda).manual_seed(0), device=cuda)
+    straight, _ = _steps(cfg, fresh(), steps=4)
+    half, _ = _steps(cfg, fresh(), steps=2)
+    save_checkpoint(str(tmp_path), half, 2)
+    params = fresh()
+    opt = adamw(lr=1e-3)
+    state = restore_like(TrainState(params, opt.init(dict(
+        params.named_parameters()))), load_latest(str(tmp_path))[1])
+    resumed, _ = _steps(cfg, params, steps=2, start=2, state=state)
+    want = dict(straight["params"].named_parameters())
+    for name, p in resumed["params"].named_parameters():
+        assert torch.equal(p, want[name]), name

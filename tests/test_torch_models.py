@@ -292,7 +292,7 @@ def test_params_from_reference_copies_every_leaf():
                           tree["layers"]["mamba"]["in_proj"][3])
     assert np.array_equal(np32(got["shared.attn.wq"]),
                           tree["shared"]["attn"]["wq"])
-    assert not any(p.requires_grad for p in params.parameters())
+    assert all(p.requires_grad for p in params.parameters())
 
 
 @pytest.mark.parametrize("fault", ["shape", "dtype", "missing", "extra",

@@ -1,0 +1,138 @@
+"""Training in the port against the reference: the gradients of
+``train_loss`` for every arch, and the train step's trajectory.
+
+The reference's weights (``init_params(cfg, PRNGKey(0))``) go into the
+port through ``params_from_reference``; batches are seeded numpy arrays
+(and the reference's ``TokenPipeline``).  On the CPU every kernel wrapper
+runs its plain version, forward and backward (the backward's plain
+versions are held to ``jax.vjp`` in tests/test_torch_kernels_bwd.py).
+
+Tolerances, each per leaf:
+* gradients: |port - ref| <= 1e-3 |ref| + 1e-4 max |ref|.  Both are f32
+  sums of the same products in other orders, over the batch, the sequence
+  and a dozen layers' chains (seen in a probe: at most 4e-6 of the leaf's
+  max); a missing term or a wrong mask moves a gradient by O(max).
+* the train step, 3 AdamW steps at lr 1e-3: losses within 1e-5 + 1e-5
+  |ref|, gradient norms within 1e-4 relative, parameters within 1e-4
+  absolute, a tenth of one step's lr: an element's normalized update
+  m / sqrt(v) is at most about 1, so a wrong gradient or update moves it
+  by O(lr) a step.
+"""
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.data.tokens import TokenPipeline as RefPipeline
+from repro.models import transformer as R
+from repro.optim.optimizers import adamw as ref_adamw
+from repro.train.train_step import TrainState as RefState
+from repro.train.train_step import make_train_step as ref_make_step
+from repro_torch.data.tokens import TokenPipeline
+from repro_torch.models import transformer as T
+from repro_torch.models.weights import params_from_reference
+from repro_torch.optim import adamw
+from repro_torch.train.train_step import (TrainState, loss_and_grads,
+                                          make_train_step)
+from torch_model_oracle import batch, jnp_batch, weights
+
+ARCHS = ("qwen3-0.6b", "qwen1.5-4b", "qwen1.5-32b", "minicpm-2b",
+         "qwen2-vl-72b", "hubert-xlarge", "granite-moe-3b-a800m",
+         "deepseek-v3-671b", "falcon-mamba-7b", "zamba2-1.2b")
+
+
+def _flat(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = np.asarray(v, np.float32)
+    return out
+
+
+def _per_layer(flat: dict, name: str) -> np.ndarray:
+    """The reference's leaf for the port's parameter ``name``."""
+    parts = name.split(".")
+    if parts[0] == "layers":
+        return flat["layers." + ".".join(parts[2:])][int(parts[1])]
+    return flat[name]
+
+
+def _np(t):
+    return t.detach().to(torch.float32).numpy()
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_train_loss_gradients_match_jax_grad(arch):
+    cfg, ref, tcfg, params = weights(arch)
+    b = batch(cfg, 2, 13 if not cfg.loss_chunk else 4 * cfg.loss_chunk)
+    want = _flat(jax.jit(jax.grad(lambda p, x: R.train_loss(p, x, cfg)))(
+        ref, jnp_batch(b)))
+    loss, grads = loss_and_grads(tcfg, params, b)
+    assert sorted(grads) == sorted(n for n, _ in params.named_parameters())
+    for name, g in grads.items():
+        w = _per_layer(want, name)
+        got = _np(g)
+        bound = 1e-3 * np.abs(w) + 1e-4 * float(np.abs(w).max())
+        assert got.shape == w.shape, name
+        assert np.all(np.abs(got - w) <= bound), \
+            f"{name}: max |diff| {float(np.abs(got - w).max()):.3e}"
+
+
+def _trajectory(arch, microbatches, steps=3):
+    cfg, ref, tcfg, _ = weights(arch)
+    ref_opt, opt = ref_adamw(lr=1e-3), adamw(lr=1e-3)
+    ref_step = jax.jit(ref_make_step(cfg, ref_opt,
+                                     microbatches=microbatches))
+    ref_state = RefState(ref, ref_opt.init(ref))
+    params = params_from_reference(jax.tree.map(np.asarray, ref), tcfg,
+                                   "cpu")
+    state = TrainState(params, opt.init(dict(params.named_parameters())))
+    step_fn = make_train_step(tcfg, opt, microbatches=microbatches)
+    ref_pipe = RefPipeline(vocab=cfg.vocab, seq_len=16, global_batch=4)
+    pipe = TokenPipeline(vocab=cfg.vocab, seq_len=16, global_batch=4)
+    for s in range(steps):
+        ref_state, rm = ref_step(ref_state, ref_pipe.batch_at(s))
+        state, m = step_fn(state, pipe.batch_at(s))
+        want = float(rm["loss"])
+        assert abs(float(m["loss"]) - want) <= 1e-5 + 1e-5 * abs(want)
+        assert float(m["grad_norm"]) == pytest.approx(
+            float(rm["grad_norm"]), rel=1e-4)
+    assert int(state["step"]) == int(ref_state["step"]) == steps
+    want = _flat(jax.tree.map(np.asarray, ref_state["params"]))
+    for name, p in params.named_parameters():
+        w = _per_layer(want, name)
+        assert np.all(np.abs(_np(p) - w) <= 1e-4), \
+            f"{name}: max |diff| {float(np.abs(_np(p) - w).max()):.3e}"
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "falcon-mamba-7b"])
+def test_adamw_train_steps_match_reference(arch):
+    _trajectory(arch, microbatches=1)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "falcon-mamba-7b"])
+def test_microbatched_train_steps_match_reference(arch):
+    _trajectory(arch, microbatches=2)
+
+
+def test_mesh_options_raise_naming_the_roadmap():
+    tcfg = weights("qwen3-0.6b")[2]
+    for kw in ({"compress_grads": True}, {"dist": object()},
+               {"grad_shardings": {}}):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            make_train_step(tcfg, adamw(), **kw)
+
+
+def test_train_loss_records_a_graph_serving_does_not():
+    """train_loss is differentiable; prefill and decode_step record no
+    graph (their outputs do not require grad)."""
+    _, _, tcfg, params = weights("qwen3-0.6b")
+    b = batch(tcfg, 1, 8)
+    assert T.train_loss(params, b, tcfg).requires_grad
+    b.pop("labels")
+    logits, caches = T.prefill(params, b, tcfg)
+    assert not logits.requires_grad
+    assert not any(c.requires_grad for c in caches.values())
