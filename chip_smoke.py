@@ -11,7 +11,10 @@ Phases, each printing one JSON line:
                     ``HGMMA`` (tensor-core) instructions in the built flash
                     library and of ``MUFU.EX2`` (ex2-unit) instructions in
                     the scan's (``cuobjdump -sass``), and the ``ptxas``
-                    registers and spills of every kernel instantiation.
+                    registers and spills of every kernel instantiation;
+                    for the bf16 flash backward's two kernels at each
+                    head dim also their HGMMA counts, each above 0, with
+                    no spill and no serialized wgmma.
 2. ``search_shapes`` — every kernel genome of the three schedule spaces at
                     the search's evaluation shapes in float32, and the
                     default schedules in bfloat16: the kernel against its
@@ -159,15 +162,18 @@ Phases, each printing one JSON line:
                     scan Bt1 L4096 D8192 N16 in f32), on the forward
                     kernel's outputs (its lse and tile-start states held
                     against the plain forward's, its o, y and h_last the
-                    same bits with them), two calls the same bits, with
+                    same bits with them), two calls the same bits (in
+                    bf16 flash beside SDPA's backward's own error), with
                     its time, the plain version's, the library call's
                     (the backward of ``F.rms_norm``, of SDPA) and the
-                    bound; (b) the loss and every gradient of qwen3-0.6b
-                    and falcon-mamba-7b at full width, 2 layers, f32, TF32
-                    off, on the card against the CPU, and in bf16 against
-                    the f32 card's; (c) qwen3-0.6b at full width and
-                    depth in bf16, AdamW, batch 8 x 1024 tokens, 30 steps
-                    through ``launch.train``'s main, and (d)
+                    bound at full width, for flash also at the training
+                    runs' shape (8, 16, 1024, 128); (b) the loss and every
+                    gradient of qwen3-0.6b and falcon-mamba-7b at full
+                    width, 2 layers, f32, TF32 off, on the card against
+                    the CPU, and in bf16 against the f32 card's; (c)
+                    qwen3-0.6b at full width and depth in bf16, AdamW,
+                    batch 8 x 1024 tokens, 30 steps through
+                    ``launch.train``'s main, and (d)
                     falcon-mamba-7b at full width cut to 4 of 64 layers,
                     batch 2 x 2048, 20 steps: the loss falling on the
                     pipeline's Markov stream, every forward and backward
@@ -356,6 +362,39 @@ def ptxas_report(log_text: str) -> list:
     return rows
 
 
+def sass_counts(sass: str, pattern: str) -> dict:
+    """Per kernel function of a ``cuobjdump -sass`` listing, the number of
+    instructions matching ``pattern``."""
+    parts = sass.split("Function : ")[1:]
+    names = _demangle([part.split()[0] for part in parts])
+    return {n: len(re.findall(pattern, part))
+            for n, part in zip(names, parts)}
+
+
+# the bf16 flash backward's tensor-core kernels, one per head dim each
+FLASH_BWD_BF16 = ("flash_bwd_dkdv_bf16_kernel", "flash_bwd_dq_bf16_kernel")
+
+
+def flash_bwd_report(ptxas: list, hgmma: dict) -> dict:
+    """Registers, spills and HGMMA count of every instantiation of the bf16
+    flash backward's kernels; raise unless each of the six has HGMMA
+    instructions, no spill and no serialized wgmma."""
+    out = {r["kernel"]: {"registers": r["registers"],
+                         "spill_stores": r["spill_stores"],
+                         "spill_loads": r["spill_loads"],
+                         "wgmma_serialized": r["wgmma_serialized"],
+                         "hgmma": hgmma.get(r["kernel"], 0)}
+           for r in ptxas if any(k in r["kernel"] for k in FLASH_BWD_BF16)}
+    bad = {k: r for k, r in out.items()
+           if not r["hgmma"] or r["spill_stores"] or r["spill_loads"]
+           or r["wgmma_serialized"]}
+    if len(out) != 2 * 3 or bad:
+        raise AssertionError(f"flash_attention_bwd (bf16): {len(out)} "
+                             f"kernels, not 6, or no HGMMA, spills or "
+                             f"serialized wgmma: {bad}")
+    return out
+
+
 def phase_device(torch, build) -> dict:
     t0 = time.perf_counter()
     per_source = build.build()
@@ -373,6 +412,8 @@ def phase_device(torch, build) -> dict:
     if hgmma == 0:
         raise AssertionError("flash_attention: no HGMMA instruction in the "
                              "built library")
+    flash_bwd = flash_bwd_report(ptxas["flash_attention"],
+                                 sass_counts(sass, r"\bHGMMA\."))
     sass = subprocess.run(
         [_tool("cuobjdump"), "-sass", str(build.library_path("mamba_scan"))],
         check=True, capture_output=True, text=True, timeout=300).stdout
@@ -388,6 +429,7 @@ def phase_device(torch, build) -> dict:
            "build_s": {k: round(v, 2) for k, v in per_source.items()},
            "build_total_s": round(total, 2),
            "flash_hgmma_instructions": hgmma,
+           "flash_bwd_bf16": flash_bwd,
            "scan_mufu_ex2_instructions": ex2,
            "ptxas_spill_reports": spills, "ptxas": ptxas}
     emit(doc)
@@ -2727,6 +2769,17 @@ def bwd_library_call(torch, kernel, i):
     return None
 
 
+def bwd_library_err(torch, kernel, i) -> float:
+    """The library call's own largest |diff| from the plain version on
+    ``i``: SDPA's backward, which in bf16 rounds P to bf16 too, beside the
+    kernel's, shows what a tensor-core backward costs in accuracy.
+    Reported, not held to a limit."""
+    got = bwd_library_call(torch, kernel, i)()
+    want = run_bwd(kernel, i, plain=True)
+    return max(float((g.float() - w.float()).abs().max())
+               for g, w in zip(got, want))
+
+
 def bwd_bound(kernel, s, dtype, rates) -> tuple[float, str, float, float]:
     """(bound_ms, bound_by, bytes, operations) of one backward call: each
     input read once (the forward's outputs it takes among them), each
@@ -2756,9 +2809,10 @@ def bwd_bound(kernel, s, dtype, rates) -> tuple[float, str, float, float]:
 def train_kernels(torch) -> dict:
     """(a): each backward kernel against its plain version at the small
     ragged shapes in f32 and bf16, at the main path's shapes and at full
-    width, on inputs the forward kernel made, two calls the same bits; at
-    full width its time, the plain version's, the library call's and the
-    bound."""
+    width, on inputs the forward kernel made, two calls the same bits; in
+    bf16 flash also SDPA's backward's own error; at full width, and for
+    flash at the training runs' shape, its time, the plain version's, the
+    library call's and the bound."""
     rates = device_rates()
     gen = torch.Generator(device="cuda").manual_seed(20)
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
@@ -2768,16 +2822,11 @@ def train_kernels(torch) -> dict:
         i, fwd = bwd_inputs(torch, kernel, s, dtype, gen, full=full)
         row = {"shape": s, "dtype": dtype, "forward_max_abs_err": fwd,
                "max_abs_err": bwd_check(torch, kernel, i, dtype)}
+        if kernel == "flash_attention" and dtype == "bfloat16":
+            row["library_max_abs_err"] = bwd_library_err(torch, kernel, i)
         return i, row
 
-    for kernel, name in BWD_NAMES.items():
-        checked = [case(kernel, s, dtype)[1] for s in BWD_SMALL[kernel]
-                   for dtype in ("float32", "bfloat16")]
-        for s, dtype in BWD_PATH[kernel]:
-            checked.append(case(kernel, s, dtype, full=True)[1])
-            torch.cuda.empty_cache()
-        s, dtype = BWD_FULL[kernel]
-        i, row = case(kernel, s, dtype, full=True)
+    def timed(kernel, i, s, dtype) -> dict:
         ms = time_ms(torch, lambda: run_bwd(kernel, i, plain=False),
                      reps=20, flush=flush)
         plain_ms = time_ms(torch, lambda: run_bwd(kernel, i, plain=True),
@@ -2787,11 +2836,24 @@ def train_kernels(torch) -> dict:
         library_ms = (time_ms(torch, lib, reps=20, flush=flush)
                       if lib is not None else None)
         bound_ms, bound_by, nbytes, ops = bwd_bound(kernel, s, dtype, rates)
-        out[name] = {"checked": checked, **row, "kernel_ms": ms,
-                     "plain_ms": plain_ms, "library_ms": library_ms,
-                     "bound_ms": bound_ms, "bound_by": bound_by,
-                     "bytes": nbytes, "operations": ops}
-        del i, lib
+        return {"kernel_ms": ms, "plain_ms": plain_ms,
+                "library_ms": library_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "bytes": nbytes, "operations": ops}
+
+    for kernel, name in BWD_NAMES.items():
+        checked = [case(kernel, s, dtype)[1] for s in BWD_SMALL[kernel]
+                   for dtype in ("float32", "bfloat16")]
+        for s, dtype in BWD_PATH[kernel]:
+            i, row = case(kernel, s, dtype, full=True)
+            if kernel == "flash_attention":  # what a training step calls
+                row.update(timed(kernel, i, s, dtype))
+            checked.append(row)
+            del i
+            torch.cuda.empty_cache()
+        s, dtype = BWD_FULL[kernel]
+        i, row = case(kernel, s, dtype, full=True)
+        out[name] = {"checked": checked, **row, **timed(kernel, i, s, dtype)}
+        del i
         torch.cuda.empty_cache()
     del flush
     torch.cuda.empty_cache()

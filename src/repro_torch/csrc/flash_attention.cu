@@ -571,21 +571,67 @@ cudaError_t launch_bf16_hd(int hd, int block_k, const void* q, const void* k,
 
 // ---------------------------------------------------------------------------
 // Backward (no TPU counterpart: the reference leaves the gradient of its
-// jnp attention to XLA; here the forward is this kernel, so its gradient is
-// one too).  With P = exp(s Q K^T - lse) recomputed from the forward's
-// log-sum-exp and D = rowsum(dO o O):
+// jnp attention, src/repro/kernels/flash_attention/ref.py attention_ref, to
+// XLA; here the forward is this kernel, so its gradient is one too).  With
+// P = exp(s Q K^T - lse) recomputed from the forward's log-sum-exp and
+// D = rowsum(dO o O):
 //   dS = P o (dO V^T - D),  dV = P^T dO,  dK = s dS^T Q,  dQ = s dS K.
-// Three kernels, no atomics, so every call gives the same bits:
+// Bound on the H100: operations (five products of Sq x Sk x hd, the causal
+// half of them, against 4 tensors of Sq x hd read and 3 written).  No float
+// atomics: every output element is summed by one block in a fixed order, so
+// two calls give the same bits.
+//
+// bf16 -- the tensor cores, after the backward of FA2/FA3, in two passes:
+// * flash_bwd_rows_kernel: lse * log2(e) and D of every row, one warp a
+//   row, into a scratch padded to whole blocks of rows; padding rows get
+//   lse = +inf, so their P is exactly 0, and D = 0;
+// * flash_bwd_dkdv_bf16_kernel: a block per (bh, 128 keys), one consumer
+//   warpgroup per 64 keys.  K and V arrive once by TMA; the 64-row query
+//   tiles (Q, dO, lse, D) stream through a ring of kBwdStages stages that a
+//   producer fills (TMA, mbarriers).  Per tile, S^T = K Q^T and then
+//   dP^T = V dO^T on wgmma (both operands in shared memory, a commit group
+//   each, so P^T is formed while dP^T runs), dS^T in registers, then
+//   dV += P^T dO and dK += dS^T Q on wgmma with P^T and dS^T, rounded to
+//   bf16, as the register operand and the Q and dO tiles read MN-major: P
+//   and dS never touch shared memory;
+// * flash_bwd_dq_bf16_kernel: a block per (bh, 128 query rows), one
+//   warpgroup per 64 rows, with Q, dO, lse and D loaded once and the 64-key
+//   K/V tiles streaming through the ring: S = Q K^T and dP = dO V^T (a
+//   group each), dQ += dS K (dS from registers, K read MN-major).  A tile's
+//   dQ product runs on while the next tile's S and dP are issued; its stage
+//   is released once they are done.
+// Seven products where the bound counts five (S and dP are formed in both
+// passes), so the design's floor is 7/5 of the bound.  A single pass would
+// have to sum dQ across the key blocks: by float atomics (other bits each
+// call) or by per-block partials summed afterwards (Sk / 128 times dQ's
+// bytes through HBM).  The second pass spends operations, which the tensor
+// cores have, and keeps every sum in one order.  Causal tiles wholly above
+// the diagonal are skipped, and only tiles that cross the diagonal or the
+// end of the keys are masked.  The grid's x is (batch, head) and its y the
+// block's tile, taken so that the blocks with the most tiles start first
+// across every head.  P's exponentials run on the ex2 unit
+// (ex2.approx.ftz, one MUFU.EX2 each): beside the tensor cores, the
+// softmax's arithmetic is what a tile waits on.
+// A thread of a dK/dV warpgroup holds hd / 2 f32 of dK and of dV plus 32 of
+// S^T and of dP^T, 192 at hd 128: more than the 168 a thread that 384
+// threads (or 288: nine warps sit 3/2/2/2 on the SM's four register files)
+// get at launch.  So a block is two consumer warpgroups and a producer
+// warpgroup, one thread of which issues the loads: setmaxnreg moves the
+// producer's registers to the consumers (40 and 232), one block an SM.
+// Holding P^T's bf16 registers while dS^T is formed, or a second S/dP
+// buffer, does not fit that: ptxas spills and serializes the wgmma.
+// Q, K, V and dO rows past Sq or Sk arrive as zeros.
+//
+// f32 -- the CUDA cores, the first version of the backward.  The tensor
+// cores' only f32 path is TF32 (10 bits of mantissa), which misses the f32
+// tolerance, so f32 stays on three kernels:
 // * flash_bwd_delta_kernel: D, one warp a row;
 // * flash_bwd_dkdv_kernel: a block per (bh, 64-key tile) walks the 64-row
 //   query tiles from the causal start, recomputes P and dS for the tile
 //   pair and accumulates dK and dV in registers;
 // * flash_bwd_dq_kernel: a block per (bh, 64-row query tile) walks the key
 //   tiles up to the causal end and accumulates dQ in registers.
-// Bound on the H100: operations (7 products of Sq x Sk x hd, the causal
-// half of them, against 4 tensors of Sq x hd read and 3 written).  This
-// first version runs them on the CUDA cores in f32 for both input types:
-// the tiles are converted to f32 in shared memory (rows padded by one
+// The tiles are converted to f32 in shared memory (rows padded by one
 // float, so the 16 threads that read 16 rows hit 16 banks), and each of
 // 256 threads owns a 4 x 4 block of the 64 x 64 scores (rows t / 16 + 16 i,
 // columns t % 16 + 16 j) and 4 rows x hd / 16 columns of its accumulator.
@@ -596,9 +642,9 @@ cudaError_t launch_bf16_hd(int hd, int block_k, const void* q, const void* k,
 constexpr int kBwdTile = 64;
 constexpr int kBwdThreads = 256;
 
-// dynamic shared memory of both backward kernels (flash_bwd_smem_bytes in
+// dynamic shared memory of both f32 backward kernels (bwd_smem_bytes in
 // repro_torch/kernels/flash_attention/flash_attention.py computes the same)
-__host__ __device__ constexpr int bwd_smem_bytes(int hd) {
+__host__ __device__ constexpr int bwd_f32_smem_bytes(int hd) {
   return (4 * kBwdTile * (hd + 1) + 2 * kBwdTile * (kBwdTile + 1) +
           2 * kBwdTile) * 4;
 }
@@ -885,22 +931,604 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_bwd_hd(int hd, const void* q, const void* k, const void* v,
-                          const void* o, const void* dout, const float* lse,
-                          float* delta, void* dq, void* dk, void* dv, int BH,
-                          int Sq, int Sk, float scale, int causal, int smem,
-                          cudaStream_t stream) {
+cudaError_t launch_bwd_f32_hd(int hd, const void* q, const void* k,
+                              const void* v, const void* o, const void* dout,
+                              const float* lse, float* delta, void* dq,
+                              void* dk, void* dv, int BH, int Sq, int Sk,
+                              float scale, int causal, int smem,
+                              cudaStream_t stream) {
   switch (hd) {
 #define REPRO_FLASH_BWD_HD(HD)                                              \
   case HD:                                                                  \
-    if (smem < bwd_smem_bytes(HD)) return cudaErrorInvalidValue;            \
-    return launch_bwd<T, HD>(q, k, v, o, dout, lse, delta, dq, dk, dv, BH,  \
-                             Sq, Sk, scale, causal, smem, stream);
+    if (smem < bwd_f32_smem_bytes(HD)) return cudaErrorInvalidValue;        \
+    return launch_bwd<float, HD>(q, k, v, o, dout, lse, delta, dq, dk, dv,  \
+                                 BH, Sq, Sk, scale, causal, smem, stream);
     REPRO_FLASH_BWD_HD(32)
     REPRO_FLASH_BWD_HD(64)
     REPRO_FLASH_BWD_HD(128)
 #undef REPRO_FLASH_BWD_HD
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// -- bf16 backward on the tensor cores ---------------------------------------
+
+constexpr int kBwdWG = 2;                      // consumer warpgroups a block
+constexpr int kBwdThreadsBF16 = (kBwdWG + 1) * 128;  // and the producer's
+constexpr int kBwdBlock = kBwdWG * kBwdTile;   // rows a block owns
+// registers a thread after setmaxnreg: the producer warpgroup keeps 40,
+// the consumers take 232 (2 x 128 x 232 + 128 x 40 <= 65,536); at launch,
+// 384 threads have 168 each
+constexpr int kBwdProducerRegs = 40;
+constexpr int kBwdConsumerRegs = 232;
+static_assert(kBwdWG * 128 * kBwdConsumerRegs + 128 * kBwdProducerRegs <=
+                  65536,
+              "the register file");
+constexpr int kBwdStages = 3;                  // ring stages of streamed tiles
+constexpr int kBwdRowBytes = 2 * kBwdTile * 4; // lse and D of one tile
+
+// dynamic shared memory of both bf16 backward kernels (bwd_smem_bytes in
+// repro_torch/kernels/flash_attention/flash_attention.py computes the same):
+// the alignment slack, the barriers, the block's own four 64-row slabs (K
+// and V, or Q and dO), and kBwdStages stages of two 64-row slabs each with
+// their lse and D rows (the dQ pass keeps its own 128 rows' there)
+__host__ __device__ constexpr int bwd_bf16_smem_bytes(int hd) {
+  return kAlignSlack + kBarrierBytes + 2 * kBwdWG * kBwdTile * hd * 2 +
+         kBwdStages * (2 * kBwdTile * hd * 2 + kBwdRowBytes);
+}
+static_assert(kBwdStages * kBwdRowBytes >= 2 * kBwdBlock * 4,
+              "the row region holds the dQ block's lse and D");
+static_assert(8 * (2 * kBwdStages + 1) <= kBarrierBytes, "barriers");
+
+// rows of one (batch, head) in the lse/D scratch: Sq rounded up to blocks
+__host__ __device__ constexpr int bwd_padded_rows(int Sq) {
+  return (Sq + kBwdBlock - 1) / kBwdBlock * kBwdBlock;
+}
+
+// rows: (2, BH, Sqp) f32, lse * log2(e) then D = rowsum(o * dO); rows past
+// Sq get +inf (their P is exactly 0) and 0
+__global__ void flash_bwd_rows_kernel(const __nv_bfloat16* __restrict__ o,
+                                      const __nv_bfloat16* __restrict__ dout,
+                                      const float* __restrict__ lse,
+                                      float* __restrict__ rows, int BH,
+                                      int Sq, int Sqp, int hd) {
+  const long r = static_cast<long>(blockIdx.x) * (blockDim.x / 32) +
+                 threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const long n = static_cast<long>(BH) * Sqp;
+  if (r >= n) return;
+  const int bh = static_cast<int>(r / Sqp);
+  const int i = static_cast<int>(r % Sqp);
+  float acc = 0.f;
+  float l2 = __int_as_float(0x7f800000);
+  if (i < Sq) {
+    const long at = (static_cast<long>(bh) * Sq + i) * hd;
+    for (int c = 4 * lane; c < hd; c += 128) {
+      float a[4], b[4];
+      load4(o + at + c, a);
+      load4(dout + at + c, b);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc += a[e] * b[e];
+    }
+    l2 = lse[static_cast<long>(bh) * Sq + i] * kLog2e;
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  }
+  if (lane == 0) {
+    rows[r] = l2;
+    rows[n + r] = acc;
+  }
+}
+
+// 64-row slabs of a (BH, S, HD) bf16 tensor in shared memory, as TMA
+// writes them: HD / kPanelCols panels of 64 rows, each row one swizzle
+// width (128 B for hd >= 64, 64 B for hd 32), and their wgmma descriptors
+template <int HD>
+struct BwdSlab {
+  static constexpr int kPanelCols = HD >= 64 ? 64 : 32;
+  static constexpr uint32_t kRowBytes = 2 * kPanelCols;
+  static constexpr int kPanels = HD / kPanelCols;
+  static constexpr int kStepsPerPanel = kPanelCols / 16;
+  static constexpr uint64_t kLayout = HD >= 64 ? kSwizzle128B : kSwizzle64B;
+  static constexpr uint32_t kSbo16 = 8 * kRowBytes / 16;
+  static constexpr uint32_t kPanel = kBwdTile * kRowBytes;
+  static constexpr uint32_t kBytes = kBwdTile * HD * 2;
+
+  __device__ static void load(uint32_t dst, const CUtensorMap* map,
+                              uint32_t bar, int row0, int bh) {
+#pragma unroll
+    for (int p = 0; p < kPanels; ++p) {
+      tma_load_3d(dst + p * kPanel, map, bar, p * kPanelCols, row0, bh);
+    }
+  }
+  // k-step kk (16 head dims) read K-major: operand A, or B with N = 64 rows
+  __device__ static uint64_t kmajor(uint32_t slab, int kk) {
+    return gmma_desc(slab + (kk / kStepsPerPanel) * kPanel +
+                         (kk % kStepsPerPanel) * 32,
+                     1, kSbo16, kLayout);
+  }
+  // k-step kk (16 rows) read MN-major: operand B with N = HD; the panels
+  // are LBO apart along the head dim
+  __device__ static uint64_t mnmajor(uint32_t slab, int kk) {
+    return gmma_desc(slab + kk * 16 * kRowBytes, kPanel / 16, kSbo16,
+                     kLayout);
+  }
+};
+
+// the shared memory of a bf16 backward block: the block's own slabs, the
+// ring of streamed slabs, the lse/D rows, the barriers (full and empty per
+// stage, one for the own slabs), initialised by thread 0
+struct BwdRing {
+  uint32_t own, ring, rows, bars;
+  const float* rows_p;  // the lse/D rows through a generic pointer
+  __device__ uint32_t full(int i) const { return bars + 8 * i; }
+  __device__ uint32_t empty(int i) const {
+    return bars + 8 * (kBwdStages + i);
+  }
+  __device__ uint32_t own_bar() const { return bars + 16 * kBwdStages; }
+
+  template <int HD>
+  __device__ static BwdRing make(unsigned char* raw) {
+    constexpr uint32_t slab = BwdSlab<HD>::kBytes;
+    BwdRing m;
+    const uint32_t raw_s = smem_addr(raw);
+    m.own = (raw_s + 1023u) & ~1023u;
+    m.ring = m.own + 2 * kBwdWG * slab;
+    m.rows = m.ring + kBwdStages * 2 * slab;
+    m.bars = m.rows + kBwdStages * kBwdRowBytes;
+    m.rows_p = reinterpret_cast<const float*>(raw + (m.rows - raw_s));
+    if (threadIdx.x == 0) {
+      for (int i = 0; i < kBwdStages; ++i) {
+        mbar_init(m.full(i), 1);             // the producer's arrival + bytes
+        mbar_init(m.empty(i), kBwdWG * 4);   // one arrival per consumer warp
+      }
+      mbar_init(m.own_bar(), 1);
+      mbar_fence_init();
+    }
+    __syncthreads();
+    return m;
+  }
+};
+
+// One 64 x 64 tile in a warpgroup's accumulator layout (element e of
+// column group g: row wrow + 8 (e >> 1), column 8 g + 2 quad + (e & 1)) as
+// the bf16 register operand A of a product over its columns (m64k16: k-step
+// kk in a[kk], rows r, r + 8, columns 2q, 2q + 1, 2q + 8, 2q + 9)
+__device__ __forceinline__ void bwd_pack(const float (&x)[32],
+                                         uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int g = 0; g < 8; ++g) {
+    a[g / 2][(g % 2) * 2] = pack_bf16(x[4 * g], x[4 * g + 1]);
+    a[g / 2][(g % 2) * 2 + 1] = pack_bf16(x[4 * g + 2], x[4 * g + 3]);
+  }
+}
+
+// 2^v on the ex2 unit (one MUFU.EX2; -inf gives 0, subnormals flush)
+__device__ __forceinline__ float ex2(float v) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
+  return r;
+}
+
+// P = exp2(s sl2 - lse2) of a tile, in place; lse2(g, e) gives the
+// element's query row's lse * log2(e), and where `mask`, dead(g, e) sets P
+// to 0
+template <class Lse, class Dead>
+__device__ __forceinline__ void bwd_p(float (&s)[32], float sl2, bool mask,
+                                      Lse lse2, Dead dead) {
+#pragma unroll
+  for (int g = 0; g < 8; ++g) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = ex2(s[4 * g + e] * sl2 - lse2(g, e));
+      s[4 * g + e] = mask && dead(g, e) ? 0.f : p;
+    }
+  }
+}
+
+// dS = P (dP - D) of a tile, in place in dp; delta(g, e) gives the
+// element's query row's D
+template <class Delta>
+__device__ __forceinline__ void bwd_ds(const float (&p)[32], float (&dp)[32],
+                                       Delta delta) {
+#pragma unroll
+  for (int g = 0; g < 8; ++g) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      dp[4 * g + e] = p[4 * g + e] * (dp[4 * g + e] - delta(g, e));
+    }
+  }
+}
+
+// the f32 accumulator rows wrow and wrow + 8 of a warpgroup's 64-row slab
+// (rows r0, r1 of the (BH, S, HD) output), times `mul`, as bf16 pairs
+template <int HD>
+__device__ __forceinline__ void bwd_store(__nv_bfloat16* out,
+                                          const float (&acc)[HD / 2],
+                                          float mul, int r0, int rows,
+                                          int quad) {
+#pragma unroll
+  for (int g = 0; g < HD / 8; ++g) {
+    const int col = 8 * g + 2 * quad;
+    if (r0 < rows) {
+      *reinterpret_cast<__nv_bfloat162*>(out + static_cast<long>(r0) * HD +
+                                         col) =
+          __floats2bfloat162_rn(acc[4 * g] * mul, acc[4 * g + 1] * mul);
+    }
+    if (r0 + 8 < rows) {
+      *reinterpret_cast<__nv_bfloat162*>(
+          out + static_cast<long>(r0 + 8) * HD + col) =
+          __floats2bfloat162_rn(acc[4 * g + 2] * mul, acc[4 * g + 3] * mul);
+    }
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kBwdThreadsBF16, 1)
+flash_bwd_dkdv_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
+                           const __grid_constant__ CUtensorMap tm_k,
+                           const __grid_constant__ CUtensorMap tm_v,
+                           const __grid_constant__ CUtensorMap tm_do,
+                           const float* __restrict__ rows,
+                           __nv_bfloat16* __restrict__ dk,
+                           __nv_bfloat16* __restrict__ dv, int Sq, int Sk,
+                           int Sqp, float scale, int causal) {
+  using L = BwdSlab<HD>;
+  extern __shared__ __align__(1024) unsigned char smem_bwd[];
+  const BwdRing m = BwdRing::make<HD>(smem_bwd);
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * kBwdBlock;  // the heaviest blocks come first
+  const int nq = (Sq + kBwdTile - 1) / kBwdTile;
+  // query tiles wholly above the block's first key see none of its keys
+  const int first = causal ? min(k0 / kBwdTile, nq) : 0;
+
+  if (warp >= kBwdWG * 4) {  // the producer warpgroup: one thread loads
+    setmaxnreg_dec<kBwdProducerRegs>();
+    if (warp == kBwdWG * 4 && lane == 0) {
+      mbar_arrive_expect_tx(m.own_bar(), 2 * kBwdWG * L::kBytes);
+      for (int j = 0; j < kBwdWG; ++j) {
+        L::load(m.own + j * L::kBytes, &tm_k, m.own_bar(),
+                k0 + kBwdTile * j, bh);
+        L::load(m.own + (kBwdWG + j) * L::kBytes, &tm_v, m.own_bar(),
+                k0 + kBwdTile * j, bh);
+      }
+      const long plane = static_cast<long>(gridDim.x) * Sqp;
+      for (int t = first, it = 0; t < nq; ++t, ++it) {
+        const int stage = it % kBwdStages;
+        const uint32_t use = it / kBwdStages;
+        mbar_wait(m.empty(stage), (use & 1) ^ 1);  // use 0: at once
+        mbar_arrive_expect_tx(m.full(stage), 2 * L::kBytes + kBwdRowBytes);
+        const uint32_t qs = m.ring + stage * 2 * L::kBytes;
+        L::load(qs, &tm_q, m.full(stage), t * kBwdTile, bh);
+        L::load(qs + L::kBytes, &tm_do, m.full(stage), t * kBwdTile, bh);
+        const float* src = rows + static_cast<long>(bh) * Sqp + t * kBwdTile;
+        const uint32_t rs = m.rows + stage * kBwdRowBytes;
+        bulk_load(rs, src, kBwdTile * 4, m.full(stage));
+        bulk_load(rs + kBwdTile * 4, src + plane, kBwdTile * 4,
+                  m.full(stage));
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns keys kw..kw + 63; this thread's rows of
+  // them kr0 and kr0 + 8
+  setmaxnreg_inc<kBwdConsumerRegs>();
+  const int wg = warp / 4;
+  const int wrow = (warp % 4) * 16 + lane / 4;
+  const int quad = lane % 4;
+  const int kw = k0 + kBwdTile * wg;
+  const int kr0 = kw + wrow;
+  const int kr1 = kr0 + 8;
+  const uint32_t k_slab = m.own + wg * L::kBytes;
+  const uint32_t v_slab = m.own + (kBwdWG + wg) * L::kBytes;
+  const float sl2 = scale * kLog2e;
+  float dka[HD / 2], dva[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) dka[i] = dva[i] = 0.f;
+  auto release = [&](int stage) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(m.empty(stage));
+  };
+  mbar_wait(m.own_bar(), 0);
+  for (int t = first, it = 0; t < nq; ++t, ++it) {
+    const int stage = it % kBwdStages;
+    mbar_wait(m.full(stage), (it / kBwdStages) & 1);
+    const int q0 = t * kBwdTile;
+    // a tile whose rows all lie above the slab's first key is skipped
+    if (!(kw < Sk && !(causal && q0 + kBwdTile - 1 < kw))) {
+      release(stage);
+      continue;
+    }
+    const uint32_t qs = m.ring + stage * 2 * L::kBytes;
+    const uint32_t dos = qs + L::kBytes;
+    const float* lse2 = m.rows_p + stage * (kBwdRowBytes / 4);
+    const float* dlt = lse2 + kBwdTile;
+
+    // S^T = K Q^T, then dP^T = V dO^T (k-steps of 16 head dims), a group
+    // each: P^T is formed while dP^T runs
+    float s[32], dp[32];
+    fence_regs(s);
+    fence_regs(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      WgmmaSS<kBwdTile>::mma(s, L::kmajor(k_slab, kk), L::kmajor(qs, kk),
+                             kk > 0);
+    }
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      WgmmaSS<kBwdTile>::mma(dp, L::kmajor(v_slab, kk), L::kmajor(dos, kk),
+                             kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();  // S^T done, dP^T runs on
+    fence_regs(s);
+
+    // rows are keys, columns query rows q0 + 8 g + 2 quad + (e & 1)
+    const bool mask =
+        (causal && kw + kBwdTile - 1 > q0) || kw + kBwdTile > Sk;
+    bwd_p(
+        s, sl2, mask,
+        [&](int g, int e) { return lse2[8 * g + 2 * quad + (e & 1)]; },
+        [&](int g, int e) {
+          const int kpos = (e & 2) ? kr1 : kr0;
+          return (causal && kpos > q0 + 8 * g + 2 * quad + (e & 1)) ||
+                 kpos >= Sk;
+        });
+    wgmma_wait_all();
+    fence_regs(dp);
+    bwd_ds(s, dp,
+           [&](int g, int e) { return dlt[8 * g + 2 * quad + (e & 1)]; });
+    uint32_t pa[4][4], da[4][4];
+    bwd_pack(s, pa);
+    bwd_pack(dp, da);
+
+    // dV += P^T dO and dK += dS^T Q, k-steps of 16 query rows
+    fence_regs(dva);
+    fence_regs(dka);
+    fence_regs(pa);
+    fence_regs(da);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBwdTile / 16; ++kk) {
+      WgmmaRS<HD>::mma(dva, pa[kk], L::mnmajor(dos, kk), 1);
+    }
+#pragma unroll
+    for (int kk = 0; kk < kBwdTile / 16; ++kk) {
+      WgmmaRS<HD>::mma(dka, da[kk], L::mnmajor(qs, kk), 1);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(dva);
+    fence_regs(dka);
+    fence_regs(pa);
+    fence_regs(da);
+    release(stage);
+  }
+  const long out0 = static_cast<long>(bh) * Sk * HD;
+  bwd_store<HD>(dk + out0, dka, scale, kr0, Sk, quad);
+  bwd_store<HD>(dv + out0, dva, 1.f, kr0, Sk, quad);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kBwdThreadsBF16, 1)
+flash_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
+                         const __grid_constant__ CUtensorMap tm_k,
+                         const __grid_constant__ CUtensorMap tm_v,
+                         const __grid_constant__ CUtensorMap tm_do,
+                         const float* __restrict__ rows,
+                         __nv_bfloat16* __restrict__ dq, int Sq, int Sk,
+                         int Sqp, float scale, int causal) {
+  using L = BwdSlab<HD>;
+  extern __shared__ __align__(1024) unsigned char smem_bwd[];
+  const BwdRing m = BwdRing::make<HD>(smem_bwd);
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int bh = blockIdx.x;
+  // the query blocks with the most causal key tiles start first
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBwdBlock;
+  const int nk_all = (Sk + kBwdTile - 1) / kBwdTile;
+  // key tiles past the block's last row are all masked
+  const int last = min(q0 + kBwdBlock, Sq) - 1;
+  const int nk = causal ? min(nk_all, last / kBwdTile + 1) : nk_all;
+
+  if (warp >= kBwdWG * 4) {  // the producer warpgroup: one thread loads
+    setmaxnreg_dec<kBwdProducerRegs>();
+    if (warp == kBwdWG * 4 && lane == 0) {
+      mbar_arrive_expect_tx(m.own_bar(),
+                            2 * kBwdWG * L::kBytes + 2 * kBwdBlock * 4);
+      for (int j = 0; j < kBwdWG; ++j) {
+        L::load(m.own + j * L::kBytes, &tm_q, m.own_bar(),
+                q0 + kBwdTile * j, bh);
+        L::load(m.own + (kBwdWG + j) * L::kBytes, &tm_do, m.own_bar(),
+                q0 + kBwdTile * j, bh);
+      }
+      const float* src = rows + static_cast<long>(bh) * Sqp + q0;
+      bulk_load(m.rows, src, kBwdBlock * 4, m.own_bar());
+      bulk_load(m.rows + kBwdBlock * 4,
+                src + static_cast<long>(gridDim.x) * Sqp, kBwdBlock * 4,
+                m.own_bar());
+      for (int t = 0; t < nk; ++t) {
+        const int stage = t % kBwdStages;
+        const uint32_t use = t / kBwdStages;
+        mbar_wait(m.empty(stage), (use & 1) ^ 1);  // use 0: at once
+        mbar_arrive_expect_tx(m.full(stage), 2 * L::kBytes);
+        const uint32_t ks = m.ring + stage * 2 * L::kBytes;
+        L::load(ks, &tm_k, m.full(stage), t * kBwdTile, bh);
+        L::load(ks + L::kBytes, &tm_v, m.full(stage), t * kBwdTile, bh);
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns query rows qw..qw + 63; this thread's rows
+  // of them r0 and r0 + 8
+  setmaxnreg_inc<kBwdConsumerRegs>();
+  const int wg = warp / 4;
+  const int wrow = (warp % 4) * 16 + lane / 4;
+  const int quad = lane % 4;
+  const int qw = q0 + kBwdTile * wg;
+  const int r0 = qw + wrow;
+  const int r1 = r0 + 8;
+  // key tiles [0, nc) are computed, the rest only passed on
+  const int wg_last = min(qw + kBwdTile, Sq) - 1;
+  const int nc = qw >= Sq ? 0 : causal ? min(nk, wg_last / kBwdTile + 1) : nk;
+  const uint32_t q_slab = m.own + wg * L::kBytes;
+  const uint32_t do_slab = m.own + (kBwdWG + wg) * L::kBytes;
+  const float sl2 = scale * kLog2e;
+  float dqa[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) dqa[i] = 0.f;
+  mbar_wait(m.own_bar(), 0);
+  const float* own_rows = m.rows_p + kBwdTile * wg + wrow;
+  const float l0 = own_rows[0], l1 = own_rows[8];
+  const float d0 = own_rows[kBwdBlock], d1 = own_rows[kBwdBlock + 8];
+  auto release = [&](int stage) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(m.empty(stage));
+  };
+  // a tile's dQ product runs on while the next tile's S and dP are issued
+  int pending = -1;
+  for (int t = 0; t < nk; ++t) {
+    const int stage = t % kBwdStages;
+    mbar_wait(m.full(stage), (t / kBwdStages) & 1);
+    if (t >= nc) {  // the last tiles: finish the pending stage first
+      if (pending >= 0) {
+        wgmma_wait_all();
+        fence_regs(dqa);
+        release(pending);
+        pending = -1;
+      }
+      release(stage);
+      continue;
+    }
+    const uint32_t ks = m.ring + stage * 2 * L::kBytes;
+    const uint32_t vs = ks + L::kBytes;
+
+    // S = Q K^T and dP = dO V^T, k-steps of 16 head dims
+    float s[32], dp[32];
+    fence_regs(s);
+    fence_regs(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      WgmmaSS<kBwdTile>::mma(s, L::kmajor(q_slab, kk), L::kmajor(ks, kk),
+                             kk > 0);
+    }
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      WgmmaSS<kBwdTile>::mma(dp, L::kmajor(do_slab, kk), L::kmajor(vs, kk),
+                             kk > 0);
+    }
+    wgmma_commit();
+    // S and the last tile's dQ product done; dP runs on while P is formed
+    wgmma_wait<1>();
+    fence_regs(s);
+    fence_regs(dqa);
+    if (pending >= 0) release(pending);
+
+    // rows are query rows, columns keys k0 + 8 g + 2 quad + (e & 1)
+    const int k0 = t * kBwdTile;
+    const bool mask =
+        (causal && k0 + kBwdTile - 1 > qw) || k0 + kBwdTile > Sk;
+    bwd_p(
+        s, sl2, mask, [&](int, int e) { return (e & 2) ? l1 : l0; },
+        [&](int g, int e) {
+          const int kpos = k0 + 8 * g + 2 * quad + (e & 1);
+          return (causal && kpos > ((e & 2) ? r1 : r0)) || kpos >= Sk;
+        });
+    wgmma_wait_all();
+    fence_regs(dp);
+    bwd_ds(s, dp, [&](int, int e) { return (e & 2) ? d1 : d0; });
+
+    // dQ += dS K, k-steps of 16 keys
+    uint32_t da[4][4];
+    bwd_pack(dp, da);
+    fence_regs(da);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBwdTile / 16; ++kk) {
+      WgmmaRS<HD>::mma(dqa, da[kk], L::mnmajor(ks, kk), 1);
+    }
+    wgmma_commit();
+    fence_regs(da);
+    pending = stage;
+  }
+  wgmma_wait_all();
+  fence_regs(dqa);
+  if (pending >= 0) release(pending);
+  bwd_store<HD>(dq + static_cast<long>(bh) * Sq * HD, dqa, scale, r0, Sq,
+                quad);
+}
+
+template <int HD>
+cudaError_t launch_bwd_bf16(const void* q, const void* k, const void* v,
+                            const void* o, const void* dout, const float* lse,
+                            float* rows, void* dq, void* dk, void* dv, int BH,
+                            int Sq, int Sk, float scale, int causal, int smem,
+                            cudaStream_t stream) {
+  using L = BwdSlab<HD>;
+  if (smem < bwd_bf16_smem_bytes(HD)) return cudaErrorInvalidValue;
+  const int Sqp = bwd_padded_rows(Sq);
+  const long n = static_cast<long>(BH) * Sqp;
+  flash_bwd_rows_kernel<<<static_cast<unsigned>((n + 7) / 8), 256, 0,
+                          stream>>>(
+      static_cast<const __nv_bfloat16*>(o),
+      static_cast<const __nv_bfloat16*>(dout), lse, rows, BH, Sq, Sqp, HD);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const CUtensorMapSwizzle swizzle =
+      HD >= 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
+  CUtensorMap tm_q, tm_k, tm_v, tm_do;
+  if (!encode_bf16_3d(&tm_q, q, HD, Sq, BH, L::kPanelCols, kBwdTile,
+                      swizzle) ||
+      !encode_bf16_3d(&tm_k, k, HD, Sk, BH, L::kPanelCols, kBwdTile,
+                      swizzle) ||
+      !encode_bf16_3d(&tm_v, v, HD, Sk, BH, L::kPanelCols, kBwdTile,
+                      swizzle) ||
+      !encode_bf16_3d(&tm_do, dout, HD, Sq, BH, L::kPanelCols, kBwdTile,
+                      swizzle)) {
+    return cudaErrorInvalidValue;
+  }
+  auto dkdv = flash_bwd_dkdv_bf16_kernel<HD>;
+  auto dqk = flash_bwd_dq_bf16_kernel<HD>;
+  if ((err = allow_smem(dkdv, smem)) != cudaSuccess) return err;
+  if ((err = allow_smem(dqk, smem)) != cudaSuccess) return err;
+  dkdv<<<dim3(BH, (Sk + kBwdBlock - 1) / kBwdBlock), kBwdThreadsBF16, smem,
+         stream>>>(tm_q, tm_k, tm_v, tm_do, rows,
+                   static_cast<__nv_bfloat16*>(dk),
+                   static_cast<__nv_bfloat16*>(dv), Sq, Sk, Sqp, scale,
+                   causal);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  dqk<<<dim3(BH, Sqp / kBwdBlock), kBwdThreadsBF16, smem, stream>>>(
+      tm_q, tm_k, tm_v, tm_do, rows, static_cast<__nv_bfloat16*>(dq), Sq, Sk,
+      Sqp, scale, causal);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_bwd_bf16_hd(int hd, const void* q, const void* k,
+                               const void* v, const void* o, const void* dout,
+                               const float* lse, float* rows, void* dq,
+                               void* dk, void* dv, int BH, int Sq, int Sk,
+                               float scale, int causal, int smem,
+                               cudaStream_t stream) {
+  switch (hd) {
+#define REPRO_FLASH_BWD_BF16(HD)                                            \
+  case HD:                                                                  \
+    return launch_bwd_bf16<HD>(q, k, v, o, dout, lse, rows, dq, dk, dv, BH, \
+                               Sq, Sk, scale, causal, smem, stream);
+    REPRO_FLASH_BWD_BF16(32)
+    REPRO_FLASH_BWD_BF16(64)
+    REPRO_FLASH_BWD_BF16(128)
+#undef REPRO_FLASH_BWD_BF16
     default:
       return cudaErrorInvalidValue;
   }
@@ -939,9 +1567,11 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
 }
 
 // The gradient of flash_attention_fwd: q, o, dout, dq: (BH, Sq, hd); k, v,
-// dk, dv: (BH, Sk, hd), all contiguous, one type (f32 or bf16); lse: the
-// forward's (BH, Sq) f32 log-sum-exp; delta: (BH, Sq) f32 scratch.  Any
-// Sq and Sk; hd in {32, 64, 128}; smem at least bwd_smem_bytes(hd).
+// dk, dv: (BH, Sk, hd), all contiguous (bf16: 16-byte aligned), one type
+// (f32 or bf16); lse: the forward's (BH, Sq) f32 log-sum-exp; delta: f32
+// scratch of bwd_scratch_floats in flash_attention.py (f32: BH * Sq; bf16:
+// 2 * BH * Sq rounded up to 128 rows).  Any Sq and Sk; hd in {32, 64, 128};
+// smem at least bwd_f32_smem_bytes(hd) or bwd_bf16_smem_bytes(hd).
 extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    const void* v, const void* o,
                                    const void* dout, const void* lse,
@@ -956,11 +1586,10 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
   if (dtype == kF32)
-    return launch_bwd_hd<float>(hd, q, k, v, o, dout, l, dl, dq, dk, dv, BH,
-                                Sq, Sk, scale, causal, smem, s);
+    return launch_bwd_f32_hd(hd, q, k, v, o, dout, l, dl, dq, dk, dv, BH, Sq,
+                             Sk, scale, causal, smem, s);
   if (dtype == kBF16)
-    return launch_bwd_hd<__nv_bfloat16>(hd, q, k, v, o, dout, l, dl, dq, dk,
-                                        dv, BH, Sq, Sk, scale, causal, smem,
-                                        s);
+    return launch_bwd_bf16_hd(hd, q, k, v, o, dout, l, dl, dq, dk, dv, BH,
+                              Sq, Sk, scale, causal, smem, s);
   return cudaErrorInvalidValue;
 }

@@ -1,9 +1,8 @@
 // Hopper (sm_90a) building blocks in raw PTX: mbarriers, TMA tile loads,
 // and the shared-memory descriptors and fences of wgmma.
 //
-// Every shared-memory operand is a 32-bit address in the shared window
-// (smem_addr); the kernels that use these helpers never touch their TMA
-// and wgmma buffers through generic pointers.
+// Every shared-memory operand of these helpers is a 32-bit address in the
+// shared window (smem_addr).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
@@ -73,6 +72,18 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst,
           dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2)
+      : "memory");
+}
+
+// copy `bytes` contiguous bytes of global memory into shared memory (both
+// 16-byte aligned, a multiple of 16 bytes); they complete a transaction on
+// `bar`
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
       : "memory");
 }
 
@@ -151,6 +162,25 @@ __device__ __forceinline__ void wgmma_commit() {
 
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// wait until at most N committed groups are still running (groups finish
+// in the order they were committed)
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// move registers between the warpgroups of a block (all four warps of a
+// warpgroup execute it): a producer gives its registers up, consumers take
+// them, so consumers may hold more than the launch's even share
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
 // keep the compiler from moving reads or writes of wgmma's registers

@@ -11,8 +11,10 @@ memory; the running max, denominator and accumulator are f32.  In bf16 the
 products run on the tensor cores (``wgmma``) with K/V tiles brought by TMA
 into a ring of stages, and P is rounded to bf16 before P V; in f32 they run
 on the CUDA cores.  On request the forward also writes each row's
-log-sum-exp of its scaled scores, from which the backward kernel
-(``flash_attention_bwd`` in the same source) recomputes the probabilities.
+log-sum-exp of its scaled scores, from which the backward kernels
+(``flash_attention_bwd`` in the same source) recompute the probabilities:
+in bf16 two passes on the tensor cores (dK/dV, then dQ), in f32 the CUDA
+cores.
 """
 
 from __future__ import annotations
@@ -57,15 +59,37 @@ _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
 _BWD_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_void_p]
-BWD_TILE = 64   # the backward's query and key tiles
+# The backward kernels' tiles (csrc/flash_attention.cu holds the same
+# numbers).  f32: 64-row query and key tiles.  bf16: a block owns BWD_BLOCK
+# rows (keys in the dK/dV pass, query rows in the dQ pass), one consumer
+# warpgroup per 64, and walks the other side in BWD_TILE-row tiles through
+# a ring of BWD_STAGES stages.
+BWD_TILE = 64
+BWD_BLOCK = 128
+BWD_STAGES = 3
 
 
-def bwd_smem_bytes(hd: int) -> int:
-    """Dynamic shared memory of a backward block (``bwd_smem_bytes`` in
-    ``csrc/flash_attention.cu``): Q, dO, K and V tiles of 64 rows as f32
-    rows of hd + 1, P and dS (64 x 65 f32), and the tile's lse and D."""
+def bwd_smem_bytes(hd: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of a backward block (``bwd_bf16_smem_bytes``
+    and ``bwd_f32_smem_bytes`` in ``csrc/flash_attention.cu``).  bf16: the
+    alignment slack, the barriers, the block's own four 64-row bf16 slabs
+    (K and V, or Q and dO), and BWD_STAGES stages of two slabs with their
+    rows' lse and D.  f32: Q, dO, K and V tiles of 64 rows as f32 rows of
+    hd + 1, P and dS (64 x 65 f32), and the tile's lse and D."""
     t = BWD_TILE
+    if dtype == torch.bfloat16:
+        slab = t * hd * 2
+        return (ALIGN_SLACK + BARRIER_BYTES + 4 * slab
+                + BWD_STAGES * (2 * slab + 2 * t * 4))
     return (4 * t * (hd + 1) + 2 * t * (t + 1) + 2 * t) * 4
+
+
+def bwd_scratch_floats(bh: int, Sq: int, dtype: torch.dtype) -> int:
+    """f32 scratch of a backward call: D of every row (f32); bf16: lse *
+    log2(e) and D of every row, each (bh, Sq rounded up to BWD_BLOCK)."""
+    if dtype == torch.bfloat16:
+        return 2 * bh * (-(-Sq // BWD_BLOCK) * BWD_BLOCK)
+    return bh * Sq
 
 
 def smem_bytes(knobs: dict, shape: dict, dtype: torch.dtype):
@@ -131,11 +155,13 @@ def flash_attention_plain(q, k, v, *, causal: bool, scale: float,
 
 def flash_attention_bwd_plain(q, k, v, o, do, lse, *, causal: bool,
                               scale: float):
-    """The backward kernel's arithmetic in plain PyTorch, in f32: D =
+    """The backward kernels' arithmetic in plain PyTorch, in f32: D =
     rowsum(dO o O); for each 64-row query tile against every key, P =
     exp(scale Q K^T - lse) (0 where masked), dS = P (dO V^T - D), then
     dQ = scale dS K, dK += scale dS^T Q, dV += P^T dO.  Returns (dq, dk,
-    dv) in q's dtype."""
+    dv) in q's dtype.  The bf16 kernels round P and dS to bf16 before the
+    products that take them, as the tensor cores do; this version keeps
+    them in f32, the reference the kernels are held to."""
     B, H, Sq, hd = q.shape
     Sk = k.shape[2]
     f32 = torch.float32
@@ -178,16 +204,18 @@ def flash_attention_launch(q, k, v, o, *, causal: bool, scale: float,
 
 def flash_attention_bwd_launch(q, k, v, o, do, lse, dq, dk, dv, *,
                                causal: bool, scale: float) -> None:
-    """Launch the backward kernels on PyTorch's current stream (D into a
-    scratch tensor, then dK/dV and dQ).  The caller has checked the
+    """Launch the backward kernels on PyTorch's current stream (the rows'
+    D, and in bf16 their lse in base 2, into a scratch tensor, then the
+    dK/dV pass and the dQ pass).  The caller has checked the
     arguments (``ops.flash_attention_bwd``)."""
     fn = build.function("flash_attention", "flash_attention_bwd",
                         _BWD_ARGTYPES)
     B, H, Sq, hd = q.shape
-    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    scratch = torch.empty(bwd_scratch_floats(B * H, Sq, q.dtype),
+                          dtype=torch.float32, device=q.device)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-             dk.data_ptr(), dv.data_ptr(), B * H, Sq, k.shape[2], hd, scale,
-             int(causal), build.DTYPE_CODES[q.dtype], bwd_smem_bytes(hd),
-             build.stream_ptr(q.device))
+             do.data_ptr(), lse.data_ptr(), scratch.data_ptr(),
+             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B * H, Sq,
+             k.shape[2], hd, scale, int(causal), build.DTYPE_CODES[q.dtype],
+             bwd_smem_bytes(hd, q.dtype), build.stream_ptr(q.device))
     build.check("flash_attention", err, "flash_attention_bwd")

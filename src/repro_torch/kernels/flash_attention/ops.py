@@ -60,6 +60,25 @@ def _launch(q, k, v, *, causal, scale, block_q, block_k, want_lse):
     return (o, lse) if want_lse else o
 
 
+def check_bwd_launch(q, k, v, o, do, lse) -> None:
+    """Raise unless the backward kernels take these tensors (of the shapes
+    :func:`flash_attention_bwd` checks): a head dim they are built for, o
+    and do in q's dtype, lse float32, all contiguous, and in bf16 every
+    tensor the kernels read by TMA or vector loads 16-byte aligned."""
+    hd = q.shape[3]
+    if hd not in HEAD_DIMS or not (o.dtype == do.dtype == q.dtype) \
+            or lse.dtype != torch.float32 or k.shape[2] < 1:
+        raise ValueError(f"flash_attention_bwd: head dim {hd} not in "
+                         f"{HEAD_DIMS}, or o/do not in q's dtype, or lse not "
+                         "float32")
+    if not all(t.is_contiguous() for t in (q, k, v, o, do, lse)):
+        raise ValueError("flash_attention_bwd: tensors must be contiguous")
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16
+                                         for t in (q, k, v, o, do)):
+        raise ValueError("flash_attention_bwd: bf16 q, k, v, o and do must "
+                         "be 16-byte aligned")
+
+
 def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
                         scale: float | None = None):
     """The gradient of :func:`flash_attention`: q, o, do: (B, H, Sq, hd);
@@ -79,13 +98,7 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
     if _on_cpu("flash_attention_bwd", (q, k, v, o, do, lse)):
         return flash_attention_bwd_plain(q, k, v, o, do, lse, causal=causal,
                                          scale=scale)
-    if hd not in HEAD_DIMS or not (o.dtype == do.dtype == q.dtype) \
-            or lse.dtype != torch.float32 or Sk < 1:
-        raise ValueError(f"flash_attention_bwd: head dim {hd} not in "
-                         f"{HEAD_DIMS}, or o/do not in q's dtype, or lse not "
-                         "float32")
-    if not all(t.is_contiguous() for t in (q, k, v, o, do, lse)):
-        raise ValueError("flash_attention_bwd: tensors must be contiguous")
+    check_bwd_launch(q, k, v, o, do, lse)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     flash_attention_bwd_launch(q, k, v, o, do, lse, dq, dk, dv,
                                causal=causal, scale=scale)

@@ -6,16 +6,19 @@ Interface:  opt = adamw(lr=...);  state = opt.init(params);
             params, state = opt.update(grads, state, params, step)
 ``params`` and ``grads`` are dicts of tensors keyed by parameter name (a
 model's ``dict(named_parameters())``), the state nests dicts of the same
-keys.  ``lr`` may be a float or a schedule fn(step) -> float.
+keys (Adafactor's: of the reference's leaf names, below).  ``lr`` may be
+a float or a schedule fn(step) -> float.
 
 Unlike the reference, whose JAX arrays are immutable, ``update`` writes
 the new values into the parameter tensors in place (under ``no_grad``) and
 returns the same dict, so a model's parameters step without a second copy
-of the weights; the moments are updated in place too.  Adafactor sees
-each parameter tensor as the reference sees a leaf: the reference stacks
-a model's layers on a leading axis, so there one leaf holds every layer
-(its factored moments and its update clipping span all of them), where
-here each layer's tensor is its own.
+of the weights; the moments are updated in place too.  Adafactor does the
+reference's arithmetic on the reference's leaves: the reference stacks a
+model's layers on a leading axis, so one of its leaves holds a parameter
+of every layer.  Here the parameters of one leaf (``layers.<i>.attn.wq``
+for every i) form a group, and Adafactor's moments, their factoring and
+its update clipping are those of the stacked group; its state is keyed by
+the reference's leaf name (``layers.attn.wq``).
 """
 
 from __future__ import annotations
@@ -89,31 +92,72 @@ def adamw(lr=3e-4, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1) -> Optimizer:
     return Optimizer(init, update, 8.0)
 
 
+_STACKED = "layers"
+
+
+def _stack_key(name: str) -> str:
+    """The reference leaf that parameter ``name`` belongs to: the name
+    without its layer index (``layers.3.attn.wq`` -> ``layers.attn.wq``),
+    the rule of ``models/weights.py`` ``reference_key``; any other name is
+    a leaf of its own."""
+    parts = name.split(".")
+    if parts[0] == _STACKED:
+        return ".".join([_STACKED] + parts[2:])
+    return name
+
+
+def _groups(params) -> dict[str, list[str]]:
+    """Parameter names by reference leaf, a stacked leaf's in layer
+    order."""
+    out: dict[str, list[str]] = {}
+    for name in params:
+        out.setdefault(_stack_key(name), []).append(name)
+    for key, names in out.items():
+        if key.split(".")[0] == _STACKED:
+            names.sort(key=lambda n: int(n.split(".")[1]))
+    return out
+
+
 def adafactor(lr=1e-2, decay=0.8, eps=1e-30, clip_threshold=1.0,
               weight_decay=0.0) -> Optimizer:
     """Adafactor (Shazeer & Stern): rank-2+ tensors store row/col second-
-    moment factors instead of the full moment — O(n+m) not O(nm) state."""
+    moment factors instead of the full moment — O(n+m) not O(nm) state.
+
+    Each reference leaf is one group (:func:`_groups`): a stacked leaf's
+    f32 gradients are stacked on a leading layer axis (one f32 copy of the
+    group's gradients, and the update of the same size, live at a time),
+    so a layer's (d,) norm scale is factored as the (n_layers, d) leaf it
+    is in the reference, and the clipping RMS spans every layer.  Each
+    layer's parameter is then updated in place with its row of the
+    update."""
 
     def init(params):
-        def leaf(p):
+        f = {}
+        for key, names in _groups(params).items():
+            p = params[names[0]]
+            shape = tuple(p.shape)
+            if key.split(".")[0] == _STACKED:
+                shape = (len(names),) + shape
             z = {"dtype": F32, "device": p.device}
-            if p.dim() >= 2:
-                return {"r": torch.zeros(p.shape[:-1], **z),
-                        "c": torch.zeros(p.shape[:-2] + p.shape[-1:], **z)}
-            return {"v": torch.zeros(p.shape, **z)}
-        return {"f": {k: leaf(p) for k, p in params.items()},
-                "count": torch.zeros((), dtype=torch.int32)}
+            if len(shape) >= 2:
+                f[key] = {"r": torch.zeros(shape[:-1], **z),
+                          "c": torch.zeros(shape[:-2] + shape[-1:], **z)}
+            else:
+                f[key] = {"v": torch.zeros(shape, **z)}
+        return {"f": f, "count": torch.zeros((), dtype=torch.int32)}
 
     @torch.no_grad()
     def update(grads, state, params, step):
         lr_t = _lr_at(lr, step)
         count = state["count"] + 1
         beta = 1.0 - float(count.to(F32) ** (-decay))
-        for k, p in params.items():
-            f = state["f"][k]
-            g32 = grads[k].to(F32)
+        for key, names in _groups(params).items():
+            f = state["f"][key]
+            stacked = key.split(".")[0] == _STACKED
+            g32 = torch.stack([grads[n].to(F32) for n in names]) \
+                if stacked else grads[names[0]].to(F32)
             g2 = torch.square(g32) + eps
-            if p.dim() >= 2:
+            if g32.dim() >= 2:
                 r = beta * f["r"] + (1 - beta) * torch.mean(g2, dim=-1)
                 c = beta * f["c"] + (1 - beta) * torch.mean(g2, dim=-2)
                 rmean = torch.mean(r, dim=-1, keepdim=True)
@@ -126,11 +170,15 @@ def adafactor(lr=1e-2, decay=0.8, eps=1e-30, clip_threshold=1.0,
                 v = beta * f["v"] + (1 - beta) * g2
                 upd = g32 / (torch.sqrt(v) + eps)
                 f["v"].copy_(v)
-            # update clipping (RMS)
+            del g32, g2
+            # update clipping (RMS), over the whole leaf
             rms = torch.sqrt(torch.mean(torch.square(upd)) + eps)
             upd = upd / torch.clamp(rms / clip_threshold, min=1.0)
-            p32 = p.to(F32)
-            p.copy_((p32 - lr_t * (upd + weight_decay * p32)).to(p.dtype))
+            for i, n in enumerate(names):
+                p = params[n]
+                p32 = p.to(F32)
+                u = upd[i] if stacked else upd
+                p.copy_((p32 - lr_t * (u + weight_decay * p32)).to(p.dtype))
         state["count"] = count
         return params, state
 

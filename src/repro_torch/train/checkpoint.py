@@ -9,8 +9,10 @@ stacks them (``models/weights.py``).  So the reference's ``restore_like``
 reads a port checkpoint of the same state, and this module's reads the
 reference's.  A state here is a dict whose leaves are tensors, the
 :class:`~repro_torch.models.transformer.Model`, and the optimizer's dicts
-keyed by parameter name.  bfloat16 arrays are written as the reference's
-numpy writes them (2-byte void), and read back by their bits.
+keyed by parameter name (each layer's tensor, stacked here) or by the
+reference's leaf name (Adafactor's moments, stacked already).  bfloat16
+arrays are written as the reference's numpy writes them (2-byte void),
+and read back by their bits.
 """
 
 from __future__ import annotations
@@ -36,8 +38,10 @@ def _keystr(path) -> str:
 
 def _leaves(state, names: frozenset, path=()) -> dict:
     """Every leaf of ``state`` under its reference key: a list of (tensor,
-    layer) pairs, one per layer for a stacked leaf (layer None for an
-    unstacked one)."""
+    layer) pairs, one per layer for a leaf of a dict keyed by parameter
+    name that the reference stacks (layer None for an unstacked one, and
+    for a dict keyed by reference leaf, whose tensors are stacked
+    already)."""
     if isinstance(state, nn.Module):
         state = dict(state.named_parameters())
     if isinstance(state, torch.Tensor):
@@ -46,6 +50,12 @@ def _leaves(state, names: frozenset, path=()) -> dict:
         raise TypeError(f"checkpoint: {_keystr(path)} is a "
                         f"{type(state).__name__}")
     out: dict = {}
+    if state and not set(state) <= names \
+            and set(state) <= {reference_key(n)[0] for n in names}:
+        # keyed by reference leaf and stacked already (Adafactor's moments)
+        for key, leaf in state.items():
+            out.update(_leaves(leaf, names, path + tuple(key.split("."))))
+        return out
     if state and set(state) <= names:  # keyed by parameter name
         for name, leaf in state.items():
             key, layer = reference_key(name)

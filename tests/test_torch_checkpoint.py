@@ -29,6 +29,7 @@ import torch
 
 from repro.data.tokens import TokenPipeline as RefPipeline
 from repro.models import transformer as R
+from repro.optim.optimizers import adafactor as ref_adafactor
 from repro.optim.optimizers import adamw as ref_adamw
 from repro.train import checkpoint as ref_ckpt
 from repro.train.train_step import TrainState as RefState
@@ -40,7 +41,7 @@ from repro_torch.data.tokens import TokenPipeline
 from repro_torch.launch.train import main as train_main
 from repro_torch.models import transformer as T
 from repro_torch.models.weights import params_from_reference
-from repro_torch.optim import adamw, sgd_momentum
+from repro_torch.optim import adafactor, adamw, sgd_momentum
 from repro_torch.train.checkpoint import (latest_step, load_latest,
                                           restore_like, save_checkpoint)
 from repro_torch.train.train_step import TrainState, make_train_step
@@ -164,11 +165,14 @@ def test_resume_training_from_checkpoint(tmp_path):
 # across the packages
 # --------------------------------------------------------------------------
 
-def _both_states(arch):
-    """The reference's and the port's AdamW training states of ``arch``'s
-    smoke config after two steps of each, from the same weights."""
+def _both_states(arch, optimizer="adamw"):
+    """The reference's and the port's training states of ``arch``'s smoke
+    config after two steps of each (AdamW, or Adafactor), from the same
+    weights."""
     cfg, ref, tcfg, _ = weights(arch)
-    ref_opt, opt = ref_adamw(lr=1e-3), adamw(lr=1e-3)
+    ref_opt, opt = (ref_adamw(lr=1e-3), adamw(lr=1e-3)) \
+        if optimizer == "adamw" else (ref_adafactor(lr=1e-3),
+                                      adafactor(lr=1e-3))
     ref_state = RefState(ref, ref_opt.init(ref))
     ref_step = jax.jit(ref_make_step(cfg, ref_opt))
     params = params_from_reference(jax.tree.map(np.asarray, ref), tcfg,
@@ -215,6 +219,51 @@ def test_reference_checkpoint_restores_into_the_port(tmp_path, arch):
     _, again = load_latest(str(tmp_path / "again"))
     assert sorted(again) == sorted(flat)
     for k, v in flat.items():
+        assert np.array_equal(again[k], v), k
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "zamba2-1.2b"])
+def test_adafactor_checkpoint_crosses_the_packages(tmp_path, arch):
+    """An Adafactor checkpoint holds the reference's leaves: the factored
+    moments under the reference's keys and stacked shapes (a layer's (d,)
+    norm scale is an (n_layers, d) leaf with r and c), and it restores
+    into the other package both ways, bit for bit."""
+    cfg, ref_state, tcfg, state, ref_opt, opt = _both_states(arch,
+                                                             "adafactor")
+    save_checkpoint(str(tmp_path / "port"), state, 2)
+    ref_ckpt.save_checkpoint(str(tmp_path / "ref"), ref_state, 2)
+    _, port_flat = ref_ckpt.load_latest(str(tmp_path / "port"))
+    _, ref_flat = load_latest(str(tmp_path / "ref"))
+    assert sorted(port_flat) == sorted(ref_flat)
+    for k, v in ref_flat.items():
+        assert port_flat[k].shape == v.shape, k
+    n_layers = len(state["params"].layers)
+    scales = 0
+    for name, p in state["params"].named_parameters():
+        parts = name.split(".")
+        if parts[0] == "layers" and p.dim() == 1 and parts[1] == "0":
+            key = "".join(f"['{x}']" for x in ["opt_state", "f", "layers"]
+                          + parts[2:])
+            assert port_flat[key + "['r']"].shape == (n_layers,)
+            assert port_flat[key + "['c']"].shape == tuple(p.shape)
+            assert key + "['v']" not in port_flat
+            scales += 1
+    assert scales
+    # port -> reference
+    ref = R.init_params(cfg, jax.random.PRNGKey(1))
+    restored = ref_ckpt.restore_like(RefState(ref, ref_opt.init(ref)),
+                                     port_flat)
+    assert int(restored["opt_state"]["count"]) == 2
+    for k, v in ref_ckpt._flatten(restored).items():
+        assert np.array_equal(np.asarray(v), port_flat[k]), k
+    # reference -> port, and out again
+    _, ref0, _, _ = weights(arch)
+    back = restore_like(_fresh_port(tcfg, opt, ref0), ref_flat)
+    assert int(back["opt_state"]["count"]) == 2
+    save_checkpoint(str(tmp_path / "again"), back, 2)
+    _, again = load_latest(str(tmp_path / "again"))
+    assert sorted(again) == sorted(ref_flat)
+    for k, v in ref_flat.items():
         assert np.array_equal(again[k], v), k
 
 

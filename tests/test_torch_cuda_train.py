@@ -87,23 +87,30 @@ def test_rmsnorm_bwd_kernel_matches_plain(cuda, dtype, rows, d, scale_dtype):
     assert torch.equal(dx, dx2) and torch.equal(ds, ds2)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("S,hd,block", [(128, 64, 64), (96, 32, 32),
-                                        (256, 128, 128)])
-def test_flash_bwd_kernel_matches_plain(cuda, dtype, causal, S, hd, block):
+def _flash_bwd_case(cuda, dtype, causal, B, H, S, hd, block):
+    """The backward kernel against its plain version on the forward
+    kernel's o and lse (the forward run on inputs padded at the end to its
+    tile, which leaves causal rows alone, and cut back), and a second call
+    the same bits."""
     gen = torch.Generator(device=cuda).manual_seed(1)
-    q, k, v, do = (_randn(gen, (2, 2, S, hd), dtype, cuda) for _ in range(4))
+    q, k, v, do = (_randn(gen, (B, H, S, hd), dtype, cuda) for _ in range(4))
     scale = hd ** -0.5
-    o, lse = _launch(q, k, v, causal=causal, scale=scale, block_q=block,
-                     block_k=block, want_lse=True)
-    o_plain, lse_plain = flash_attention_plain(
-        q, k, v, causal=causal, scale=scale, block_q=block, block_k=block,
+    Sp = -(-S // block) * block
+    assert causal or Sp == S
+
+    def pad(t):
+        return torch.nn.functional.pad(t, (0, 0, 0, Sp - S)).contiguous()
+
+    kw = dict(causal=causal, scale=scale, block_q=block, block_k=block)
+    o, lse = _launch(pad(q), pad(k), pad(v), **kw, want_lse=True)
+    o_alone = _launch(pad(q), pad(k), pad(v), **kw, want_lse=False)
+    assert torch.equal(o, o_alone), "o changed with lse requested"
+    o, lse = o[:, :, :S].contiguous(), lse[:, :, :S].contiguous()
+    blk = block if S % block == 0 else S
+    _, lse_plain = flash_attention_plain(
+        q, k, v, causal=causal, scale=scale, block_q=blk, block_k=blk,
         return_lse=True)
     close(lse, lse_plain, torch.float32, "lse")
-    o_alone = _launch(q, k, v, causal=causal, scale=scale, block_q=block,
-                      block_k=block, want_lse=False)
-    assert torch.equal(o, o_alone), "o changed with lse requested"
     before = flash_attention_bwd.launches
     got = flash_attention_bwd(q, k, v, o, do, lse, causal=causal,
                               scale=scale)
@@ -115,6 +122,28 @@ def test_flash_bwd_kernel_matches_plain(cuda, dtype, causal, S, hd, block):
     again = flash_attention_bwd(q, k, v, o, do, lse, causal=causal,
                                 scale=scale)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S,hd,block", [(128, 64, 64), (96, 32, 32),
+                                        (256, 128, 128)])
+def test_flash_bwd_kernel_matches_plain(cuda, dtype, causal, S, hd, block):
+    _flash_bwd_case(cuda, dtype, causal, 2, 2, S, hd, block)
+
+
+@pytest.mark.parametrize("B,H,S,hd,causal,block", [
+    (1, 2, 100, 32, True, 64), (1, 2, 100, 64, True, 64),
+    (1, 2, 100, 128, True, 64), (1, 2, 200, 32, True, 64),
+    (1, 2, 200, 64, True, 64), (1, 2, 200, 128, True, 128),
+    (2, 1, 96, 32, False, 32), (2, 1, 96, 64, False, 32),
+    (2, 1, 96, 128, False, 32), (8, 16, 1024, 128, True, 128)])
+def test_flash_bwd_bf16_ragged_and_training_shapes(cuda, B, H, S, hd,
+                                                   causal, block):
+    """The bf16 tensor-core backward at lengths no multiple of its tiles
+    (rows past the end zero-filled and masked), at each head dim, and at a
+    qwen3-0.6b training step's attention."""
+    _flash_bwd_case(cuda, torch.bfloat16, causal, B, H, S, hd, block)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -330,6 +330,80 @@ def test_flash_bf16_shared_memory():
                     2 * bk * hd * 4
 
 
+def test_flash_bwd_shared_memory_and_tiles():
+    """The backward's footprint, as the C++ side computes it
+    (``bwd_bf16_smem_bytes``, ``bwd_f32_smem_bytes``, from the same
+    constants): bf16 the slack, the barriers, a block's four own 64-row
+    slabs and BWD_STAGES stages of two slabs with their rows' lse and D;
+    f32 four f32 tiles of 64 rows of hd + 1, P, dS, lse and D.  Each fits
+    a block at every head dim, and the bf16 scratch holds lse and D of
+    every row rounded up to a block's rows."""
+    import importlib
+    import re
+    from repro_torch.kernels import build
+    fa = importlib.import_module(
+        "repro_torch.kernels.flash_attention.flash_attention")
+    src = (build.CSRC / "flash_attention.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);",
+                             src).group(1))
+
+    assert fa.BWD_TILE == const("kBwdTile") == 64
+    assert fa.BWD_STAGES == const("kBwdStages")
+    assert fa.BWD_BLOCK == const("kBwdWG") * fa.BWD_TILE == 128
+    assert (fa.ALIGN_SLACK, fa.BARRIER_BYTES) == (const("kAlignSlack"),
+                                                  const("kBarrierBytes"))
+    for hd in fa.HEAD_DIMS:
+        slab = 64 * hd * 2
+        bf16 = fa.bwd_smem_bytes(hd, torch.bfloat16)
+        assert bf16 == 1024 + 128 + 4 * slab \
+            + fa.BWD_STAGES * (2 * slab + 2 * 64 * 4)
+        f32 = fa.bwd_smem_bytes(hd, torch.float32)
+        assert f32 == (4 * 64 * (hd + 1) + 2 * 64 * 65 + 2 * 64) * 4
+        assert max(bf16, f32) <= fa.SMEM_PER_BLOCK
+    assert fa.bwd_scratch_floats(6, 100, torch.bfloat16) == 2 * 6 * 128
+    assert fa.bwd_scratch_floats(6, 256, torch.bfloat16) == 2 * 6 * 256
+    assert fa.bwd_scratch_floats(6, 100, torch.float32) == 6 * 100
+
+
+def test_flash_bwd_refuses_what_the_kernels_do_not_take():
+    """On the card the backward takes a head dim it is built for, o and
+    do in q's dtype, an f32 lse, contiguous tensors and, in bf16, 16-byte
+    aligned ones (TMA's rule); anything else raises before a launch."""
+    from repro_torch.kernels.flash_attention.ops import check_bwd_launch
+
+    def args(hd=64, dtype=torch.bfloat16, S=8):
+        t = torch.zeros(1, 2, S, hd, dtype=dtype)
+        return [t, t.clone(), t.clone(), t.clone(), t.clone(),
+                torch.zeros(1, 2, S)]
+
+    check_bwd_launch(*args())
+    check_bwd_launch(*args(hd=32, dtype=torch.float32))
+    for hd in (16, 48, 80, 256):
+        with pytest.raises(ValueError, match="head dim"):
+            check_bwd_launch(*args(hd=hd))
+    a = args()
+    a[5] = a[5].to(torch.bfloat16)
+    with pytest.raises(ValueError, match="float32"):
+        check_bwd_launch(*a)
+    a = args()
+    a[4] = a[4].float()
+    with pytest.raises(ValueError, match="dtype"):
+        check_bwd_launch(*a)
+    for i in range(6):
+        a = args()
+        a[i] = a[i].transpose(-1, -2).contiguous().transpose(-1, -2)
+        with pytest.raises(ValueError, match="contiguous"):
+            check_bwd_launch(*a)
+    for i in range(5):
+        a = args()
+        flat = torch.zeros(a[i].numel() + 1, dtype=torch.bfloat16)
+        a[i] = flat[1:].view(a[i].shape)
+        with pytest.raises(ValueError, match="aligned"):
+            check_bwd_launch(*a)
+
+
 def test_library_path_follows_every_header(tmp_path, monkeypatch):
     """A library's name hashes its source and every header under csrc/, so
     changing any header (the Hopper helpers included) rebuilds it rather

@@ -1,7 +1,9 @@
 """The port's optimizers and schedules (``repro_torch.optim``) against the
 reference's (``repro.optim``): the same numpy parameters and gradients
 through several steps, and the reference's own cases of tests/test_optim.py
-that need no mesh (the gradient-compression ones wait with it).
+that need no mesh (the gradient-compression ones wait with it).  Adafactor
+also on every arch's smoke-config parameters, which the reference stacks
+on a layer axis and the port keeps one tensor a layer.
 
 Tolerance: parameters and moments within 1e-6 + 1e-6 |ref| after 6 steps
 (f32 elementwise arithmetic; the port's bias corrections are the
@@ -20,8 +22,16 @@ import torch
 from repro.optim import optimizers as R
 from repro.optim.schedules import cosine_schedule as ref_cosine
 from repro.optim.schedules import wsd_schedule as ref_wsd
+from repro_torch.configs import smoke_config
+from repro_torch.models import transformer as T
+from repro_torch.models.weights import reference_key, reference_layout
 from repro_torch.optim import OPTIMIZERS, adafactor, adamw, sgd_momentum
+from repro_torch.optim.optimizers import _stack_key
 from repro_torch.optim.schedules import cosine_schedule, wsd_schedule
+
+ARCHS = ("qwen3-0.6b", "qwen1.5-4b", "qwen1.5-32b", "minicpm-2b",
+         "qwen2-vl-72b", "hubert-xlarge", "granite-moe-3b-a800m",
+         "deepseek-v3-671b", "falcon-mamba-7b", "zamba2-1.2b")
 
 SHAPES = {"w": (3, 4), "b": (4,), "k": (2, 3, 5)}
 CASES = {
@@ -150,6 +160,130 @@ def test_adafactor_state_is_factored():
     assert state["f"]["w"]["r"].shape == (64,)
     assert state["f"]["w"]["c"].shape == (32,)
     assert state["f"]["b"]["v"].shape == (32,)
+
+
+def _smoke_layout(arch):
+    """(parameter names, the reference's stacked shape of each leaf) of
+    ``arch``'s smoke model."""
+    model = T.init_params(smoke_config(arch),
+                          generator=torch.Generator().manual_seed(0),
+                          device="cpu")
+    names = [n for n, _ in model.named_parameters()]
+    shapes = {k: v[0] for k, v in _flat_shapes(reference_layout(model))}
+    return names, shapes
+
+
+def _flat_shapes(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flat_shapes(v, f"{prefix}{k}.")
+        else:
+            yield prefix + k, v
+
+
+def _nest(flat: dict) -> dict:
+    tree: dict = {}
+    for key, leaf in flat.items():
+        *path, last = key.split(".")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[last] = leaf
+    return tree
+
+
+def _per_name(flat: dict, names) -> dict:
+    """The port's tensors (one a layer) of the reference's stacked arrays."""
+    out = {}
+    for n in names:
+        key, layer = reference_key(n)
+        out[n] = torch.from_numpy(np.array(
+            flat[key] if layer is None else flat[key][layer]))
+    return out
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_adafactor_stacked_trajectory_equals_reference(arch):
+    """Six Adafactor steps on the parameters of a whole smoke model: the
+    reference on its stacked tree, the port on one tensor a layer; the
+    parameters, and the factored moments under the reference's leaf names
+    with the reference's stacked shapes (a layer's (d,) norm scale is an
+    (n_layers, d) leaf there, so it has r and c), agree.  At Adafactor's
+    default lr 1e-2: the two packages take the means of r, c and the RMS
+    in other orders (their last bits differ), so an update element of
+    ~20 differs in its last bit (~2e-6); at lr 0.3 that moved a few of
+    10^5 parameters past the 1e-6 floor over six steps."""
+    names, shapes = _smoke_layout(arch)
+    r = np.random.default_rng(0)
+
+    def draw():
+        return {k: r.standard_normal(s, dtype=np.float32)
+                for k, s in shapes.items()}
+
+    kw = dict(CASES["adafactor"], lr=1e-2)
+    ref_opt, opt = R.adafactor(**kw), adafactor(**kw)
+    p0 = draw()
+    ref_p = _nest({k: jnp.asarray(v) for k, v in p0.items()})
+    ref_s = ref_opt.init(ref_p)
+    params = _per_name(p0, names)
+    state = opt.init(params)
+    for step in range(6):
+        g = draw()
+        ref_p, ref_s = ref_opt.update(
+            _nest({k: jnp.asarray(v) for k, v in g.items()}), ref_s, ref_p,
+            step)
+        opt.update(_per_name(g, names), state, params, step)
+    want = _flat(jax.tree.map(np.asarray, ref_p))
+    for n in names:
+        key, layer = reference_key(n)
+        _close(params[n], want[key] if layer is None else want[key][layer])
+    ref_f = _flat(jax.tree.map(np.asarray, ref_s["f"]))
+    got_f = {f"{k}.{m}": t.numpy() for k, f in state["f"].items()
+             for m, t in f.items()}
+    assert sorted(got_f) == sorted(ref_f)
+    for k in ref_f:
+        _close(got_f[k], ref_f[k])
+    assert int(state["count"]) == int(ref_s["count"]) == 6
+
+
+def test_stack_key_agrees_with_reference_key():
+    """Adafactor's private grouping rule is ``models/weights.py``'s
+    ``reference_key`` on every parameter of every smoke model and on flat
+    names."""
+    names = {"w", "b", "k", "embed", "final_norm.scale"}
+    for arch in ARCHS:
+        names |= set(_smoke_layout(arch)[0])
+    for n in sorted(names):
+        assert _stack_key(n) == reference_key(n)[0], n
+
+
+def test_adafactor_groups_a_model_by_reference_leaf():
+    """A stacked leaf's (d,) per-layer scale is factored as (n_layers, d),
+    and its state keyed by the reference's leaf name: its column moment
+    averages over the layers, so a layer's update is not the sign of its
+    gradient that a lone (d,) leaf's first step gives."""
+    opt = adafactor(lr=1.0)
+    params = {"layers.0.norm": torch.zeros(4), "layers.1.norm": torch.zeros(4),
+              "layers.0.w": torch.zeros(4, 3), "layers.1.w": torch.zeros(4, 3),
+              "embed": torch.zeros(5, 4)}
+    state = opt.init(params)
+    assert sorted(state["f"]) == ["embed", "layers.norm", "layers.w"]
+    assert state["f"]["layers.norm"]["r"].shape == (2,)
+    assert state["f"]["layers.norm"]["c"].shape == (4,)
+    assert state["f"]["layers.w"]["r"].shape == (2, 4)
+    assert state["f"]["layers.w"]["c"].shape == (2, 3)
+    grads = {k: torch.ones_like(p) for k, p in params.items()}
+    grads["layers.0.norm"] = torch.tensor([1.0, 2.0, 3.0, 4.0])
+    grads["layers.1.norm"] = torch.tensor([4.0, 3.0, 2.0, 1.0])
+    opt.update(grads, state, params, 0)
+    alone = adafactor(lr=1.0)
+    p1 = {"norm": torch.zeros(4)}
+    alone.update({"norm": grads["layers.0.norm"]}, alone.init(p1), p1, 0)
+    assert torch.equal(p1["norm"], torch.full((4,), -1.0))
+    assert not torch.allclose(params["layers.0.norm"], p1["norm"])
+    g2 = torch.stack([grads["layers.0.norm"], grads["layers.1.norm"]]) ** 2
+    # the first step's moments are the means themselves (beta = 0)
+    assert torch.allclose(state["f"]["layers.norm"]["c"], g2.mean(0))
 
 
 def test_wsd_schedule_phases():

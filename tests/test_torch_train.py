@@ -16,7 +16,10 @@ Tolerances, each per leaf:
   |ref|, gradient norms within 1e-4 relative, parameters within 1e-4
   absolute, a tenth of one step's lr: an element's normalized update
   m / sqrt(v) is at most about 1, so a wrong gradient or update moves it
-  by O(lr) a step.
+  by O(lr) a step.  The same for 6 Adafactor steps at lr 1e-3 on every
+  arch (its update is clipped to an RMS of 1 over the reference's stacked
+  leaf), and its factored moments under the reference's leaf names within
+  1e-3 relative (squares of gradients that agree to ~1e-5 of their max).
 """
 
 import jax
@@ -26,13 +29,14 @@ import torch
 
 from repro.data.tokens import TokenPipeline as RefPipeline
 from repro.models import transformer as R
+from repro.optim.optimizers import adafactor as ref_adafactor
 from repro.optim.optimizers import adamw as ref_adamw
 from repro.train.train_step import TrainState as RefState
 from repro.train.train_step import make_train_step as ref_make_step
 from repro_torch.data.tokens import TokenPipeline
 from repro_torch.models import transformer as T
 from repro_torch.models.weights import params_from_reference
-from repro_torch.optim import adamw
+from repro_torch.optim import adafactor, adamw
 from repro_torch.train.train_step import (TrainState, loss_and_grads,
                                           make_train_step)
 from torch_model_oracle import batch, jnp_batch, weights
@@ -81,9 +85,11 @@ def test_train_loss_gradients_match_jax_grad(arch):
             f"{name}: max |diff| {float(np.abs(got - w).max()):.3e}"
 
 
-def _trajectory(arch, microbatches, steps=3):
+def _trajectory(arch, microbatches, steps=3, optimizer="adamw"):
     cfg, ref, tcfg, _ = weights(arch)
-    ref_opt, opt = ref_adamw(lr=1e-3), adamw(lr=1e-3)
+    ref_opt, opt = (ref_adamw(lr=1e-3), adamw(lr=1e-3)) \
+        if optimizer == "adamw" else (ref_adafactor(lr=1e-3),
+                                      adafactor(lr=1e-3))
     ref_step = jax.jit(ref_make_step(cfg, ref_opt,
                                      microbatches=microbatches))
     ref_state = RefState(ref, ref_opt.init(ref))
@@ -94,8 +100,12 @@ def _trajectory(arch, microbatches, steps=3):
     ref_pipe = RefPipeline(vocab=cfg.vocab, seq_len=16, global_batch=4)
     pipe = TokenPipeline(vocab=cfg.vocab, seq_len=16, global_batch=4)
     for s in range(steps):
-        ref_state, rm = ref_step(ref_state, ref_pipe.batch_at(s))
-        state, m = step_fn(state, pipe.batch_at(s))
+        if optimizer == "adamw":
+            ref_b, b = ref_pipe.batch_at(s), pipe.batch_at(s)
+        else:  # every arch: embeddings and M-RoPE positions where it needs
+            ref_b = b = batch(cfg, 4, 16, seed=s)
+        ref_state, rm = ref_step(ref_state, ref_b)
+        state, m = step_fn(state, b)
         want = float(rm["loss"])
         assert abs(float(m["loss"]) - want) <= 1e-5 + 1e-5 * abs(want)
         assert float(m["grad_norm"]) == pytest.approx(
@@ -106,6 +116,7 @@ def _trajectory(arch, microbatches, steps=3):
         w = _per_layer(want, name)
         assert np.all(np.abs(_np(p) - w) <= 1e-4), \
             f"{name}: max |diff| {float(np.abs(_np(p) - w).max()):.3e}"
+    return ref_state, state
 
 
 @pytest.mark.parametrize("arch", ["qwen3-0.6b", "falcon-mamba-7b"])
@@ -116,6 +127,20 @@ def test_adamw_train_steps_match_reference(arch):
 @pytest.mark.parametrize("arch", ["qwen3-0.6b", "falcon-mamba-7b"])
 def test_microbatched_train_steps_match_reference(arch):
     _trajectory(arch, microbatches=2)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_adafactor_train_steps_match_reference(arch):
+    ref_state, state = _trajectory(arch, microbatches=1, steps=6,
+                                   optimizer="adafactor")
+    want = _flat(jax.tree.map(np.asarray, ref_state["opt_state"]["f"]))
+    got = {f"{k}.{m}": t.numpy() for k, f in state["opt_state"]["f"].items()
+           for m, t in f.items()}
+    assert sorted(got) == sorted(want)
+    for k, w in want.items():
+        assert got[k].shape == w.shape, k
+        assert np.all(np.abs(got[k] - w) <= 1e-3 * np.abs(w)
+                      + 1e-6 * float(np.abs(w).max())), k
 
 
 def test_mesh_options_raise_naming_the_roadmap():
