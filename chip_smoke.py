@@ -165,9 +165,16 @@ Phases, each printing one JSON line:
                     same bits with them), two calls the same bits (in
                     bf16 flash beside SDPA's backward's own error), with
                     its time, the plain version's, the library call's
-                    (the backward of ``F.rms_norm``, of SDPA) and the
-                    bound at full width, for flash also at the training
-                    runs' shape (8, 16, 1024, 128); (b) the loss and every
+                    (the backward of ``F.rms_norm``, of SDPA: the median
+                    of three rounds, each call timed with a spin kernel
+                    holding the stream while the host enqueues it, so
+                    autograd's host work is left out; the plain event
+                    time beside it) and the bound at full width and at
+                    each training run's shape; the
+                    ``ptxas`` registers and spills (none allowed) of the
+                    scan's and rmsnorm's backward kernels, and at each of
+                    their shapes the dynamic shared memory of a block and
+                    the blocks an SM holds at once; (b) the loss and every
                     gradient of qwen3-0.6b and falcon-mamba-7b at full
                     width, 2 layers, f32, TF32 off, on the card against
                     the CPU, and in bf16 against the f32 card's; (c)
@@ -284,6 +291,46 @@ def time_ms(torch, fn, *, reps: int, flush=None) -> float:
         start.record()
         fn()
         end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+# cycles a spin kernel first holds the stream while the host enqueues a
+# timed call (about 1 ms at the H100's clock), and the tries, each 4 times
+# longer, before a call the host could not get ahead of fails
+SPIN_CYCLES, SPIN_TRIES = 2_000_000, 6
+
+
+def spin_ms(torch, fn, *, reps: int, flush) -> float:
+    """Median milliseconds of ``fn()`` by CUDA events, L2 flushed before
+    each call, with a spin kernel holding the stream while the host
+    enqueues the call: the device's time alone, none of the host's work (a
+    wrapper's, autograd's) between the events.  A call the host enqueued
+    only after its spin ended is timed again behind a spin 4 times longer
+    (autograd's host work for a library backward varied from ~0.1 to over
+    1 ms between runs)."""
+    for _ in range(2):
+        fn()
+    pairs = []
+    cycles = SPIN_CYCLES
+    for _ in range(reps):
+        for _ in range(SPIN_TRIES):
+            flush.zero_()
+            torch.cuda._sleep(cycles)
+            spun = torch.cuda.Event()
+            spun.record()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            if not spun.query():
+                break
+            cycles *= 4
+        else:
+            raise AssertionError("spin_ms: the host did not enqueue the call "
+                                 f"within {cycles // 4} cycles")
         pairs.append((start, end))
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
@@ -2590,7 +2637,7 @@ BWD_FULL = {"rmsnorm": ({"rows": 8192, "d": 1024}, "bfloat16"),
                                  "causal": True}, "bfloat16"),
             "mamba_scan": ({"Bt": 1, "L": 4096, "D": 8192, "N": 16,
                             "chunk": 64}, "float32")}
-# the other shapes the training runs give each kernel, checked, not timed:
+# the other shapes the training runs give each kernel, checked and timed:
 # qwen3-0.6b's q/k norms (8 x 1024 tokens x 16 heads of 128) and
 # falcon-mamba-7b's norms (2 x 2048 tokens, d 4096), bf16; qwen3-0.6b's
 # attention (8 x 16 heads x 1024); falcon-mamba-7b's scan (2 x 2048)
@@ -2780,6 +2827,57 @@ def bwd_library_err(torch, kernel, i) -> float:
                for g, w in zip(got, want))
 
 
+# the backward kernels redesigned with registers and shared memory in mind:
+# ptxas must report no spill for any instantiation
+BWD_REGISTER_KERNELS = {"mamba_scan": "scan_bwd_kernel",
+                        "rmsnorm": "rmsnorm_bwd_row_kernel"}
+# rounds of 20 timed calls of a library call's backward (F.rms_norm's,
+# SDPA's), whose event time moved 1.4-9x between runs of the same code:
+# the row's library_ms is the median of the rounds' spin-held times
+LIBRARY_ROUNDS = 3
+
+
+def bwd_resources(torch) -> dict:
+    """For the scan's and rmsnorm's backward kernels: registers and spills
+    of every instantiation (``ptxas -v``); at each shape the training runs
+    and full width give them, the threads and dynamic shared memory of a
+    block and the blocks (and so warps) an SM holds at once, by the CUDA
+    occupancy API.  Raise on a spill."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.mamba_scan.mamba_scan import (
+        mamba_scan_bwd_geometry, mamba_scan_bwd_occupancy)
+    from repro_torch.kernels.rmsnorm.rmsnorm import (rmsnorm_bwd_geometry,
+                                                     rmsnorm_bwd_occupancy)
+    out = {}
+    for name, kern in BWD_REGISTER_KERNELS.items():
+        log = build.library_path(name).with_suffix(".log").read_text()
+        rows = {r["kernel"]: {k: r[k] for k in ("registers", "spill_stores",
+                                                 "spill_loads")}
+                for r in ptxas_report(log) if kern in r["kernel"]}
+        bad = {k: r for k, r in rows.items()
+               if r["spill_stores"] or r["spill_loads"]}
+        if not rows or bad:
+            raise AssertionError(f"{BWD_NAMES[name]}: {len(rows)} "
+                                 f"instantiations, spills: {bad}")
+        shapes = []
+        for s, dtype in (*BWD_PATH[name], BWD_FULL[name]):
+            dt = getattr(torch, dtype)
+            if name == "mamba_scan":
+                geo = mamba_scan_bwd_geometry(s, dt)
+                occ = mamba_scan_bwd_occupancy(s["N"], dt)
+                per_sm = occ["blocks_per_sm"]
+            else:
+                geo = rmsnorm_bwd_geometry(s["rows"], s["d"], dt)
+                per_sm = rmsnorm_bwd_occupancy(s["d"], dt, dt)
+                occ = {"blocks_per_sm": per_sm}
+            shapes.append({"shape": s, "dtype": dtype,
+                           "threads": geo["threads"], "smem": geo["smem"],
+                           **occ,
+                           "warps_per_sm": per_sm * geo["threads"] // 32})
+        out[BWD_NAMES[name]] = {"ptxas": rows, "shapes": shapes}
+    return out
+
+
 def bwd_bound(kernel, s, dtype, rates) -> tuple[float, str, float, float]:
     """(bound_ms, bound_by, bytes, operations) of one backward call: each
     input read once (the forward's outputs it takes among them), each
@@ -2810,9 +2908,9 @@ def train_kernels(torch) -> dict:
     """(a): each backward kernel against its plain version at the small
     ragged shapes in f32 and bf16, at the main path's shapes and at full
     width, on inputs the forward kernel made, two calls the same bits; in
-    bf16 flash also SDPA's backward's own error; at full width, and for
-    flash at the training runs' shape, its time, the plain version's, the
-    library call's and the bound."""
+    bf16 flash also SDPA's backward's own error; at full width and at
+    the training runs' shapes its time (also with the host held out), the
+    plain version's, the library call's and the bound."""
     rates = device_rates()
     gen = torch.Generator(device="cuda").manual_seed(20)
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
@@ -2827,26 +2925,35 @@ def train_kernels(torch) -> dict:
         return i, row
 
     def timed(kernel, i, s, dtype) -> dict:
-        ms = time_ms(torch, lambda: run_bwd(kernel, i, plain=False),
-                     reps=20, flush=flush)
+        def call():
+            return run_bwd(kernel, i, plain=False)
+        ms = time_ms(torch, call, reps=20, flush=flush)
         plain_ms = time_ms(torch, lambda: run_bwd(kernel, i, plain=True),
                            reps=1 if kernel == "mamba_scan" else 3,
                            flush=flush)
+        row = {"kernel_ms": ms, "plain_ms": plain_ms,
+               "kernel_spin_ms": spin_ms(torch, call, reps=20, flush=flush),
+               "library_ms": None}
         lib = bwd_library_call(torch, kernel, i)
-        library_ms = (time_ms(torch, lib, reps=20, flush=flush)
-                      if lib is not None else None)
+        if lib is not None:
+            # the library call's device time alone: timed as the kernel
+            # is, its events also hold autograd's host work (~0.3 ms)
+            rounds = [spin_ms(torch, lib, reps=20, flush=flush)
+                      for _ in range(LIBRARY_ROUNDS)]
+            row.update(library_ms=statistics.median(rounds),
+                       library_rounds_ms=rounds,
+                       library_event_ms=time_ms(torch, lib, reps=20,
+                                                flush=flush))
         bound_ms, bound_by, nbytes, ops = bwd_bound(kernel, s, dtype, rates)
-        return {"kernel_ms": ms, "plain_ms": plain_ms,
-                "library_ms": library_ms, "bound_ms": bound_ms,
-                "bound_by": bound_by, "bytes": nbytes, "operations": ops}
+        return {**row, "bound_ms": bound_ms, "bound_by": bound_by,
+                "bytes": nbytes, "operations": ops}
 
     for kernel, name in BWD_NAMES.items():
         checked = [case(kernel, s, dtype)[1] for s in BWD_SMALL[kernel]
                    for dtype in ("float32", "bfloat16")]
-        for s, dtype in BWD_PATH[kernel]:
+        for s, dtype in BWD_PATH[kernel]:  # what a training step calls
             i, row = case(kernel, s, dtype, full=True)
-            if kernel == "flash_attention":  # what a training step calls
-                row.update(timed(kernel, i, s, dtype))
+            row.update(timed(kernel, i, s, dtype))
             checked.append(row)
             del i
             torch.cuda.empty_cache()
@@ -3059,6 +3166,7 @@ def phase_train(torch, counters) -> dict:
                          "bf16_f32": {"grad_rel_l2": TRAIN_BF16_REL_L2,
                                       "loss_rtol": TRAIN_BF16_LOSS_RTOL}}}
     out["kernels"] = train_kernels(torch)
+    out["bwd_resources"] = bwd_resources(torch)
     out["card_against_cpu"] = {a: train_card_against_cpu(torch, a, counters)
                                for a in SERVE_ARCHS}
     out["runs"] = {a: train_run(torch, a, counters) for a in TRAIN_RUNS}

@@ -35,12 +35,25 @@
 // r = rsqrt(mean(x^2) + eps) and g = dy * scale it computes
 //   dx = r * (g - x * r^2 * mean(g * x)),   dscale = sum over rows dy * x * r.
 // Bound on the H100: bytes (x and dy read, dx written: 3 elements a value
-// against ~10 flops).  One warp a row, as the forward: a first pass over
-// the row takes sum(x^2) and sum(g x), a second (from L1/L2) writes dx and
-// adds dy x r to the warp's f32 row of dscale in shared memory.  Each block
-// walks a fixed set of rows and writes its warps' rows of dscale, summed
-// in warp order, as one f32 partial row; a second kernel sums the partials
-// in block order.  No atomics: the result is the same bits on every call.
+// against ~10 flops).  The design keeps every byte read once and enough of
+// them in flight:
+//
+// * The row path (widths up to 4096, a multiple of the 16-byte vector):
+//   a group of lanes takes a row and holds its x and dy in registers
+//   between the two passes (sum(x^2) and sum(g x), then dx), with 16-byte
+//   loads and stores, as the forward.  Narrow rows get fewer lanes (d 128
+//   in bf16: 8 lanes of two vectors, four rows a warp), wide rows several
+//   warps (d 4096 in bf16: 128 lanes of four vectors, the row's sums
+//   across the warps through shared memory and a named barrier).
+// * A lane visits the same columns in every row, so its scale and its
+//   part of dscale stay in registers; at the end each block sums its row
+//   groups' parts in group order into one f32 partial row.
+// * Other widths and unaligned rows take the generic path: one warp a row,
+//   the row read twice (the second from L1/L2), each warp's dscale in an
+//   f32 row of shared memory.
+// * dscale: a second kernel sums the blocks' partial rows in block order
+//   (32 interleaved segments of them, added in segment order).  No
+//   atomics: the result is the same bits on every call.
 
 #include "common.cuh"
 
@@ -278,16 +291,172 @@ extern "C" int rmsnorm_fwd(const void* x, const void* scale, void* y,
 
 namespace {
 
-// dscale's partial rows and the warps of one backward block: the geometry
-// is chosen by the wrapper (rmsnorm_bwd_geometry in
-// repro_torch/kernels/rmsnorm/rmsnorm.py) and passed in.
-constexpr int kBwdMaxWarps = 8;
+constexpr int kBwdMaxWarps = 8;    // warps a block of the generic path
+constexpr int kBwdThreads = 256;   // threads a block of the row path
+constexpr int kBwdRowMax = 4096;   // widest row the row path holds
+constexpr int kBwdMinVecs = 8;     // 16-byte vectors a row is padded up to
+constexpr int kBwdLaneVecs = 4;    // vectors a lane, rows of 128 vectors up
+constexpr int kBwdSumSegs = 32;    // segments of the partial rows summed
 
+// a row of nv 16-byte vectors is held as nvmax (a power of two, at least
+// kBwdMinVecs): kBwdLaneVecs vectors a lane from 128 vectors up, half as
+// many below, so a row takes nvmax / that lanes (4 to 256)
+__host__ __device__ constexpr int bwd_row_vecs(int nv) {
+  int m = kBwdMinVecs;
+  while (m < nv) m *= 2;
+  return m;
+}
+__host__ __device__ constexpr int bwd_lane_vecs(int nvmax) {
+  return nvmax >= 128 ? kBwdLaneVecs : kBwdLaneVecs / 2;
+}
+__host__ __device__ constexpr int bwd_row_lanes(int nvmax) {
+  return nvmax / bwd_lane_vecs(nvmax);
+}
+// dynamic shared memory of the row path: each row group's f32 row of
+// dscale, and for rows over several warps the warps' (sum x^2, sum g x)
+// of two rows
+__host__ __device__ constexpr int bwd_row_smem(int d, int lanes) {
+  return kBwdThreads / lanes * d * 4 +
+         (lanes > 32 ? 2 * (kBwdThreads / lanes) * (lanes / 32) * 8 : 0);
+}
+
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// The row path: a group of G lanes takes a row, each lane Kc 16-byte
+// vectors of x and of dy (vectors j, G + j, ... of the row, so the group's
+// loads are contiguous), held in registers between the two passes.  The
+// lane's columns are the same in every row it visits, so its scale and its
+// part of dscale stay in registers; groups under a warp share it (32 / G
+// rows at once), groups over a warp sum their row across its warps through
+// shared memory and a named barrier.  At the end the block sums its
+// groups' dscale in group order into one f32 partial row.
+template <typename T, typename S, int G, int Kc>
+__global__ void __launch_bounds__(kBwdThreads)
+rmsnorm_bwd_row_kernel(const T* __restrict__ x, const S* __restrict__ scale,
+                       const T* __restrict__ dy, T* __restrict__ dx,
+                       float* __restrict__ partial, int rows, int d,
+                       float eps) {
+  constexpr int kVec = 16 / sizeof(T);
+  constexpr int NG = kBwdThreads / G;         // row groups a block
+  constexpr int W = G > 32 ? G / 32 : 1;      // warps a group
+  constexpr int kRows = G < 32 ? 32 / G : 1;  // rows a warp takes at once
+  extern __shared__ __align__(16) float bwd_row_s[];
+  float* blk = bwd_row_s;  // [NG][d]
+  float2* red = reinterpret_cast<float2*>(bwd_row_s + NG * d);  // [2][NG][W]
+  const int tid = threadIdx.x;
+  const int g = tid / G;
+  const int j = tid % G;
+  const int nv = d / kVec;
+  float sc[Kc][kVec], acc[Kc][kVec];
+#pragma unroll
+  for (int k = 0; k < Kc; ++k) {
+    const int v = k * G + j;
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) {
+      sc[k][e] = v < nv ? to_float(scale[v * kVec + e]) : 0.f;
+      acc[k][e] = 0.f;
+    }
+  }
+  const float inv_d = 1.f / static_cast<float>(d);
+  const long first = static_cast<long>(blockIdx.x) * NG +
+                     (G >= 32 ? g : (tid / 32) * kRows);
+  const long stride = static_cast<long>(gridDim.x) * NG;
+  int par = 0;
+  for (long base = first; base < rows; base += stride, par ^= 1) {
+    const long r = G >= 32 ? base : base + (tid % 32) / G;
+    const bool ok = r < rows;
+    uint4 xraw[Kc], graw[Kc];
+#pragma unroll
+    for (int k = 0; k < Kc; ++k) {
+      const int v = k * G + j;
+      if (ok && v < nv) {
+        xraw[k] = __ldg(reinterpret_cast<const uint4*>(x + r * d) + v);
+        graw[k] = __ldg(reinterpret_cast<const uint4*>(dy + r * d) + v);
+      }
+    }
+    float ss = 0.f, gx = 0.f;
+#pragma unroll
+    for (int k = 0; k < Kc; ++k) {
+      if (ok && k * G + j < nv) {
+        float xv[kVec], gv[kVec];
+        unpack16(xraw[k], xv, T());
+        unpack16(graw[k], gv, T());
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) {
+          ss += xv[e] * xv[e];
+          gx += gv[e] * sc[k][e] * xv[e];
+        }
+      }
+    }
+#pragma unroll
+    for (int off = (G < 32 ? G : 32) / 2; off > 0; off >>= 1) {
+      ss += __shfl_xor_sync(0xffffffffu, ss, off);
+      gx += __shfl_xor_sync(0xffffffffu, gx, off);
+    }
+    if constexpr (W > 1) {
+      float2* rg = red + (par * NG + g) * W;
+      if (tid % 32 == 0) rg[j / 32] = make_float2(ss, gx);
+      bar_sync(1 + g, G);
+      ss = 0.f;
+      gx = 0.f;
+#pragma unroll
+      for (int w = 0; w < W; ++w) {
+        const float2 v = rg[w];
+        ss += v.x;
+        gx += v.y;
+      }
+    }
+    const float rr = rsqrtf(ss * inv_d + eps);
+    const float cf = rr * rr * (gx * inv_d);
+#pragma unroll
+    for (int k = 0; k < Kc; ++k) {
+      const int v = k * G + j;
+      if (ok && v < nv) {
+        float xv[kVec], gv[kVec], out[kVec];
+        unpack16(xraw[k], xv, T());
+        unpack16(graw[k], gv, T());
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) {
+          out[e] = rr * (gv[e] * sc[k][e] - xv[e] * cf);
+          acc[k][e] += gv[e] * xv[e] * rr;
+        }
+        reinterpret_cast<uint4*>(dx + r * d)[v] = pack16(out, T());
+      }
+    }
+  }
+  // the block's partial row: its groups' rows of dscale in group order
+#pragma unroll
+  for (int k = 0; k < Kc; ++k) {
+    const int v = k * G + j;
+    if (v < nv) {
+#pragma unroll
+      for (int e = 0; e < kVec; e += 4) {
+        store4(blk + g * d + v * kVec + e, &acc[k][e]);
+      }
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < d; i += kBwdThreads) {
+    float s = 0.f;
+#pragma unroll
+    for (int q = 0; q < NG; ++q) s += blk[q * d + i];
+    partial[static_cast<long>(blockIdx.x) * d + i] = s;
+  }
+}
+
+// The generic path, any width: one warp a row, a first pass over the row
+// for sum(x^2) and sum(g x), a second (from L1/L2) for dx, with each
+// warp's dscale in an f32 row of shared memory; the block's partial row is
+// its warps' rows in warp order.
 template <typename T, typename S, bool kVec4>
 __global__ void __launch_bounds__(kBwdMaxWarps * 32)
-rmsnorm_bwd_kernel(const T* __restrict__ x, const S* __restrict__ scale,
-                   const T* __restrict__ dy, T* __restrict__ dx,
-                   float* __restrict__ partial, int rows, int d, float eps) {
+rmsnorm_bwd_generic_kernel(const T* __restrict__ x,
+                           const S* __restrict__ scale,
+                           const T* __restrict__ dy, T* __restrict__ dx,
+                           float* __restrict__ partial, int rows, int d,
+                           float eps) {
   extern __shared__ float bwd_s[];
   float* scale_s = bwd_s;      // d floats
   float* acc_s = bwd_s + d;    // [warps][d] floats: this warp's dscale
@@ -354,7 +523,6 @@ rmsnorm_bwd_kernel(const T* __restrict__ x, const S* __restrict__ scale,
     }
   }
   __syncthreads();
-  // the block's partial row: its warps' rows summed in warp order
   float* out = partial + static_cast<long>(blockIdx.x) * d;
   for (int i = threadIdx.x; i < d; i += blockDim.x) {
     float s = 0.f;
@@ -363,70 +531,172 @@ rmsnorm_bwd_kernel(const T* __restrict__ x, const S* __restrict__ scale,
   }
 }
 
-// dscale[i] = the partial rows summed in block order
+// dscale[i] = the partial rows summed in block order: a warp's lanes take
+// 32 columns, the block's kBwdSumSegs warps the rows w, w + 32, ... each
+// (8 loads a thread at 256 partial rows, all in flight at once), then the
+// warps' sums are added in warp order
 template <typename S>
-__global__ void rmsnorm_bwd_sum_kernel(const float* __restrict__ partial,
-                                       S* __restrict__ dscale, int blocks,
-                                       int d) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= d) return;
+__global__ void __launch_bounds__(kBwdSumSegs * 32)
+rmsnorm_bwd_sum_kernel(const float* __restrict__ partial,
+                       S* __restrict__ dscale, int blocks, int d) {
+  __shared__ float seg_s[kBwdSumSegs][32];
+  const int lane = threadIdx.x % 32;
+  const int seg = threadIdx.x / 32;
+  const int i = blockIdx.x * 32 + lane;
   float s = 0.f;
-  for (int b = 0; b < blocks; ++b) s += partial[static_cast<long>(b) * d + i];
-  dscale[i] = from_float<S>(s);
+  if (i < d) {
+#pragma unroll 8
+    for (int b = seg; b < blocks; b += kBwdSumSegs) {
+      s += partial[static_cast<long>(b) * d + i];
+    }
+  }
+  seg_s[seg][lane] = s;
+  __syncthreads();
+  if (seg == 0 && i < d) {
+    float t = 0.f;
+#pragma unroll
+    for (int q = 0; q < kBwdSumSegs; ++q) t += seg_s[q][lane];
+    dscale[i] = from_float<S>(t);
+  }
+}
+
+template <typename T, typename S>
+using RowFn = void (*)(const T*, const S*, const T*, T*, float*, int, int,
+                       float);
+
+// the row kernel for rows of d elements (a multiple of the vector, at most
+// kBwdRowMax) and the lanes it gives a row
+template <typename T, typename S>
+RowFn<T, S> row_kernel(int d, int* lanes) {
+  constexpr int kVec = 16 / sizeof(T);
+  const int nvmax = bwd_row_vecs(d / kVec);
+  *lanes = bwd_row_lanes(nvmax);
+#define ROW_CASE(n) \
+  case n:           \
+    return rmsnorm_bwd_row_kernel<T, S, bwd_row_lanes(n), bwd_lane_vecs(n)>;
+  switch (nvmax) {
+    ROW_CASE(8)
+    ROW_CASE(16)
+    ROW_CASE(32)
+    ROW_CASE(64)
+    ROW_CASE(128)
+    ROW_CASE(256)
+    ROW_CASE(512)
+    ROW_CASE(1024)
+    default: return nullptr;
+  }
+#undef ROW_CASE
+}
+
+template <typename T>
+bool row_path(const void* x, const void* dy, const void* dx, int d) {
+  auto a16 = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  return a16(x) && a16(dy) && a16(dx) && d % (16 / sizeof(T)) == 0 &&
+         d <= kBwdRowMax;
 }
 
 template <typename T, typename S>
 cudaError_t launch_bwd(const void* xv, const void* scalev, const void* dyv,
                        void* dxv, void* dscalev, float* partial, int rows,
-                       int d, float eps, int blocks, int warps, int smem,
+                       int d, float eps, int blocks, int threads, int smem,
                        cudaStream_t stream) {
   const T* x = static_cast<const T*>(xv);
+  const S* scale = static_cast<const S*>(scalev);
   const T* dy = static_cast<const T*>(dyv);
   T* dx = static_cast<T*>(dxv);
-  const bool vec4 = d % 4 == 0 &&
-                    reinterpret_cast<uintptr_t>(x) % (4 * sizeof(T)) == 0 &&
-                    reinterpret_cast<uintptr_t>(dy) % (4 * sizeof(T)) == 0 &&
-                    reinterpret_cast<uintptr_t>(dx) % (4 * sizeof(T)) == 0;
-  auto kernel = vec4 ? rmsnorm_bwd_kernel<T, S, true>
-                     : rmsnorm_bwd_kernel<T, S, false>;
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<blocks, warps * 32, smem, stream>>>(
-      x, static_cast<const S*>(scalev), dy, dx, partial, rows, d, eps);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  rmsnorm_bwd_sum_kernel<S><<<(d + 255) / 256, 256, 0, stream>>>(
+  cudaError_t err;
+  if (row_path<T>(xv, dyv, dxv, d)) {
+    int lanes = 0;
+    const RowFn<T, S> kernel = row_kernel<T, S>(d, &lanes);
+    if (kernel == nullptr || threads != kBwdThreads ||
+        smem < bwd_row_smem(d, lanes)) {
+      return cudaErrorInvalidValue;
+    }
+    if ((err = allow_smem(kernel, smem)) != cudaSuccess) return err;
+    kernel<<<blocks, kBwdThreads, smem, stream>>>(x, scale, dy, dx, partial,
+                                                  rows, d, eps);
+  } else {
+    const int warps = threads / 32;
+    if (threads % 32 != 0 || warps < 1 || warps > kBwdMaxWarps ||
+        static_cast<long>(smem) < (warps + 1L) * d * 4) {
+      return cudaErrorInvalidValue;
+    }
+    const bool vec4 =
+        d % 4 == 0 &&
+        reinterpret_cast<uintptr_t>(x) % (4 * sizeof(T)) == 0 &&
+        reinterpret_cast<uintptr_t>(dy) % (4 * sizeof(T)) == 0 &&
+        reinterpret_cast<uintptr_t>(dx) % (4 * sizeof(T)) == 0;
+    auto kernel = vec4 ? rmsnorm_bwd_generic_kernel<T, S, true>
+                       : rmsnorm_bwd_generic_kernel<T, S, false>;
+    if ((err = allow_smem(kernel, smem)) != cudaSuccess) return err;
+    kernel<<<blocks, threads, smem, stream>>>(x, scale, dy, dx, partial,
+                                              rows, d, eps);
+  }
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  rmsnorm_bwd_sum_kernel<S><<<(d + 31) / 32, kBwdSumSegs * 32, 0, stream>>>(
       partial, static_cast<S*>(dscalev), blocks, d);
   return cudaGetLastError();
+}
+
+// blocks of the row kernel for rows of d elements that fit one SM at once
+template <typename T, typename S>
+cudaError_t occupancy_bwd(int d, int* out) {
+  int lanes = 0;
+  const RowFn<T, S> kernel = row_kernel<T, S>(d, &lanes);
+  if (kernel == nullptr || d % (16 / sizeof(T)) != 0 || d > kBwdRowMax) {
+    return cudaErrorInvalidValue;
+  }
+  const int smem = bwd_row_smem(d, lanes);
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kernel,
+                                                       kBwdThreads, smem);
 }
 
 }  // namespace
 
 // x, dy, dx: (rows, d) contiguous, x's type; scale, dscale: (d,), scale's
-// type; partial: (blocks, d) f32 scratch.  `blocks` blocks of `warps`
-// warps (at most 8); smem must be at least (warps + 1) * d * 4 bytes.
+// type; partial: (blocks, d) f32 scratch.  Rows of at most 4096 elements,
+// a multiple of the 16-byte vector, with x, dy and dx 16-byte aligned take
+// the row path: `threads` must be 256 and smem at least bwd_row_smem;
+// others the generic path: `threads` a multiple of 32 up to 256, smem at
+// least (threads / 32 + 1) * d * 4 bytes (rmsnorm_bwd_geometry in
+// repro_torch/kernels/rmsnorm/rmsnorm.py chooses alike).
 extern "C" int rmsnorm_bwd(const void* x, const void* scale, const void* dy,
                            void* dx, void* dscale, void* partial, int rows,
                            int d, float eps, int x_dtype, int scale_dtype,
-                           int blocks, int warps, int smem, void* stream) {
-  if (rows <= 0 || d <= 0 || blocks <= 0 || warps <= 0 ||
-      warps > kBwdMaxWarps ||
-      static_cast<long>(smem) < (warps + 1L) * d * 4) {
-    return cudaErrorInvalidValue;
-  }
+                           int blocks, int threads, int smem, void* stream) {
+  if (rows <= 0 || d <= 0 || blocks <= 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* p = static_cast<float*>(partial);
   if (x_dtype == kF32 && scale_dtype == kF32)
     return launch_bwd<float, float>(x, scale, dy, dx, dscale, p, rows, d, eps,
-                                    blocks, warps, smem, s);
+                                    blocks, threads, smem, s);
   if (x_dtype == kBF16 && scale_dtype == kF32)
     return launch_bwd<__nv_bfloat16, float>(x, scale, dy, dx, dscale, p, rows,
-                                            d, eps, blocks, warps, smem, s);
+                                            d, eps, blocks, threads, smem, s);
   if (x_dtype == kF32 && scale_dtype == kBF16)
     return launch_bwd<float, __nv_bfloat16>(x, scale, dy, dx, dscale, p, rows,
-                                            d, eps, blocks, warps, smem, s);
+                                            d, eps, blocks, threads, smem, s);
   if (x_dtype == kBF16 && scale_dtype == kBF16)
     return launch_bwd<__nv_bfloat16, __nv_bfloat16>(
-        x, scale, dy, dx, dscale, p, rows, d, eps, blocks, warps, smem, s);
+        x, scale, dy, dx, dscale, p, rows, d, eps, blocks, threads, smem, s);
+  return cudaErrorInvalidValue;
+}
+
+// out[0]: blocks of the row path's kernel for rows of d elements that fit
+// one SM at once
+extern "C" int rmsnorm_bwd_occupancy(int d, int x_dtype, int scale_dtype,
+                                     int* out) {
+  if (x_dtype == kF32 && scale_dtype == kF32)
+    return occupancy_bwd<float, float>(d, out);
+  if (x_dtype == kBF16 && scale_dtype == kF32)
+    return occupancy_bwd<__nv_bfloat16, float>(d, out);
+  if (x_dtype == kF32 && scale_dtype == kBF16)
+    return occupancy_bwd<float, __nv_bfloat16>(d, out);
+  if (x_dtype == kBF16 && scale_dtype == kBF16)
+    return occupancy_bwd<__nv_bfloat16, __nv_bfloat16>(d, out);
   return cudaErrorInvalidValue;
 }

@@ -14,7 +14,12 @@ lanes; ``chunk`` timesteps of dt/x/B/C are staged in shared memory at a
 time, in two stages so the next tile loads while this one is scanned.  On
 request it also writes the state at the start of every such tile
 (``h_chunks``), from which the backward kernel (``mamba_scan_bwd`` in the
-same source) recomputes each tile's states as it walks time backward.
+same source) recomputes each tile's states as it walks time backward: a
+sub-tile at a time, its inputs staged by ``cp.async`` in a ring, its
+states recomputed once into registers, its dB and dC summed over a block's
+channels once and over a cluster of ``BWD_CLUSTER`` blocks through
+distributed shared memory (``mamba_scan_bwd_geometry``,
+``mamba_scan_bwd_smem``).
 """
 
 from __future__ import annotations
@@ -27,10 +32,17 @@ from .. import build
 
 CHANNELS = 32   # channels a block
 MAX_LANES = 4   # lanes a channel
+# the backward kernel's kBwdCluster, kBwdRingBytes, kBwdRingMax, kBwdSeg
+# (csrc/mamba_scan.cu)
+BWD_CLUSTER = 2          # blocks a cluster, whose dB and dC rows are summed
+BWD_RING_BYTES = 40960   # the cp.async ring's bytes, at most,
+BWD_RING_MAX = 10        # and its stages, 3 to BWD_RING_MAX of them
+BWD_SEG = 8              # sub-tiles a segment (its start states kept: 7)
 
 _ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
-_BWD_ARGTYPES = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 8 + [
+_BWD_ARGTYPES = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 10 + [
     ctypes.c_void_p]
+_OCC_ARGTYPES = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
 
 def geometry(shape: dict) -> dict:
@@ -61,6 +73,53 @@ def smem_bytes(knobs: dict, shape: dict, dtype: torch.dtype):
     bc = _round16(chunk * n * esize)
     return (2 * (2 * rows + 2 * bc) + 8 * chunk * CHANNELS
             + 2 * _round16(4 * chunk * n) + 2 * rows)
+
+
+def mamba_scan_bwd_geometry(shape: dict, dtype: torch.dtype) -> dict:
+    """The backward kernel's geometry for ``shape`` (Bt, L, D, N): the
+    forward's lanes, states and threads; ``sub`` steps a sub-tile (32 /
+    states, so a thread's sub-tile of states and decays is 2 x 32
+    registers); blocks along D (every channel covered, whole clusters of
+    ``BWD_CLUSTER``), the clusters (one f32 partial row of dB and dC each)
+    and the dynamic shared memory.  ``csrc/mamba_scan.cu`` refuses a launch
+    whose blocks or shared memory differ from its own."""
+    geo = geometry(shape)
+    blocks = -(-geo["grid"][0] // BWD_CLUSTER) * BWD_CLUSTER
+    return {**geo, "sub": 32 // geo["states"], "blocks": blocks,
+            "clusters": blocks // BWD_CLUSTER,
+            "ring": mamba_scan_bwd_ring(shape["N"], dtype),
+            "smem": mamba_scan_bwd_smem(shape["N"], dtype)}
+
+
+def mamba_scan_bwd_ring(n: int, dtype: torch.dtype) -> int:
+    """Stages of the backward's ring for state size ``n``: as many
+    stages (six row regions of a sub-tile for the block's channels and
+    four of its B or C rows, each rounded up to 16 bytes: dt, x, dy, B, C
+    of two sub-tiles walked back, or dt, x, B of three sub-tiles of the
+    pass from a tile's start) as fit ``BWD_RING_BYTES``, 3 to
+    ``BWD_RING_MAX``."""
+    sub = 32 // (n // min(n, MAX_LANES))
+    slot = (6 * _round16(sub * CHANNELS * dtype.itemsize)
+            + 4 * _round16(sub * n * dtype.itemsize))
+    return min(max(BWD_RING_BYTES // slot, 3), BWD_RING_MAX)
+
+
+def mamba_scan_bwd_smem(n: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of one backward block for state size ``n``,
+    as ``BwdSmem`` in ``csrc/mamba_scan.cu`` lays it out: the ring's
+    stages of one sub-tile (``mamba_scan_bwd_ring``); the sub-tile's
+    per-thread dB and dC contributions and (g, ga A) pairs, f32; the
+    block's channel sums of dB and dC for two sub-tiles; the segment's
+    sub-tile start states."""
+    lanes = min(n, MAX_LANES)
+    sub = 32 // (n // lanes)
+    esize = dtype.itemsize
+    rows = _round16(sub * CHANNELS * esize)
+    bc = _round16(sub * n * esize)
+    return (mamba_scan_bwd_ring(n, dtype) * (6 * rows + 4 * bc)
+            + sub * CHANNELS * 2 * n * 4
+            + sub * CHANNELS * lanes * 8 + 2 * sub * 2 * n * 4
+            + (BWD_SEG - 1) * CHANNELS * n * 4)
 
 
 def mamba_scan_plain(dt, x, A, B, C, *, chunk: int,
@@ -167,15 +226,16 @@ def mamba_scan_launch(dt, x, A, B, C, y, h_last, *, chunk: int,
 def mamba_scan_bwd_launch(dt, x, A, B, C, dy, dh_last, h_chunks, ddt, dx,
                           dA, dB, dC, *, chunk: int) -> None:
     """Launch the backward kernels on PyTorch's current stream, with their
-    f32 scratch (dA a batch row, dB and dC a block of 32 channels).  The
+    f32 scratch (dA a batch row, dB and dC a cluster of blocks).  The
     caller has checked the arguments (``ops.mamba_scan_bwd``)."""
     fn = build.function("mamba_scan", "mamba_scan_bwd", _BWD_ARGTYPES)
     Bt, L, D = x.shape
     N = A.shape[1]
-    geo = geometry({"Bt": Bt, "L": L, "D": D, "N": N})
+    geo = mamba_scan_bwd_geometry({"Bt": Bt, "L": L, "D": D, "N": N},
+                                  x.dtype)
     f32 = {"dtype": torch.float32, "device": x.device}
     dA_part = torch.empty((Bt, D, N), **f32)
-    dB_part = torch.empty((Bt, geo["grid"][0], L, N), **f32)
+    dB_part = torch.empty((Bt, geo["clusters"], L, N), **f32)
     dC_part = torch.empty_like(dB_part)
     err = fn(dt.data_ptr(), x.data_ptr(), A.data_ptr(), B.data_ptr(),
              C.data_ptr(), dy.data_ptr(),
@@ -184,5 +244,18 @@ def mamba_scan_bwd_launch(dt, x, A, B, C, dy, dh_last, h_chunks, ddt, dx,
              dA.data_ptr(), dB.data_ptr(), dC.data_ptr(), dA_part.data_ptr(),
              dB_part.data_ptr(), dC_part.data_ptr(), Bt, L, D, N, chunk,
              build.DTYPE_CODES[x.dtype], geo["lanes"], geo["channels"],
-             build.stream_ptr(x.device))
+             geo["blocks"], geo["smem"], build.stream_ptr(x.device))
     build.check("mamba_scan", err, "mamba_scan_bwd")
+
+
+def mamba_scan_bwd_occupancy(n: int, dtype: torch.dtype) -> dict:
+    """On the card: backward blocks for state size ``n`` that fit one SM
+    at once, and clusters of ``BWD_CLUSTER`` that fit the card at once
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``,
+    ``cudaOccupancyMaxActiveClusters``)."""
+    fn = build.function("mamba_scan", "mamba_scan_bwd_occupancy",
+                        _OCC_ARGTYPES)
+    out = (ctypes.c_int * 2)()
+    build.check("mamba_scan", fn(n, build.DTYPE_CODES[dtype], out),
+                "mamba_scan_bwd_occupancy")
+    return {"blocks_per_sm": out[0], "clusters": out[1]}

@@ -61,8 +61,9 @@ def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor, *,
                          f"{tuple(scale.shape)}")
     if _check_device("rmsnorm_bwd", (x, scale, dy)):
         return rmsnorm_bwd_plain(x, scale, dy, eps=eps)
-    geo = rmsnorm_bwd_geometry(rows, d)
     dx = torch.empty_like(x)
+    geo = rmsnorm_bwd_geometry(rows, d, x.dtype, aligned=all(
+        t.data_ptr() % 16 == 0 for t in (x, dy, dx)))
     dscale = torch.empty_like(scale)
     partial = torch.empty((geo["blocks"], d), dtype=torch.float32,
                           device=x.device)

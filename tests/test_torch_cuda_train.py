@@ -87,6 +87,36 @@ def test_rmsnorm_bwd_kernel_matches_plain(cuda, dtype, rows, d, scale_dtype):
     assert torch.equal(dx, dx2) and torch.equal(ds, ds2)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,d,offset", [
+    (37, 10, 0), (37, 48, 0), (131, 128, 0), (67, 1024, 0), (19, 4096, 0),
+    (5, 5000, 0), (37, 128, 1), (9, 1024, 3)])
+def test_rmsnorm_bwd_row_and_generic_paths(cuda, dtype, rows, d, offset):
+    """Every width class of the backward: the row path at 48 (a row under
+    a group's vectors), 128 (several rows a warp), 1024 (a warp a row) and
+    4096 (a row over several warps), rows no multiple of a block's row
+    groups; the generic path at 10 and 5000 and for x, dy ``offset``
+    elements off a 16-byte boundary.  Against the plain version, two calls
+    the same bits."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+
+    def off(t):
+        flat = torch.empty(t.numel() + offset, dtype=dtype, device=cuda)
+        flat[offset:] = t.flatten()
+        return flat[offset:].view(t.shape)
+
+    x, dy = (off(_randn(gen, (rows, d), dtype, cuda)) for _ in range(2))
+    s = _randn(gen, (d,), torch.float32, cuda)
+    before = rmsnorm_bwd.launches
+    got = rmsnorm_bwd(x, s, dy)
+    assert rmsnorm_bwd.launches == before + 1
+    want = rmsnorm_bwd_plain(x, s, dy, eps=1e-6)
+    close(got[0], want[0], dtype, "dx")
+    close(got[1], want[1], torch.float32, "dscale")
+    again = rmsnorm_bwd(x, s, dy)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
 def _flash_bwd_case(cuda, dtype, causal, B, H, S, hd, block):
     """The backward kernel against its plain version on the forward
     kernel's o and lse (the forward run on inputs padded at the end to its
@@ -146,12 +176,11 @@ def test_flash_bwd_bf16_ragged_and_training_shapes(cuda, B, H, S, hd,
     _flash_bwd_case(cuda, torch.bfloat16, causal, B, H, S, hd, block)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("Bt,L,D,N,chunk,with_dh", [
-    (2, 24, 40, 4, 8, True), (1, 64, 64, 16, 64, False),
-    (1, 18, 33, 1, 6, True), (2, 32, 32, 32, 16, True)])
-def test_scan_bwd_kernel_matches_plain(cuda, dtype, Bt, L, D, N, chunk,
-                                       with_dh):
+def _scan_bwd_case(cuda, dtype, Bt, L, D, N, chunk, with_dh):
+    """The backward kernel against its plain version on the forward
+    kernel's tile-start states (themselves held to the plain forward's,
+    with y and h_last the same bits with and without them), and a second
+    call the same bits."""
     gen = torch.Generator(device=cuda).manual_seed(2)
     dt = torch.nn.functional.softplus(
         torch.randn((Bt, L, D), generator=gen, device=cuda)).to(dtype)
@@ -177,6 +206,32 @@ def test_scan_bwd_kernel_matches_plain(cuda, dtype, Bt, L, D, N, chunk,
         close(g, w, torch.float32 if name == "A" else dtype, f"d{name}")
     again = mamba_scan_bwd(dt, x, A, B, C, dy, hc, dh, chunk=chunk)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Bt,L,D,N,chunk,with_dh", [
+    (2, 24, 40, 4, 8, True), (1, 64, 64, 16, 64, False),
+    (1, 18, 33, 1, 6, True), (2, 32, 32, 32, 16, True)])
+def test_scan_bwd_kernel_matches_plain(cuda, dtype, Bt, L, D, N, chunk,
+                                       with_dh):
+    _scan_bwd_case(cuda, dtype, Bt, L, D, N, chunk, with_dh)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Bt,L,D,N,chunk,with_dh", [
+    (1, 36, 33, 16, 12, True), (2, 40, 40, 1, 20, False),
+    (1, 48, 40, 32, 24, True), (1, 30, 35, 8, 10, True),
+    (1, 64, 33, 2, 64, False), (1, 144, 40, 16, 72, True),
+    (2, 256, 300, 16, 128, False)])
+def test_scan_bwd_ragged_sub_tiles_and_segments(cuda, dtype, Bt, L, D, N,
+                                                chunk, with_dh):
+    """The backward's tiling at its edges: tiles no multiple of the
+    sub-tile (32 / states steps: 8 at N 16, 32 at N 1 and 2, 4 at N 32, 16
+    at N 8), D 33, 35 and 40 (channels past D in a block, and rows that
+    rule out 16-byte copies in bf16), a tile of 9 sub-tiles (a second
+    segment of one), two full segments over several blocks and two
+    clusters (D 300)."""
+    _scan_bwd_case(cuda, dtype, Bt, L, D, N, chunk, with_dh)
 
 
 def test_autograd_reaches_the_backward_kernels(cuda):

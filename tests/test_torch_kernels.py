@@ -367,6 +367,110 @@ def test_flash_bwd_shared_memory_and_tiles():
     assert fa.bwd_scratch_floats(6, 100, torch.float32) == 6 * 100
 
 
+def _cu_const(source: str, name: str) -> int:
+    import re
+    from repro_torch.kernels import build
+    src = (build.CSRC / f"{source}.cu").read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+
+@pytest.mark.parametrize("n", [1, 2, 4, 8, 16, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scan_bwd_geometry_and_shared_memory(n, dtype):
+    """The scan backward's geometry and footprint as ``csrc/mamba_scan.cu``
+    checks them (``BwdSmem``, ``bwd_blocks``, from the same constants):
+    sub-tiles of 32 / states steps, so a thread's states and decays of a
+    sub-tile are 2 x 32 registers; a ring of as many stages (six row
+    regions and four of B or C, each rounded to 16 bytes) as fit
+    BWD_RING_BYTES, 3 to BWD_RING_MAX of them; the f32 dB/dC contributions
+    and (g, ga A) pairs of a sub-tile, two sub-tiles of the block's sums,
+    BWD_SEG - 1 start states; 2 blocks an SM at the main path's N 16;
+    blocks along D in whole clusters."""
+    import importlib
+    from repro_torch.kernels import costs
+    ms = importlib.import_module("repro_torch.kernels.mamba_scan.mamba_scan")
+    assert ms.CHANNELS == _cu_const("mamba_scan", "kChannels")
+    assert ms.BWD_CLUSTER == _cu_const("mamba_scan", "kBwdCluster")
+    assert ms.BWD_RING_BYTES == _cu_const("mamba_scan", "kBwdRingBytes")
+    assert ms.BWD_RING_MAX == _cu_const("mamba_scan", "kBwdRingMax")
+    assert ms.BWD_SEG == _cu_const("mamba_scan", "kBwdSeg")
+    lanes = min(n, 4)
+    states = n // lanes
+    sub = 32 // states
+    es = dtype.itemsize
+
+    def r16(b):
+        return -(-b // 16) * 16
+
+    slot = 6 * r16(sub * 32 * es) + 4 * r16(sub * n * es)
+    ring = min(max(ms.BWD_RING_BYTES // slot, 3), ms.BWD_RING_MAX)
+    want = (ring * slot + sub * 32 * lanes * 2 * states * 4
+            + sub * 32 * lanes * 8 + 2 * sub * 2 * n * 4
+            + (ms.BWD_SEG - 1) * 32 * lanes * states * 4)
+    assert ms.mamba_scan_bwd_ring(n, dtype) == ring >= 3
+    assert ms.mamba_scan_bwd_smem(n, dtype) == want
+    assert want <= costs.H100.smem_per_block
+    if n == 16:
+        assert ring == (5 if es == 4 else ms.BWD_RING_MAX)
+        assert 2 * (want + 1024) <= 228 * 1024
+    for D in (1, 32, 33, 255, 256, 257, 8192):
+        geo = ms.mamba_scan_bwd_geometry({"Bt": 2, "L": 64, "D": D, "N": n},
+                                         dtype)
+        assert geo["sub"] == sub and geo["threads"] == 32 * lanes
+        assert geo["blocks"] % ms.BWD_CLUSTER == 0
+        assert 0 <= geo["blocks"] * 32 - D < 32 * ms.BWD_CLUSTER
+        assert geo["clusters"] == geo["blocks"] // ms.BWD_CLUSTER
+        assert geo["smem"] == want and geo["ring"] == ring
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [1, 10, 48, 64, 128, 1000, 1024, 2048, 4096,
+                               4100, 5000])
+def test_rmsnorm_bwd_geometry_matches_the_kernel(dtype, d):
+    """The rmsnorm backward's path, lanes and footprint as
+    ``csrc/rmsnorm.cu`` checks them (``row_path``, ``bwd_row_lanes``,
+    ``bwd_row_smem``, from the same constants): rows up to BWD_ROW_MAX, a
+    multiple of the 16-byte vector and aligned take the row path, whose
+    lanes hold every vector of a row at 2 or 4 vectors a lane, so a
+    thread's row, scale and dscale stay in registers; groups over a warp
+    need a named barrier each (ids 1-15); the rest take the generic path
+    within the shared-memory cap."""
+    import importlib
+    from repro_torch.kernels import costs
+    rm = importlib.import_module("repro_torch.kernels.rmsnorm.rmsnorm")
+    assert rm.BWD_THREADS == _cu_const("rmsnorm", "kBwdThreads")
+    assert rm.BWD_ROW_MAX == _cu_const("rmsnorm", "kBwdRowMax")
+    assert rm.BWD_MIN_VECS == _cu_const("rmsnorm", "kBwdMinVecs")
+    assert rm.BWD_LANE_VECS == _cu_const("rmsnorm", "kBwdLaneVecs")
+    assert rm.BWD_WARPS == _cu_const("rmsnorm", "kBwdMaxWarps")
+    vec = 16 // dtype.itemsize
+    for aligned in (True, False):
+        geo = rm.rmsnorm_bwd_geometry(1000, d, dtype, aligned=aligned)
+        assert 1 <= geo["blocks"] <= rm.BWD_BLOCKS
+        assert geo["smem"] <= costs.H100.smem_per_block
+        if not (aligned and d % vec == 0 and d <= 4096):
+            assert geo["path"] == "generic"
+            assert geo["threads"] == 32 * geo["warps"] <= 256
+            assert geo["smem"] == (geo["warps"] + 1) * d * 4
+            continue
+        nv = d // vec
+        nvmax = 8
+        while nvmax < nv:
+            nvmax *= 2
+        per_lane = 4 if nvmax >= 128 else 2
+        lanes = geo["lanes"]
+        assert geo["path"] == "row" and geo["threads"] == 256
+        assert lanes == nvmax // per_lane == rm.rmsnorm_bwd_row_lanes(d,
+                                                                      dtype)
+        assert lanes * per_lane * vec >= d and 256 % lanes == 0
+        groups = 256 // lanes
+        assert geo["groups"] == groups
+        assert lanes <= 32 or groups <= 15
+        assert geo["smem"] == groups * d * 4 + (
+            2 * groups * (lanes // 32) * 8 if lanes > 32 else 0)
+        assert geo["blocks"] == min(rm.BWD_BLOCKS, -(-1000 // groups))
+
+
 def test_flash_bwd_refuses_what_the_kernels_do_not_take():
     """On the card the backward takes a head dim it is built for, o and
     do in q's dtype, an f32 lse, contiguous tensors and, in bf16, 16-byte
