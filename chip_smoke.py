@@ -190,9 +190,29 @@ Phases, each printing one JSON line:
                     3, a checkpoint, a restore and 3 more: parameters and
                     losses bit for bit.  The serve, router and live-loop
                     phases launch no backward kernel.
+14. ``mesh``      — the mesh (``launch/mesh.py``, ``launch/shardings.py``,
+                    the sharded and compressed train steps): ``python -m
+                    repro_torch.launch.train --mesh smoke`` on
+                    granite-moe-3b-a800m at full width (4 of 32 layers,
+                    bf16, 4 x 1024, 4 steps) through the expert-parallel
+                    MoE (its own NCCL group of one rank), s/step,
+                    tokens/s, peak memory and launches a step; then a
+                    NCCL group of one rank (``make_smoke_mesh(2, 2)``
+                    refusing, naming the devices it needs) and its
+                    ``(1, 1)`` mesh: one AdamW step sharded against one
+                    unsharded, bit for bit (loss, gradient norm, every
+                    parameter), for qwen3-0.6b at full width and depth
+                    and falcon-mamba-7b at 4 of 64 layers, and a second
+                    step of each timed; granite's prefill through the EP
+                    path against ``moe_dense`` (f32, 4 layers, a capacity
+                    factor that drops nothing); the compressed step on one
+                    rank (the residual x - deq exactly, the parameters
+                    within 0.05 of the exact step's).  Every path's
+                    launches are counted from zero.
 
 Then a ``{"kernels": [...]}`` line (the three kernels and their three
-backward kernels), the card's name and power limit, and
+backward kernels; ``launches_mesh`` counts the mesh phase's runs), the
+card's name and power limit, and
 the last line ``{"ok": true, "device": {...}}``.  Any failure raises and
 the script exits nonzero.  Without a CUDA device, or outside a checkout of
 the repository, it exits nonzero before printing a result.
@@ -3177,6 +3197,316 @@ def phase_train(torch, counters) -> dict:
     return out
 
 
+# The mesh (launch/mesh.py, launch/shardings.py, the sharded train step):
+# a NCCL group of one rank and its (1, 1) mesh.  (a) the sharded step
+# against the one-device step, AdamW from the same seed and batch, bit
+# for bit: qwen3-0.6b at full width and depth, falcon-mamba-7b at full
+# width cut to 4 of 64 layers as in the train phase; the two steps run one
+# after the other.  (b) granite-moe-3b-a800m at full width, 4 of 32
+# layers: the prefill through Dist's expert-parallel path (capacity factor
+# 48 / 8 = 6, which drops nothing) against moe_dense in f32, TF32 off,
+# within the serve phase's card-against-CPU limit; then launch.train
+# --mesh smoke, bf16, through the EP path (capacity factor 1.25, the
+# reference's).  (c) the compressed step on one rank (qwen3-0.6b, 2
+# layers): the residual x - deq exactly, the parameters within 0.05 of
+# each leaf's largest value of the exact step's (the reference's bound).
+MESH_BITWISE = {"qwen3-0.6b": {"n_layers": 28, "batch": 4, "seq": 1024},
+                "falcon-mamba-7b": {"n_layers": 4, "batch": 2, "seq": 1024}}
+MESH_GRANITE_PREFILL = {"n_layers": 4, "batch": 2, "seq": 512}
+MESH_GRANITE_TRAIN = ["--arch", "granite-moe-3b-a800m", "--scale",
+                      "n_layers=4", "--batch", "4", "--seq", "1024",
+                      "--steps", "4", "--log-every", "1", "--mesh", "smoke"]
+MESH_COMPRESSED = {"arch": "qwen3-0.6b", "n_layers": 2, "batch": 4,
+                   "seq": 512, "lr": 0.05, "rel": 0.05}
+
+
+def timed_step(torch, step, state, b) -> float:
+    """The host time of one more ``step`` on ``state``, synchronized."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(state, b)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def mesh_sharded_against_unsharded(torch, arch: str, mesh, counters) -> dict:
+    """(a) for one arch: loss, gradient norm and every parameter after one
+    AdamW step, sharded on ``mesh`` against unsharded, bit for bit; the
+    sharded step's launches counted from zero; the time of a second step
+    of each."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch.shardings import (distribute, gather,
+                                              param_specs, to_shardings)
+    from repro_torch.launch.train import device_batch
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import TrainState, make_train_step
+    run = MESH_BITWISE[arch]
+    cfg = get_config(arch).scaled(n_layers=run["n_layers"])
+    pipe = TokenPipeline(vocab=cfg.vocab, seq_len=run["seq"],
+                         global_batch=run["batch"])
+    b = device_batch(cfg, pipe, 0, "cuda")
+
+    def fresh():
+        return T.init_params(cfg, generator=torch.Generator(
+            device="cuda").manual_seed(0), device="cuda")
+
+    opt = adamw(lr=3e-4)
+    params = fresh()
+    state = TrainState(params, opt.init(dict(params.named_parameters())))
+    step = make_train_step(cfg, opt)
+    state, m = step(state, b)
+    want = {n: p.detach().to("cpu", copy=True) for n, p in
+            state["params"].named_parameters()}
+    want_m = {k: v.detach().to("cpu", copy=True) for k, v in m.items()}
+    unsharded_s = timed_step(torch, step, state, b)
+    del state, params, m
+    torch.cuda.empty_cache()
+
+    dist = T.Dist(mesh=mesh)
+    params = fresh()
+    params = distribute(params, to_shardings(mesh, param_specs(params, mesh)))
+    opt_state = opt.init(dict(params.named_parameters()))
+    opt_state = distribute(opt_state, to_shardings(
+        mesh, param_specs(opt_state, mesh)))
+    state = TrainState(params, opt_state)
+    step = make_train_step(cfg, opt, dist)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    state, m = step(state, b)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    got = {n: p.cpu() for n, p in gather(state["params"]).items()}
+    unequal = [n for n in want if not torch.equal(got[n], want[n])]
+    for k in ("loss", "grad_norm"):
+        if not torch.equal(m[k].cpu(), want_m[k]):
+            unequal.append(k)
+    if unequal:
+        raise AssertionError(f"{arch}: the (1, 1) sharded step differs from "
+                             f"the unsharded one in {unequal[:6]}")
+    expect = expected_train_launches(cfg)
+    for k, n in expect.items():
+        for name in (k, BWD_NAMES[k]):
+            if launches[name] != n:
+                raise AssertionError(f"{arch}: {launches[name]} launches of "
+                                     f"{name} in the sharded step, the "
+                                     f"layers imply {n}")
+    out = {"config": {"n_layers": cfg.n_layers, "d_model": cfg.d_model,
+                      "vocab": cfg.vocab, "dtype": cfg.dtype},
+           "cut": f"{cfg.n_layers} of {get_config(arch).n_layers} layers",
+           "tokens": [run["batch"], run["seq"]],
+           "parameters_compared": len(want), "bit_identical": True,
+           "loss": float(want_m["loss"]),
+           "grad_norm": float(want_m["grad_norm"]),
+           "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+           "second_step_s": {"unsharded": unsharded_s,
+                             "sharded": timed_step(torch, step, state, b)},
+           "placements": sorted({str(p.placements) for p in
+                                 state["params"].parameters()}),
+           "launches": launches}
+    del state, params, opt_state, got, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_granite_prefill(torch, mesh, counters) -> dict:
+    """(b), first half: granite's prefill through the EP path against
+    moe_dense, f32, TF32 off, every rmsnorm and flash launched."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core.interp import full_f32
+    from repro_torch.models import transformer as T
+    from repro_torch.models.moe import expert_pad
+    run = MESH_GRANITE_PREFILL
+    cfg = get_config("granite-moe-3b-a800m").scaled(
+        n_layers=run["n_layers"], dtype="float32")
+    params = T.init_params(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(0), device="cuda")
+    rng = np.random.default_rng(0)
+    b = {"tokens": torch.as_tensor(rng.integers(
+        0, cfg.vocab, (run["batch"], run["seq"])).astype(np.int32),
+        device="cuda")}
+    cf = expert_pad(cfg, cfg.expert_shards) / cfg.top_k
+    with full_f32():
+        want, _ = T.prefill(params, b, cfg)
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        got, _ = T.prefill(params, b, cfg, T.Dist(mesh=mesh,
+                                                  capacity_factor=cf))
+        torch.cuda.synchronize()
+        ep_s = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    for k, n in expected_train_launches(cfg).items():
+        if launches[k] != n or launches[BWD_NAMES[k]]:
+            raise AssertionError(f"granite prefill: {launches[k]} launches of "
+                                 f"{k} (the layers imply {n}), "
+                                 f"{launches[BWD_NAMES[k]]} backward")
+    err = within(torch, got, want, CARD_CPU_RTOL, CARD_CPU_ATOL)
+    del params
+    torch.cuda.empty_cache()
+    return {"config": {"n_layers": cfg.n_layers, "d_model": cfg.d_model,
+                       "experts_padded": expert_pad(cfg, cfg.expert_shards),
+                       "top_k": cfg.top_k, "head_dim": cfg.hd,
+                       "dtype": "float32"},
+            "cut": f"{cfg.n_layers} of 32 layers",
+            "tokens": [run["batch"], run["seq"]], "capacity_factor": cf,
+            "logits_max_abs_err_vs_dense": err, "ep_prefill_s": ep_s,
+            "tolerance": {"rtol": CARD_CPU_RTOL, "atol_of_max": CARD_CPU_ATOL},
+            "launches": launches}
+
+
+def mesh_granite_train(torch, counters) -> dict:
+    """(b), second half: ``launch.train --mesh smoke`` on the card (its own
+    NCCL group of one rank): s/step, tokens/s, peak memory and launches a
+    step of the EP train step."""
+    import numpy as np
+    from repro_torch.launch import train as L
+    stamps = []
+
+    def on_step(step, metrics):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    res, printed = captured(lambda a: L.main(a, on_step=on_step),
+                            MESH_GRANITE_TRAIN)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    cfg, steps, losses = res["cfg"], len(res["losses"]), res["losses"]
+    if cfg.moe_mode != "ep_a2a" or not res["dist"].active:
+        raise AssertionError("granite's mesh run did not take the EP path")
+    if "mesh={'data': 1, 'model': 1}" not in printed \
+            or not all(np.isfinite(losses)):
+        raise AssertionError(f"granite mesh run: {printed[-400:]}")
+    for k, n in expected_train_launches(cfg).items():
+        for name in (k, BWD_NAMES[k]):
+            if launches[name] != n * steps:
+                raise AssertionError(f"granite mesh run: {launches[name]} "
+                                     f"launches of {name} in {steps} steps, "
+                                     f"the layers imply {n} a step")
+    step_s = np.diff([t0] + stamps)
+    steady = float(np.median(step_s[1:]))
+    B, S = res["batch"](0)["labels"].shape
+    del res
+    torch.cuda.empty_cache()
+    return {"argv": MESH_GRANITE_TRAIN, "steps": steps, "losses": losses,
+            "first_step_s": float(step_s[0]), "s_per_step": steady,
+            "tokens_per_s": B * S / steady, "peak_allocated_bytes": peak,
+            "launches": launches,
+            "launches_per_step": {k: v / steps for k, v in launches.items()},
+            "printed": printed.splitlines()[-3:]}
+
+
+def mesh_compressed(torch, mesh, counters) -> dict:
+    """(c): the compressed step on one rank against the exact step."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch.train import device_batch
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import (dequantize_int8, quantize_int8,
+                                   sgd_momentum)
+    from repro_torch.train.train_step import (TrainState, loss_and_grads,
+                                              make_train_step)
+    run = MESH_COMPRESSED
+    cfg = get_config(run["arch"]).scaled(n_layers=run["n_layers"])
+    pipe = TokenPipeline(vocab=cfg.vocab, seq_len=run["seq"],
+                         global_batch=run["batch"])
+    b = device_batch(cfg, pipe, 0, "cuda")
+    opt = sgd_momentum(lr=run["lr"])
+    base = T.init_params(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(0), device="cuda")
+    _, local = loss_and_grads(cfg, base, b)
+    exact = copy.deepcopy(base)
+    se = TrainState(exact, opt.init(dict(exact.named_parameters())))
+    se, me = make_train_step(cfg, opt)(se, b)
+    sc = TrainState(base, opt.init(dict(base.named_parameters())))
+    for fn in counters.values():
+        fn.launches = 0
+    sc, mc = make_train_step(cfg, opt, T.Dist(mesh=mesh),
+                             compress_grads=True)(sc, b)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    for n, g in local.items():
+        q, scale = quantize_int8(g.to(torch.float32))
+        if not torch.equal(sc["residuals"][n],
+                           g.to(torch.float32) - dequantize_int8(q, scale)):
+            raise AssertionError(f"compressed step: residual of {n} is not "
+                                 f"x - deq")
+    worst = 0.0
+    ex = dict(se["params"].named_parameters())
+    for n, p in sc["params"].named_parameters():
+        w = ex[n].detach().float()
+        rel = float((p.detach().float() - w).abs().max()
+                    / (w.abs().max() + 1e-9))
+        worst = max(worst, rel)
+    if not worst < run["rel"]:
+        raise AssertionError(f"compressed step: parameters {worst} of their "
+                             f"largest value from the exact step's")
+    if not launches["rmsnorm"] or not launches["flash_attention_bwd"]:
+        raise AssertionError(f"compressed step launched {launches}")
+    out = {"config": {"n_layers": cfg.n_layers, "dtype": cfg.dtype},
+           "tokens": [run["batch"], run["seq"]],
+           "loss_exact": float(me["loss"]), "loss_compressed":
+           float(mc["loss"]), "param_max_rel_err": worst,
+           "bound": run["rel"], "residual_exact": True,
+           "launches": launches}
+    del se, sc, exact, base, local
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_mesh(torch, counters) -> dict:
+    """The mesh on the card (see the comment above ``MESH_BITWISE``); the
+    group is NCCL, never gloo, and no failure of a collective is caught."""
+    import tempfile
+
+    import torch.distributed as torch_dist
+    from repro_torch.launch.mesh import init_process_group, make_smoke_mesh
+    out = {"phase": "mesh", "gpu": nvidia_smi(),
+           "cuda_devices": torch.cuda.device_count()}
+    # launch.train --mesh smoke starts (and ends) its own group
+    out["granite_train"] = mesh_granite_train(torch, counters)
+    with tempfile.TemporaryDirectory() as d:
+        init_process_group("cuda", 0, 1, str(Path(d) / "init"))
+        try:
+            if torch_dist.get_backend() != "nccl":
+                raise AssertionError(f"backend {torch_dist.get_backend()}")
+            try:
+                make_smoke_mesh(2, 2, device_type="cuda")
+            except ValueError as e:
+                out["refused_2x2"] = str(e)
+            else:
+                if torch.cuda.device_count() < 4:
+                    raise AssertionError("a 2x2 NCCL mesh on one card")
+            mesh = make_smoke_mesh(1, 1, device_type="cuda")
+            out["mesh"] = {"shape": list(mesh.shape),
+                           "names": list(mesh.mesh_dim_names)}
+            out["bitwise"] = {a: mesh_sharded_against_unsharded(
+                torch, a, mesh, counters) for a in MESH_BITWISE}
+            out["granite_prefill"] = mesh_granite_prefill(torch, mesh,
+                                                          counters)
+            out["compressed"] = mesh_compressed(torch, mesh, counters)
+        finally:
+            torch_dist.destroy_process_group()
+    runs = [out["granite_train"], *out["bitwise"].values(),
+            out["granite_prefill"], out["compressed"]]
+    out["launches"] = {k: sum(r["launches"][k] for r in runs)
+                       for k in counters}
+    emit(out)
+    return out
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels").is_dir():
         print("chip_smoke.py: run it from a checkout of the repository "
@@ -3216,6 +3546,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     liveloop = phase_liveloop(torch, counters)
     train = phase_train(torch, counters)
+    mesh = phase_mesh(torch, counters)
 
     # launches: in the kernel's own measured search (a backward kernel has
     # none: its main path is training, so its row gives that count);
@@ -3225,7 +3556,8 @@ def main() -> int:
     # launches_serve: in the server's runs of qwen3-0.6b and
     # falcon-mamba-7b; launches_router: in build_router's runs of both;
     # launches_liveloop: in the real live loop's three ticks;
-    # launches_train: in the training runs of both models.  Every count
+    # launches_train: in the training runs of both models;
+    # launches_mesh: in the mesh phase's runs under Dist.  Every count
     # was read from the wrapper's counter after that path alone.
     forward_of = {b: k for k, b in BWD_NAMES.items()}
     timed = {**{k: full[k] for k in wl.KERNELS}, **train["kernels"]}
@@ -3243,6 +3575,7 @@ def main() -> int:
          "launches_router": router["launches"][n],
          "launches_liveloop": liveloop["launches"][n],
          "launches_train": train["launches"][n],
+         "launches_mesh": mesh["launches"][n],
          "max_abs_err": timed[n]["max_abs_err"], "ms": timed[n]["kernel_ms"],
          "plain_ms": timed[n]["plain_ms"], "bound_ms": timed[n]["bound_ms"],
          "bound_by": timed[n]["bound_by"],

@@ -23,9 +23,8 @@ served traffic:
 * :class:`Router` (:mod:`~repro_torch.core.deploy.router`) — fan traffic
   over N engine replicas sharing one set of weights on the device, with
   heartbeat-monitored failover and aggregate fitness feedback.  The
-  reference's placement of replicas on a launch mesh (``replica_meshes``)
-  waits for the port's ``launch/mesh`` and ``shardings`` (ROADMAP.md,
-  queue 1).
+  reference's placement of replicas on submeshes of a launch mesh
+  (``replica_meshes``) is not ported: see the router's docstring.
 
 ``python -m repro_torch.core.deploy`` selects from recorded fronts and
 manages the registry; ``python -m repro_torch.core.deploy.router`` serves

@@ -372,6 +372,42 @@ def build_joint_kernel_workload(*, time_mode: str = "static", seed: int = 0,
     )
 
 
+def kernel_artifact(kernel: str, genome: dict,
+                    fitness: tuple[float, float] | None = None,
+                    meta: dict | None = None):
+    """A deployable :class:`~repro_torch.core.deploy.Artifact` for one
+    evolved kernel schedule, keyed by the kernel's evaluation shape — the
+    form the registry stores and ``resolve_kernel_schedule`` looks up."""
+    from ..core.deploy import Artifact
+    return Artifact(kind="kernel", name=kernel, shape=SHAPES[kernel],
+                    genome=dict(genome), fitness=fitness,
+                    meta=dict(meta or {}))
+
+
+def resolve_kernel_schedule(registry, kernel: str, shape=None) -> dict:
+    """The schedule a path should run ``kernel`` with: the registry's
+    winner for ``(kernel, shape)`` when one is registered and it decodes
+    into the kernel's schedule space, else the shipped ``BASELINES``
+    default.  ``registry=None`` gives the default, so call sites can be
+    unconditional."""
+    if registry is not None:
+        art = registry.resolve(kernel, shape or SHAPES[kernel],
+                               kind="kernel")
+        if art is not None and kernel_space(kernel).contains(art.genome):
+            return dict(art.genome)
+    return dict(BASELINES[kernel])
+
+
+def scheduled_kernel_fn(kernel: str, registry=None, shape=None):
+    """The kernel as ``fn(inputs_dict) -> output`` under the resolved
+    schedule (the registry's winner, else the shipped default): the hand-
+    written kernel on CUDA tensors, its plain version on CPU tensors, as
+    every wrapper call runs.  This is how a schedule search's winner
+    reaches an execution path."""
+    return _variant_fn(kernel, resolve_kernel_schedule(registry, kernel,
+                                                       shape))
+
+
 def evolve_kernel_schedule(workload, *, generations: int = 6,
                            pop_size: int = 10, seed: int = 0,
                            evaluator=None, verbose: bool = False,

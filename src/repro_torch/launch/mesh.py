@@ -1,0 +1,168 @@
+"""Meshes (the counterpart of ``src/repro/launch/mesh.py``).
+
+The reference builds a ``jax`` mesh over the devices one controller
+drives.  Here one process drives each device, so a mesh is a
+``torch.distributed`` ``DeviceMesh`` over the ranks of a process group,
+with the reference's axis names as ``mesh_dim_names``.  Meshes are built
+by FUNCTIONS, never at import, so importing this module touches no
+process group.
+
+* :func:`init_process_group` starts the group: gloo for CPU tensors,
+  NCCL for CUDA tensors (never gloo on the card), through a ``file://``
+  rendezvous, so no TCP port is chosen and two groups on one host cannot
+  clash.
+* :func:`make_smoke_mesh` is the reference's 2 x 2 on the CPU (four gloo
+  ranks) and the card's ``(1, 1)``; NCCL takes one GPU a rank, so a mesh
+  of more ranks than GPUs raises.
+* :func:`launch_ranks` starts one process a rank and waits for them all
+  under a deadline, killing every one when one fails or the deadline
+  passes.
+"""
+
+from __future__ import annotations
+
+import math
+import os
+import subprocess
+import sys
+import tempfile
+import time
+from dataclasses import dataclass
+
+import torch
+import torch.distributed as dist
+
+AXES = ("data", "model")
+
+
+def production_mesh_shape(*, multi_pod: bool = False
+                          ) -> tuple[tuple[int, ...], tuple[str, ...]]:
+    """The reference's production mesh: 16x16 = 256 chips a pod, 2 pods =
+    512 chips multi-pod, as (shape, axis names)."""
+    if multi_pod:
+        return (2, 16, 16), ("pod", "data", "model")
+    return (16, 16), AXES
+
+
+def make_production_mesh(*, multi_pod: bool = False, device_type=None):
+    """The production mesh over a started process group of 256 (or 512)
+    ranks."""
+    shape, axes = production_mesh_shape(multi_pod=multi_pod)
+    return _mesh(shape, axes, device_type)
+
+
+def make_smoke_mesh(n_data: int = 2, n_model: int = 2, device_type=None):
+    """A small ``("data", "model")`` mesh over a started process group of
+    ``n_data * n_model`` ranks (CPU tests: four gloo ranks; the card:
+    ``(1, 1)``)."""
+    return _mesh((n_data, n_model), AXES, device_type)
+
+
+def _mesh(shape, axes, device_type=None):
+    from torch.distributed.device_mesh import init_device_mesh
+    need = math.prod(shape)
+    device_type = device_type or _backend_device()
+    if device_type == "cuda" and torch.cuda.device_count() < need:
+        raise ValueError(f"a {'x'.join(map(str, shape))} mesh over NCCL "
+                         f"needs {need} CUDA devices, one a rank; this host "
+                         f"has {torch.cuda.device_count()}")
+    if not dist.is_initialized() or dist.get_world_size() != need:
+        have = dist.get_world_size() if dist.is_initialized() else 0
+        raise ValueError(f"a {'x'.join(map(str, shape))} mesh needs a "
+                         f"process group of {need} ranks, started by "
+                         f"init_process_group; it has {have}")
+    return init_device_mesh(device_type, tuple(shape), mesh_dim_names=axes)
+
+
+def _backend_device() -> str:
+    return "cuda" if dist.get_backend() == "nccl" else "cpu"
+
+
+def mesh_axes(mesh) -> tuple[tuple[str, ...], str]:
+    """(batch/data axes, model axis) for a mesh from make_production_mesh."""
+    names = mesh.mesh_dim_names
+    model = "model" if "model" in names else names[-1]
+    batch = tuple(n for n in names if n != model)
+    return batch, model
+
+
+@dataclass(frozen=True)
+class MeshShape:
+    """A mesh's geometry without its processes (``mesh_dim_names`` and
+    ``shape``, as a ``DeviceMesh`` gives them): what the sharding rules
+    read, so they can be evaluated for any mesh on one host."""
+    shape: tuple[int, ...]
+    mesh_dim_names: tuple[str, ...] = AXES
+
+
+def init_process_group(device_type: str, rank: int, world_size: int,
+                       init_file: str) -> torch.device:
+    """Start this process's rank of a group: NCCL for ``"cuda"`` (rank r
+    on GPU r), gloo for ``"cpu"``, meeting through ``init_file`` (a path
+    no other group uses, which need not exist yet).  Returns the rank's
+    device."""
+    if device_type == "cuda":
+        device = torch.device("cuda", rank)
+        torch.cuda.set_device(device)
+        backend = "nccl"
+    elif device_type == "cpu":
+        device, backend = torch.device("cpu"), "gloo"
+    else:
+        raise ValueError(f"no process group for device type "
+                         f"{device_type!r}")
+    dist.init_process_group(backend, init_method=f"file://{init_file}",
+                            rank=rank, world_size=world_size)
+    return device
+
+
+def rank_env() -> tuple[int, int, str]:
+    """(rank, world size, rendezvous file) of a process that
+    :func:`launch_ranks` started."""
+    return (int(os.environ["MESH_RANK"]), int(os.environ["MESH_WORLD"]),
+            os.environ["MESH_INIT_FILE"])
+
+
+def launch_ranks(argv: list[str], world_size: int, init_file: str, *,
+                 timeout: float, threads: int = 1, env=None) -> list[str]:
+    """Run ``python argv...`` once a rank, each with ``MESH_RANK``,
+    ``MESH_WORLD`` and ``MESH_INIT_FILE`` set (:func:`rank_env`) and
+    ``threads`` intra-op threads, and wait for all of them.  Returns each
+    rank's standard output.  A rank that fails, or the ``timeout`` (in
+    seconds, for all of them) passing, kills every rank still running and
+    raises ``RuntimeError`` with the failed rank's error output."""
+    procs, logs = [], []
+    try:
+        for rank in range(world_size):
+            e = dict(os.environ if env is None else env)
+            e.update(MESH_RANK=str(rank), MESH_WORLD=str(world_size),
+                     MESH_INIT_FILE=init_file, OMP_NUM_THREADS=str(threads))
+            out, err = (tempfile.TemporaryFile("w+") for _ in range(2))
+            logs.append((out, err))
+            procs.append(subprocess.Popen([sys.executable, *argv], env=e,
+                                          stdout=out, stderr=err, text=True))
+        deadline = time.monotonic() + timeout
+        while any(p.poll() is None for p in procs):
+            if any(p.returncode not in (None, 0) for p in procs):
+                break
+            if time.monotonic() > deadline:
+                raise RuntimeError(f"ranks still running after {timeout} s")
+            time.sleep(0.05)
+        for rank, p in enumerate(procs):
+            if p.returncode not in (None, 0):
+                err = logs[rank][1]
+                err.seek(0)
+                raise RuntimeError(f"rank {rank} exited {p.returncode}:\n"
+                                   f"{err.read()[-4000:]}")
+        texts = []
+        for out, _ in logs:
+            out.seek(0)
+            texts.append(out.read())
+        return texts
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for out, err in logs:
+            out.close()
+            err.close()

@@ -10,8 +10,9 @@ under the ``serve`` writer tag.  It runs on the GPU unless ``--device``
 names another; without a GPU and without ``--device`` it exits with an
 error.  ``--replicas N`` serves through the deploy router (N engines
 sharing the weights on the device), ``--liveloop ROOT`` with the live
-loop's promoted schedule.  The reference's ``--mesh`` waits for the port's
-``launch/mesh`` and ``shardings`` (ROADMAP.md, queue 1).
+loop's promoted schedule.  The reference's ``--mesh`` (its replicas on
+submeshes) is not ported yet: see ``core/deploy/router.py`` (ROADMAP.md,
+queue 1, item 1).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \
       --smoke --device cpu --requests 8 --prompt-len 24 --gen 8

@@ -1,0 +1,327 @@
+"""Sharding policy: partition specs for params, optimizer state, batches
+and decode caches, for any (config x mesh), and their placements on a
+``DeviceMesh`` (the counterpart of ``src/repro/launch/shardings.py``, whose
+rules and fallbacks are kept verbatim).
+
+Strategy (the paper-faithful *baseline* — GEVO-Shard hillclimbs from here):
+
+* TP over ``model``: attention heads, FFN hidden, expert dim (EP), mamba
+  d_inner, vocab of the embedding tables.
+* DP/FSDP over ``data`` (+``pod``): batch dim of activations; the non-model
+  dim of every large weight is additionally sharded over the DP axes
+  (ZeRO-3 style).
+* Divisibility fallback: if a rule's axis does not divide the dim (e.g.
+  minicpm's 36 heads on a 16-way axis), the axis moves to the largest
+  remaining divisible dim; if none fits, it is dropped (replicated).
+
+Optimizer-state leaves inherit the spec of the param they track (adafactor's
+factored r/c drop the reduced dim's axis).
+
+The port's trees are dicts keyed by parameter name (a model's
+``named_parameters``: ``layers.3.attn.wq``, one tensor a layer) or by the
+reference's leaf (Adafactor's moments, stacked already).  A spec is
+computed on the reference's leaf: a layer's tensor takes the spec of the
+stacked (n_layers, ...) leaf it belongs to, less the leading layer entry
+(no config's leaf gets an axis there; were the relocation fallback to put
+one there, the layer's tensor would be replicated over it).  :func:`to_shardings` turns a spec into
+DTensor placements over the mesh (``Shard(i)`` on every mesh dim named at
+tensor dim ``i``, else ``Replicate()``), and :func:`distribute` /
+:func:`gather` move a tree between whole tensors and DTensors.
+
+In the train step (train/train_step.py) the placements shard storage, not
+arithmetic: each rank gathers the whole parameters for its batch block.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..models.common import P, ModelConfig
+
+# rules: leaf-name -> intent over TRAILING dims ("fsdp" -> DP axes tuple,
+# "model" -> model axis).  A leading stacked-layer dim is auto-None.
+_RULES: dict[str, tuple] = {
+    "embed": ("model", None),
+    "out": ("fsdp", "model"),
+    "wq": ("fsdp", "model", None),
+    "wk": ("fsdp", "model", None),
+    "wv": ("fsdp", "model", None),
+    "wo": ("model", None, "fsdp"),
+    "bq": ("model", None), "bk": ("model", None), "bv": ("model", None),
+    "wq_a": ("fsdp", None),
+    "wq_b": (None, "model", None),
+    "wkv_a": ("fsdp", None),
+    "wkv_b": (None, "model", None),
+    "gate": ("fsdp", "model"),
+    "up": ("fsdp", "model"),
+    "down": ("model", "fsdp"),
+    "router": (None, None),
+    "w_gate": ("model", "fsdp", None),
+    "w_up": ("model", "fsdp", None),
+    "w_down": ("model", None, "fsdp"),
+    "sh_gate": ("fsdp", "model"),
+    "sh_up": ("fsdp", "model"),
+    "sh_down": ("model", "fsdp"),
+    "in_proj": ("fsdp", "model"),
+    "conv_w": (None, "model"),
+    "conv_b": ("model",),
+    "out_proj": ("model", "fsdp"),
+    "x_proj": ("model", None),
+    "dt_proj": (None, "model"),
+    "dt_w": ("fsdp", "model"),
+    "bc_proj": ("fsdp", None),
+    "D": ("model",),
+}
+
+_STACKED = "layers"
+
+
+def _leaf_name(path) -> str:
+    for key in reversed(path):
+        if key in ("r", "c", "v", "m", "f", "mom"):
+            continue
+        if key is not None:
+            return str(key)
+    return ""
+
+
+def _axis_sizes(mesh, dp_axes, model_axis):
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    dp = int(np.prod([sizes[a] for a in dp_axes])) if dp_axes else 1
+    return dp, sizes[model_axis]
+
+
+# attention projections must keep q/k/v head shardings aligned: relocating
+# the model axis onto head_dim for one of them desynchronizes the pair.
+# These fall back to replicated instead.
+_NO_RELOCATE = {"wq", "wk", "wv", "wo", "bq", "bk", "bv", "wq_b", "wkv_b"}
+
+
+def _fit(intent: tuple, shape: tuple, dp_axes, model_axis, dp_size,
+         model_size, min_fsdp_elems: int = 1 << 18,
+         allow_relocate: bool = True) -> P:
+    """Turn a trailing-dim intent into a valid spec for ``shape``.
+
+    Applies divisibility checks and the fallback relocation of the model
+    axis described in the module docstring."""
+    nd = len(shape)
+    intent = tuple(intent)
+    if len(intent) < nd:                       # leading stacked-layer dims
+        intent = (None,) * (nd - len(intent)) + intent
+    elif len(intent) > nd:                     # e.g. adafactor r/c leaves
+        intent = intent[-nd:] if nd else ()
+    spec: list = [None] * nd
+    small = int(np.prod(shape)) < min_fsdp_elems
+    model_placed = False
+    for i, want in enumerate(intent):
+        if want == "model" and shape[i] % model_size == 0:
+            spec[i] = model_axis
+            model_placed = True
+        elif want == "fsdp" and not small and shape[i] % dp_size == 0:
+            spec[i] = tuple(dp_axes)
+    if "model" in intent and not model_placed and allow_relocate:
+        # relocate: largest free dim divisible by the model axis
+        for i in sorted(range(nd), key=lambda j: -shape[j]):
+            if spec[i] is None and shape[i] % model_size == 0 and shape[i] > 1:
+                spec[i] = model_axis
+                break
+    return P(*spec)
+
+
+def _paths(tree, prefix=()) -> list:
+    """(path, leaf) of every leaf of a dict tree (a model: its named
+    parameters), a dotted key split into its parts."""
+    if isinstance(tree, nn.Module):
+        tree = dict(tree.named_parameters())
+    out = []
+    for key, v in tree.items():
+        path = prefix + tuple(str(key).split("."))
+        if isinstance(v, (dict, nn.Module)):
+            out += _paths(v, path)
+        else:
+            out.append((path, v))
+    return out
+
+
+def _layer_at(path) -> int | None:
+    """Where a layer index sits in ``path`` (``layers.<i>....``), if
+    anywhere."""
+    for i, key in enumerate(path[:-1]):
+        if key == _STACKED and path[i + 1].isdigit():
+            return i + 1
+    return None
+
+
+def param_specs(params_or_shapes: Any, mesh, dp_axes=("data",),
+                model_axis: str = "model", fsdp: bool = True):
+    """Spec tree for a params (or opt-state) tree: a dict tree whose leaves
+    have a ``shape`` (tensors, meta or DTensors), or a model (a dict keyed
+    by parameter name comes back).  ``mesh`` is a ``DeviceMesh`` or a
+    :class:`~repro_torch.launch.mesh.MeshShape`."""
+    dp_size, model_size = _axis_sizes(mesh, dp_axes if fsdp else (), model_axis)
+    leaves = _paths(params_or_shapes)
+    layers: dict = {}
+    for path, _ in leaves:
+        at = _layer_at(path)
+        if at is not None:
+            key = path[:at] + path[at + 1:]
+            layers[key] = layers.get(key, 0) + 1
+    specs = {}
+    for path, leaf in leaves:
+        name = _leaf_name(path)
+        intent = _RULES.get(name)
+        shape = tuple(leaf.shape)
+        at = _layer_at(path)
+        if at is not None:
+            shape = (layers[path[:at] + path[at + 1:]],) + shape
+        if intent is None or not shape:
+            specs[path] = P()
+            continue
+        # factored adafactor leaves: r drops the last dim, c the 2nd-last
+        if path[-1] == "r":
+            intent = intent[:-1]
+        elif path[-1] == "c":
+            intent = intent[:-2] + intent[-1:]
+        spec = _fit(intent, shape, dp_axes if fsdp else (), model_axis,
+                    dp_size, model_size,
+                    allow_relocate=name not in _NO_RELOCATE)
+        specs[path] = P(*spec[1:]) if at is not None else spec
+    return _rebuild(params_or_shapes, specs)
+
+
+def _rebuild(tree, specs: dict, prefix=()):
+    """``tree``'s structure with each leaf's spec in its place."""
+    if isinstance(tree, nn.Module):
+        tree = dict(tree.named_parameters())
+    out = {}
+    for key, v in tree.items():
+        path = prefix + tuple(str(key).split("."))
+        out[key] = _rebuild(v, specs, path) \
+            if isinstance(v, (dict, nn.Module)) else specs[path]
+    return out
+
+
+def batch_specs(cfg: ModelConfig, batch_shapes: dict, dp_axes=("data",),
+                model_axis: str = "model", dp_size: int = 1):
+    """Specs for a train/prefill batch dict: batch dim over DP axes (when
+    divisible)."""
+    out = {}
+    for k, v in batch_shapes.items():
+        shape = tuple(v.shape)
+        b_ax = tuple(dp_axes) if shape[0] % dp_size == 0 else None
+        spec = [b_ax] + [None] * (len(shape) - 1)
+        out[k] = P(*spec)
+    return out
+
+
+def cache_specs(cfg: ModelConfig, cache_shapes: dict, dp_axes=("data",),
+                model_axis: str = "model", dp_size: int = 1,
+                model_size: int = 1):
+    """Decode-cache specs: batch over DP; KV heads over model when they
+    divide, otherwise the sequence dim over model (flash-decode style)."""
+    out = {}
+    for k, v in cache_shapes.items():
+        shape = tuple(v.shape)          # leading L (or G) stacked dim
+        spec = [None] * len(shape)
+        if shape[1] % dp_size == 0 and shape[1] > 1:
+            spec[1] = tuple(dp_axes)
+        if k in ("k", "v", "shared_k", "shared_v"):
+            if shape[3] % model_size == 0:          # KV heads
+                spec[3] = model_axis
+            elif shape[2] % model_size == 0:        # sequence
+                spec[2] = model_axis
+        elif k in ("ckv", "krope"):
+            if shape[2] % model_size == 0:          # sequence (MLA latent)
+                spec[2] = model_axis
+        elif k == "conv":                            # (L, B, K-1, d_inner)
+            if shape[-1] % model_size == 0:
+                spec[-1] = model_axis
+        elif k == "ssm":
+            # mamba1: (L, B, d_inner, n) -> d_inner; mamba2: (L, B, H, dh, n) -> H
+            dim = 2
+            if shape[dim] % model_size == 0:
+                spec[dim] = model_axis
+        out[k] = P(*spec)
+    return out
+
+
+@dataclass(frozen=True)
+class NamedSharding:
+    """A spec on a ``DeviceMesh``: its DTensor ``placements``, one a mesh
+    dim (``Shard(i)`` where the spec names that mesh dim at tensor dim
+    ``i``, else ``Replicate()``)."""
+    mesh: Any
+    spec: P
+
+    @property
+    def placements(self) -> tuple:
+        from torch.distributed.tensor import Replicate, Shard
+        out = []
+        for name in self.mesh.mesh_dim_names:
+            dims = [i for i, e in enumerate(self.spec)
+                    if name == e or isinstance(e, tuple) and name in e]
+            out.append(Shard(dims[0]) if dims else Replicate())
+        return tuple(out)
+
+
+def to_shardings(mesh, spec_tree):
+    """The tree of :class:`NamedSharding` of a spec tree on ``mesh``."""
+    if isinstance(spec_tree, P):
+        return NamedSharding(mesh, spec_tree)
+    return {k: to_shardings(mesh, v) for k, v in spec_tree.items()}
+
+
+def local_block(x: torch.Tensor, mesh, placements) -> torch.Tensor:
+    """This rank's block of the whole tensor ``x`` under ``placements``
+    (mesh dims in order, the first the major one), in memory of its own."""
+    from torch.distributed.tensor import Shard
+    for mesh_dim, pl in enumerate(placements):
+        if isinstance(pl, Shard):
+            x = x.chunk(mesh.size(mesh_dim), pl.dim)[
+                mesh.get_local_rank(mesh_dim)]
+    return x.clone(memory_format=torch.contiguous_format)
+
+
+def place(x: torch.Tensor, sharding: NamedSharding):
+    """The DTensor under ``sharding`` of ``x``, a whole tensor the same on
+    every rank (each rank keeps its block) or a DTensor on the mesh."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(x, DTensor):  # e.g. zeros_like of a DTensor parameter
+        return x.redistribute(sharding.mesh, sharding.placements)
+    return DTensor.from_local(
+        local_block(x.detach(), sharding.mesh, sharding.placements),
+        sharding.mesh, sharding.placements, run_check=False)
+
+
+def distribute(tree, shardings):
+    """``tree`` (a model, or a dict tree of whole tensors, the same on
+    every rank) placed under ``shardings`` (the tree of
+    :func:`to_shardings`): a model's parameters become DTensor parameters
+    in place (the model is returned), a dict's tensors DTensors (a new
+    dict).  The counterpart of the reference's ``jax.device_put``."""
+    if isinstance(tree, nn.Module):
+        for name, p in list(tree.named_parameters()):
+            mod, _, leaf = name.rpartition(".")
+            owner = tree.get_submodule(mod) if mod else tree
+            owner.register_parameter(leaf, nn.Parameter(
+                place(p, shardings[name]), requires_grad=p.requires_grad))
+        return tree
+    return {k: distribute(v, shardings[k]) if isinstance(v, dict)
+            else place(v, shardings[k]) for k, v in tree.items()}
+
+
+def gather(x):
+    """The whole tensor of a DTensor (a plain tensor as it is); a dict
+    tree or a model (keyed by parameter name) mapped leaf by leaf."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(x, nn.Module):
+        x = dict(x.named_parameters())
+    if isinstance(x, dict):
+        return {k: gather(v) for k, v in x.items()}
+    x = x.detach()
+    return x.full_tensor() if isinstance(x, DTensor) else x

@@ -1,8 +1,8 @@
-"""Training launcher: any assigned arch (reduced or full config) on one
-device, with checkpoint/resume, async saves and the synthetic sharded data
-pipeline (the counterpart of ``src/repro/launch/train.py`` with ``--mesh
-none``).  It runs on the GPU unless ``--device`` names another; without a
-GPU and without ``--device`` it exits with an error.
+"""Training launcher: any assigned arch (reduced or full config), with
+checkpoint/resume, async saves and the synthetic sharded data pipeline (the
+counterpart of ``src/repro/launch/train.py``).  It runs on the GPU unless
+``--device`` names another; without a GPU and without ``--device`` it
+exits with an error.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \
       --smoke --device cpu --steps 50 --batch 8 --seq 128 \
@@ -12,20 +12,42 @@ GPU and without ``--device`` it exits with an error.
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \
       --steps 30 --batch 8 --seq 1024
 
+  # the reference's smoke mesh: on the CPU, 2 x 2 over four gloo ranks
+  # that this command starts itself (one thread each; only rank 0 prints,
+  # and this process relays its output); on the GPU, the card's (1, 1)
+  # over NCCL in this process
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \
+      --smoke --mesh smoke --device cpu --steps 3 --batch 4 --seq 32
+
 Weights are drawn from a ``torch.Generator`` seeded 0 on the device; the
 embedding-input and M-RoPE stubs of the reference take their noise from a
 generator seeded by the step, so a resumed run sees the batches an
-uninterrupted one does.  ``--mesh smoke`` waits for the port's mesh
-(ROADMAP.md, queue 1).
+uninterrupted one does.  Under ``--mesh smoke`` every rank draws the same
+weights and batches, places the parameters and optimizer state under
+``launch/shardings.py``'s specs, and runs the sharded step
+(train/train_step.py); a checkpoint is gathered whole and written by rank
+0, and restored onto whatever mesh the run has.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
+import os
+import shutil
+import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
+
+from .mesh import launch_ranks
+
+# seconds the CPU mesh's four ranks may take together (a smoke run takes
+# about ten)
+MESH_TIMEOUT = 300.0
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -83,30 +105,87 @@ def main(argv=None, on_step=None) -> dict:
     """Train as the arguments say; ``on_step(step, metrics)``, if given,
     is called after every step.  Returns the final state, the step
     function, a function giving the device batch of a step, and the losses
-    and gradient norms of the steps run (host floats)."""
+    and gradient norms of the steps run (host floats).  Under ``--mesh
+    smoke`` the process group is torn down before it returns; on the CPU
+    this process starts the ranks and returns their outputs
+    (``printed``)."""
     args = build_parser().parse_args(argv)
-    from ..configs import get_config, smoke_config
-    from ..data.tokens import TokenPipeline
     from ..device import resolve_device
-    from ..models.transformer import init_params
-    from ..optim.optimizers import OPTIMIZERS
-    from ..optim.schedules import cosine_schedule, wsd_schedule
-    from ..train.checkpoint import load_latest, restore_like, save_checkpoint
-    from ..train.train_step import MESH_ITEM, TrainState, make_train_step
-
-    if args.mesh == "smoke":
-        raise SystemExit(f"train: --mesh smoke: {MESH_ITEM}")
     try:
         device = resolve_device(args.device)
     except RuntimeError as e:
         raise SystemExit(f"train: {e}") from None
+    if args.mesh == "none":
+        return _train(args, device, None, on_step)
+    if device.type == "cpu" and "MESH_RANK" not in os.environ:
+        return _launch_cpu_mesh(argv)
+    import torch.distributed as torch_dist
+    with _smoke_mesh(device) as mesh:
+        quiet = torch_dist.get_rank() != 0
+        with (contextlib.redirect_stdout(io.StringIO()) if quiet
+              else contextlib.nullcontext()):
+            return _train(args, device, mesh, on_step)
+
+
+@contextlib.contextmanager
+def _smoke_mesh(device):
+    """The smoke mesh of this process's rank: the card's (1, 1) over a
+    NCCL group of one rank, or on the CPU the 2 x 2 of the rank that
+    :func:`_launch_cpu_mesh` started; the group is destroyed after."""
+    import torch.distributed as torch_dist
+    from .mesh import init_process_group, make_smoke_mesh, rank_env
+    d = None
+    try:
+        if device.type == "cuda":
+            d = tempfile.mkdtemp(prefix="mesh_")
+            init_process_group("cuda", 0, 1, os.path.join(d, "init"))
+            yield make_smoke_mesh(1, 1, device_type="cuda")
+        else:
+            init_process_group("cpu", *rank_env())
+            yield make_smoke_mesh(2, 2, device_type="cpu")
+    finally:
+        if torch_dist.is_initialized():
+            torch_dist.destroy_process_group()
+        if d is not None:
+            shutil.rmtree(d, ignore_errors=True)
+
+
+def _launch_cpu_mesh(argv) -> dict:
+    """Start the CPU mesh's four ranks on this command's arguments and
+    relay rank 0's output; ranks still running after ``MESH_TIMEOUT``
+    seconds are killed."""
+    argv = sys.argv[1:] if argv is None else list(argv)
+    d = tempfile.mkdtemp(prefix="mesh_")
+    try:
+        outs = launch_ranks(["-m", "repro_torch.launch.train", *argv], 4,
+                            os.path.join(d, "init"), timeout=MESH_TIMEOUT)
+    except RuntimeError as e:
+        raise SystemExit(f"train: --mesh smoke: {e}") from None
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    print(outs[0], end="", flush=True)
+    return {"printed": outs}
+
+
+def _train(args, device, mesh, on_step) -> dict:
+    from ..configs import get_config, smoke_config
+    from ..data.tokens import TokenPipeline
+    from ..models.transformer import Dist, init_params
+    from ..optim.optimizers import OPTIMIZERS
+    from ..optim.schedules import cosine_schedule, wsd_schedule
+    from ..train.checkpoint import load_latest, restore_like, save_checkpoint
+    from ..train.train_step import TrainState, make_train_step
+    from .shardings import distribute, param_specs, to_shardings
+
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if args.scale:
         kv = dict(s.split("=") for s in args.scale.split(","))
         cfg = cfg.scaled(**{k: (int(v) if v.isdigit() else v)
                             for k, v in kv.items()})
     print(f"arch={cfg.name} params~{cfg.param_count()/1e6:.1f}M "
-          f"family={cfg.family} device={device}")
+          f"family={cfg.family} device={device}"
+          + (f" mesh={dict(zip(mesh.mesh_dim_names, mesh.shape))}"
+             if mesh is not None else ""))
 
     lr = args.lr
     if args.schedule == "wsd":
@@ -119,8 +198,15 @@ def main(argv=None, on_step=None) -> dict:
     params = init_params(
         cfg, generator=torch.Generator(device=device).manual_seed(0),
         device=device)
-    state = TrainState(params, opt.init(dict(params.named_parameters())))
-
+    dist = Dist() if mesh is None else Dist(mesh=mesh)
+    if mesh is not None:
+        params = distribute(params, to_shardings(
+            mesh, param_specs(params, mesh, fsdp=cfg.fsdp)))
+    opt_state = opt.init(dict(params.named_parameters()))
+    if mesh is not None:
+        opt_state = distribute(opt_state, to_shardings(
+            mesh, param_specs(opt_state, mesh, fsdp=cfg.fsdp)))
+    state = TrainState(params, opt_state)
     start = 0
     if args.ckpt:
         found = load_latest(args.ckpt)
@@ -132,7 +218,8 @@ def main(argv=None, on_step=None) -> dict:
     pipe = TokenPipeline(vocab=cfg.vocab, seq_len=args.seq,
                          global_batch=args.batch, n_hosts=args.hosts,
                          host_id=args.host_id)
-    step_fn = make_train_step(cfg, opt, microbatches=args.microbatches)
+    step_fn = make_train_step(cfg, opt, dist,
+                              microbatches=args.microbatches)
 
     t0 = time.time()
     pending_save = None
@@ -159,7 +246,7 @@ def main(argv=None, on_step=None) -> dict:
     if args.ckpt:
         save_checkpoint(args.ckpt, state, args.steps)
     print(f"done: {args.steps - start} steps in {time.time()-t0:.1f}s")
-    return {"state": state, "step_fn": step_fn, "cfg": cfg,
+    return {"state": state, "step_fn": step_fn, "cfg": cfg, "dist": dist,
             "batch": lambda s: device_batch(cfg, pipe, s, device),
             "losses": [float(x) for x in losses],
             "grad_norms": [float(x) for x in gnorms], "start": start}

@@ -22,6 +22,12 @@ Which path a call takes is decided by shape and config before any launch:
   or 18) raises the wrapper's ``ValueError``;
 * MLA's q/k head dim (192) differs from its v head dim (128), which the
   kernel does not take: its attention is torch ops.
+
+Under an active ``Dist`` (models/transformer.py) each rank runs the
+attention of its own batch block, replicated over the ``model`` axis, so
+``_shard`` — the reference's ``with_sharding_constraint`` on q, k and v —
+places nothing (launch/shardings.py: the ``model`` axis shards storage,
+not arithmetic).
 """
 
 from __future__ import annotations
@@ -42,6 +48,14 @@ NEG_INF = -1e30
 NAIVE_TILE = 128
 MAX_TILE = {torch.bfloat16: 256, torch.float32: 128}
 MIN_TILE = 16
+
+
+def _shard(x, dist, *axes):
+    """The reference's activation sharding constraint, which places
+    nothing here: a rank holds its batch block of every activation, the
+    same on each rank of the ``model`` axis (module docstring)."""
+    del dist, axes
+    return x
 
 
 # --------------------------------------------------------------------------
@@ -179,7 +193,7 @@ def _project_qkv(p, cfg: ModelConfig, x, positions):
     return q, k, v
 
 
-def gqa_forward(p, cfg: ModelConfig, x, positions):
+def gqa_forward(p, cfg: ModelConfig, x, positions, dist=None):
     """Full-sequence attention (training / prefill). Returns (y, (k, v)).
 
     KV heads are expanded to the full head count, as the reference does, so
@@ -188,6 +202,11 @@ def gqa_forward(p, cfg: ModelConfig, x, positions):
     G = cfg.n_heads // cfg.n_kv_heads
     ke = k.repeat_interleave(G, dim=2) if G > 1 else k
     ve = v.repeat_interleave(G, dim=2) if G > 1 else v
+    if dist is not None and dist.active:
+        dp, mdl = dist.batch_axes, dist.model_axis
+        q = _shard(q, dist, dp, None, mdl, None)
+        ke = _shard(ke, dist, dp, None, mdl, None)
+        ve = _shard(ve, dist, dp, None, mdl, None)
     out = flash_sdpa(q, ke, ve, cfg)
     return _out(out, p["wo"]), (k, v)
 
@@ -257,7 +276,7 @@ def _mla_latent(p, cfg: ModelConfig, x, positions):
     return c_kv, k_rope
 
 
-def mla_forward(p, cfg: ModelConfig, x, positions):
+def mla_forward(p, cfg: ModelConfig, x, positions, dist=None):
     """Full-sequence MLA. Returns (y, (c_kv, k_rope)) — the compressed
     cache.  Torch ops for either ``attn_impl``: the kernel takes no q/k
     head dim that differs from v's."""
@@ -268,6 +287,11 @@ def mla_forward(p, cfg: ModelConfig, x, positions):
     k_nope, v = kvu[..., :nope], kvu[..., nope:]
     k = torch.cat([k_nope, k_rope.expand(k_nope.shape[:-1] + (rope,))], -1)
     qk = torch.cat([q_nope, q_rope], -1)
+    if dist is not None and dist.active:
+        dp, mdl = dist.batch_axes, dist.model_axis
+        qk = _shard(qk, dist, dp, None, mdl, None)
+        k = _shard(k, dist, dp, None, mdl, None)
+        v = _shard(v, dist, dp, None, mdl, None)
     S = x.shape[1]
     out = _sdpa(qk, k, v, causal_mask(S, S, device=x.device),
                 1.0 / np.sqrt(nope + rope))

@@ -1,17 +1,290 @@
-"""Model configuration shared by all assigned architectures.
+"""Model configuration shared by all assigned architectures, and the
+named mesh axes the model's hand-written collectives run over.
 
 The counterpart of ``src/repro/models/common.py``: ``ModelConfig`` field for
-field.  The reference's ``shard_map`` and ``axis_size`` wrappers belong to
-its mesh code and come with the port's ``launch/mesh`` (ROADMAP.md).  The
-distribution knobs (``remat``, ``fsdp``, ``moe_mode``, ``expert_shards``)
-are kept so configs and plan artifacts read the same; on one card the
-port's model ignores all of them but ``expert_shards``, which pads the
-expert axis as the reference's parameters do.
+field, and ``shard_map`` and ``axis_size`` with the named-axis collectives
+the reference calls inside ``shard_map`` (``psum``, ``pmean``,
+``axis_index``, ``all_to_all``).
+
+The reference runs one controller over every device and names an axis
+inside ``shard_map``; here one process drives each device, so a mesh axis
+is a process group (``DeviceMesh.get_group``).  ``shard_map(f, mesh=...,
+in_specs=..., out_specs=...)`` binds the mesh's axis names to its groups
+while ``f`` runs, gives ``f`` this rank's block of each input and puts the
+blocks of each output back together.  An input is what this rank holds:
+the same tensor on every rank of an axis its spec names is split over it,
+unless that axis is already manual, that is, bound by an enclosing
+:func:`manual_axes` (the model runs each data-parallel rank on its own
+batch block, so the batch axes are manual there and only the ``model``
+axis is split).
+
+Autograd.  A value outside ``f`` is the same on every rank of an axis that
+is not manual (the model's compute is replicated there), and so is its
+gradient: each rank holds the whole of it.  So the collectives' backwards
+are those of replicated cotangents, not of ``torch.distributed.nn``'s
+partial ones: the block taken of a replicated input gathers its gradient
+back, an input ``f`` uses whole sums its gradient over the axes (each rank
+used it on its own block), a gathered output hands each rank its block of
+the cotangent, and ``psum``'s backward is the identity.  An
+``all_gather`` whose backward sums the ranks' cotangents (as
+``torch.distributed.nn``'s does) would count the replicated gradient once
+a rank.  ``all_to_all`` moves blocks from rank to rank, and its backward
+is the same exchange of the gradient's blocks.
+
+The distribution knobs of the config (``remat``, ``fsdp``, ``moe_mode``,
+``expert_shards``) read as the reference's; ``moe_mode="ep_a2a"`` takes
+the expert-parallel path under an active ``Dist`` (models/transformer.py),
+``fsdp`` chooses whether parameters are sharded over the data axes
+(launch/shardings.py), ``expert_shards`` pads the expert axis, and
+``remat`` has no effect.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+import math
+
 from dataclasses import dataclass, replace
+
+import torch
+import torch.distributed as torch_dist
+
+# (mesh, names of its manual axes) of each enclosing binding, innermost last
+_BINDINGS: contextvars.ContextVar[tuple] = contextvars.ContextVar(
+    "mesh_axes", default=())
+
+
+def _names(axes) -> tuple[str, ...]:
+    if axes is None:
+        return ()
+    return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+@contextlib.contextmanager
+def manual_axes(mesh, axes):
+    """Bind ``axes`` of ``mesh`` as manual while the block runs: each rank
+    holds its own block over them, and named collectives may run over
+    them."""
+    token = _BINDINGS.set(_BINDINGS.get() + ((mesh, frozenset(_names(axes))),))
+    try:
+        yield
+    finally:
+        _BINDINGS.reset(token)
+
+
+def _manual(mesh) -> frozenset:
+    """The manual axes of ``mesh`` in the current binding."""
+    out = frozenset()
+    for m, names in _BINDINGS.get():
+        if m is mesh:
+            out |= names
+    return out
+
+
+def mesh_axis(mesh, name: str):
+    """(process group, size, this rank's index) of ``mesh``'s axis
+    ``name``."""
+    dim = mesh.mesh_dim_names.index(name)
+    return mesh.get_group(dim), mesh.size(dim), mesh.get_local_rank(dim)
+
+
+def _axis(name: str):
+    """(process group, size, this rank's index) of a bound axis."""
+    for mesh, names in reversed(_BINDINGS.get()):
+        if name in names:
+            return mesh_axis(mesh, name)
+    raise NameError(f"unbound axis name: {name}")
+
+
+def axis_size(axis_name) -> int:
+    """The size of a bound mesh axis (the product over a tuple of axes)."""
+    return math.prod(_axis(a)[1] for a in _names(axis_name))
+
+
+def axis_index(axis_name) -> int:
+    """This rank's index along a bound axis (row-major over a tuple)."""
+    idx = 0
+    for a in _names(axis_name):
+        _, size, i = _axis(a)
+        idx = idx * size + i
+    return idx
+
+
+def _all_gather(x, group, size: int, dim: int):
+    parts = [torch.empty_like(x) for _ in range(size)]
+    torch_dist.all_gather(parts, x.contiguous(), group=group)
+    return torch.cat(parts, dim=dim)
+
+
+class _Psum(torch.autograd.Function):
+    """Sum over an axis; the cotangent of the replicated sum is every
+    summand's."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.clone()
+        torch_dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _SumGrad(torch.autograd.Function):
+    """The identity on an input every rank of the axis uses whole on its
+    own block: the input's gradient is the sum of the ranks' gradients."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        torch_dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _Split(torch.autograd.Function):
+    """This rank's block along ``dim`` of a tensor the axis holds whole;
+    the gradient of the whole gathers every rank's block."""
+
+    @staticmethod
+    def forward(ctx, x, group, size: int, index: int, dim: int):
+        ctx.args = (group, size, dim)
+        return x.chunk(size, dim)[index].contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        group, size, dim = ctx.args
+        return _all_gather(g, group, size, dim), None, None, None, None
+
+
+class _Gather(torch.autograd.Function):
+    """The blocks of the axis's ranks put together along ``dim``; each
+    rank's gradient is its block of the (replicated) cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, group, size: int, index: int, dim: int):
+        ctx.args = (size, index, dim)
+        return _all_gather(x, group, size, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        size, index, dim = ctx.args
+        return g.chunk(size, dim)[index].contiguous(), None, None, None, None
+
+
+def psum(x, axis_name):
+    """The sum of ``x`` over a bound axis (or tuple of axes)."""
+    for a in _names(axis_name):
+        x = _Psum.apply(x, _axis(a)[0])
+    return x
+
+
+def pmean(x, axis_name):
+    """The mean of ``x`` over a bound axis: its ``psum`` over the size."""
+    n = torch.tensor(float(axis_size(axis_name)), dtype=torch.float32,
+                     device=x.device)
+    return psum(x, axis_name) / n.to(x.dtype)
+
+
+class _AllToAll(torch.autograd.Function):
+    """Block i of dim 0 to rank i; the gradient goes back the same way."""
+
+    @staticmethod
+    def forward(ctx, send, group):
+        ctx.group = group
+        recv = torch.empty_like(send)
+        torch_dist.all_to_all_single(recv, send.contiguous(), group=group)
+        return recv
+
+    @staticmethod
+    def backward(ctx, g):
+        back = torch.empty_like(g)
+        torch_dist.all_to_all_single(back, g.contiguous(), group=ctx.group)
+        return back, None
+
+
+def all_to_all(x, axis_name: str, split_axis: int, concat_axis: int, *,
+               tiled: bool = True):
+    """The reference's tiled ``all_to_all``: ``x`` split along
+    ``split_axis`` into one block a rank, block j sent to rank j, and the
+    blocks received put together along ``concat_axis`` in rank order."""
+    if not tiled:
+        raise NotImplementedError("all_to_all: only the tiled form")
+    group, size, _ = _axis(axis_name)
+    recv = _AllToAll.apply(torch.stack(x.chunk(size, split_axis)), group)
+    return torch.cat(recv.unbind(0), dim=concat_axis)
+
+
+class P(tuple):
+    """A partition spec: one entry a tensor dimension, each ``None``
+    (replicated), an axis name, or a tuple of axis names (the first the
+    major one).  A tuple, so ``tuple(spec)`` reads as the reference's
+    ``PartitionSpec``, which also writes a tuple of one axis as the axis
+    and an empty one as ``None``."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, (
+            (e[0] if len(e) == 1 else e or None) if isinstance(e, tuple)
+            else e for e in entries))
+
+    def __repr__(self) -> str:
+        return f"P{tuple.__repr__(self)}"
+
+
+def _enter(x, spec, mesh, manual):
+    """This rank's block of ``x`` under ``spec`` (see the module
+    docstring)."""
+    if isinstance(spec, dict):
+        return {k: _enter(x[k], s, mesh, manual) for k, s in spec.items()}
+    named = set()
+    for dim, entry in enumerate(spec):
+        for a in _names(entry):
+            named.add(a)
+            if a not in manual:
+                x = _Split.apply(x, *mesh_axis(mesh, a), dim)
+    for a in mesh.mesh_dim_names:
+        if a not in named and a not in manual:
+            x = _SumGrad.apply(x, mesh_axis(mesh, a)[0])
+    return x
+
+
+def _exit(y, spec, mesh, manual):
+    """The whole of ``y`` from the ranks' blocks under ``spec``: gathered
+    along every dimension over the axes not manual that ``spec`` names,
+    minor axis first, so the first named axis is the major one."""
+    if not isinstance(spec, P):
+        return type(spec)(_exit(v, s, mesh, manual) for v, s in zip(y, spec))
+    for dim in reversed(range(len(spec))):
+        for a in reversed(_names(spec[dim])):
+            if a not in manual:
+                y = _Gather.apply(y, *mesh_axis(mesh, a), dim)
+    return y
+
+
+def shard_map(f, *, mesh, in_specs, out_specs, check_vma: bool = False):
+    """``f`` over this rank's blocks (see the module docstring): the
+    returned function takes what this rank holds, gives ``f`` the block of
+    each input under ``in_specs`` (a spec, or a dict of specs for a dict
+    input) with every axis of ``mesh`` bound, and puts the output back
+    together under ``out_specs`` (a spec, or a tuple of specs).
+    ``check_vma`` is accepted for the reference's signature; nothing here
+    checks replication."""
+    del check_vma
+
+    def run(*args):
+        manual = _manual(mesh)
+        local = [_enter(x, s, mesh, manual) for x, s in zip(args, in_specs)]
+        with manual_axes(mesh, mesh.mesh_dim_names):
+            out = f(*local)
+        return _exit(out, out_specs, mesh, manual)
+
+    return run
 
 
 @dataclass(frozen=True)

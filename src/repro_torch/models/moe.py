@@ -1,11 +1,16 @@
-"""Mixture-of-Experts blocks on one device.
+"""Mixture-of-Experts blocks (the counterpart of ``src/repro/models/moe.py``).
 
-The counterpart of ``src/repro/models/moe.py``, less its expert-parallel
-``moe_ep_a2a`` and ``moe_ep_a2a_decode``, which need a mesh (they come with
-the port's ``launch/mesh``, ROADMAP.md).  As the reference does without a
-mesh, full sequences take ``moe_dense`` (every expert computes every token,
-combined with the top-k gate mask) and decode takes ``moe_gather`` (the k
-selected experts' weights gathered per token), whatever ``moe_mode``.
+Three execution modes, as the reference's:
+
+* ``moe_dense`` — every expert computes every token, combined with the
+  top-k gate mask: full sequences without a mesh, and the oracle of the
+  expert-parallel path;
+* ``moe_gather`` — decode without a mesh: the k selected experts' weights
+  gathered per token;
+* ``moe_ep_a2a`` / ``moe_ep_a2a_decode`` — expert parallelism inside
+  ``shard_map`` over the ``model`` axis (models/common.py): tokens go to
+  their experts' ranks in capacity-C buffers through a pair of
+  ``all_to_all`` exchanges and come back weighted by their gates.
 
 Experts whose count does not divide the configured expert shards
 (granite's 40 experts for 16 shards) are zero-padded to ``expert_pad``;
@@ -14,11 +19,15 @@ the router has no columns for them, so they are never selected.
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
-from .common import ModelConfig
+from .common import ModelConfig, all_to_all, axis_index, axis_size, psum
 from .layers import Params, dense_init, swiglu
+
+NEG_INF = -1e30
 
 
 def expert_pad(cfg: ModelConfig, n_shards: int = 1) -> int:
@@ -88,3 +97,80 @@ def moe_gather(p, cfg: ModelConfig, x):
     y = torch.einsum("nkf,nkfd->nd", (g * u) * w[..., None], wd)
     y = y + _shared(p, x2)
     return y.reshape(B, S, d)
+
+
+def moe_ep_a2a_decode(p, cfg: ModelConfig, x, *, expert_axis: str = "model",
+                      capacity_factor: float = 2.0):
+    """Decode-path expert parallelism, INSIDE ``shard_map`` where ``x``
+    (n_loc, d) is the same on every rank of the expert axis.
+
+    Each rank takes the token stripe ``j % m == rank``, dispatches it
+    through the capacity-C ``all_to_all``, and a final ``psum`` over the
+    expert axis puts the batch together."""
+    n, d = x.shape
+    m = axis_size(expert_axis)
+    mine = torch.arange(n, device=x.device) % m == axis_index(expert_axis)
+    y = moe_ep_a2a(p, cfg, x, expert_axis=expert_axis,
+                   capacity_factor=capacity_factor, valid=mine)
+    y = torch.where(mine[:, None], y, torch.zeros((), dtype=y.dtype,
+                                                  device=y.device))
+    return psum(y, expert_axis)
+
+
+def _dispatch_local(x2, w, idx, e_pad: int, capacity: int, valid=None):
+    """The (E_pad, C, d) dispatch buffer and the combine's metadata.  A
+    (token, k) pair takes the next free slot of its expert in token-major
+    order; pairs past the capacity (and invalid tokens) are dropped."""
+    n, d = x2.shape
+    k = idx.shape[1]
+    flat_e = idx.reshape(-1)                                    # (n*k,)
+    flat_w = w.reshape(-1)
+    tok = torch.arange(n, device=x2.device).repeat_interleave(k)
+    onehot = F.one_hot(flat_e, e_pad).to(torch.int32)          # (n*k, E)
+    if valid is not None:  # invalid tokens neither claim nor consume slots
+        onehot = onehot * valid[tok].to(torch.int32)[:, None]
+    pos = torch.cumsum(onehot, dim=0, dtype=torch.int32) - 1
+    pos_in_e = pos.gather(1, flat_e[:, None])[:, 0]
+    keep = pos_in_e < capacity
+    if valid is not None:
+        keep = keep & valid[tok]
+    pos_in_e = torch.where(keep, pos_in_e, 0).long()
+    src = torch.where(keep[:, None], x2[tok], 0.0).to(x2.dtype)
+    buf = torch.zeros((e_pad, capacity, d), dtype=x2.dtype, device=x2.device)
+    buf = buf.index_put((flat_e, pos_in_e), src, accumulate=True)
+    return buf, (flat_e, pos_in_e, keep, flat_w, tok)
+
+
+def _combine_local(buf, meta, n: int, d: int):
+    """Each token's k expert outputs weighted by their gates and summed
+    (a token's pairs are adjacent rows of the flattened (n, k))."""
+    flat_e, pos_in_e, keep, flat_w, tok = meta
+    gathered = buf[flat_e, pos_in_e]                            # (n*k, d)
+    gathered = torch.where(keep[:, None], gathered, 0.0).to(buf.dtype) \
+        * flat_w[:, None]
+    return gathered.reshape(n, -1, d).sum(dim=1)
+
+
+def moe_ep_a2a(p, cfg: ModelConfig, x, *, expert_axis: str = "model",
+               capacity_factor: float = 1.25, valid=None):
+    """Expert-parallel MoE INSIDE ``shard_map`` over ``expert_axis``.
+
+    ``x``: (n_local, d) tokens of this rank.  Expert weights arrive as this
+    rank's (E_pad/M, d, ff) blocks; the router and shared experts whole.
+    The capacity is the reference's ``ceil(n k / E_pad * cf / 8) * 8``."""
+    n, d = x.shape
+    m = axis_size(expert_axis)
+    e_pad = p["w_gate"].shape[0] * m
+    k = cfg.top_k
+    cap = int(math.ceil(n * k / e_pad * capacity_factor / 8.0) * 8)
+
+    w, idx = _route(x, p["router"], k)
+    buf, meta = _dispatch_local(x, w, idx, e_pad, cap, valid)   # (E_pad, C, d)
+    # block j of the experts goes to rank j; the blocks received stack
+    # along the token axis, so the reverse exchange is the exact inverse
+    recv = all_to_all(buf, expert_axis, 0, 1, tiled=True)       # (E_loc, mC, d)
+    g = F.silu(torch.einsum("ecd,edf->ecf", recv, p["w_gate"]))
+    u = torch.einsum("ecd,edf->ecf", recv, p["w_up"])
+    ye = torch.einsum("ecf,efd->ecd", g * u, p["w_down"])       # (E_loc, mC, d)
+    back = all_to_all(ye, expert_axis, 1, 0, tiled=True)        # (E_pad, C, d)
+    return _combine_local(back, meta, n, d) + _shared(p, x)

@@ -16,8 +16,16 @@ them and stacked on a leading layer axis (``k``/``v``, ``ckv``/``krope``,
 The parameters are a :class:`Model`, an ``nn.Module`` of one block module a
 layer (the reference stacks layers on a leading axis for ``lax.scan``;
 here a Python loop drives them, and only ``models/weights.py`` knows the
-stacked layout).  The reference's distribution context, ``remat`` and
-``fsdp`` have no effect on one card, so the port takes no ``dist``.
+stacked layout).  ``remat`` has no effect.
+
+Distribution is carried by :class:`Dist` (mesh + axis names), threaded as
+the reference threads it.  One process drives each device: under an
+active ``Dist`` the model runs on this rank's batch block (the batch axes
+are manual, models/common.py), with whole parameters, and the same on
+every rank of the ``model`` axis, except the MoE FFN with ``moe_mode=
+"ep_a2a"``, which takes the reference's expert-parallel ``shard_map``
+branches over ``model``.  The train step (train/train_step.py) gathers
+the sharded parameters and reduces the gradients.
 
 ``train_loss`` records autograd's graph (the kernel wrappers'
 gradients are the backward kernels); ``prefill`` and ``decode_step`` run
@@ -32,15 +40,37 @@ import numpy as np
 import torch
 from torch import nn
 
+import contextlib
+from dataclasses import dataclass
+from typing import Any
+
 from ..device import resolve_device
 from .attention import gqa_decode, gqa_forward, init_attn, mla_decode, \
     mla_forward
-from .common import ModelConfig
+from .common import P, ModelConfig, manual_axes, shard_map
 from .layers import Params, dense_init, rms_norm, softmax_cross_entropy, \
     swiglu
 from .mamba import init_mamba, mamba1_decode, mamba1_seq, mamba2_decode, \
     mamba2_seq, mamba2_seq_naive
-from .moe import init_moe, moe_dense, moe_gather
+from .moe import (init_moe, moe_dense, moe_ep_a2a, moe_ep_a2a_decode,
+                  moe_gather)
+
+
+@dataclass(frozen=True)
+class Dist:
+    """Distribution context threaded through the model: a
+    ``DeviceMesh`` with ``mesh_dim_names`` and the names of its batch and
+    model axes.  ``capacity_factor`` is the expert-parallel MoE's (None:
+    the reference's defaults, 1.25 for full sequences and 2.0 for
+    decode)."""
+    mesh: Any = None
+    batch_axes: tuple = ("data",)
+    model_axis: str = "model"
+    capacity_factor: float | None = None
+
+    @property
+    def active(self) -> bool:
+        return self.mesh is not None
 
 
 def _dtype(cfg: ModelConfig):
@@ -56,26 +86,52 @@ class AttnBlock(Params):
     """Pre-norm attention (GQA or MLA) + SwiGLU MLP or MoE: one layer of the
     attention families, and zamba2's weight-shared block."""
 
-    def forward(self, cfg: ModelConfig, x, positions):
+    def forward(self, cfg: ModelConfig, x, positions, dist=None):
         h = rms_norm(x, self.ln1, cfg.norm_eps)
         fwd = mla_forward if cfg.mla else gqa_forward
-        a, cache = fwd(self.attn, cfg, h, positions)
-        return self._ffn(cfg, x + a, decoding=False), cache
+        a, cache = fwd(self.attn, cfg, h, positions, dist)
+        return self._ffn(cfg, x + a, False, dist), cache
 
-    def decode(self, cfg: ModelConfig, x, positions, cache, index):
+    def decode(self, cfg: ModelConfig, x, positions, cache, index,
+               dist=None):
         h = rms_norm(x, self.ln1, cfg.norm_eps)
         dec = mla_decode if cfg.mla else gqa_decode
         a, cache = dec(self.attn, cfg, h, cache[0], cache[1], index,
                        positions)
-        return self._ffn(cfg, x + a, decoding=True), cache
+        return self._ffn(cfg, x + a, True, dist), cache
 
-    def _ffn(self, cfg: ModelConfig, x, decoding: bool):
+    def _ffn(self, cfg: ModelConfig, x, decoding: bool, dist):
         h = rms_norm(x, self.ln2, cfg.norm_eps)
         if "moe" in self:
-            moe = moe_gather if decoding else moe_dense
-            return x + moe(self.moe, cfg, h)
+            return x + _moe_apply(self.moe, cfg, h, dist, decoding)
         m = self.mlp
         return x + swiglu(h, m.gate, m.up, m.down)
+
+
+def _moe_apply(p, cfg: ModelConfig, x, dist, decoding: bool):
+    """The MoE FFN: the reference's expert-parallel ``shard_map`` over the
+    model axis when ``moe_mode="ep_a2a"`` under an active ``dist``, else
+    ``moe_gather`` (decode) or ``moe_dense``."""
+    if not (cfg.moe_mode == "ep_a2a" and dist is not None and dist.active):
+        return (moe_gather if decoding else moe_dense)(p, cfg, x)
+    mdl, dp = dist.model_axis, dist.batch_axes
+    names = ["router", "w_gate", "w_up", "w_down"]
+    if "sh_gate" in p:
+        names += ["sh_gate", "sh_up", "sh_down"]
+    pspec = {n: P(mdl) if n.startswith("w_") else P() for n in names}
+    cf = {} if dist.capacity_factor is None \
+        else {"capacity_factor": dist.capacity_factor}
+    moe, spec = (moe_ep_a2a_decode, P(dp, None, None)) if decoding \
+        else (moe_ep_a2a, P(dp, mdl, None))
+
+    def local(xb, pp):  # xb: this rank's (B_loc, S_loc, d) block
+        bl, sl, d = xb.shape
+        y = moe(pp, cfg, xb.reshape(bl * sl, d), expert_axis=mdl, **cf)
+        return y.reshape(bl, sl, d)
+
+    fn = shard_map(local, mesh=dist.mesh, in_specs=(spec, pspec),
+                   out_specs=spec, check_vma=False)
+    return fn(x, {n: p[n] for n in names})
 
 
 class MambaBlock(Params):
@@ -231,17 +287,17 @@ def _stack(per_layer: list) -> tuple:
     return tuple(torch.stack(parts) for parts in zip(*per_layer))
 
 
-def _stack_attn(params, cfg, x, positions, decoding, caches, index):
+def _stack_attn(params, cfg, x, positions, dist, decoding, caches, index):
     names = ("ckv", "krope") if cfg.mla else ("k", "v")
     if decoding:
         for i, layer in enumerate(params.layers):
             x, _ = layer.decode(cfg, x, positions,
                                 (caches[names[0]][i], caches[names[1]][i]),
-                                index)
+                                index, dist)
         return x, caches
     per_layer = []
     for layer in params.layers:
-        x, cache = layer(cfg, x, positions)
+        x, cache = layer(cfg, x, positions, dist)
         per_layer.append(cache)
     return x, dict(zip(names, _stack(per_layer)))
 
@@ -271,7 +327,8 @@ def _stack_ssm(params, cfg, x, decoding, caches):
     return x, dict(zip(("conv", "ssm"), _stack(per_layer)))
 
 
-def _stack_hybrid(params, cfg, x, positions, decoding, caches, index):
+def _stack_hybrid(params, cfg, x, positions, dist, decoding, caches,
+                  index):
     """zamba2: groups of ``attn_every`` mamba layers + shared attn block.
     Leftover layers (n_layers % attn_every) run as trailing mamba-only
     layers with no shared-block invocation."""
@@ -292,9 +349,9 @@ def _stack_hybrid(params, cfg, x, positions, decoding, caches, index):
         if decoding:
             x, _ = shared.decode(cfg, x, positions,
                                  (caches["shared_k"][g],
-                                  caches["shared_v"][g]), index)
+                                  caches["shared_v"][g]), index, dist)
         else:
-            x, cache = shared(cfg, x, positions)
+            x, cache = shared(cfg, x, positions, dist)
             shared_caches.append(cache)
     if decoding:
         return x, caches
@@ -303,19 +360,22 @@ def _stack_hybrid(params, cfg, x, positions, decoding, caches, index):
     return x, {"conv": nconv, "ssm": nssm, "shared_k": nsk, "shared_v": nsv}
 
 
-def _forward(params: Model, cfg: ModelConfig, batch: dict, decoding=False,
-             caches=None, index=None):
-    """Returns (final hidden states (B, S, d), new caches)."""
-    x, positions = _embed(params, cfg, batch)
-    if cfg.family == "ssm":
-        x, new_caches = _stack_ssm(params, cfg, x, decoding, caches)
-    elif cfg.family == "hybrid":
-        x, new_caches = _stack_hybrid(params, cfg, x, positions, decoding,
-                                      caches, index)
-    else:
-        x, new_caches = _stack_attn(params, cfg, x, positions, decoding,
-                                    caches, index)
-    return rms_norm(x, params.ln_f, cfg.norm_eps), new_caches
+def _forward(params: Model, cfg: ModelConfig, batch: dict, dist: Dist,
+             decoding=False, caches=None, index=None):
+    """Returns (final hidden states (B, S, d), new caches).  Under an
+    active ``dist`` ``batch`` is this rank's block over the batch axes."""
+    with (manual_axes(dist.mesh, dist.batch_axes) if dist.active
+          else contextlib.nullcontext()):
+        x, positions = _embed(params, cfg, batch)
+        if cfg.family == "ssm":
+            x, new_caches = _stack_ssm(params, cfg, x, decoding, caches)
+        elif cfg.family == "hybrid":
+            x, new_caches = _stack_hybrid(params, cfg, x, positions, dist,
+                                          decoding, caches, index)
+        else:
+            x, new_caches = _stack_attn(params, cfg, x, positions, dist,
+                                        decoding, caches, index)
+        return rms_norm(x, params.ln_f, cfg.norm_eps), new_caches
 
 
 def _head(params: Model, h):
@@ -327,12 +387,13 @@ def _head(params: Model, h):
 # --------------------------------------------------------------------------
 
 
-def train_loss(params: Model, batch: dict, cfg: ModelConfig) -> torch.Tensor:
+def train_loss(params: Model, batch: dict, cfg: ModelConfig,
+               dist: Dist = Dist()) -> torch.Tensor:
     """Mean next-token (or frame-label for encoders) cross-entropy.
 
     With ``cfg.loss_chunk`` the vocabulary head + xent run per sequence
     chunk, so the (B, S, V) logits tensor never materializes."""
-    h, _ = _forward(params, cfg, batch)
+    h, _ = _forward(params, cfg, batch, dist)
     labels = _as_tensor(batch["labels"], h.device, torch.long)
     B, S, d = h.shape
     if cfg.loss_chunk and S % cfg.loss_chunk == 0 and S > cfg.loss_chunk:
@@ -346,21 +407,22 @@ def train_loss(params: Model, batch: dict, cfg: ModelConfig) -> torch.Tensor:
 
 
 @torch.no_grad()
-def prefill(params: Model, batch: dict, cfg: ModelConfig):
+def prefill(params: Model, batch: dict, cfg: ModelConfig,
+            dist: Dist = Dist()):
     """Full-sequence forward; returns (last-position logits, caches of
     length S for continuation).  The vocab head runs on the LAST position
     only — serving never needs the (B, S, V) logits."""
-    h, caches = _forward(params, cfg, batch)
+    h, caches = _forward(params, cfg, batch, dist)
     return _head(params, h[:, -1]), caches
 
 
 @torch.no_grad()
 def decode_step(params: Model, token_batch: dict, caches: dict, index,
-                cfg: ModelConfig):
+                cfg: ModelConfig, dist: Dist = Dist()):
     """One decode step.  ``token_batch`` holds (B, 1) tokens (or (B,1,d)
     embeds) plus positions; ``index`` is the current cache length, an int
     or a (B,) tensor of one a lane.  ``caches`` is updated in place and
     returned."""
-    h, new_caches = _forward(params, cfg, token_batch, decoding=True,
+    h, new_caches = _forward(params, cfg, token_batch, dist, decoding=True,
                              caches=caches, index=index)
     return _head(params, h[:, -1]), new_caches

@@ -36,6 +36,10 @@ class Optimizer:
     init: Callable[[Any], Any]
     update: Callable[[Any, Any, Any, Any], tuple]
     state_bytes_per_param: float  # for memory-planning math
+    # an element's update reads only that element of the parameter, its
+    # gradient and its state: the update of a shard is the shard of the
+    # update (the sharded train step relies on it)
+    elementwise: bool = True
 
 
 def _lr_at(lr, step) -> float:
@@ -182,7 +186,7 @@ def adafactor(lr=1e-2, decay=0.8, eps=1e-30, clip_threshold=1.0,
         state["count"] = count
         return params, state
 
-    return Optimizer(init, update, 0.1)
+    return Optimizer(init, update, 0.1, elementwise=False)
 
 
 OPTIMIZERS = {"sgd": sgd_momentum, "adamw": adamw, "adafactor": adafactor}

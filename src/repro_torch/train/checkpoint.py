@@ -13,6 +13,12 @@ keyed by parameter name (each layer's tensor, stacked here) or by the
 reference's leaf name (Adafactor's moments, stacked already).  bfloat16
 arrays are written as the reference's numpy writes them (2-byte void),
 and read back by their bits.
+
+Sharded states (DTensors, launch/shardings.py) are gathered whole on
+every rank, and only rank 0 of a started process group writes the file;
+so the file is the same whatever mesh wrote it, and ``restore_like`` fills
+each rank's block of a template placed on any other mesh (elastic
+restore).
 """
 
 from __future__ import annotations
@@ -25,8 +31,11 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as torch_dist
 from torch import nn
+from torch.distributed.tensor import DTensor
 
+from ..launch.shardings import gather, local_block
 from ..models.weights import reference_key
 
 _CKPT_RE = re.compile(r"ckpt_(\d+)\.npz$")
@@ -79,7 +88,7 @@ def _param_names(state) -> frozenset:
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
-    t = t.detach().to("cpu")
+    t = gather(t).to("cpu")
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.dtype("V2"))
     return t.numpy()
@@ -98,9 +107,17 @@ def save_checkpoint(ckpt_dir: str, state: Any, step: int, *, keep: int = 3,
     """Write ``ckpt_<step>.npz`` atomically (tmp + rename); prune old ones.
     With ``async_save`` the host-to-disk copy happens on a worker thread
     after the device-to-host fetch (the fetch is synchronous, so the
-    arrays are step-consistent)."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+    arrays are step-consistent).  Under a started process group every
+    rank gathers, rank 0 writes (and returns the path or the thread; the
+    others None), and a synchronous save returns on every rank once the
+    file is there."""
+    grouped = torch_dist.is_initialized()
     flat = _flatten(state)  # device->host fetch happens here, synchronously
+    if grouped and torch_dist.get_rank() != 0:
+        if not async_save:
+            torch_dist.barrier()
+        return None
+    os.makedirs(ckpt_dir, exist_ok=True)
 
     def write():
         fd, tmp = tempfile.mkstemp(dir=ckpt_dir, suffix=".tmp")
@@ -115,7 +132,10 @@ def save_checkpoint(ckpt_dir: str, state: Any, step: int, *, keep: int = 3,
         t = threading.Thread(target=write, daemon=True)
         t.start()
         return t
-    return write()
+    path = write()
+    if grouped:
+        torch_dist.barrier()
+    return path
 
 
 def _prune(ckpt_dir: str, keep: int) -> None:
@@ -156,9 +176,9 @@ def _to_tensor(arr: np.ndarray, like: torch.Tensor) -> torch.Tensor:
 @torch.no_grad()
 def restore_like(template: Any, flat: dict[str, np.ndarray]) -> Any:
     """Fill the tensors of ``template`` (a state of the same structure)
-    from flattened arrays, in place, on the template's devices, and return
-    it.  A missing leaf raises ``KeyError``, one of another shape
-    ``ValueError``."""
+    from flattened arrays, in place, on the template's devices (a DTensor:
+    this rank's block), and return it.  A missing leaf raises
+    ``KeyError``, one of another shape ``ValueError``."""
     for key, parts in _leaves(template, _param_names(template)).items():
         if key not in flat:
             raise KeyError(f"checkpoint missing leaf {key}")
@@ -170,5 +190,10 @@ def restore_like(template: Any, flat: dict[str, np.ndarray]) -> Any:
             raise ValueError(f"{key}: checkpoint shape {arr.shape} != "
                              f"template {want}")
         for t, layer in parts:
-            t.copy_(_to_tensor(arr if layer is None else arr[layer], t))
+            src = _to_tensor(arr if layer is None else arr[layer], t)
+            if isinstance(t, DTensor):  # this rank's block
+                t.to_local().copy_(local_block(src, t.device_mesh,
+                                               t.placements))
+            else:
+                t.copy_(src)
     return template

@@ -303,3 +303,112 @@ def test_resume_on_the_card_is_bit_exact(cuda, tmp_path):
     want = dict(straight["params"].named_parameters())
     for name, p in resumed["params"].named_parameters():
         assert torch.equal(p, want[name]), name
+
+
+# --------------------------------------------------------------------------
+# the (1, 1) mesh on the card: a NCCL group of one rank
+# --------------------------------------------------------------------------
+
+@pytest.fixture
+def card_mesh(cuda, tmp_path):
+    """The card's (1, 1) mesh over a NCCL group of one rank, destroyed
+    after the test."""
+    import torch.distributed as torch_dist
+
+    from repro_torch.launch.mesh import init_process_group, make_smoke_mesh
+    init_process_group("cuda", 0, 1, str(tmp_path / "init"))
+    try:
+        assert torch_dist.get_backend() == "nccl"
+        yield make_smoke_mesh(1, 1, device_type="cuda")
+    finally:
+        torch_dist.destroy_process_group()
+
+
+def _sharded(cfg, params, mesh, opt):
+    from repro_torch.launch.shardings import (distribute, param_specs,
+                                              to_shardings)
+    params = distribute(params, to_shardings(mesh, param_specs(params, mesh)))
+    ost = opt.init(dict(params.named_parameters()))
+    return TrainState(params, distribute(ost, to_shardings(
+        mesh, param_specs(ost, mesh))))
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "falcon-mamba-7b"])
+@pytest.mark.parametrize("optimizer", ["adamw", "adafactor"])
+def test_mesh_1x1_step_is_the_unsharded_step_bit_for_bit(card_mesh, arch,
+                                                         optimizer):
+    """Two steps on the (1, 1) mesh against two without: losses, gradient
+    norms and every parameter bit for bit (bf16 weights)."""
+    from repro_torch.launch.shardings import gather
+    from repro_torch.optim import adafactor
+    cfg = _cfg(arch).scaled(dtype="bfloat16")
+    make = {"adamw": lambda: adamw(lr=1e-3), "adafactor": adafactor}[optimizer]
+
+    def fresh():
+        return T.init_params(cfg, generator=torch.Generator(
+            device="cuda").manual_seed(0), device="cuda")
+    pipe = TokenPipeline(vocab=cfg.vocab, seq_len=24, global_batch=2)
+    batches = [{k: torch.as_tensor(v, device="cuda")
+                for k, v in pipe.batch_at(s).items()} for s in range(2)]
+    runs = []
+    for mesh in (None, card_mesh):
+        opt = make()
+        params = fresh()
+        state = TrainState(params, opt.init(dict(params.named_parameters()))) \
+            if mesh is None else _sharded(cfg, params, mesh, opt)
+        step = make_train_step(cfg, opt, T.Dist(mesh=mesh))
+        metrics = []
+        for b in batches:
+            state, m = step(state, b)
+            metrics.append((m["loss"].cpu(), m["grad_norm"].cpu()))
+        runs.append((metrics, gather(state["params"])))
+    (m0, p0), (m1, p1) = runs
+    for (l0, g0), (l1, g1) in zip(m0, m1):
+        assert torch.equal(l0, l1) and torch.equal(g0, g1)
+    assert p0.keys() == p1.keys()
+    for name in p0:
+        assert torch.equal(p0[name], p1[name]), name
+
+
+def test_mesh_ep_prefill_matches_moe_dense_on_the_card(card_mesh):
+    """granite's prefill through the expert-parallel path (a capacity
+    factor that drops nothing) against moe_dense, f32, TF32 off, within
+    1e-5 of the logits' largest value; rmsnorm and flash launched."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm
+    cfg = _cfg("granite-moe-3b-a800m").scaled(moe_mode="ep_a2a",
+                                              expert_shards=4)
+    params = T.init_params(cfg, generator=torch.Generator(
+        device="cuda").manual_seed(0), device="cuda")
+    tokens = torch.randint(0, cfg.vocab, (2, 40), device="cuda",
+                           generator=torch.Generator(
+                               device="cuda").manual_seed(1))
+    with full_f32():
+        want, _ = T.prefill(params, {"tokens": tokens}, cfg)
+        rmsnorm.launches = flash_attention.launches = 0
+        got, _ = T.prefill(params, {"tokens": tokens}, cfg, T.Dist(
+            mesh=card_mesh, capacity_factor=8 / cfg.top_k))
+    assert rmsnorm.launches == 2 * cfg.n_layers + 1
+    assert flash_attention.launches == cfg.n_layers
+    err = float((got - want).abs().max())
+    assert err <= 1e-5 * max(1.0, float(want.abs().max())), err
+
+
+def test_mesh_2x2_on_one_card_names_the_devices_it_needs(cuda):
+    from repro_torch.launch.mesh import make_smoke_mesh
+    if torch.cuda.device_count() >= 4:
+        pytest.skip("this host has four GPUs")
+    with pytest.raises(ValueError, match="needs 4 CUDA devices"):
+        make_smoke_mesh(2, 2, device_type="cuda")
+
+
+def test_train_cli_mesh_smoke_on_the_card(cuda):
+    """``launch.train --mesh smoke`` on one card runs the (1, 1) mesh and
+    gives the unmeshed run's losses bit for bit."""
+    from repro_torch.launch.train import main
+    args = ["--arch", "qwen3-0.6b", "--smoke", "--scale",
+            "head_dim=32,dtype=bfloat16", "--steps", "3", "--batch", "2",
+            "--seq", "32", "--log-every", "100"]
+    meshed = main(args + ["--mesh", "smoke"])
+    assert meshed["dist"].active
+    assert meshed["losses"] == main(args)["losses"]

@@ -1,0 +1,649 @@
+"""The mesh against the reference, on the CPU: sharding rules, the int8
+compressed all-reduce, the expert-parallel MoE, the sharded and the
+compressed train steps, elastic checkpoints and ``launch.train --mesh
+smoke --device cpu``.
+
+Single-process checks hold the port's rules (``_fit``, ``param_specs``,
+``batch_specs``, ``cache_specs``, ``mesh_axes``) to the reference's on
+fake mesh geometry, over the cases of tests/test_shardings.py and every
+config's full-width parameter shapes (built on the meta device and by
+``jax.eval_shape``; nothing is allocated): the specs are equal.
+
+Multi-rank checks run in ONE group of four gloo ranks for the module
+(``group``: tests/test_torch_mesh_ranks.py, started by ``launch_ranks`` with a
+``file://`` rendezvous under the module's temporary directory, one thread
+a rank, killed on failure or after ``GROUP_TIMEOUT`` seconds), which
+writes its results to files that the parametrised cases read.  The
+reference's collectives run under a named ``jax.vmap`` axis on one CPU
+device (its own multi-device tests fork 8 host devices and are ``slow``).
+Tolerances, each stated where it is used:
+
+* int8 payloads and scales: equal; the reduced f32 values: 1e-6;
+* expert-parallel outputs against the reference's ``moe_ep_a2a`` under
+  ``vmap``: 1e-5 absolute in f32, drop masks equal; their gradients
+  (sums over up to 256 tokens) 1e-5 of the largest, or 1e-5 absolute
+  below 1;
+* the sharded step against the reference's single-device step: loss and
+  parameters within the reference's own 1e-4 (tests/test_distributed.py),
+  every gradient within 1e-3 |ref| + 1e-4 max |ref| (probes: ~1e-7);
+* the compressed step against the exact step: the loss within 1e-3, each
+  parameter within 0.05 of its largest value (the reference's), the
+  residual x - deq exactly;
+* a checkpoint written from (2, 2) and restored onto (4, 1): bit for bit.
+"""
+
+from __future__ import annotations
+
+import functools
+import json
+import os
+import re
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as ref_get_config
+from repro.configs import smoke_config as ref_smoke_config
+from repro.launch import shardings as RS
+from repro.launch.mesh import mesh_axes as ref_mesh_axes
+from repro.models import moe as RM
+from repro.models import transformer as R
+from repro.models.common import ModelConfig as RefConfig
+from repro.optim import grad_compress as RG
+from repro.optim.optimizers import adafactor as ref_adafactor
+from repro.optim.optimizers import adamw as ref_adamw
+from repro.optim.optimizers import sgd_momentum as ref_sgd
+from repro_torch.configs import ARCHS, get_config, smoke_config
+from repro_torch.launch import shardings as S
+from repro_torch.launch.mesh import (MeshShape, launch_ranks,
+                                     make_smoke_mesh, mesh_axes,
+                                     production_mesh_shape)
+from repro_torch.models import transformer as T
+from repro_torch.optim import adafactor, adamw, quantize_int8
+from torch_model_oracle import batch
+
+ROOT = Path(__file__).resolve().parents[1]
+GROUP_TIMEOUT = 300.0
+
+
+# --------------------------------------------------------------------------
+# rules on fake geometry (one process)
+# --------------------------------------------------------------------------
+
+class FakeMesh:
+    """The reference's fake mesh geometry (tests/test_shardings.py)."""
+
+    def __init__(self, shape, names):
+        self.axis_names = names
+        self.devices = np.empty(shape)
+
+
+GEOMETRIES = {"16x16": ((16, 16), ("data", "model"), ("data",)),
+              "2x16x16": ((2, 16, 16), ("pod", "data", "model"),
+                          ("pod", "data")),
+              "2x2": ((2, 2), ("data", "model"), ("data",))}
+
+FIT_CASES = [  # tests/test_shardings.py's, and a relocation onto a layer
+    (("fsdp", "model"), (4096, 8192), 16, 16, True),
+    (("model", "fsdp", None), (61, 256, 7168, 2048), 16, 16, True),
+    ((None, "model"), (2304, 36), 16, 16, True),
+    (("fsdp", "model", None), (2304, 36, 64), 16, 16, False),
+    (("fsdp", "model"), (64, 128), 16, 16, True),
+    (("fsdp", "model"), (8192, 8192), 16, 16, True),
+    (("model",), (32, 36), 4, 16, True),
+]
+
+
+@pytest.mark.parametrize("case", range(len(FIT_CASES)))
+def test_fit_matches_reference(case):
+    intent, shape, dp, mdl, relocate = FIT_CASES[case]
+    args = (intent, shape, ("data",), "model", dp, mdl)
+    want = RS._fit(*args, allow_relocate=relocate)
+    got = S._fit(*args, allow_relocate=relocate)
+    assert tuple(got) == tuple(want), (got, want)
+
+
+def test_no_relocate_and_rules_are_the_reference():
+    assert S._NO_RELOCATE == RS._NO_RELOCATE
+    assert S._RULES == RS._RULES
+
+
+def _flat_port(tree, prefix=""):
+    """A spec tree's leaves under dotted keys."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat_port(v, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def _ref_specs_flat(tree):
+    return {k: tuple(v) for k, v in _flat_port(tree).items()}
+
+
+def _compare_specs(port: dict, ref: dict) -> set:
+    """Every port spec against the reference's leaf spec (a layer's tensor
+    against its stacked leaf, less the layer entry, which must be None);
+    returns the reference leaves compared."""
+    seen = set()
+    for name, spec in _flat_port(port).items():
+        parts = name.split(".")
+        at = next((i + 1 for i in range(len(parts) - 1)
+                   if parts[i] == "layers" and parts[i + 1].isdigit()), None)
+        key = ".".join(parts[:at] + parts[at + 1:]) if at else name
+        want = ref[key]
+        if at and want:  # P() (no rule) is P() for a layer's tensor too
+            assert want[0] is None, (name, want)
+            want = want[1:]
+        assert tuple(spec) == want, (name, spec, want)
+        seen.add(key)
+    return seen
+
+
+@functools.lru_cache(maxsize=None)
+def _full_width(arch: str):
+    """The reference's full-width parameter and optimizer-state shapes
+    (``jax.eval_shape``) and the port's (the meta device)."""
+    ref = jax.eval_shape(lambda: R.init_params(ref_get_config(arch),
+                                               jax.random.PRNGKey(0)))
+    port = T.init_params(get_config(arch), device="meta")
+    named = dict(port.named_parameters())
+    return ref, port, [(jax.eval_shape(ref_opt().init, ref), opt().init(named))
+                       for ref_opt, opt in ((ref_adafactor, adafactor),
+                                            (ref_adamw, adamw))]
+
+
+@pytest.mark.parametrize("geometry", sorted(GEOMETRIES))
+@pytest.mark.parametrize("arch", ARCHS)
+def test_param_specs_full_width_match_reference(arch, geometry):
+    """Parameters, AdamW's moments and Adafactor's factored moments of the
+    full-width config, from shapes alone."""
+    shape, names, dp_axes = GEOMETRIES[geometry]
+    fake, geo = FakeMesh(shape, names), MeshShape(shape, names)
+    ref_params, port_params, states = _full_width(arch)
+    for fsdp in (True, False):
+        want = _ref_specs_flat(RS.param_specs(ref_params, fake, dp_axes,
+                                              fsdp=fsdp))
+        got = S.param_specs(port_params, geo, dp_axes, fsdp=fsdp)
+        assert _compare_specs(got, want) == set(want)
+    for ref_state, port_state in states:
+        want = _ref_specs_flat(RS.param_specs(ref_state, fake, dp_axes))
+        got = S.param_specs(port_state, geo, dp_axes)
+        assert _compare_specs(got, want) == set(want)
+
+
+@pytest.mark.parametrize("geometry", sorted(GEOMETRIES))
+@pytest.mark.parametrize("arch", ("qwen3-0.6b", "deepseek-v3-671b",
+                                  "zamba2-1.2b", "falcon-mamba-7b",
+                                  "granite-moe-3b-a800m"))
+def test_batch_and_cache_specs_match_reference(arch, geometry):
+    shape, names, dp_axes = GEOMETRIES[geometry]
+    rcfg = ref_get_config(arch)
+    dp = int(np.prod(shape[:-1]))
+    caches = jax.eval_shape(lambda: R.init_cache(rcfg, 32, 1024))
+    for b in (32, 3):
+        shapes = {"tokens": jax.ShapeDtypeStruct((b, 128), jnp.int32),
+                  "labels": jax.ShapeDtypeStruct((b, 128), jnp.int32)}
+        want = RS.batch_specs(rcfg, shapes, dp_axes, dp_size=dp)
+        got = S.batch_specs(get_config(arch), shapes, dp_axes, dp_size=dp)
+        assert {k: tuple(v) for k, v in got.items()} == \
+            {k: tuple(v) for k, v in want.items()}
+    want = RS.cache_specs(rcfg, caches, dp_axes, dp_size=dp,
+                          model_size=shape[-1])
+    got = S.cache_specs(get_config(arch), caches, dp_axes, dp_size=dp,
+                        model_size=shape[-1])
+    assert {k: tuple(v) for k, v in got.items()} == \
+        {k: tuple(v) for k, v in want.items()}
+
+
+@pytest.mark.parametrize("geometry", sorted(GEOMETRIES))
+def test_mesh_axes_and_production_shape(geometry):
+    shape, names, dp_axes = GEOMETRIES[geometry]
+    want = ref_mesh_axes(FakeMesh(shape, names))
+    assert mesh_axes(MeshShape(shape, names)) == want == (dp_axes, "model")
+    assert production_mesh_shape() == ((16, 16), ("data", "model"))
+    assert production_mesh_shape(multi_pod=True) == (
+        (2, 16, 16), ("pod", "data", "model"))
+
+
+def test_placements_of_a_spec():
+    from torch.distributed.tensor import Replicate, Shard
+    geo = MeshShape((2, 2, 2), ("pod", "data", "model"))
+    sh = S.to_shardings(geo, {"w": S.P(("pod", "data"), "model")})["w"]
+    assert sh.placements == (Shard(0), Shard(0), Shard(1))
+    assert S.NamedSharding(geo, S.P()).placements == (Replicate(),) * 3
+
+
+def test_smoke_mesh_on_cuda_names_the_devices_it_needs():
+    if torch.cuda.device_count() >= 4:
+        pytest.skip("this host has the four GPUs")
+    with pytest.raises(ValueError, match="needs 4 CUDA devices"):
+        make_smoke_mesh(2, 2, device_type="cuda")
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_quantize_int8_matches_reference(seed):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((7, 33)).astype(np.float32) * 10 ** (seed - 2)
+    x[0, :3] = [0.5, -1.5, 2.5]  # ties round to even
+    q, s = quantize_int8(torch.from_numpy(x))
+    rq, rs = RG.quantize_int8(jnp.asarray(x))
+    np.testing.assert_array_equal(q.numpy(), np.asarray(rq))
+    assert s.dtype == torch.float32 and float(s) == float(rs)
+
+
+# --------------------------------------------------------------------------
+# the group: inputs, the reference's results, one spawn
+# --------------------------------------------------------------------------
+
+EP_CFG = dict(name="t", family="moe", n_layers=1, d_model=32, n_heads=4,
+              n_kv_heads=4, d_ff=64, vocab=64, n_experts=6, top_k=2,
+              moe_d_ff=48, n_shared_experts=1)
+EP_CASES = [  # name, n_experts, tokens, capacity factor, decode, skewed
+    ("cf8", 6, 16, 8.0, False, False),
+    ("skew", 6, 256, 1.25, False, True),
+    ("decode", 8, 6, 8.0, True, False),
+]
+STEPS = [  # name, arch, overrides, mesh, optimizer, capacity factor
+    ("qwen3_sgd_2x2", "qwen3-0.6b", {}, "2x2", "sgd", None),
+    ("qwen3_adafactor_2x2", "qwen3-0.6b", {}, "2x2", "adafactor", None),
+    # the gradients placed without FSDP, then brought to the parameters'
+    ("qwen3_sgd_2x2_gradsh", "qwen3-0.6b", {}, "2x2", "sgd", None),
+    ("granite_sgd_2x2", "granite-moe-3b-a800m",
+     {"moe_mode": "ep_a2a", "expert_shards": 4}, "2x2", "sgd", 8.0),
+    ("granite_sgd_1x4", "granite-moe-3b-a800m",
+     {"moe_mode": "ep_a2a", "expert_shards": 4}, "1x4", "sgd", 8.0),
+]
+COMPRESSED = ("qwen3_compress_4x1", "qwen3-0.6b", "4x1")
+CLI_ARGS = ["--arch", "qwen3-0.6b", "--smoke", "--device", "cpu", "--steps",
+            "3", "--batch", "4", "--seq", "16", "--log-every", "1"]
+REF_OPTS = {"sgd": lambda: ref_sgd(lr=0.1),
+            "sgd05": lambda: ref_sgd(lr=0.05),
+            "adafactor": lambda: ref_adafactor()}
+
+
+def _flat(tree, prefix: str) -> dict:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}/{k}"))
+        else:
+            out[f"{prefix}/{k}"] = np.asarray(v)
+    return out
+
+
+def _dotted(tree, prefix="") -> dict:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_dotted(v, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = np.asarray(v, np.float32)
+    return out
+
+
+def _per_layer(flat: dict, name: str) -> np.ndarray:
+    parts = name.split(".")
+    if parts[0] == "layers":
+        return flat["layers." + ".".join(parts[2:])][int(parts[1])]
+    return flat[name]
+
+
+def _ep_inputs(name, n_experts, tokens, cf, decode, skew):
+    cfg = RefConfig(**dict(EP_CFG, n_experts=n_experts))
+    p = RM.init_moe(jax.random.PRNGKey(0), cfg, jnp.float32,
+                    n_expert_shards=4)
+    p = {k: np.asarray(v) for k, v in p.items()}
+    rng = np.random.default_rng(len(name))
+    if skew:  # expert 0 wins most tokens: its capacity drops many
+        p["router"] = p["router"].copy()
+        p["router"][:, 0] += 2.0 * np.sign(p["router"][:, 0] + 1e-3)
+    x = rng.standard_normal((tokens, 32)).astype(np.float32)
+    if skew:
+        x[:, :] += 0.5 * np.sign(p["router"][:, 0])[None, :]
+    cot = rng.standard_normal((tokens, 32)).astype(np.float32)
+    return cfg, p, x, cot
+
+
+def _ep_reference(cfg, p, x, cot, cf, decode):
+    """The reference's ``moe_ep_a2a(_decode)`` over 4 ranks as a named
+    ``vmap`` axis: outputs, gradients (of sum(y * cot)) and each rank's
+    drop mask."""
+    axes = {k: 0 if k.startswith("w_") else None for k in p}
+    blocks = {k: v.reshape((4, -1) + v.shape[1:]) if k.startswith("w_")
+              else v for k, v in p.items()}
+
+    def run(xx, pp):
+        if decode:
+            f = jax.vmap(lambda pb: RM.moe_ep_a2a_decode(
+                pb, cfg, xx, capacity_factor=cf), in_axes=(axes,),
+                axis_name="model")
+            return f(pp)[0]
+        f = jax.vmap(lambda xb, pb: RM.moe_ep_a2a(
+            pb, cfg, xb, capacity_factor=cf), in_axes=(0, axes),
+            axis_name="model")
+        return f(xx.reshape(4, -1, xx.shape[-1]), pp).reshape(xx.shape)
+
+    @jax.jit
+    def outputs(xx, pp, dense_p):
+        y, vjp = jax.vjp(run, xx, pp)
+        return y, vjp(jnp.asarray(cot)), RM.moe_dense(dense_p, cfg, xx[None])[0]
+
+    y, (gx, gp), dense = outputs(jnp.asarray(x), blocks, p)
+    gp = {k: np.asarray(v).reshape(p[k].shape) for k, v in gp.items()}
+    keeps = []
+    if not decode:
+        e_pad = p["w_gate"].shape[0]
+        for blk in x.reshape(4, -1, x.shape[-1]):
+            n = blk.shape[0]
+            cap = int(np.ceil(n * cfg.top_k / e_pad * cf / 8.0) * 8)
+            w, idx = RM._route(jnp.asarray(blk), p["router"], cfg.n_experts,
+                               cfg.top_k)
+            keeps.append(np.asarray(RM._dispatch_local(
+                jnp.asarray(blk), w, idx, e_pad, cap)[1][2]))
+    return {"y": np.asarray(y), "gx": np.asarray(gx), "g": gp,
+            "keep": keeps, "dense": np.asarray(dense)}
+
+
+_REF: dict = {}
+
+
+def _ref_weights(arch: str, overrides: dict):
+    """(reference cfg, its weights as numpy, port cfg) for ``arch``'s
+    smoke config with ``overrides``; the reference's ``init_params(cfg,
+    PRNGKey(0))``, jitted."""
+    key = ("w", arch, json.dumps(overrides, sort_keys=True))
+    if key not in _REF:
+        cfg = ref_smoke_config(arch).scaled(**overrides)
+        tree = jax.jit(lambda: R.init_params(cfg, jax.random.PRNGKey(0)))()
+        _REF[key] = (cfg, jax.tree.map(np.asarray, tree),
+                     smoke_config(arch).scaled(**overrides))
+    return _REF[key]
+
+
+def _ref_step(arch, overrides, opt_name, b):
+    """The reference's single-device step (its ``make_train_step``'s
+    arithmetic: ``value_and_grad`` of ``train_loss``, the optimizer's
+    update, the f32 gradient norm), each jitted: loss, gradient norm,
+    every gradient and every parameter after it."""
+    cfg, ref, _ = _ref_weights(arch, overrides)
+    done = ("step", arch, json.dumps(overrides, sort_keys=True), opt_name)
+    if done in _REF:  # the same reference step for another mesh
+        return _REF[done]
+    key = ("g", arch, json.dumps(overrides, sort_keys=True))
+    if key not in _REF:
+        jb = {k: jnp.asarray(v) for k, v in b.items()}
+        _REF[key] = jax.jit(jax.value_and_grad(
+            lambda p, x: R.train_loss(p, x, cfg)))(ref, jb)
+    loss, grads = _REF[key]
+    opt = REF_OPTS[opt_name]()
+    params, _ = jax.jit(lambda g, p: opt.update(g, opt.init(p), p,
+                                                jnp.asarray(0)))(grads, ref)
+    gnorm = jnp.sqrt(sum(jnp.sum(jnp.square(g.astype(jnp.float32)))
+                         for g in jax.tree.leaves(grads)))
+    _REF[done] = {"loss": float(loss), "gnorm": float(gnorm),
+                  "grads": _dotted(grads), "params": _dotted(params)}
+    return _REF[done]
+
+
+@pytest.fixture(scope="module")
+def group(tmp_path_factory):
+    """Start the 4-rank group once and return (each rank's results, the
+    reference's results, the task directory).  The ranks need only the
+    inputs, so the reference's results are computed while they run."""
+    d = tmp_path_factory.mktemp("mesh_group")
+    arrays, meta = {}, {"ep": {"cfg": EP_CFG, "cases": []}, "steps": [],
+                        "cli": CLI_ARGS + ["--mesh", "smoke"]}
+    ep_inputs, batches = {}, {}
+    for name, ne, tokens, cf, decode, skew in EP_CASES:
+        cfg, p, x, cot = ep_inputs[name] = _ep_inputs(name, ne, tokens, cf,
+                                                      decode, skew)
+        arrays.update(_flat(p, f"ep/{name}/p"))
+        arrays.update({f"ep/{name}/x": x, f"ep/{name}/cot": cot})
+        meta["ep"]["cases"].append({"name": name, "cf": cf,
+                                    "decode": decode, "n_experts": ne})
+    rng = np.random.default_rng(11)
+    arrays["cp/x"] = rng.standard_normal((4, 4, 10)).astype(np.float32)
+    arrays["cp/x2"] = rng.standard_normal((4, 4, 10)).astype(np.float32)
+    runs = STEPS + [(COMPRESSED[0], COMPRESSED[1], {}, COMPRESSED[2],
+                     "sgd05", None)]
+    for name, arch, over, mesh, opt, cf in runs:
+        wname = re.sub(r"\W", "_", f"{arch}:{json.dumps(over, sort_keys=True)}")
+        _, ref_tree, tcfg = _ref_weights(arch, over)
+        batches[name] = batch(tcfg, 8, 16, seed=3)
+        arrays.update(_flat(ref_tree, f"w/{wname}"))
+        arrays.update(_flat(batches[name], f"b/{wname}"))
+        meta["steps"].append({"name": name, "arch": arch, "overrides": over,
+                              "weights": wname, "batch": wname,
+                              "mesh": mesh, "opt": opt, "cf": cf,
+                              "grad_shardings": name.endswith("_gradsh"),
+                              "compress": name == COMPRESSED[0]})
+    # the checkpoint's weights and batch: qwen3's own
+    q = next(s for s in meta["steps"] if s["arch"] == "qwen3-0.6b")
+    for kind in ("w", "b"):
+        head = f"{kind}/{q['weights']}/"
+        for k in [k for k in arrays if k.startswith(head)]:
+            arrays[f"{kind}/qwen3/{k[len(head):]}"] = arrays[k]
+    np.savez(d / "task.npz", **arrays)
+    (d / "task.json").write_text(json.dumps(meta))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    with ThreadPoolExecutor(1) as pool:
+        ranks_done = pool.submit(
+            launch_ranks, [str(ROOT / "tests" / "test_torch_mesh_ranks.py"),
+                           str(d)], 4, str(d / "init"),
+            timeout=GROUP_TIMEOUT, env=env)
+        ref = {"ep": {c[0]: _ep_reference(*ep_inputs[c[0]], c[3], c[4])
+                      for c in EP_CASES},
+               "steps": {r[0]: _ref_step(r[1], r[2], r[4], batches[r[0]])
+                         for r in runs}}
+        ranks_done.result()
+    ranks = [dict(np.load(d / f"rank{r}.npz")) for r in range(4)]
+    return ranks, ref, d
+
+
+# --------------------------------------------------------------------------
+# the group's cases
+# --------------------------------------------------------------------------
+
+def _close(got, want, tol, what=""):
+    err = float(np.max(np.abs(np.asarray(got, np.float64)
+                              - np.asarray(want, np.float64)), initial=0.0))
+    assert err <= tol, f"{what}: {err:.3e} > {tol}"
+    return err
+
+
+@pytest.mark.parametrize("mesh", ("2x2", "1x4", "4x1"))
+def test_group_mesh_axes(group, mesh):
+    ranks, _, _ = group
+    shape = tuple(int(s) for s in mesh.split("x"))
+    want = ref_mesh_axes(FakeMesh(shape, ("data", "model")))
+    for r in ranks:
+        batch_axes, model = json.loads(str(r[f"axes/{mesh}"]))
+        assert (tuple(batch_axes), model) == want
+
+
+@pytest.mark.parametrize("case", [c[0] for c in EP_CASES])
+def test_ep_outputs_match_reference_under_vmap(group, case):
+    ranks, ref, _ = group
+    want = ref["ep"][case]
+    for r in ranks:  # every rank holds the whole output
+        _close(r[f"ep/{case}/y"], want["y"], 1e-5, f"{case} y")
+    if case != "skew":  # nothing dropped: the dense oracle too
+        _close(ranks[0][f"ep/{case}/y"], want["dense"], 1e-5,
+               f"{case} dense")
+
+
+@pytest.mark.parametrize("case", [c[0] for c in EP_CASES])
+def test_ep_gradients_match_reference_under_vmap(group, case):
+    ranks, ref, _ = group
+    want = ref["ep"][case]
+    for r in ranks:  # sums over up to 256 tokens: 1e-5 of the largest
+        for k, g in [("x", want["gx"]), *want["g"].items()]:
+            got = r[f"ep/{case}/gx"] if k == "x" else r[f"ep/{case}/g/{k}"]
+            _close(got, g, 1e-5 * max(1.0, float(np.abs(g).max())),
+                   f"{case} d{k}")
+
+
+@pytest.mark.parametrize("case", [c[0] for c in EP_CASES if not c[4]])
+def test_ep_drop_masks_match_reference(group, case):
+    ranks, ref, _ = group
+    keeps = ref["ep"][case]["keep"]
+    for rank, r in enumerate(ranks):
+        np.testing.assert_array_equal(r[f"ep/{case}/keep"], keeps[rank])
+    dropped = sum(int((~k).sum()) for k in keeps)
+    assert (dropped > 0) == (case == "skew"), dropped
+
+
+def _ref_compressed(v, v2):
+    o, r = RG.compressed_psum(v, "d")
+    o2, r2 = RG.compressed_psum(v2, "d", r)
+    return o, r, o2, r2
+
+
+def test_compressed_psum_matches_reference_under_vmap(group):
+    ranks, _, d = group
+    task = np.load(d / "task.npz")
+    x, x2 = task["cp/x"], task["cp/x2"]
+    o, res, o2, res2 = jax.vmap(_ref_compressed, axis_name="d")(
+        jnp.asarray(x), jnp.asarray(x2))
+    q, s = jax.vmap(RG.quantize_int8)(jnp.asarray(x))
+    for rank, r in enumerate(ranks):
+        np.testing.assert_array_equal(r["cp/q"], np.asarray(q[rank]))
+        assert float(r["cp/scale"]) == float(s[rank])
+        _close(r["cp/out"], o[rank], 1e-6, "out")
+        _close(r["cp/res"], res[rank], 1e-6, "residual")
+        _close(r["cp/out2"], o2[rank], 1e-6, "out after feedback")
+        _close(r["cp/res2"], res2[rank], 1e-6, "residual after feedback")
+        assert bool(r["cp/res_exact"])
+    # not the exact mean: each payload is summed under the mean scale
+    assert float(np.abs(np.asarray(o[0]) - x.mean(0)).max()) > 1e-3
+
+
+def test_compress_tree_psum_matches_reference_under_vmap(group):
+    ranks, _, d = group
+    task = np.load(d / "task.npz")
+    x, x2 = task["cp/x"], task["cp/x2"]
+    out, res = jax.vmap(lambda a, b: RG.compress_tree_psum(
+        {"a": a, "b": b * 3}, "d"), axis_name="d")(jnp.asarray(x),
+                                                  jnp.asarray(x2))
+    for rank, r in enumerate(ranks):
+        _close(r["cp/tree_a"], out["a"][rank], 1e-6, "a")
+        _close(r["cp/tree_b"], out["b"][rank], 1e-6, "b")
+        _close(r["cp/tree_res_b"], res["b"][rank], 1e-6, "residual b")
+
+
+@pytest.mark.parametrize("run", [s[0] for s in STEPS])
+def test_sharded_step_matches_single_device(group, run):
+    """Loss, gradient norm and every parameter after one step, on every
+    rank, against the reference's single-device step."""
+    ranks, ref, _ = group
+    want = ref["steps"][run]
+    for r in ranks:
+        _close(r[f"step/{run}/loss"], want["loss"], 1e-4, "loss")
+        _close(r[f"step/{run}/gnorm"], want["gnorm"],
+               1e-4 * max(1.0, want["gnorm"]), "gnorm")
+        names = [k[len(f"step/{run}/param/"):] for k in r
+                 if k.startswith(f"step/{run}/param/")]
+        assert names
+        for n in names:
+            _close(r[f"step/{run}/param/{n}"],
+                   _per_layer(want["params"], n), 1e-4, n)
+
+
+@pytest.mark.parametrize("run", [s[0] for s in STEPS])
+def test_sharded_gradients_match_single_device(group, run):
+    ranks, ref, _ = group
+    want = ref["steps"][run]["grads"]
+    for r in ranks:
+        names = [k[len(f"step/{run}/grad/"):] for k in r
+                 if k.startswith(f"step/{run}/grad/")]
+        assert len(names) == len(set(names)) > 0
+        for n in names:
+            w = _per_layer(want, n)
+            g = r[f"step/{run}/grad/{n}"]
+            assert np.all(np.abs(g - w) <= 1e-3 * np.abs(w)
+                          + 1e-4 * float(np.abs(w).max())), n
+
+
+@pytest.mark.parametrize("run", [s[0] for s in STEPS])
+def test_sharded_storage_is_each_ranks_block(group, run):
+    """Each parameter's local block is its shape over the mesh axes its
+    spec names."""
+    ranks, _, _ = group
+    name, arch, over, mesh, _, _ = next(s for s in STEPS if s[0] == run)
+    shape = tuple(int(s) for s in mesh.split("x"))
+    geo = MeshShape(shape)
+    tcfg = smoke_config(arch).scaled(**over)
+    model = T.init_params(tcfg, device="meta")
+    specs = S.param_specs(model, geo, fsdp=tcfg.fsdp)
+    sizes = dict(zip(geo.mesh_dim_names, shape))
+
+    def ways(entry) -> int:
+        names = (entry,) if isinstance(entry, str) else entry or ()
+        return int(np.prod([sizes[a] for a in names]))
+
+    sharded = 0
+    for r in ranks:
+        local = json.loads(str(r[f"step/{run}/local_shapes"]))
+        for n, p in model.named_parameters():
+            spec = list(specs[n]) + [None] * (p.dim() - len(specs[n]))
+            want = [d // ways(e) for d, e in zip(p.shape, spec)]
+            assert local[n] == want, (n, local[n], want)
+            sharded += want != list(p.shape)
+    assert sharded > 0
+
+
+def test_compressed_step_close_to_exact(group):
+    ranks, ref, _ = group
+    run = COMPRESSED[0]
+    want = ref["steps"][run]
+    for r in ranks:
+        _close(r[f"step/{run}/loss"], want["loss"], 1e-3, "loss")
+        assert float(r[f"step/{run}/res_err"]) == 0.0
+        for k in [k for k in r if k.startswith(f"step/{run}/param/")]:
+            n = k[len(f"step/{run}/param/"):]
+            w = _per_layer(want["params"], n)
+            rel = float(np.abs(r[k] - w).max() / (np.abs(w).max() + 1e-9))
+            assert rel < 0.05, (n, rel)
+
+
+def test_checkpoint_from_2x2_restores_onto_4x1_bit_for_bit(group):
+    ranks, _, d = group
+    for r in ranks:
+        assert bool(r["ckpt/bit_equal"]) and int(r["ckpt/step"]) == 6
+    placements = json.loads(str(ranks[0]["ckpt/placements"]))
+    assert any("Shard" in v for v in placements.values())
+    # the file is the reference's: stacked leaves under its keys
+    files = sorted((d / "ckpt").iterdir())
+    assert [f.name for f in files] == ["ckpt_6.npz"]
+    flat = np.load(files[0])
+    assert "['params']['layers']['attn']['wq']" in flat.files
+    assert flat["['params']['layers']['attn']['wq']"].shape[0] == 2
+    want = ranks[0]["step/qwen3_sgd_2x2/param/embed"].shape
+    assert flat["['params']['embed']"].shape == want
+
+
+def test_train_cli_mesh_smoke_on_the_cpu(group):
+    """``launch.train --mesh smoke --device cpu``'s main on each of the
+    group's four ranks (the path of every rank the command starts) runs
+    3 steps on the 2 x 2 mesh; rank 0 prints them, and every rank's losses
+    are the one-device run's within 2e-4 (the data axis's sums in another
+    order; probes: ~1e-7)."""
+    from repro_torch.launch.train import main
+    ranks, _, _ = group
+    want = main(CLI_ARGS)["losses"]
+    printed = str(ranks[0]["cli/printed"])
+    assert "mesh={'data': 2, 'model': 2}" in printed
+    assert [float(m) for m in re.findall(r"loss=([0-9.]+)", printed)] == \
+        pytest.approx(want, abs=2e-4)
+    for r in ranks:
+        assert len(r["cli/losses"]) == 3
+        assert np.allclose(r["cli/losses"], want, atol=2e-4)
+    assert all(str(r["cli/printed"]) == "" for r in ranks[1:])

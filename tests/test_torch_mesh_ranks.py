@@ -1,0 +1,239 @@
+"""One rank of the 4-rank gloo group that tests/test_torch_mesh.py starts
+once (``launch/mesh.py`` ``launch_ranks``).  It holds no tests: pytest
+collects nothing here, and the ranks run it as a program:
+
+    python tests/test_torch_mesh_ranks.py TASK_DIR
+
+It reads ``TASK_DIR/task.npz`` and ``task.json`` (the reference's weights,
+batches and inputs, written by the test module), runs every multi-rank
+check of the port on ``(2, 2)``, ``(1, 4)`` and ``(4, 1)`` meshes of the
+one group, then ``launch.train``'s main with ``--mesh smoke --device cpu``
+(the path of each rank that command starts, in a group of its own), and
+writes what it found to ``TASK_DIR/rank<r>.npz`` for the
+test module's parametrised cases to hold against the reference.  It
+imports the port only, never JAX.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import io
+import json
+import math
+import os
+import sys
+
+import numpy as np
+import torch
+
+
+def _tree(arrays, prefix: str) -> dict:
+    """The nested dict of the arrays under ``prefix/`` (keys split on
+    '/')."""
+    out: dict = {}
+    for key in arrays.files:
+        if not key.startswith(prefix + "/"):
+            continue
+        *path, leaf = key[len(prefix) + 1:].split("/")
+        node = out
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = arrays[key]
+    return out
+
+
+def _np(t) -> np.ndarray:
+    return t.detach().to(torch.float32).numpy()
+
+
+def main() -> None:
+    task_dir = sys.argv[1]
+    torch.set_num_threads(1)
+    import torch.distributed as torch_dist
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch.mesh import (init_process_group, make_smoke_mesh,
+                                         mesh_axes, rank_env)
+    from repro_torch.launch.shardings import (distribute, gather,
+                                              param_specs, to_shardings)
+    from repro_torch.models.common import P, ModelConfig, manual_axes, \
+        shard_map
+    from repro_torch.models.moe import (_dispatch_local, _route, moe_ep_a2a,
+                                        moe_ep_a2a_decode)
+    from repro_torch.models.transformer import Dist, init_params
+    from repro_torch.models.weights import params_from_reference
+    from repro_torch.optim import (adafactor, adamw, compress_tree_psum,
+                                   compressed_psum, dequantize_int8,
+                                   quantize_int8, sgd_momentum)
+    from repro_torch.train import train_step as TS
+    from repro_torch.train.checkpoint import (load_latest, restore_like,
+                                              save_checkpoint)
+
+    rank, world, init_file = rank_env()
+    init_process_group("cpu", rank, world, init_file)
+    task = np.load(os.path.join(task_dir, "task.npz"))
+    meta = json.load(open(os.path.join(task_dir, "task.json")))
+    meshes = {"2x2": make_smoke_mesh(2, 2, device_type="cpu"),
+              "1x4": make_smoke_mesh(1, 4, device_type="cpu"),
+              "4x1": make_smoke_mesh(4, 1, device_type="cpu")}
+    out: dict = {}
+
+    for name, mesh in meshes.items():
+        batch_axes, model = mesh_axes(mesh)
+        out[f"axes/{name}"] = np.array(json.dumps([batch_axes, model]))
+
+    # ---- expert-parallel MoE on (1, 4) ---------------------------------
+    ep = meta["ep"]
+    mesh = meshes["1x4"]
+    for case in ep["cases"]:
+        cfg = ModelConfig(**dict(ep["cfg"], n_experts=case["n_experts"]))
+        p = {k: torch.from_numpy(v) for k, v in
+             _tree(task, f"ep/{case['name']}/p").items()}
+        x = torch.from_numpy(task[f"ep/{case['name']}/x"])
+        pspec = {k: P("model") if k.startswith("w_") else P() for k in p}
+        cf = case["cf"]
+        if case["decode"]:
+            fn = shard_map(lambda xb, pp: moe_ep_a2a_decode(
+                pp, cfg, xb, capacity_factor=cf), mesh=mesh,
+                in_specs=(P(), pspec), out_specs=P())
+        else:
+            fn = shard_map(lambda xb, pp: moe_ep_a2a(
+                pp, cfg, xb, capacity_factor=cf), mesh=mesh,
+                in_specs=(P("model"), pspec), out_specs=P("model"))
+        leaves = {k: v.clone().requires_grad_(True) for k, v in p.items()}
+        xg = x.clone().requires_grad_(True)
+        y = fn(xg, leaves)
+        cot = torch.from_numpy(task[f"ep/{case['name']}/cot"])
+        grads = torch.autograd.grad((y * cot).sum(), [xg, *leaves.values()])
+        tag = f"ep/{case['name']}"
+        out[f"{tag}/y"] = _np(y)
+        out[f"{tag}/gx"] = _np(grads[0])
+        for k, g in zip(leaves, grads[1:]):
+            out[f"{tag}/g/{k}"] = _np(g)
+        if not case["decode"]:  # this rank's drop mask
+            blk = x.chunk(4)[rank]
+            e_pad = p["w_gate"].shape[0]
+            cap = int(math.ceil(blk.shape[0] * cfg.top_k / e_pad * cf / 8.0)
+                      * 8)
+            w, idx = _route(blk, p["router"], cfg.top_k)
+            out[f"{tag}/keep"] = _dispatch_local(
+                blk, w, idx, e_pad, cap)[1][2].numpy()
+
+    # ---- compressed psum over "data" on (4, 1) ---------------------------
+    mesh = meshes["4x1"]
+    xs = torch.from_numpy(task["cp/x"][rank])
+    xs2 = torch.from_numpy(task["cp/x2"][rank])
+    with manual_axes(mesh, mesh.mesh_dim_names), torch.no_grad():
+        q, scale = quantize_int8(xs)
+        out["cp/q"] = q.numpy()
+        out["cp/scale"] = scale.numpy()
+        o, r = compressed_psum(xs, "data")
+        o2, r2 = compressed_psum(xs2, "data", r)
+        out.update({"cp/out": o.numpy(), "cp/res": r.numpy(),
+                    "cp/out2": o2.numpy(), "cp/res2": r2.numpy()})
+        out["cp/res_exact"] = np.array(bool(torch.equal(
+            r, xs - dequantize_int8(q, scale))))
+        to, tr = compress_tree_psum({"a": xs, "b": xs2 * 3}, "data")
+        out.update({"cp/tree_a": to["a"].numpy(),
+                    "cp/tree_b": to["b"].numpy(),
+                    "cp/tree_res_b": tr["b"].numpy()})
+
+    # ---- the sharded and the compressed train steps ----------------------
+    opts = {"sgd": lambda: sgd_momentum(lr=0.1),
+            "sgd05": lambda: sgd_momentum(lr=0.05),
+            "adafactor": lambda: adafactor(), "adamw": lambda: adamw(lr=1e-3)}
+    for run in meta["steps"]:
+        tcfg = smoke_config(run["arch"]).scaled(**run["overrides"])
+        tree = _tree(task, f"w/{run['weights']}")
+        batch = {k: v for k, v in _tree(task, f"b/{run['batch']}").items()}
+        mesh = meshes[run["mesh"]]
+        dist = Dist(mesh=mesh, capacity_factor=run.get("cf"))
+        opt = opts[run["opt"]]()
+        params = params_from_reference(tree, tcfg, "cpu")
+        tag = f"step/{run['name']}"
+        if run["compress"]:
+            state = TS.TrainState(params, opt.init(
+                dict(params.named_parameters())))
+            step = TS.make_train_step(tcfg, opt, dist, compress_grads=True)
+            # this rank's gradients, for the residual's exactness
+            blk = {k: torch.from_numpy(v).chunk(4)[rank]
+                   for k, v in batch.items()}
+            _, g = TS.loss_and_grads(tcfg, params, blk)
+            state, m = step(state, batch)
+            res_err = 0.0
+            for n, gl in g.items():
+                qn, sn = quantize_int8(gl.to(torch.float32))
+                deq = dequantize_int8(qn, sn)
+                res_err = max(res_err, float((state["residuals"][n] - (
+                    gl.to(torch.float32) - deq)).abs().max()))
+            out[f"{tag}/res_err"] = np.array(res_err)
+        else:
+            params = distribute(params, to_shardings(
+                mesh, param_specs(params, mesh, fsdp=tcfg.fsdp)))
+            ost = opt.init(dict(params.named_parameters()))
+            ost = distribute(ost, to_shardings(
+                mesh, param_specs(ost, mesh, fsdp=tcfg.fsdp)))
+            state = TS.TrainState(params, ost)
+            loss, grads = TS._sharded_grads(tcfg, dist, params, batch, 1)
+            for n, g in grads.items():
+                out[f"{tag}/grad/{n}"] = _np(g)
+            gs = to_shardings(mesh, param_specs(params, mesh, fsdp=False)) \
+                if run["grad_shardings"] else None
+            step = TS.make_train_step(tcfg, opt, dist, grad_shardings=gs)
+            state, m = step(state, batch)
+            out[f"{tag}/local_shapes"] = np.array(json.dumps(
+                {n: list(p.to_local().shape)
+                 for n, p in state["params"].named_parameters()}))
+        out[f"{tag}/loss"] = _np(m["loss"])
+        out[f"{tag}/gnorm"] = _np(m["grad_norm"])
+        for n, p in gather(state["params"]).items():
+            out[f"{tag}/param/{n}"] = _np(p)
+
+    # ---- a checkpoint from (2, 2) restored onto (4, 1) -------------------
+    tcfg = smoke_config("qwen3-0.6b")
+    params = params_from_reference(_tree(task, "w/qwen3"), tcfg, "cpu")
+    opt = adamw(lr=1e-3)
+    a = meshes["2x2"]
+    params = distribute(params, to_shardings(a, param_specs(params, a)))
+    ost = opt.init(dict(params.named_parameters()))
+    ost = distribute(ost, to_shardings(a, param_specs(ost, a)))
+    state = TS.TrainState(params, ost, step=5)
+    batch = _tree(task, "b/qwen3")
+    state, _ = TS.make_train_step(tcfg, opt, Dist(mesh=a))(state, batch)
+    ckpt = os.path.join(task_dir, "ckpt")
+    save_checkpoint(ckpt, state, 6)
+    step_no, flat = load_latest(ckpt)
+    b = meshes["4x1"]
+    fresh = init_params(tcfg, generator=torch.Generator().manual_seed(7),
+                        device="cpu")
+    fresh = distribute(fresh, to_shardings(b, param_specs(fresh, b)))
+    fost = opt.init(dict(fresh.named_parameters()))
+    fost = distribute(fost, to_shardings(b, param_specs(fost, b)))
+    restored = restore_like(TS.TrainState(fresh, fost), flat)
+    want = {**gather(state["params"]),
+            **{f"m.{k}": v for k, v in gather(state["opt_state"]["m"]).items()}}
+    got = {**gather(restored["params"]),
+           **{f"m.{k}": v for k, v in
+              gather(restored["opt_state"]["m"]).items()}}
+    out["ckpt/bit_equal"] = np.array(all(torch.equal(want[k], got[k])
+                                         for k in want))
+    out["ckpt/step"] = np.array(step_no)
+    out["ckpt/placements"] = np.array(json.dumps(
+        {n: str(p.placements) for n, p in restored["params"]
+         .named_parameters()}))
+
+    torch_dist.destroy_process_group()
+
+    # ---- launch.train --mesh smoke --device cpu: this rank's path --------
+    from repro_torch.launch.train import main as train_main
+    os.environ["MESH_INIT_FILE"] = init_file + "_cli"  # a group of its own
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = train_main(meta["cli"])
+    out["cli/printed"] = np.array(buf.getvalue())
+    out["cli/losses"] = np.array(res["losses"])
+    np.savez(os.path.join(task_dir, f"rank{rank}.npz"), **out)
+
+
+if __name__ == "__main__":
+    main()

@@ -22,6 +22,8 @@ Tolerances, each per leaf:
   1e-3 relative (squares of gradients that agree to ~1e-5 of their max).
 """
 
+import copy
+
 import jax
 import numpy as np
 import pytest
@@ -144,11 +146,24 @@ def test_adafactor_train_steps_match_reference(arch):
 
 
 def test_mesh_options_raise_naming_the_roadmap():
-    tcfg = weights("qwen3-0.6b")[2]
-    for kw in ({"compress_grads": True}, {"dist": object()},
+    """The mesh's options are ported (ROADMAP.md, queue 1): none raises,
+    and without an active mesh each leaves the one-device step as it is,
+    as the reference's do (tests/test_torch_mesh.py holds them on a
+    mesh)."""
+    _, _, tcfg, shared = weights("qwen3-0.6b")
+    b = batch(tcfg, 2, 8)
+    runs = []
+    for kw in ({}, {"compress_grads": True}, {"dist": T.Dist()},
                {"grad_shardings": {}}):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            make_train_step(tcfg, adamw(), **kw)
+        params = copy.deepcopy(shared)
+        state = TrainState(params, adamw().init(
+            dict(params.named_parameters())))
+        state, m = make_train_step(tcfg, adamw(), **kw)(state, b)
+        runs.append((float(m["loss"]), [
+            p.detach().clone() for p in state["params"].parameters()]))
+    for loss, ps in runs[1:]:
+        assert loss == runs[0][0]
+        assert all(torch.equal(a, b) for a, b in zip(ps, runs[0][1]))
 
 
 def test_train_loss_records_a_graph_serving_does_not():

@@ -1,7 +1,10 @@
 """The port's IR workloads against the reference's, on the CPU: datasets
 and programs byte for byte, pretraining step for step, each workload's
 fitness under the reference's cost constants, a seeded GEVO run, the CLI,
-parallel evaluation and the device rule.
+parallel evaluation and the device rule; and the kernel-artifact helpers
+of ``kernels/workloads.py`` (``kernel_artifact``,
+``resolve_kernel_schedule``, ``scheduled_kernel_fn``) against the
+reference's uses of them.
 
 Sizes stay small: no dataset at its default size, no pretraining beyond a
 few steps.  Tolerances, stated per check:
@@ -13,7 +16,9 @@ few steps.  Tolerances, stated per check:
   1e-9 of each tensor's largest value; in float32, the first step's loss
   to relative 1e-5 (the reference's f32 gradients of deep BN stacks are
   off by up to a few percent from its own f64 ones, the port's by about
-  1e-6, so f32 weights are not compared).
+  1e-6, so f32 weights are not compared);
+* artifact manifests: byte for byte; a scheduled kernel against the
+  kernel's f32 tolerance of tests/test_kernels.py.
 """
 
 import functools
@@ -26,6 +31,7 @@ import torch
 
 import repro.core.fitness as ref_fitness
 import repro.core.interp as ref_interp
+import repro.kernels.workloads as ref_kernel_wl
 import repro.core.search as ref_search
 import repro.core.serialize as ref_serialize
 import repro.workloads.datasets as ref_datasets
@@ -35,10 +41,15 @@ import repro.workloads.twofc as ref_twofc
 import repro_torch.core.fitness as fitness
 import repro_torch.core.interp as interp
 import repro_torch.core.serialize as serialize
+import repro_torch.kernels.workloads as kernel_wl
 import repro_torch.workloads.datasets as datasets
 import repro_torch.workloads.mobilenet as mobilenet
 import repro_torch.workloads.tinyformer as tinyformer
 import repro_torch.workloads.twofc as twofc
+from repro.core.deploy import ArtifactRegistry as RefRegistry
+from repro_torch.core.analysis.__main__ import main as analysis_cli
+from repro_torch.core.analysis.lint import lint_artifact, lint_path
+from repro_torch.core.deploy import ArtifactRegistry
 from repro_torch.core.evaluator import ParallelEvaluator
 from repro_torch.core.search import GevoML
 from repro_torch.workloads import __main__ as cli
@@ -366,3 +377,82 @@ def test_entry_points_need_a_card_unless_told_otherwise(monkeypatch):
     import repro_torch.kernels.workloads as kernel_workloads
     from repro_torch.device import resolve_device
     assert kernel_workloads.resolve_device is resolve_device
+
+
+# --------------------------------------------------------------------------
+# the kernel-artifact helpers (kernels/workloads.py) against the reference's
+# uses (tests/test_deploy.py TestKernelArtifacts, tests/test_analysis.py)
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kernel", kernel_wl.KERNELS)
+def test_kernel_artifact_is_the_references(kernel, tmp_path):
+    """The same manifest, byte for byte, and each package resolves the
+    other's registry."""
+    genome = dict(kernel_wl.BASELINES[kernel])
+    port = kernel_wl.kernel_artifact(kernel, genome, fitness=(1e-6, 0.0),
+                                     meta={"source": "test"})
+    ref = ref_kernel_wl.kernel_artifact(kernel, genome, fitness=(1e-6, 0.0),
+                                        meta={"source": "test"})
+    assert port.key() == ref.key() and port.body() == ref.body()
+    a = ArtifactRegistry(str(tmp_path / "port")).export(port)
+    b = RefRegistry(str(tmp_path / "ref")).export(ref)
+    assert open(a, "rb").read() == open(b, "rb").read()
+    assert kernel_wl.resolve_kernel_schedule(
+        ArtifactRegistry(str(tmp_path / "ref")), kernel) == genome
+    assert ref_kernel_wl.resolve_kernel_schedule(
+        RefRegistry(str(tmp_path / "port")), kernel) == genome
+    assert not any(d.is_error for d in lint_artifact(port))
+
+
+@pytest.mark.parametrize("kernel", kernel_wl.KERNELS)
+def test_resolve_falls_back_to_baseline(kernel, tmp_path):
+    reg = ArtifactRegistry(str(tmp_path / "arts"))
+    for r in (reg, None):
+        got = kernel_wl.resolve_kernel_schedule(r, kernel)
+        assert got == kernel_wl.BASELINES[kernel] == \
+            ref_kernel_wl.resolve_kernel_schedule(None, kernel)
+        assert got is not kernel_wl.BASELINES[kernel]  # a copy
+
+
+WINNERS = {"rmsnorm": {"impl": "pallas", "block_rows": 512,
+                       "epilogue": "unfused"},
+           "flash_attention": {"impl": "pallas", "block_q": 64,
+                               "block_k": 32},
+           "mamba_scan": {"impl": "pallas", "chunk": 16}}
+
+
+@pytest.mark.parametrize("kernel", kernel_wl.KERNELS)
+def test_registered_winner_resolves_and_runs(kernel, tmp_path):
+    """A winner in the registry is the schedule ``scheduled_kernel_fn``
+    runs: the same output as that genome's variant (its plain version on
+    the CPU), within the kernel's f32 tolerance of the default's, and of
+    the reference's scheduled function on the same inputs."""
+    reg = ArtifactRegistry(str(tmp_path / "arts"))
+    winner = WINNERS[kernel]
+    reg.export(kernel_wl.kernel_artifact(kernel, winner, fitness=(1e-6, 0.0)))
+    assert kernel_wl.resolve_kernel_schedule(reg, kernel) == winner
+    arrays = kernel_wl.numpy_inputs(kernel, 0)
+    inputs = kernel_wl.inputs_from_numpy(kernel, arrays, "cpu")
+    got = kernel_wl.scheduled_kernel_fn(kernel, reg)(inputs)
+    assert torch.equal(got, kernel_wl._variant_fn(kernel, winner)(inputs))
+    tol = {"rmsnorm": 1e-5, "flash_attention": 2e-5, "mamba_scan": 1e-4}
+    base = kernel_wl.scheduled_kernel_fn(kernel)(inputs)
+    assert float((got - base).abs().max()) <= tol[kernel]
+    ref_reg = RefRegistry(str(tmp_path / "ref"))
+    ref_reg.export(ref_kernel_wl.kernel_artifact(kernel, winner))
+    if kernel == "rmsnorm":  # the reference's Pallas kernel in interpret mode
+        want = ref_kernel_wl.scheduled_kernel_fn(kernel, ref_reg)(arrays)
+        assert float(np.abs(got.numpy() - np.asarray(want)).max()) \
+            <= tol[kernel]
+
+
+def test_out_of_space_winner_ignored_and_linted(tmp_path, capsys):
+    reg = ArtifactRegistry(str(tmp_path))
+    reg.export(kernel_wl.kernel_artifact("rmsnorm", {
+        "impl": "pallas", "block_rows": 7, "epilogue": "fused"}))
+    assert kernel_wl.resolve_kernel_schedule(reg, "rmsnorm") == \
+        kernel_wl.BASELINES["rmsnorm"]
+    results = lint_path(str(tmp_path))
+    assert len(results) == 1
+    assert analysis_cli(["lint", str(tmp_path), "--strict"]) == 1
+    assert "not among the declared choices" in capsys.readouterr().out
