@@ -209,9 +209,26 @@ Phases, each printing one JSON line:
                     rank (the residual x - deq exactly, the parameters
                     within 0.05 of the exact step's).  Every path's
                     launches are counted from zero.
+15. ``dryrun``    — the dry run (``launch/dryrun.py``) against the real
+                    step: qwen3-0.6b at full width and depth (8 x 1024)
+                    and falcon-mamba-7b at 4 of 64 layers (2 x 2048),
+                    bf16, AdamW, the sharded step on a NCCL group of one
+                    rank and its ``(1, 1)`` mesh, launches counted from
+                    zero, under ``FlopCounterMode``, peak memory from a
+                    reset; then the same cells' dry runs on a fake group:
+                    each kernel's events equal its launches, the aten dot
+                    FLOPs equal ``FlopCounterMode``'s exactly, argument +
+                    temp within 10% of the step's footprint, the card's
+                    allocated memory unmoved, the roofline's ``step_s``
+                    beside the measured s/step; ``remat="full"`` on
+                    qwen3-0.6b: loss and gradients bit for bit, forward
+                    kernels twice a checkpointed layer, the peak and the
+                    estimate both lower; the production cell qwen3-0.6b
+                    ``train_4k`` on 16x16: status ok.
 
 Then a ``{"kernels": [...]}`` line (the three kernels and their three
-backward kernels; ``launches_mesh`` counts the mesh phase's runs), the
+backward kernels; ``launches_mesh`` counts the mesh phase's runs,
+``launches_dryrun`` the dryrun phase's real steps), the
 card's name and power limit, and
 the last line ``{"ok": true, "device": {...}}``.  Any failure raises and
 the script exits nonzero.  Without a CUDA device, or outside a checkout of
@@ -287,11 +304,10 @@ def nvidia_smi(query: str = "name,power.limit") -> str:
 
 def device_rates() -> dict:
     """The rates ``bound_ms`` divides by, from the port's one record of the
-    card: HBM bytes/s and f32 FLOP/s of ``kernels.costs.H100``, bf16
-    tensor-core FLOP/s of ``core.fitness.PEAK_FLOPS``."""
-    from repro_torch.core.fitness import PEAK_FLOPS
+    card (``kernels.costs.H100``): HBM bytes/s, f32 and bf16 tensor-core
+    FLOP/s."""
     from repro_torch.kernels.costs import H100
-    return {"record": H100.name, "bw": H100.hbm_bw, "bf16": PEAK_FLOPS,
+    return {"record": H100.name, "bw": H100.hbm_bw, "bf16": H100.tensor_flops,
             "f32": H100.peak_flops}
 
 
@@ -754,26 +770,26 @@ def full_inputs(torch, kernel, gen):
             "C": normal(s["Bt"], s["L"], s["N"])}
 
 
+def bound_of(cost, rate, rates) -> tuple[float, str, float, float]:
+    """(bound_ms, bound_by, bytes, operations) of a ``kernels.costs``
+    count at the rate ``rate`` of its operations."""
+    t_bytes, t_ops = cost.bytes / rates["bw"], cost.operations / rate
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    return max(t_bytes, t_ops) * 1e3, by, cost.bytes, cost.operations
+
+
 def bound(kernel, rates) -> tuple[float, str, float, float]:
     """(bound_ms, bound_by, bytes, operations) of one call at full width in
-    bf16: each input read once, each output written once; operations of
-    the data this run needs (the causal half of attention)."""
-    s = FULL[kernel]
-    if kernel == "rmsnorm":
-        n = s["rows"] * s["d"]
-        nbytes = 2 * n * 2 + s["d"] * 4
-        ops, rate = 4 * n, rates["f32"]
-    elif kernel == "flash_attention":
-        B, H, S, hd = s["B"], s["H"], s["S"], s["hd"]
-        nbytes = 4 * B * H * S * hd * 2
-        ops, rate = 4 * hd * B * H * (S * (S + 1) // 2), rates["bf16"]
-    else:
-        Bt, L, D, N = s["Bt"], s["L"], s["D"], s["N"]
-        nbytes = 3 * Bt * L * D * 2 + D * N * 4 + 2 * Bt * L * N * 2
-        ops, rate = 6 * Bt * L * D * N, rates["f32"]
-    t_bytes, t_ops = nbytes / rates["bw"], ops / rate
-    by = "bytes" if t_bytes >= t_ops else "operations"
-    return max(t_bytes, t_ops) * 1e3, by, nbytes, ops
+    bf16 (the scale in f32), from ``kernels.costs``' count: each input
+    read once, each output written once; operations of the data this run
+    needs (the causal half of attention)."""
+    import torch
+
+    from repro_torch.kernels import costs
+    bf = torch.bfloat16
+    cost = getattr(costs, f"{kernel}_fwd_cost")(**FULL[kernel], dtype=bf)
+    return bound_of(cost, rates["bf16"] if cost.matmul else rates["f32"],
+                    rates)
 
 
 def exp_floor(torch) -> dict:
@@ -2899,29 +2915,31 @@ def bwd_resources(torch) -> dict:
 
 
 def bwd_bound(kernel, s, dtype, rates) -> tuple[float, str, float, float]:
-    """(bound_ms, bound_by, bytes, operations) of one backward call: each
-    input read once (the forward's outputs it takes among them), each
-    output written once; the operations the gradient needs (flash: the
-    five products of FA2's backward over the causal half, 10 hd a pair;
-    rmsnorm ~10 and the scan ~13 f32 operations an element)."""
-    es = 2 if dtype == "bfloat16" else 4
+    """(bound_ms, bound_by, bytes, operations) of one backward call, from
+    ``kernels.costs``' count: each input read once (the forward's outputs
+    it takes among them, and the last state's gradient for the scan),
+    each output written once (the scale and its gradient in the input's
+    dtype); the operations the gradient needs (flash: the five products
+    of FA2's backward over the causal half, 10 hd a pair; rmsnorm ~10 and
+    the scan ~13 f32 operations an element)."""
+    import torch
+
+    from repro_torch.kernels import costs
+    dt = getattr(torch, dtype)
     if kernel == "rmsnorm":
-        n = s["rows"] * s["d"]
-        nbytes, ops, rate = 3 * n * es + 2 * s["d"] * es, 10 * n, rates["f32"]
+        cost = costs.rmsnorm_bwd_cost(rows=s["rows"], d=s["d"], dtype=dt,
+                                      scale_dtype=dt)
     elif kernel == "flash_attention":
-        B, H, S, hd = s["B"], s["H"], s["S"], s["hd"]
-        pairs = B * H * (S * (S + 1) // 2 if s["causal"] else S * S)
-        nbytes = 8 * B * H * S * hd * es + B * H * S * 4
-        ops = 10 * hd * pairs
-        rate = rates["bf16"] if dtype == "bfloat16" else rates["f32"]
+        cost = costs.flash_attention_bwd_cost(
+            B=s["B"], H=s["H"], S=s["S"], hd=s["hd"], dtype=dt,
+            causal=s["causal"])
     else:
-        Bt, L, D, N = s["Bt"], s["L"], s["D"], s["N"]
-        nbytes = (5 * Bt * L * D * es + 4 * Bt * L * N * es + 2 * D * N * 4
-                  + Bt * (L // s["chunk"] + 1) * D * N * 4)
-        ops, rate = 13 * Bt * L * D * N, rates["f32"]
-    t_bytes, t_ops = nbytes / rates["bw"], ops / rate
-    by = "bytes" if t_bytes >= t_ops else "operations"
-    return max(t_bytes, t_ops) * 1e3, by, nbytes, ops
+        cost = costs.mamba_scan_bwd_cost(
+            Bt=s["Bt"], L=s["L"], D=s["D"], N=s["N"], dtype=dt,
+            chunk=s["chunk"])
+    rate = rates["bf16"] if cost.matmul and dtype == "bfloat16" \
+        else rates["f32"]
+    return bound_of(cost, rate, rates)
 
 
 def train_kernels(torch) -> dict:
@@ -3507,6 +3525,217 @@ def phase_mesh(torch, counters) -> dict:
     return out
 
 
+# The dry run (launch/dryrun.py) against the real step on the card.  (1)
+# qwen3-0.6b at full width and depth (8 x 1024) and falcon-mamba-7b at 4 of
+# 64 layers (2 x 2048), bf16, AdamW: the real sharded step on a NCCL group
+# of one rank and its (1, 1) mesh (``make_cell(..., device="cuda")``), with
+# the launches counted from zero, FlopCounterMode over it and its peak
+# memory from a reset; then, with that group ended, the dry run of the same
+# cell on a fake group of one rank: each kernel's events equal its
+# launches, the aten dot FLOPs equal FlopCounterMode's exactly, argument +
+# temp within DRYRUN_MEM_RTOL of the real footprint (the peak less what was
+# allocated before the cell was made), nothing allocated on the card by
+# the dry run, and the roofline's step_s beside the measured s/step (no
+# bound).  (2) remat="full" on qwen3-0.6b at the same shape: the loss and
+# every gradient bit for bit against remat="none", the forward kernels
+# launched twice in each checkpointed layer, and the step's peak and the
+# dry run's estimate both lower, still within DRYRUN_MEM_RTOL.  (3) the
+# production cell qwen3-0.6b train_4k on 16x16: status ok.
+DRYRUN_RUNS = {"qwen3-0.6b": {"n_layers": 28, "batch": 8, "seq": 1024},
+               "falcon-mamba-7b": {"n_layers": 4, "batch": 2, "seq": 2048}}
+DRYRUN_MEM_RTOL = 0.10
+
+
+def real_step(torch, arch, cfg, shape, mesh, counters) -> dict:
+    """The cell's real step on the card: launches, FlopCounterMode's
+    count, the footprint (peak less the memory before the cell was made)
+    and the host time of a second step."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.launch.specs import make_cell
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    cell = make_cell(arch, shape, mesh, cfg_override=cfg, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    with FlopCounterMode(display=False) as fc:
+        state, m = cell.fn(*cell.args)
+        torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    loss = float(m["loss"])
+    if not torch.isfinite(m["loss"]).item():
+        raise AssertionError(f"{arch}: loss {loss}")
+    step_s = timed_step(torch, cell.fn, state, cell.args[1])
+    del cell, state, m
+    torch.cuda.empty_cache()
+    return {"launches": launches, "flops": fc.get_total_flops(),
+            "footprint_bytes": peak - before, "peak_allocated_bytes": peak,
+            "loss": loss, "s_per_step": step_s}
+
+
+def dry_step(torch, arch, cfg, shape) -> dict:
+    """The dry run of the same cell on a fake (1, 1) mesh; the card's
+    allocated memory must not move."""
+    from repro_torch.launch.dryrun import run_cell
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    rec = run_cell(arch, shape, False, cfg_override=cfg,
+                   mesh=((1, 1), ("data", "model")))
+    if rec["status"] != "ok":
+        raise AssertionError(f"{arch}: the dry run failed: {rec['error']}\n"
+                             f"{rec['traceback']}")
+    if torch.cuda.memory_allocated() != before:
+        raise AssertionError(f"{arch}: the dry run allocated "
+                             f"{torch.cuda.memory_allocated() - before} "
+                             "bytes on the card")
+    return rec
+
+
+def dry_against_real(arch, dry, real) -> dict:
+    """(1)'s checks of one cell: events against launches, FLOPs exactly,
+    memory within DRYRUN_MEM_RTOL; the step times side by side."""
+    kernels = dry["hlo"]["kernels"]
+    for name, n in real["launches"].items():
+        kernel, bwd = (name[:-4], "bwd") if name.endswith("_bwd") \
+            else (name, "fwd")
+        got = kernels.get(f"{kernel}/{bwd}", {"events": 0})["events"]
+        if got != n:
+            raise AssertionError(f"{arch}: the dry run counts {got} calls "
+                                 f"of {name}, the step launched {n}")
+    aten = sum(dry["hlo"]["aten_flops"].values())
+    if aten != real["flops"]:
+        raise AssertionError(f"{arch}: dry-run dot FLOPs {aten} against "
+                             f"FlopCounterMode's {real['flops']}")
+    mem = dry["memory"]
+    est = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+    rel = est / real["footprint_bytes"] - 1
+    if abs(rel) > DRYRUN_MEM_RTOL:
+        raise AssertionError(f"{arch}: dry-run memory {est} against the "
+                             f"step's {real['footprint_bytes']} "
+                             f"({rel:+.3f})")
+    step_s = dry["roofline"]["step_s"]
+    return {"events_equal_launches": True, "dot_flops": aten,
+            "flops_equal": True, "memory_estimate_bytes": est,
+            "memory_real_bytes": real["footprint_bytes"],
+            "memory_rel_err": rel, "roofline": dry["roofline"],
+            "roofline_step_s": step_s,
+            "measured_s_per_step": real["s_per_step"],
+            "measured_over_roofline": real["s_per_step"] / step_s,
+            "trace_s": dry["compile_s"], "build_s": dry["lower_s"]}
+
+
+def remat_bitwise(torch, arch, cfg, shape) -> dict:
+    """(2): the loss and every gradient of one batch with remat="full"
+    against remat="none", on the card, bit for bit."""
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.launch.specs import make_cell
+    from repro_torch.train.train_step import loss_and_grads
+    cell = make_cell(arch, shape, MeshShape((1, 1)), cfg_override=cfg,
+                     device="cuda")
+    params, b = cell.args[0]["params"], cell.args[1]
+    loss0, g0 = loss_and_grads(cfg, params, b)
+    loss1, g1 = loss_and_grads(cfg.scaled(remat="full"), params, b)
+    torch.cuda.synchronize()
+    unequal = [n for n in g0 if not torch.equal(g0[n], g1[n])]
+    if not torch.equal(loss0, loss1) or unequal:
+        raise AssertionError(f"remat: loss {float(loss0)} / {float(loss1)}, "
+                             f"gradients differ in {unequal[:6]}")
+    n = len(g0)
+    del cell, params, g0, g1
+    torch.cuda.empty_cache()
+    return {"gradients_compared": n, "bit_identical": True,
+            "loss": float(loss0)}
+
+
+def remat_launches(cfg, launches) -> None:
+    """The forward kernels twice in each checkpointed layer (rmsnorm's
+    final norm once), the backward kernels as without remat."""
+    plain = expected_train_launches(cfg)
+    want = {"rmsnorm": 2 * (plain["rmsnorm"] - 1) + 1,
+            "flash_attention": 2 * plain["flash_attention"],
+            "mamba_scan": 2 * plain["mamba_scan"]}
+    for k, n in want.items():
+        if launches[k] != n or launches[BWD_NAMES[k]] != plain[k]:
+            raise AssertionError(f"remat: {launches[k]} launches of {k} "
+                                 f"(want {n}), {launches[BWD_NAMES[k]]} of "
+                                 f"its backward (want {plain[k]})")
+
+
+def phase_dryrun(torch, counters) -> dict:
+    """The dry run on the card (see the comment above ``DRYRUN_RUNS``):
+    the real steps on a NCCL group of one rank, ended before the dry runs
+    start their fake groups; no failure is caught."""
+    import tempfile
+
+    import torch.distributed as torch_dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.launch.mesh import init_process_group, make_smoke_mesh
+    out = {"phase": "dryrun", "gpu": nvidia_smi(),
+           "tolerance": {"memory_rel": DRYRUN_MEM_RTOL, "flops": "exact",
+                         "events": "exact"}}
+    cells = {a: (get_config(a).scaled(n_layers=r["n_layers"]),
+                 (r["seq"], r["batch"], "train"))
+             for a, r in DRYRUN_RUNS.items()}
+    remat_cfg = cells["qwen3-0.6b"][0].scaled(remat="full")
+    real = {}
+    with tempfile.TemporaryDirectory() as d:
+        init_process_group("cuda", 0, 1, str(Path(d) / "init"))
+        try:
+            mesh = make_smoke_mesh(1, 1, device_type="cuda")
+            for arch, (cfg, shape) in cells.items():
+                real[arch] = real_step(torch, arch, cfg, shape, mesh,
+                                       counters)
+            real["remat"] = real_step(torch, "qwen3-0.6b", remat_cfg,
+                                      cells["qwen3-0.6b"][1], mesh, counters)
+        finally:
+            torch_dist.destroy_process_group()
+    remat_launches(remat_cfg, real["remat"]["launches"])
+    out["cells"] = {}
+    for arch, (cfg, shape) in cells.items():
+        dry = dry_step(torch, arch, cfg, shape)
+        out["cells"][arch] = {"config": {"n_layers": cfg.n_layers,
+                                         "d_model": cfg.d_model,
+                                         "dtype": cfg.dtype},
+                              "tokens": list(shape[1::-1]),
+                              "launches": real[arch]["launches"],
+                              **dry_against_real(arch, dry, real[arch])}
+    dry = dry_step(torch, "qwen3-0.6b", remat_cfg, cells["qwen3-0.6b"][1])
+    remat = dry_against_real("qwen3-0.6b remat", dry, real["remat"])
+    plain = out["cells"]["qwen3-0.6b"]
+    if not (remat["memory_real_bytes"] < plain["memory_real_bytes"]
+            and remat["memory_estimate_bytes"]
+            < plain["memory_estimate_bytes"]):
+        raise AssertionError(f"remat: memory {remat['memory_real_bytes']} "
+                             f"(estimate {remat['memory_estimate_bytes']}) "
+                             f"against {plain['memory_real_bytes']} "
+                             f"({plain['memory_estimate_bytes']})")
+    out["remat"] = {"launches": real["remat"]["launches"],
+                    "bitwise": remat_bitwise(torch, "qwen3-0.6b",
+                                             cells["qwen3-0.6b"][0],
+                                             cells["qwen3-0.6b"][1]),
+                    **remat}
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    prod = run_cell("qwen3-0.6b", "train_4k", False)
+    if prod["status"] != "ok" or torch.cuda.memory_allocated() != before:
+        raise AssertionError(f"production cell: {prod.get('error')}\n"
+                             f"{prod.get('traceback')}")
+    out["production"] = {k: prod[k] for k in
+                         ("arch", "shape", "mesh", "devices", "memory",
+                          "roofline", "compile_s", "lower_s", "wall_s")}
+    out["production"]["collective_bytes"] = prod["hlo"]["collective_bytes"]
+    out["launches"] = {k: real["qwen3-0.6b"]["launches"][k]
+                       + real["falcon-mamba-7b"]["launches"][k]
+                       for k in counters}
+    emit(out)
+    return out
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels").is_dir():
         print("chip_smoke.py: run it from a checkout of the repository "
@@ -3547,6 +3776,7 @@ def main() -> int:
     liveloop = phase_liveloop(torch, counters)
     train = phase_train(torch, counters)
     mesh = phase_mesh(torch, counters)
+    dry = phase_dryrun(torch, counters)
 
     # launches: in the kernel's own measured search (a backward kernel has
     # none: its main path is training, so its row gives that count);
@@ -3557,8 +3787,10 @@ def main() -> int:
     # falcon-mamba-7b; launches_router: in build_router's runs of both;
     # launches_liveloop: in the real live loop's three ticks;
     # launches_train: in the training runs of both models;
-    # launches_mesh: in the mesh phase's runs under Dist.  Every count
-    # was read from the wrapper's counter after that path alone.
+    # launches_mesh: in the mesh phase's runs under Dist;
+    # launches_dryrun: in the dryrun phase's real steps of both models
+    # (without remat).  Every count was read from the wrapper's counter
+    # after that path alone.
     forward_of = {b: k for k, b in BWD_NAMES.items()}
     timed = {**{k: full[k] for k in wl.KERNELS}, **train["kernels"]}
     rows = [
@@ -3576,6 +3808,7 @@ def main() -> int:
          "launches_liveloop": liveloop["launches"][n],
          "launches_train": train["launches"][n],
          "launches_mesh": mesh["launches"][n],
+         "launches_dryrun": dry["launches"][n],
          "max_abs_err": timed[n]["max_abs_err"], "ms": timed[n]["kernel_ms"],
          "plain_ms": timed[n]["plain_ms"], "bound_ms": timed[n]["bound_ms"],
          "bound_by": timed[n]["bound_by"],

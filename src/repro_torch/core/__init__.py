@@ -5,10 +5,9 @@ with migration over a shared cache), the tensorized engine (whole
 populations as index tensors on the device), the deployment layer
 (Pareto-front queries, the artifact registry, the continuous-batching
 serving engine and its KV plan), the live loop's traces, and the surrogate
-layer.
-
-Modules of later slices (the router, the rest of the live loop, the mesh
-launch stack, training) are listed in ROADMAP.md.
+layer.  ``core.autotune`` is GEVO-Shard, the search over a model's
+distribution plan (``python -m repro_torch.core.autotune``), imported
+from its module.
 """
 
 from .deploy import (Artifact, ArtifactRegistry, FrontMember, ParetoFront,

@@ -33,11 +33,11 @@ plan, see :mod:`~repro_torch.core.deploy.kvplan`) into concrete replicas,
 slot counts clamped by the plan's paged byte budget.  The reference's
 placement of replicas on submeshes of a launch mesh (``replica_meshes``,
 ``shard_replica_params``, ``shard_engine_caches``, ``build_router(mesh=)``
-and ``--mesh``) is not ported yet (ROADMAP.md, queue 1, item 1): the
-reference's ``Router`` is one controller over every replica, and with one
-process a rank every rank would have to run the same deterministic
-router, step only its own replica and broadcast that replica's tokens,
-which is a design of its own.  ``python -m repro_torch.core.deploy.router`` is
+and ``--mesh``) is the port's last module still to come (ROADMAP.md,
+queue 1, item 1): the reference's ``Router`` is one controller over
+every replica, and with one process a rank every rank would have to run
+the same deterministic router, step only its own replica and broadcast
+that replica's tokens, which is a design of its own.  ``python -m repro_torch.core.deploy.router`` is
 the CLI smoke: build a router, replay a synthesized trace, print the stats
 JSON (optionally killing a replica mid-replay to show the failover path).
 """

@@ -43,7 +43,7 @@ import numpy as np
 import torch
 
 from ..core.analysis.diagnostics import block_divisibility, smem_capacity
-from ..core.fitness import HBM_BW, InvalidVariant
+from ..core.fitness import HBM_BW, PEAK_FLOPS, InvalidVariant
 from .flash_attention.flash_attention import smem_bytes as _flash_smem
 from .mamba_scan.mamba_scan import smem_bytes as _scan_smem
 from .rmsnorm.rmsnorm import smem_bytes as _rmsnorm_smem
@@ -65,6 +65,11 @@ class DeviceModel:
     smem_per_block: int    # shared-memory bytes one block may use
     tile_m: int            # row padding of a matrix-product tile
     tile_n: int            # column padding of a matrix-product tile
+    # the dry run's roofline (launch/roofline.py): bf16 (and fp16)
+    # products on the tensor cores, and the bytes/s of one link direction
+    # to another card
+    tensor_flops: float = PEAK_FLOPS
+    link_bw: float = 450e9
 
 
 # NVIDIA H100 SXM5 80 GB (data sheet; dense rates, no sparsity) — the part
@@ -75,7 +80,10 @@ class DeviceModel:
 # work issues one operation a lane a cycle, half of that.  HBM3 at
 # 3.35 TB/s (``core.fitness.HBM_BW``).  Shared memory: 227 KB (232,448 bytes) a block.  A flash
 # block's warp covers 8 query rows, and its products are not padded along
-# the keys (tile 8 x 1).
+# the keys (tile 8 x 1).  The dry run's rates are data-sheet values too:
+# bf16 on the tensor cores 989 TFLOP/s (``core.fitness.PEAK_FLOPS``), f32
+# ``peak_flops``, HBM ``hbm_bw``, and NVLink 4 at 900 GB/s a card, 450e9
+# bytes/s each way (``link_bw``, where the reference prices its TPU's ICI).
 #
 # grid_step_s and seq_step_s were measured by the ``overheads`` phase of
 # chip_smoke.py on an NVIDIA H100 80GB HBM3 with a 700 W power limit: one
@@ -397,3 +405,97 @@ def schedule_gates(kernel: str, genome: dict, *,
     _, _, gates = _TERMS[kernel](np, schedule_cols(kernel, genome),
                                  device=device, **shape)
     return gates
+
+
+# --------------------------------------------------------------------------
+# the work of one call of each kernel, forward and backward
+# --------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class KernelCost:
+    """One call's work: ``operations`` (products of the attention's
+    matrices when ``matmul``, else f32 arithmetic on the CUDA cores) and
+    ``bytes``, each input read once and each output written once."""
+    operations: int
+    bytes: int
+    matmul: bool
+
+
+def _es(dtype: torch.dtype) -> int:
+    return torch.empty((), dtype=dtype).element_size()
+
+
+def _causal_pairs(Sq: int, Sk: int) -> int:
+    """(query, key) pairs of causal attention, query i seeing keys j <= i."""
+    full = min(Sq, Sk)
+    return full * (full + 1) // 2 + (Sq - full) * Sk
+
+
+def rmsnorm_fwd_cost(*, rows: int, d: int, dtype: torch.dtype,
+                     scale_dtype: torch.dtype = torch.float32) -> KernelCost:
+    """x read, y written, scale read; ~4 operations an element."""
+    n = rows * d
+    return KernelCost(4 * n, 2 * n * _es(dtype) + d * _es(scale_dtype),
+                      False)
+
+
+def rmsnorm_bwd_cost(*, rows: int, d: int, dtype: torch.dtype,
+                     scale_dtype: torch.dtype = torch.float32) -> KernelCost:
+    """x and dy read, dx written, scale read and dscale written; ~10
+    operations an element."""
+    n = rows * d
+    return KernelCost(10 * n, 3 * n * _es(dtype) + 2 * d * _es(scale_dtype),
+                      False)
+
+
+def flash_attention_fwd_cost(*, B: int, H: int, S: int, hd: int,
+                             dtype: torch.dtype, Sk: int | None = None,
+                             causal: bool = True,
+                             lse: bool = False) -> KernelCost:
+    """q, k, v read, o (and each row's f32 log-sum-exp with ``lse``)
+    written; two products of hd a (query, key) pair, over the pairs the
+    data needs (the causal half)."""
+    Sk = S if Sk is None else Sk
+    pairs = B * H * (_causal_pairs(S, Sk) if causal else S * Sk)
+    nbytes = 2 * B * H * (S + Sk) * hd * _es(dtype)
+    if lse:
+        nbytes += B * H * S * 4
+    return KernelCost(4 * hd * pairs, nbytes, True)
+
+
+def flash_attention_bwd_cost(*, B: int, H: int, S: int, hd: int,
+                             dtype: torch.dtype, Sk: int | None = None,
+                             causal: bool = True) -> KernelCost:
+    """q, k, v, o, do and lse read, dq, dk, dv written; the five products
+    of FA2's backward, 10 hd a pair."""
+    Sk = S if Sk is None else Sk
+    pairs = B * H * (_causal_pairs(S, Sk) if causal else S * Sk)
+    return KernelCost(10 * hd * pairs,
+                      4 * B * H * (S + Sk) * hd * _es(dtype) + B * H * S * 4,
+                      True)
+
+
+def mamba_scan_fwd_cost(*, Bt: int, L: int, D: int, N: int,
+                        dtype: torch.dtype, state: bool = False,
+                        h_chunks: int = 0) -> KernelCost:
+    """dt, x, B, C and A (f32) read, y written, and the f32 states: the
+    last one with ``state``, ``h_chunks`` tile starts; ~6 operations an
+    element of the state."""
+    es = _es(dtype)
+    nbytes = 3 * Bt * L * D * es + D * N * 4 + 2 * Bt * L * N * es
+    nbytes += (int(state) + h_chunks) * Bt * D * N * 4
+    return KernelCost(6 * Bt * L * D * N, nbytes, False)
+
+
+def mamba_scan_bwd_cost(*, Bt: int, L: int, D: int, N: int,
+                        dtype: torch.dtype, chunk: int,
+                        dh_last: bool = True) -> KernelCost:
+    """dt, x, dy, B, C, A and the tile-start states (and the last state's
+    gradient with ``dh_last``) read, ddt, dx, dB, dC and dA written; ~13
+    operations an element of the state."""
+    es = _es(dtype)
+    nbytes = (5 * Bt * L * D * es + 4 * Bt * L * N * es + 2 * D * N * 4
+              + Bt * (L // chunk + int(dh_last)) * D * N * 4)
+    return KernelCost(13 * Bt * L * D * N, nbytes, False)
+

@@ -187,6 +187,13 @@ def flash_attention_bwd_plain(q, k, v, o, do, lse, *, causal: bool,
     return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
+def bwd_scratch(q) -> torch.Tensor:
+    """The f32 scratch a backward call on ``q``'s shape allocates."""
+    B, H, Sq, _ = q.shape
+    return torch.empty(bwd_scratch_floats(B * H, Sq, q.dtype),
+                       dtype=torch.float32, device=q.device)
+
+
 def flash_attention_launch(q, k, v, o, *, causal: bool, scale: float,
                            block_q: int, block_k: int, smem: int,
                            lse=None) -> None:
@@ -211,8 +218,7 @@ def flash_attention_bwd_launch(q, k, v, o, do, lse, dq, dk, dv, *,
     fn = build.function("flash_attention", "flash_attention_bwd",
                         _BWD_ARGTYPES)
     B, H, Sq, hd = q.shape
-    scratch = torch.empty(bwd_scratch_floats(B * H, Sq, q.dtype),
-                          dtype=torch.float32, device=q.device)
+    scratch = bwd_scratch(q)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
              do.data_ptr(), lse.data_ptr(), scratch.data_ptr(),
              dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B * H, Sq,

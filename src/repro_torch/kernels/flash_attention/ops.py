@@ -6,17 +6,20 @@ tests on hosts without a GPU reach them.  ``flash_attention`` is
 differentiable: when autograd records it, the forward also keeps each
 row's log-sum-exp and the gradient is :func:`flash_attention_bwd`, the
 backward kernel.  ``flash_attention.launches`` and
-``flash_attention_bwd.launches`` count kernel launches.
+``flash_attention_bwd.launches`` count kernel launches.  On tensors that
+hold no data (fake or meta tensors) they take the kernel's path up to the
+launch and record its work instead (``kernels/trace.py``).
 """
 
 from __future__ import annotations
 
 import torch
 
+from .. import trace
 from ..build import DTYPE_CODES
 from ..cpu import init_vector_math
 from .flash_attention import (BF16_BLOCK_K, HEAD_DIMS, MAX_BLOCK_Q,
-                              flash_attention_bwd_launch,
+                              bwd_scratch, flash_attention_bwd_launch,
                               flash_attention_bwd_plain,
                               flash_attention_launch, flash_attention_plain,
                               launch_head_dim, smem_bytes)
@@ -24,14 +27,17 @@ from .flash_attention import (BF16_BLOCK_K, HEAD_DIMS, MAX_BLOCK_Q,
 
 def _on_cpu(what: str, tensors) -> bool:
     """True for CPU tensors (the plain version); raise unless every tensor
-    lies on one CUDA device and q, k, v share a type the kernel takes."""
-    devices = {t.device for t in tensors}
-    if devices == {torch.device("cpu")}:
-        init_vector_math()
-        return True
-    if len(devices) != 1 or next(iter(devices)).type != "cuda":
-        raise ValueError(f"{what}: tensors on {sorted(map(str, devices))}; "
-                         "the kernel takes one CUDA device")
+    lies on one CUDA device and q, k, v share a type the kernel takes.
+    Tensors that hold no data take the kernel's checks on any device."""
+    if not trace.shape_only(tensors):
+        devices = {t.device for t in tensors}
+        if devices == {torch.device("cpu")}:
+            init_vector_math()
+            return True
+        if len(devices) != 1 or next(iter(devices)).type != "cuda":
+            raise ValueError(f"{what}: tensors on "
+                             f"{sorted(map(str, devices))}; the kernel "
+                             "takes one CUDA device")
     if len({t.dtype for t in tensors[:3]}) != 1 \
             or tensors[0].dtype not in DTYPE_CODES:
         raise ValueError(f"{what}: q, k, v must share one dtype, float32 or "
@@ -42,7 +48,8 @@ def _on_cpu(what: str, tensors) -> bool:
 def _launch(q, k, v, *, causal, scale, block_q, block_k, want_lse):
     """The forward kernel on q, k, v already at a launch head dim; returns
     o, or (o, lse) with ``want_lse``."""
-    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0
+    shape_only = trace.shape_only((q, k, v))
+    if not all(t.is_contiguous() and (shape_only or t.data_ptr() % 16 == 0)
                for t in (q, k, v)):
         raise ValueError("flash_attention: q, k, v must be contiguous and "
                          "16-byte aligned")
@@ -50,6 +57,11 @@ def _launch(q, k, v, *, causal, scale, block_q, block_k, want_lse):
     o = torch.empty_like(q)
     lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
            if want_lse else None)
+    if shape_only:
+        trace.record("flash_attention", "fwd",
+                     {"B": B, "H": H, "S": Sq, "hd": hd}, q.dtype,
+                     Sk=k.shape[2], causal=causal, lse=want_lse)
+        return (o, lse) if want_lse else o
     flash_attention_launch(
         q, k, v, o, causal=causal, scale=scale, block_q=block_q,
         block_k=block_k,
@@ -73,8 +85,8 @@ def check_bwd_launch(q, k, v, o, do, lse) -> None:
                          "float32")
     if not all(t.is_contiguous() for t in (q, k, v, o, do, lse)):
         raise ValueError("flash_attention_bwd: tensors must be contiguous")
-    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16
-                                         for t in (q, k, v, o, do)):
+    if q.dtype == torch.bfloat16 and not trace.shape_only((q,)) and any(
+            t.data_ptr() % 16 for t in (q, k, v, o, do)):
         raise ValueError("flash_attention_bwd: bf16 q, k, v, o and do must "
                          "be 16-byte aligned")
 
@@ -100,6 +112,12 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
                                          scale=scale)
     check_bwd_launch(q, k, v, o, do, lse)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if trace.shape_only((q, k, v, o, do, lse)):
+        bwd_scratch(q)
+        trace.record("flash_attention", "bwd",
+                     {"B": B, "H": H, "S": Sq, "hd": hd}, q.dtype, Sk=Sk,
+                     causal=causal)
+        return dq, dk, dv
     flash_attention_bwd_launch(q, k, v, o, do, lse, dq, dk, dv,
                                causal=causal, scale=scale)
     flash_attention_bwd.launches += 1
@@ -112,7 +130,7 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale, block_q, block_k):
-        if q.device.type == "cpu":
+        if q.device.type == "cpu" and not trace.shape_only((q, k, v)):
             o, lse = flash_attention_plain(q, k, v, causal=causal,
                                            scale=scale, block_q=block_q,
                                            block_k=block_k, return_lse=True)

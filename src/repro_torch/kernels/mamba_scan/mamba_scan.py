@@ -223,6 +223,18 @@ def mamba_scan_launch(dt, x, A, B, C, y, h_last, *, chunk: int,
     build.check("mamba_scan", err, "mamba_scan_fwd")
 
 
+def bwd_scratch(x, N: int) -> tuple:
+    """The f32 scratch a backward call on ``x`` (Bt, L, D) with state size
+    ``N`` allocates: dA a batch row, dB and dC a cluster of blocks."""
+    Bt, L, D = x.shape
+    geo = mamba_scan_bwd_geometry({"Bt": Bt, "L": L, "D": D, "N": N},
+                                  x.dtype)
+    f32 = {"dtype": torch.float32, "device": x.device}
+    dB_part = torch.empty((Bt, geo["clusters"], L, N), **f32)
+    return (torch.empty((Bt, D, N), **f32), dB_part,
+            torch.empty_like(dB_part))
+
+
 def mamba_scan_bwd_launch(dt, x, A, B, C, dy, dh_last, h_chunks, ddt, dx,
                           dA, dB, dC, *, chunk: int) -> None:
     """Launch the backward kernels on PyTorch's current stream, with their
@@ -233,10 +245,7 @@ def mamba_scan_bwd_launch(dt, x, A, B, C, dy, dh_last, h_chunks, ddt, dx,
     N = A.shape[1]
     geo = mamba_scan_bwd_geometry({"Bt": Bt, "L": L, "D": D, "N": N},
                                   x.dtype)
-    f32 = {"dtype": torch.float32, "device": x.device}
-    dA_part = torch.empty((Bt, D, N), **f32)
-    dB_part = torch.empty((Bt, geo["clusters"], L, N), **f32)
-    dC_part = torch.empty_like(dB_part)
+    dA_part, dB_part, dC_part = bwd_scratch(x, N)
     err = fn(dt.data_ptr(), x.data_ptr(), A.data_ptr(), B.data_ptr(),
              C.data_ptr(), dy.data_ptr(),
              None if dh_last is None else dh_last.data_ptr(),

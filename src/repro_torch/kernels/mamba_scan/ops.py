@@ -6,17 +6,21 @@ tests on hosts without a GPU reach them.  ``mamba_scan`` is
 differentiable: when autograd records it, the forward also keeps the state
 at the start of each tile of ``chunk`` steps and the gradient is
 :func:`mamba_scan_bwd`, the backward kernel.  ``mamba_scan.launches`` and
-``mamba_scan_bwd.launches`` count kernel launches.
+``mamba_scan_bwd.launches`` count kernel launches.  On tensors that hold
+no data (fake or meta tensors) they take the kernel's path up to the
+launch and record its work instead (``kernels/trace.py``).
 """
 
 from __future__ import annotations
 
 import torch
 
+from .. import trace
 from ..build import DTYPE_CODES
 from ..cpu import init_vector_math
-from .mamba_scan import (mamba_scan_bwd_launch, mamba_scan_bwd_plain,
-                         mamba_scan_launch, mamba_scan_plain, smem_bytes)
+from .mamba_scan import (bwd_scratch, mamba_scan_bwd_launch,
+                         mamba_scan_bwd_plain, mamba_scan_launch,
+                         mamba_scan_plain, smem_bytes)
 
 
 def _check(what, dt, x, A, B, C) -> tuple[int, int, int, int]:
@@ -32,15 +36,18 @@ def _check(what, dt, x, A, B, C) -> tuple[int, int, int, int]:
 
 def _on_cpu(what: str, tensors, N: int) -> bool:
     """True for CPU tensors (the plain version); raise unless every tensor
-    lies on one CUDA device in the types and layout the kernel takes."""
+    lies on one CUDA device in the types and layout the kernel takes.
+    Tensors that hold no data take the kernel's checks on any device."""
     dt, x, A, B, C = tensors[:5]
-    devices = {t.device for t in tensors}
-    if devices == {torch.device("cpu")}:
-        init_vector_math()
-        return True
-    if len(devices) != 1 or x.device.type != "cuda":
-        raise ValueError(f"{what}: tensors on {sorted(map(str, devices))}; "
-                         "the kernel takes one CUDA device")
+    if not trace.shape_only(tensors):
+        devices = {t.device for t in tensors}
+        if devices == {torch.device("cpu")}:
+            init_vector_math()
+            return True
+        if len(devices) != 1 or x.device.type != "cuda":
+            raise ValueError(f"{what}: tensors on "
+                             f"{sorted(map(str, devices))}; the kernel "
+                             "takes one CUDA device")
     if not (dt.dtype == x.dtype == B.dtype == C.dtype) \
             or x.dtype not in DTYPE_CODES or A.dtype != torch.float32:
         raise ValueError(f"{what}: dt, x, B, C must share one dtype "
@@ -67,11 +74,16 @@ def _forward(dt, x, A, B, C, *, chunk: int, return_state: bool,
     h = torch.empty((Bt, D, N), **f32) if return_state else None
     hc = (torch.empty((Bt, L // chunk, D, N), **f32) if return_chunks
           else None)
-    mamba_scan_launch(dt, x, A, B, C, y, h, chunk=chunk,
-                      smem=smem_bytes({"chunk": chunk},
-                                      {"Bt": Bt, "L": L, "D": D, "N": N},
-                                      x.dtype), h_chunks=hc)
-    mamba_scan.launches += 1
+    if trace.shape_only((dt, x, A, B, C)):
+        trace.record("mamba_scan", "fwd", {"Bt": Bt, "L": L, "D": D, "N": N},
+                     x.dtype, state=return_state,
+                     h_chunks=L // chunk if return_chunks else 0)
+    else:
+        mamba_scan_launch(dt, x, A, B, C, y, h, chunk=chunk,
+                          smem=smem_bytes({"chunk": chunk},
+                                          {"Bt": Bt, "L": L, "D": D, "N": N},
+                                          x.dtype), h_chunks=hc)
+        mamba_scan.launches += 1
     out = (y,) + ((h,) if return_state else ()) + \
         ((hc,) if return_chunks else ())
     return out if len(out) > 1 else y
@@ -99,6 +111,11 @@ def mamba_scan_bwd(dt, x, A, B, C, dy, h_chunks, dh_last=None, *,
                          "float32")
     ddt, dx, dB, dC = (torch.empty_like(t) for t in (dt, x, B, C))
     dA = torch.empty_like(A)
+    if trace.shape_only((dt, x, A, B, C) + rest):
+        bwd_scratch(x, N)
+        trace.record("mamba_scan", "bwd", {"Bt": Bt, "L": L, "D": D, "N": N},
+                     x.dtype, chunk=chunk, dh_last=dh_last is not None)
+        return ddt, dx, dA, dB, dC
     mamba_scan_bwd_launch(dt, x, A, B, C, dy, dh_last, h_chunks, ddt, dx,
                           dA, dB, dC, chunk=chunk)
     mamba_scan_bwd.launches += 1

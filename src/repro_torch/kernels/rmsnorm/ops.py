@@ -5,13 +5,16 @@ tensors they run the kernels' plain PyTorch versions, which is how the
 tests on hosts without a GPU reach them.  ``rmsnorm`` is differentiable:
 when autograd records it, its gradient is :func:`rmsnorm_bwd`, the backward
 kernel.  ``rmsnorm.launches`` and ``rmsnorm_bwd.launches`` count kernel
-launches.
+launches.  On tensors that hold no data (fake or meta tensors) they take
+the kernel's path up to the launch and record its work instead
+(``kernels/trace.py``).
 """
 
 from __future__ import annotations
 
 import torch
 
+from .. import trace
 from ..build import DTYPE_CODES
 from ..cpu import init_vector_math
 from .rmsnorm import (rmsnorm_bwd_geometry, rmsnorm_bwd_launch,
@@ -21,14 +24,17 @@ from .rmsnorm import (rmsnorm_bwd_geometry, rmsnorm_bwd_launch,
 
 def _check_device(what: str, tensors) -> bool:
     """True for CPU tensors (the plain version); raise unless every tensor
-    lies on one CUDA device in a type the kernel takes, contiguous."""
-    devices = {t.device for t in tensors}
-    if devices == {torch.device("cpu")}:
-        init_vector_math()
-        return True
-    if len(devices) != 1 or next(iter(devices)).type != "cuda":
-        raise ValueError(f"{what}: tensors on {sorted(map(str, devices))}; "
-                         "the kernel takes one CUDA device")
+    lies on one CUDA device in a type the kernel takes, contiguous.
+    Tensors that hold no data take the kernel's checks on any device."""
+    if not trace.shape_only(tensors):
+        devices = {t.device for t in tensors}
+        if devices == {torch.device("cpu")}:
+            init_vector_math()
+            return True
+        if len(devices) != 1 or next(iter(devices)).type != "cuda":
+            raise ValueError(f"{what}: tensors on "
+                             f"{sorted(map(str, devices))}; the kernel "
+                             "takes one CUDA device")
     if any(t.dtype not in DTYPE_CODES for t in tensors):
         raise ValueError(f"{what}: dtypes {[t.dtype for t in tensors]}; the "
                          "kernel takes float32 and bfloat16")
@@ -43,6 +49,10 @@ def _forward(x2: torch.Tensor, scale: torch.Tensor, eps: float,
     if _check_device("rmsnorm", (x2, scale)):
         return rmsnorm_plain(x2, scale, eps=eps, block_rows=block_rows)
     y = torch.empty_like(x2)
+    if trace.shape_only((x2, scale)):
+        trace.record("rmsnorm", "fwd", {"rows": rows, "d": d}, x2.dtype,
+                     scale_dtype=scale.dtype)
+        return y
     rmsnorm_launch(x2, scale, y, eps=eps, block_rows=block_rows,
                    smem=smem_bytes({"block_rows": block_rows},
                                    {"rows": rows, "d": d}, x2.dtype))
@@ -62,11 +72,17 @@ def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor, *,
     if _check_device("rmsnorm_bwd", (x, scale, dy)):
         return rmsnorm_bwd_plain(x, scale, dy, eps=eps)
     dx = torch.empty_like(x)
-    geo = rmsnorm_bwd_geometry(rows, d, x.dtype, aligned=all(
+    # tensors without data: the caching allocator's blocks are aligned
+    shape_only = trace.shape_only((x, scale, dy))
+    geo = rmsnorm_bwd_geometry(rows, d, x.dtype, aligned=shape_only or all(
         t.data_ptr() % 16 == 0 for t in (x, dy, dx)))
     dscale = torch.empty_like(scale)
     partial = torch.empty((geo["blocks"], d), dtype=torch.float32,
                           device=x.device)
+    if shape_only:
+        trace.record("rmsnorm", "bwd", {"rows": rows, "d": d}, x.dtype,
+                     scale_dtype=scale.dtype)
+        return dx, dscale
     rmsnorm_bwd_launch(x, scale, dy, dx, dscale, partial, eps=eps,
                        geometry=geo)
     rmsnorm_bwd.launches += 1

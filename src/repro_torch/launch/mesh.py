@@ -17,10 +17,14 @@ process group.
 * :func:`launch_ranks` starts one process a rank and waits for them all
   under a deadline, killing every one when one fails or the deadline
   passes.
+* :func:`fake_process_group` stands a group of any size up in this one
+  process, whose collectives do nothing: the production mesh of the dry
+  run (``launch/dryrun.py``), traced on tensors without data.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 import subprocess
@@ -113,6 +117,33 @@ def init_process_group(device_type: str, rank: int, world_size: int,
     dist.init_process_group(backend, init_method=f"file://{init_file}",
                             rank=rank, world_size=world_size)
     return device
+
+
+@contextlib.contextmanager
+def fake_process_group(world_size: int, rank: int = 0):
+    """Rank ``rank`` of a process group of ``world_size`` ranks held by
+    this process alone: torch's ``fake`` backend, whose collectives return
+    at once, over its in-process store (a private module of torch's test
+    utilities, imported here only).  A group of the same size and backend
+    that is already started is used as it is; any other group is refused,
+    never replaced.  A group this started is destroyed when the block
+    ends, however it ends."""
+    if dist.is_initialized():
+        if dist.get_world_size() != world_size \
+                or dist.get_backend() != "fake":
+            raise RuntimeError(
+                f"a process group of {dist.get_world_size()} ranks "
+                f"({dist.get_backend()}) is running; a fake group of "
+                f"{world_size} cannot start beside it")
+        yield
+        return
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=world_size)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 def rank_env() -> tuple[int, int, str]:

@@ -323,5 +323,7 @@ def gather(x):
         x = dict(x.named_parameters())
     if isinstance(x, dict):
         return {k: gather(v) for k, v in x.items()}
+    if x.dim() == 0 and not isinstance(x, DTensor):
+        return x  # host state (a step count): its value stays readable
     x = x.detach()
     return x.full_tensor() if isinstance(x, DTensor) else x

@@ -36,7 +36,7 @@ The distribution knobs of the config (``remat``, ``fsdp``, ``moe_mode``,
 the expert-parallel path under an active ``Dist`` (models/transformer.py),
 ``fsdp`` chooses whether parameters are sharded over the data axes
 (launch/shardings.py), ``expert_shards`` pads the expert axis, and
-``remat`` has no effect.
+``remat="full"`` checkpoints each layer's body (models/transformer.py).
 """
 
 from __future__ import annotations

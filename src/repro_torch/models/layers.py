@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..kernels import trace
 from ..kernels.rmsnorm.ops import rmsnorm
 
 MAX_NORM_BLOCK_ROWS = 128
@@ -78,10 +79,20 @@ def rope_freqs(hd: int, theta: float):
     return 1.0 / (theta ** (np.arange(0, hd, 2) / hd))
 
 
-@functools.lru_cache(maxsize=64)
 def _freqs(hd: int, theta: float, device: torch.device) -> torch.Tensor:
+    """The rotary frequencies, cached a (head dim, theta, device); a dry
+    run's (fake) tensor is made anew and never cached."""
+    if trace.fake_mode_active():
+        return _make_freqs(hd, theta, device)
+    return _cached_freqs(hd, theta, device)
+
+
+def _make_freqs(hd: int, theta: float, device) -> torch.Tensor:
     return torch.tensor(rope_freqs(hd, theta), dtype=torch.float32,
                         device=device)
+
+
+_cached_freqs = functools.lru_cache(maxsize=64)(_make_freqs)
 
 
 def _rotate(x, cos, sin):

@@ -16,7 +16,15 @@ them and stacked on a leading layer axis (``k``/``v``, ``ckv``/``krope``,
 The parameters are a :class:`Model`, an ``nn.Module`` of one block module a
 layer (the reference stacks layers on a leading axis for ``lax.scan``;
 here a Python loop drives them, and only ``models/weights.py`` knows the
-stacked layout).  ``remat`` has no effect.
+stacked layout).  ``remat="full"`` checkpoints each layer's body on the
+full-sequence paths (never when decoding), where the reference wraps its
+scan body in ``jax.checkpoint``: an attention or mamba layer, and the
+hybrid's group of ``attn_every`` mamba layers with the shared block (its
+trailing mamba-only layers are not checkpointed).  The backward runs each
+checkpointed body's forward again, so a training step launches each
+forward kernel inside such a body twice: rmsnorm twice a layer's norms
+plus once for the final norm, flash attention and the scan twice a
+layer; the backward kernels' counts do not change.
 
 Distribution is carried by :class:`Dist` (mesh + axis names), threaded as
 the reference threads it.  One process drives each device: under an
@@ -39,6 +47,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 import contextlib
 from dataclasses import dataclass
@@ -282,6 +291,25 @@ def _embed(params: Model, cfg: ModelConfig, batch: dict):
     return x, positions
 
 
+def _remat(cfg: ModelConfig, dist, fn, decoding: bool):
+    """``fn`` as a layer body: under ``remat="full"`` on a full-sequence
+    path, ``torch.utils.checkpoint`` of it (non-reentrant: the recorded
+    kernels' saved outputs, flash's log-sum-exp and the scan's tile-start
+    states, are the recomputed ones).  The recomputation runs in the
+    backward, outside ``_forward``'s binding of the batch axes, so the
+    body binds them again."""
+    if cfg.remat != "full" or decoding:
+        return fn
+
+    def body(*args):
+        with (manual_axes(dist.mesh, dist.batch_axes)
+              if dist is not None and dist.active
+              else contextlib.nullcontext()):
+            return fn(*args)
+
+    return lambda *args: checkpoint(body, *args, use_reentrant=False)
+
+
 def _stack(per_layer: list) -> tuple:
     """[(a, b) a layer] -> (stacked a, stacked b) on a new leading axis."""
     return tuple(torch.stack(parts) for parts in zip(*per_layer))
@@ -296,8 +324,10 @@ def _stack_attn(params, cfg, x, positions, dist, decoding, caches, index):
                                 index, dist)
         return x, caches
     per_layer = []
+    body = _remat(cfg, dist, lambda layer, h: layer(cfg, h, positions, dist),
+                  False)
     for layer in params.layers:
-        x, cache = layer(cfg, x, positions, dist)
+        x, cache = body(layer, x)
         per_layer.append(cache)
     return x, dict(zip(names, _stack(per_layer)))
 
@@ -323,7 +353,10 @@ def _stack_ssm(params, cfg, x, decoding, caches):
                           caches["ssm"], None)
         return x, caches
     per_layer = []
-    x = _mamba_layers(params.layers, cfg, x, False, None, None, per_layer)
+    body = _remat(cfg, None, lambda layer, h: layer(cfg, h), False)
+    for layer in params.layers:
+        x, cache = body(layer, x)
+        per_layer.append(cache)
     return x, dict(zip(("conv", "ssm"), _stack(per_layer)))
 
 
@@ -339,11 +372,22 @@ def _stack_hybrid(params, cfg, x, positions, dist, decoding, caches,
     conv = ssm = None
     if decoding:
         conv, ssm = caches["conv"], caches["ssm"]
+
+    def group(h, lo, hi):
+        out = []
+        h = _mamba_layers(params.layers[lo:hi], cfg, h, False, None, None,
+                          out)
+        h, cache = shared(cfg, h, positions, dist)
+        return h, out, cache
+
+    group = _remat(cfg, dist, group, decoding)
     for g in range(G + 1):
         lo, hi = g * k, min((g + 1) * k, cfg.n_layers)
-        x = _mamba_layers(params.layers[lo:hi], cfg, x, decoding,
-                          None if conv is None else conv[lo:hi],
-                          None if ssm is None else ssm[lo:hi], mamba_caches)
+        if g == G or decoding:
+            x = _mamba_layers(params.layers[lo:hi], cfg, x, decoding,
+                              None if conv is None else conv[lo:hi],
+                              None if ssm is None else ssm[lo:hi],
+                              mamba_caches)
         if g == G:  # the trailing mamba-only layers
             break
         if decoding:
@@ -351,7 +395,8 @@ def _stack_hybrid(params, cfg, x, positions, dist, decoding, caches,
                                  (caches["shared_k"][g],
                                   caches["shared_v"][g]), index, dist)
         else:
-            x, cache = shared(cfg, x, positions, dist)
+            x, out, cache = group(x, lo, hi)
+            mamba_caches += out
             shared_caches.append(cache)
     if decoding:
         return x, caches

@@ -412,3 +412,107 @@ def test_train_cli_mesh_smoke_on_the_card(cuda):
     meshed = main(args + ["--mesh", "smoke"])
     assert meshed["dist"].active
     assert meshed["losses"] == main(args)["losses"]
+
+
+# --------------------------------------------------------------------------
+# the dry run against the real step, and remat, on the card
+# --------------------------------------------------------------------------
+
+def _counters():
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm
+    return {"rmsnorm/fwd": rmsnorm, "rmsnorm/bwd": rmsnorm_bwd,
+            "flash_attention/fwd": flash_attention,
+            "flash_attention/bwd": flash_attention_bwd,
+            "mamba_scan/fwd": mamba_scan, "mamba_scan/bwd": mamba_scan_bwd}
+
+
+def _real_step(cfg, arch, shape, tmp_path):
+    """The cell's sharded step on a NCCL group of one rank: launches,
+    FlopCounterMode's count and the footprint (peak less the memory
+    before the cell was made)."""
+    import torch.distributed as dist
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.launch.mesh import init_process_group, make_smoke_mesh
+    from repro_torch.launch.specs import make_cell
+    init_process_group("cuda", 0, 1, str(tmp_path / "init"))
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated()
+        cell = make_cell(arch, shape, make_smoke_mesh(1, 1, "cuda"),
+                         cfg_override=cfg, device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        counters = _counters()
+        for fn in counters.values():
+            fn.launches = 0
+        with FlopCounterMode(display=False) as fc:
+            cell.fn(*cell.args)
+            torch.cuda.synchronize()
+        out = {"launches": {k: fn.launches for k, fn in counters.items()},
+               "flops": fc.get_total_flops(),
+               "footprint": torch.cuda.max_memory_allocated() - before}
+        del cell
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
+def _dry(cfg, arch, shape):
+    from repro_torch.launch.dryrun import run_cell
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    rec = run_cell(arch, shape, False, cfg_override=cfg,
+                   mesh=((1, 1), ("data", "model")))
+    assert rec["status"] == "ok", rec.get("traceback")
+    assert torch.cuda.memory_allocated() == before
+    return rec
+
+
+@pytest.mark.parametrize("arch,remat", [("qwen3-0.6b", "none"),
+                                        ("qwen3-0.6b", "full"),
+                                        ("falcon-mamba-7b", "none")])
+def test_dry_run_counts_the_real_step(cuda, tmp_path, arch, remat):
+    """Full width at 2 layers, bf16: each kernel's events equal its
+    launches, the dot FLOPs equal FlopCounterMode's exactly, and argument
+    + temp is within 10% of the step's footprint."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch).scaled(n_layers=2, remat=remat)
+    shape = (512, 2, "train")
+    real = _real_step(cfg, arch, shape, tmp_path)
+    rec = _dry(cfg, arch, shape)
+    events = {k: v["events"] for k, v in rec["hlo"]["kernels"].items()}
+    assert {k: v for k, v in real["launches"].items() if v} == events
+    assert sum(rec["hlo"]["aten_flops"].values()) == real["flops"]
+    mem = rec["memory"]
+    est = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+    assert abs(est / real["footprint"] - 1) <= 0.10, (est, real)
+
+
+def test_remat_on_the_card_is_bit_for_bit(cuda):
+    """qwen3-0.6b at full width, 2 layers, bf16: the loss and every
+    gradient with remat="full" equal remat="none"'s, and the forward
+    kernels launch twice in each checkpointed layer."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.launch.specs import make_cell
+    from repro_torch.train.train_step import loss_and_grads
+    cfg = get_config("qwen3-0.6b").scaled(n_layers=2)
+    cell = make_cell("qwen3-0.6b", (512, 2, "train"), MeshShape((1, 1)),
+                     cfg_override=cfg, device="cuda")
+    params, b = cell.args[0]["params"], cell.args[1]
+    loss0, g0 = loss_and_grads(cfg, params, b)
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    loss1, g1 = loss_and_grads(cfg.scaled(remat="full"), params, b)
+    torch.cuda.synchronize()
+    assert torch.equal(loss0, loss1)
+    assert all(torch.equal(g0[n], g1[n]) for n in g0)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    assert launches == {"rmsnorm/fwd": 2 * 8 + 1, "rmsnorm/bwd": 9,
+                        "flash_attention/fwd": 4,
+                        "flash_attention/bwd": 2, "mamba_scan/fwd": 0,
+                        "mamba_scan/bwd": 0}

@@ -200,20 +200,22 @@ def test_cpu_path_counts_no_launch():
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take():
-    """Only CPU tensors take the plain version; any other device that is
-    not CUDA, or a mix of devices, is refused, as are blocks that do not
-    divide their dimension."""
-    meta = torch.empty(64, 32, device="meta")
-    with pytest.raises(ValueError, match="CUDA"):
-        rmsnorm(meta, torch.empty(32, device="meta"), block_rows=32)
-    q = torch.empty(1, 1, 64, 32, device="meta")
-    with pytest.raises(ValueError, match="CUDA"):
+    """Tensors without data (meta or fake) take the kernel's path up to
+    the launch, so what the kernels do not take is refused there on any
+    device (here a dtype); on the CPU, blocks that do not divide their
+    dimension are refused."""
+    f64 = {"device": "meta", "dtype": torch.float64}
+    meta = torch.empty(64, 32, **f64)
+    with pytest.raises(ValueError, match="float32"):
+        rmsnorm(meta, torch.empty(32, **f64), block_rows=32)
+    q = torch.empty(1, 1, 64, 32, **f64)
+    with pytest.raises(ValueError, match="float32"):
         flash_attention(q, q, q, block_q=32, block_k=32)
-    s = torch.empty(1, 16, 4, device="meta")
-    with pytest.raises(ValueError, match="CUDA"):
-        mamba_scan(s, s, torch.empty(4, 2, device="meta"),
-                   torch.empty(1, 16, 2, device="meta"),
-                   torch.empty(1, 16, 2, device="meta"), chunk=8)
+    s = torch.empty(1, 16, 4, **f64)
+    with pytest.raises(ValueError, match="float32"):
+        mamba_scan(s, s, torch.empty(4, 2, **f64),
+                   torch.empty(1, 16, 2, **f64),
+                   torch.empty(1, 16, 2, **f64), chunk=8)
     with pytest.raises(ValueError, match="does not divide"):
         rmsnorm(torch.ones(96, 8), torch.ones(8), block_rows=64)
     with pytest.raises(ValueError, match="do not divide"):
