@@ -137,7 +137,15 @@ Phases, each printing one JSON line:
                     killed at tick 4, every request's tokens equal to the
                     direct loop's; then a launch rmsnorm's C entry refuses
                     inside replica 1's step leaves ``Router.step`` as a
-                    ``DeviceFault``, both replicas alive.
+                    ``DeviceFault``, both replicas alive.  The same model,
+                    one replica of 4 slots over the trace, without a mesh
+                    and placed on the ``(1, 1)`` mesh of a NCCL group of
+                    one rank (``build_router(mesh=)``), in turns: tokens
+                    bit for bit, the same launches, s/token both ways,
+                    every kernel call of the meshed runs held against its
+                    plain version; ``python -m repro_torch.launch.serve
+                    --mesh 1x1`` at full width and depth, every request
+                    answered.
 12. ``liveloop``  — the live loop (``core/liveloop``) on the card:
                     ``python -m repro_torch.core.liveloop synth`` and ``run
                     --mode real`` (qwen3-0.6b at its smoke config, head
@@ -147,9 +155,12 @@ Phases, each printing one JSON line:
                     from zero, and every distinct call it made of a
                     kernel's wrapper held again against the plain version
                     on the same inputs; 8 A/A canary
-                    windows of the incumbent against itself, with their
-                    throughput and TTFT ratios and how many fall under the
-                    real guardrail's 0.95 floor; ``python -m
+                    windows of the incumbent against itself, each measured
+                    the controller's old way (three replays of one plan,
+                    then three of the other) and its way on the card
+                    (``CARD_WINDOW_REPEATS`` of each, in turns), with
+                    their throughput and TTFT ratios and how many fall
+                    under the real guardrail's 0.95 floor; ``python -m
                     repro_torch.launch.serve --arch qwen3-0.6b --liveloop
                     <root> --replicas 2`` at full width, every request
                     answered.
@@ -226,7 +237,8 @@ Phases, each printing one JSON line:
                     estimate both lower; the production cell qwen3-0.6b
                     ``train_4k`` on 16x16: status ok.
 
-Then a ``{"kernels": [...]}`` line (the three kernels and their three
+Then a ``{"phase_seconds": {...}}`` line (each phase's wall time), a
+``{"kernels": [...]}`` line (the three kernels and their three
 backward kernels; ``launches_mesh`` counts the mesh phase's runs,
 ``launches_dryrun`` the dryrun phase's real steps), the
 card's name and power limit, and
@@ -2325,6 +2337,14 @@ ROUTER_LAYOUTS = (("1x4", 1, 4), ("2x2", 2, 2), ("2x2", 2, 2),
 # failover: qwen3-0.6b at full width, 2 layers, f32, TF32 off, two
 # replicas of 2 slots; replica 0 killed at this tick of the trace's replay
 ROUTER_FAILOVER_LAYERS, ROUTER_KILL_TICK = 2, 4
+# the router on a launch mesh: qwen3-0.6b at full width, 2 layers, f32,
+# TF32 off, one replica of 4 slots over the serve trace, without a mesh and
+# on the (1, 1) mesh of a NCCL group of one rank, in turns; then
+# launch.serve --mesh 1x1 at full width and depth through its main
+ROUTER_MESH_GENOME = {"max_slots": 4, "prefill_chunk": 2, "replicas": 1}
+ROUTER_MESH_TURNS = ("plain", "mesh", "mesh", "plain")
+ROUTER_MESH_SERVE = ["--arch", "qwen3-0.6b", "--mesh", "1x1", "--requests",
+                     "4", "--prompt-len", "64", "--gen", "8"]
 # the live loop: the real backend on the card, qwen3-0.6b (its smoke
 # config), then 8 A/A canary windows and the served plan
 LIVELOOP_RUN = ["--mode", "real", "--ticks", "3", "--pop", "4",
@@ -2478,12 +2498,99 @@ def router_failover(torch) -> dict:
     return out
 
 
+def router_mesh(torch, counters) -> dict:
+    """The router's replica placed on the (1, 1) mesh of a NCCL group of
+    one rank against the same router without a mesh (``ROUTER_MESH_*``),
+    in turns: every request's tokens bit for bit, the same kernel launches
+    (counted from zero in each run), s/token both ways (the meshed replica
+    gathers its weights and caches every tick), and every distinct kernel
+    call of the meshed runs held against its plain version; then
+    ``launch.serve --mesh 1x1`` through its main, which starts and ends a
+    group of its own."""
+    import tempfile
+
+    import torch.distributed as torch_dist
+    from repro_torch.configs import get_config
+    from repro_torch.core.deploy import build_router
+    from repro_torch.core.interp import full_f32
+    from repro_torch.core.liveloop.traces import demo_requests
+    from repro_torch.launch.mesh import init_process_group, make_smoke_mesh
+    from repro_torch.launch.serve import main as serve_main
+    from repro_torch.models import transformer as T
+    cfg = get_config("qwen3-0.6b").scaled(n_layers=ROUTER_FAILOVER_LAYERS,
+                                          dtype="float32")
+    params = T.init_params(cfg, device="cuda")
+    max_len = SERVE_TRACE["prompt_len"] + SERVE_TRACE["gen"]
+    runs, calls = [], {}
+    with tempfile.TemporaryDirectory() as d:
+        init_process_group("cuda", 0, 1, str(Path(d) / "init"))
+        try:
+            if torch_dist.get_backend() != "nccl":
+                raise AssertionError(f"backend {torch_dist.get_backend()}")
+            mesh = make_smoke_mesh(1, 1, device_type="cuda")
+            with full_f32():
+                for turn in ROUTER_MESH_TURNS:
+                    router = build_router(
+                        cfg, params, genome=ROUTER_MESH_GENOME,
+                        max_len=max_len, mesh=mesh if turn == "mesh" else None)
+                    torch.cuda.synchronize()
+                    for fn in counters.values():
+                        fn.launches = 0
+                    with (recorded_calls(calls) if turn == "mesh"
+                          else contextlib.nullcontext()):
+                        t0 = time.perf_counter()
+                        results = router.run(demo_requests(cfg, **SERVE_TRACE),
+                                             stagger=SERVE_STAGGER)
+                        torch.cuda.synchronize()
+                    runs.append({"turn": turn,
+                                 "run_s": time.perf_counter() - t0,
+                                 "launches": {k: fn.launches
+                                              for k, fn in counters.items()},
+                                 "tokens": {r.uid: r.tokens for r in results},
+                                 **serving_numbers(router.stats())})
+                    del router
+        finally:
+            torch_dist.destroy_process_group()
+    plain = next(r for r in runs if r["turn"] == "plain")
+    for r in runs:
+        if r["tokens"] != plain["tokens"] or len(r["tokens"]) != len(
+                demo_requests(cfg, **SERVE_TRACE)):
+            raise AssertionError(f"router mesh: {r['turn']} tokens differ")
+        if r["launches"] != plain["launches"]:
+            raise AssertionError(f"router mesh: launches {r['launches']} "
+                                 f"against {plain['launches']}")
+    for k in ("rmsnorm", "flash_attention"):
+        if plain["launches"][k] <= 0:
+            raise AssertionError(f"router mesh: {k} never launched")
+    inference_only("router mesh", plain["launches"])
+    held = hold_calls(torch, counters, calls)
+    if {r["kernel"] for r in held} != {"rmsnorm", "flash_attention"}:
+        raise AssertionError(f"router mesh: held {held}")
+    del params
+    torch.cuda.empty_cache()
+    _, served = captured(serve_main, ROUTER_MESH_SERVE)
+    if "requests=4" not in served or "replicas=1/1" not in served \
+            or "mesh={'data': 1, 'model': 1}" not in served:
+        raise AssertionError(f"router mesh: serve printed {served!r}")
+    s_per_token = {t: [r["s_per_token"] for r in runs if r["turn"] == t]
+                   for t in ("plain", "mesh")}
+    print(f"router mesh s/token: {s_per_token}", flush=True)
+    return {"config": {"n_layers": cfg.n_layers, "d_model": cfg.d_model,
+                       "dtype": "float32", **ROUTER_MESH_GENOME},
+            "tokens_equal": True, "launches": plain["launches"],
+            "s_per_token": s_per_token,
+            "runs": [{k: v for k, v in r.items() if k != "tokens"}
+                     for r in runs],
+            "held": held, "serve": served.splitlines()}
+
+
 def phase_router(torch, counters, keep: dict) -> dict:
     """The multi-replica router on the card (see the module docstring)."""
     out = {"phase": "router", "gpu": nvidia_smi(),
            "models": {a: router_model(torch, a, counters, keep[a])
                       for a in SERVE_ARCHS}}
     out["failover"] = router_failover(torch)
+    out["mesh"] = router_mesh(torch, counters)
     out["launches"] = {k: sum(m["launches"][k]
                               for m in out["models"].values())
                        for k in counters}
@@ -2625,17 +2732,26 @@ def phase_liveloop(torch, counters) -> dict:
         incumbent = ctl.book.promoted
         g = dict(incumbent["genome"] if incumbent else DEFAULT_SERVE_PLAN)
         floor = ctl.book.rails.min_throughput_ratio
-        windows = []
+        # each window measured the old way (the controller's median of
+        # three replays of one plan, then of the other) and as the real
+        # loop now measures it on the card (CARD_WINDOW_REPEATS each, in
+        # turns)
+        windows = {"before": [], "after": []}
         for w in range(LIVELOOP_AA_WINDOWS):
-            base, cand = ctl.measure(g, g, 1000 + w)
-            windows.append({
-                "throughput": cand["throughput_tok_s"]
-                / base["throughput_tok_s"],
-                "ttft": cand["mean_ttft_s"] / base["mean_ttft_s"],
-                "n": base["n"]})
+            tr = ctl._window_slice(1000 + w)
+            pairs = {"before": (ctl._replay_real(tr, g),
+                                ctl._replay_real(tr, g)),
+                     "after": ctl.measure(g, g, 1000 + w)}
+            for k, (base, cand) in pairs.items():
+                windows[k].append({
+                    "throughput": cand["throughput_tok_s"]
+                    / base["throughput_tok_s"],
+                    "ttft": cand["mean_ttft_s"] / base["mean_ttft_s"],
+                    "n": base["n"]})
         out["aa_canary"] = {
             "genome": g, "floor": floor, "windows": windows,
-            "under_floor": sum(w["throughput"] < floor for w in windows)}
+            "under_floor": {k: sum(w["throughput"] < floor for w in v)
+                            for k, v in windows.items()}}
         _, served = captured(serve_main, ["--arch", "qwen3-0.6b",
                                           "--liveloop", root,
                                           "--replicas", "2"])
@@ -3753,30 +3869,40 @@ def main() -> int:
     from repro_torch.kernels.mamba_scan.ops import mamba_scan, mamba_scan_bwd
     from repro_torch.kernels.rmsnorm.ops import rmsnorm, rmsnorm_bwd
 
-    phase_device(torch, build)
-    phase_search_shapes(torch, wl)
-    full = phase_full_width(torch, wl)
-    phase_overheads(torch)
+    seconds = {}
+
+    def timed(name, phase, *args):
+        t0 = time.perf_counter()
+        try:
+            return phase(torch, *args)
+        finally:
+            seconds[name] = time.perf_counter() - t0
+
+    timed("device", phase_device, build)
+    timed("search_shapes", phase_search_shapes, wl)
+    full = timed("full_width", phase_full_width, wl)
+    timed("overheads", phase_overheads)
     # every wrapper, forward and backward: each path's reset and read
     # covers all six
     counters = {"rmsnorm": rmsnorm, "flash_attention": flash_attention,
                 "mamba_scan": mamba_scan, "rmsnorm_bwd": rmsnorm_bwd,
                 "flash_attention_bwd": flash_attention_bwd,
                 "mamba_scan_bwd": mamba_scan_bwd}
-    launches = phase_search(torch, wl, counters)
-    phase_profile(torch, wl)
-    phase_programs(torch)
-    islands = phase_islands(torch, wl, counters)
-    tensor = phase_tensor(torch, wl, counters)
+    launches = timed("search", phase_search, wl, counters)
+    timed("profile", phase_profile, wl)
+    timed("programs", phase_programs)
+    islands = timed("islands", phase_islands, wl, counters)
+    tensor = timed("tensor", phase_tensor, wl, counters)
     keep = {}
-    serve = phase_serve(torch, wl, counters, keep)
-    router = phase_router(torch, counters, keep)
+    serve = timed("serve", phase_serve, wl, counters, keep)
+    router = timed("router", phase_router, counters, keep)
     keep.clear()
     torch.cuda.empty_cache()
-    liveloop = phase_liveloop(torch, counters)
-    train = phase_train(torch, counters)
-    mesh = phase_mesh(torch, counters)
-    dry = phase_dryrun(torch, counters)
+    liveloop = timed("liveloop", phase_liveloop, counters)
+    train = timed("train", phase_train, counters)
+    mesh = timed("mesh", phase_mesh, counters)
+    dry = timed("dryrun", phase_dryrun, counters)
+    emit({"phase_seconds": seconds})
 
     # launches: in the kernel's own measured search (a backward kernel has
     # none: its main path is training, so its row gives that count);
@@ -3785,6 +3911,8 @@ def main() -> int:
     # launches_fleet: in the tensorized engine's run and the mesh fleet's;
     # launches_serve: in the server's runs of qwen3-0.6b and
     # falcon-mamba-7b; launches_router: in build_router's runs of both;
+    # launches_router_mesh: in one run of the router's replica on the
+    # (1, 1) mesh;
     # launches_liveloop: in the real live loop's three ticks;
     # launches_train: in the training runs of both models;
     # launches_mesh: in the mesh phase's runs under Dist;
@@ -3805,6 +3933,7 @@ def main() -> int:
          "launches_fleet": tensor["fleet"]["launches"][n],
          "launches_serve": serve["launches"][n],
          "launches_router": router["launches"][n],
+         "launches_router_mesh": router["mesh"]["launches"][n],
          "launches_liveloop": liveloop["launches"][n],
          "launches_train": train["launches"][n],
          "launches_mesh": mesh["launches"][n],

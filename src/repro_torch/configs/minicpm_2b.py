@@ -2,9 +2,9 @@
 vocab=122753 — WSD schedule (arch=llama-like).  [arXiv:2404.06395; hf]
 
 The WSD (warmup-stable-decay) learning-rate schedule is a training-recipe
-property; the reference has it in ``repro.optim.schedules`` (training is
-not ported yet) and selects it by this config's training recipe, not an
-architecture change.
+property; it is available in ``repro_torch.optim.schedules`` (``python -m
+repro_torch.launch.train --schedule wsd``) and selected by this config's
+training recipe, not an architecture change.
 """
 
 from repro_torch.models.common import ModelConfig

@@ -19,6 +19,7 @@ SEVERITIES = ("error", "warning", "info")
 BLOCK_DIVISIBILITY = "block-divisibility"
 SMEM_CAPACITY = "smem-capacity"
 SCHEDULE_DECODE = "schedule-decode"
+SCHEDULE_OK = "schedule-ok"
 KNOB_INERT = "knob-inert"
 
 

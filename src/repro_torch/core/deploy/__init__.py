@@ -1,5 +1,5 @@
-"""The deployment layer on one device: close the evolve → select → export →
-serve gap.
+"""The deployment layer: close the evolve → select → export → serve
+gap.
 
 Searches (:mod:`repro_torch.core.search`, :mod:`repro_torch.core.islands`)
 end with recorded Pareto fronts; this package turns a recorded front into
@@ -21,10 +21,10 @@ served traffic:
   merged into :func:`serve_schedule_space`, with the paged codec and its
   measured decode-error oracle;
 * :class:`Router` (:mod:`~repro_torch.core.deploy.router`) — fan traffic
-  over N engine replicas sharing one set of weights on the device, with
-  heartbeat-monitored failover and aggregate fitness feedback.  The
-  reference's placement of replicas on submeshes of a launch mesh
-  (``replica_meshes``) is not ported: see the router's docstring.
+  over N engine replicas, sharing one set of weights on the device or each
+  placed on a submesh of a launch mesh (:func:`replica_meshes`; one
+  process a rank), with heartbeat-monitored failover and aggregate fitness
+  feedback.
 
 ``python -m repro_torch.core.deploy`` selects from recorded fronts and
 manages the registry; ``python -m repro_torch.core.deploy.router`` serves
@@ -42,7 +42,7 @@ from .kvplan import (DEFAULT_KV_PLAN, KV_ERROR_GATE, KV_SPACE, KVPlan,
                      PagedKVCache, cache_error, measure_cache_error,
                      quantize_pages, roundtrip_error)
 from .registry import Artifact, ArtifactRegistry, shape_tag
-from .router import Router, build_router
+from .router import Router, build_router, replica_meshes
 
 __all__ = [
     "ParetoFront", "FrontMember",
@@ -56,5 +56,5 @@ __all__ = [
     "KVPlan", "PagedKVCache", "KV_SPACE", "DEFAULT_KV_PLAN",
     "KV_ERROR_GATE", "cache_error", "roundtrip_error", "quantize_pages",
     "measure_cache_error",
-    "Router", "build_router",
+    "Router", "build_router", "replica_meshes",
 ]

@@ -44,7 +44,9 @@ kernels — and the winner ships through the
 
 Model functions are imported lazily from ``repro_torch.models`` (this
 module is the bridge between the core search stack and the model stack).
-The reference's multi-replica router is later work (ROADMAP.md).
+Several engines behind one queue are the router's
+(:mod:`~repro_torch.core.deploy.router`), on one device or each on a
+submesh of a launch mesh.
 """
 
 from __future__ import annotations

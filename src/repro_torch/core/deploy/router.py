@@ -1,10 +1,9 @@
 """Multi-replica serving: a request router fanning traffic over N engines.
 
-The counterpart of ``src/repro/core/deploy/router.py`` on one device (the
-GPU unless the caller names another).  One
+The counterpart of ``src/repro/core/deploy/router.py``.  One
 :class:`~repro_torch.core.deploy.engine.ServeEngine` is a single decode
-loop; a :class:`Router` puts N of them — data-parallel replicas sharing one
-set of weights on the device — behind one queue, and:
+loop; a :class:`Router` puts N of them — data-parallel replicas — behind
+one queue, and:
 
 * **routes** queued requests to the least-loaded live replica each tick;
 * **interleaves** replica steps in two phases (every replica's decode is
@@ -20,8 +19,8 @@ set of weights on the device — behind one queue, and:
   originals.  If *every* replica dies the backlog is counted rejected and
   the router drains — it never hangs.  A fault of the device itself
   (:data:`~repro_torch.core.fitness.DEVICE_FAULTS`: a kernel that did not
-  build, a launch the device refused) is not one replica dying: the
-  replicas share one CUDA context, whose errors are sticky, so it
+  build, a launch the device refused) is not one replica dying: replicas
+  on one device share one CUDA context, whose errors are sticky, so it
   propagates out of :meth:`Router.step`;
 * **reports** aggregate + per-replica stats and publishes serve-tagged
   fitness records keyed by the full serving plan, so the live loop's
@@ -30,33 +29,54 @@ set of weights on the device — behind one queue, and:
 
 :func:`build_router` resolves a serve-plan genome (engine schedule + KV
 plan, see :mod:`~repro_torch.core.deploy.kvplan`) into concrete replicas,
-slot counts clamped by the plan's paged byte budget.  The reference's
-placement of replicas on submeshes of a launch mesh (``replica_meshes``,
-``shard_replica_params``, ``shard_engine_caches``, ``build_router(mesh=)``
-and ``--mesh``) is the port's last module still to come (ROADMAP.md,
-queue 1, item 1): the reference's ``Router`` is one controller over
-every replica, and with one process a rank every rank would have to run
-the same deterministic router, step only its own replica and broadcast
-that replica's tokens, which is a design of its own.  ``python -m repro_torch.core.deploy.router`` is
-the CLI smoke: build a router, replay a synthesized trace, print the stats
-JSON (optionally killing a replica mid-replay to show the failover path).
+slot counts clamped by the plan's paged byte budget.  Without a mesh,
+every replica runs on one device (the GPU unless the caller names
+another) over one set of weights.  With a launch mesh (one process a
+rank, ``launch/mesh.py``), the reference's one controller over every
+device becomes one :class:`MeshRouter` on every rank:
+
+* :func:`replica_meshes` splits the mesh's data rows into the replicas'
+  submeshes, the reference's reshape;
+* :func:`shard_replica_params` and :func:`shard_engine_caches` place a
+  replica's weights and lane caches on its submesh under ``param_specs``
+  and ``cache_specs`` (DTensors, each rank its block);
+* each tick, the replica's ranks gather its weights and caches into whole
+  tensors, step its engine on them (the hand kernels read local tensors,
+  which a DTensor is not), and write each rank's block of the caches back:
+  the ``model`` axis shards storage, not arithmetic;
+* every rank routes, fails and drains the same way, steps only its own
+  replica, and after each tick hears every replica's outcome from its
+  first rank in one ``all_gather_object`` over a gloo group.
+
+``python -m repro_torch.core.deploy.router`` is the CLI smoke: build a
+router (``--mesh DATAxMODEL``: over that many ranks, which it starts on
+the CPU), replay a synthesized trace, print the stats JSON (optionally
+killing a replica mid-replay to show the failover path).
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import hashlib
 import json
 import time as _time
 from collections import deque
-from dataclasses import dataclass
+from dataclasses import astuple, dataclass
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
-from ...device import resolve_device
+from ...device import DeviceFault, resolve_device
+from ...launch.mesh import mesh_axes
+from ...launch.shardings import (cache_specs, distribute, gather,
+                                 local_block, param_specs, to_shardings)
 from ...train.fault import HeartbeatMonitor
 from ..evaluator import EvalOutcome, FitnessCache
 from ..fitness import DEVICE_FAULTS
-from .engine import DEFAULT_SERVE_PLAN, ServeEngine, ServeRequest
+from .engine import (DEFAULT_SERVE_PLAN, ServeEngine, ServeRequest,
+                     ServeResult, _Lane, _LaneBatch)
 from .kvplan import KVPlan
 from .registry import shape_tag
 
@@ -202,6 +222,11 @@ class Router:
                 self._fail(r, f"finish_step: {type(e).__name__}: {e}")
                 continue
             self.monitor.heartbeat(r.index, now=float(self.n_ticks))
+        self._end_tick()
+
+    def _end_tick(self) -> None:
+        """Fail the replicas whose heartbeat lapsed, collect every
+        replica's results, and on a total outage reject the backlog."""
         for idx in self.monitor.failed(now=float(self.n_ticks)):
             self._fail(self.replicas[idx], "heartbeat timeout")
         for r in self.replicas:
@@ -325,12 +350,259 @@ class Router:
 
 
 # --------------------------------------------------------------------------
-# Building a router
+# Replicas on submeshes of a launch mesh
 # --------------------------------------------------------------------------
 
 
+class _MirrorEngine:
+    """One replica's engine as every rank of a meshed router sees it: the
+    bookkeeping of a :class:`ServeEngine` (its queue, the requests in its
+    lanes, its results and counts) without its model, set after each tick
+    from the replica's first rank (:meth:`snapshot` there, :meth:`restore`
+    on every rank).  The router routes to, reads and fails a replica
+    through its mirror alone, so every rank's router holds the same state.
+    On the replica's own ranks the mirror also holds the engine
+    (``real``), to which it passes each submission."""
+
+    stats = ServeEngine.stats
+    busy = ServeEngine.busy
+    _n_in_flight = ServeEngine._n_in_flight
+
+    def __init__(self, cfgs: dict, max_len: int, max_slots: int,
+                 real: ServeEngine | None = None):
+        self.cfgs, self.max_len, self.max_slots = cfgs, max_len, max_slots
+        self.real = real
+        self.queue: deque[ServeRequest] = deque()
+        self.batches = {v: _LaneBatch(max_slots) for v in cfgs}
+        self.completed: list[ServeResult] = []
+        self.n_rejected = 0
+        self._t0: float | None = None
+        self._t_last = 0.0
+        self.n_ticks = self.n_prefill_batches = self.n_decode_batches = 0
+        self._requests: list[ServeRequest] = []     # by submission key
+        self._key: dict[int, int] = {}              # id(request) -> key
+        self._sent = 0          # real.completed rows already snapshotted
+
+    def submit(self, req: ServeRequest) -> None:
+        if self.real is not None:
+            self.real.submit(req)
+        self._key[id(req)] = len(self._requests)
+        self._requests.append(req)
+        self.queue.append(req)
+
+    def snapshot(self) -> dict:
+        """The engine's bookkeeping after a tick: its requests by
+        submission key, the results completed since the last snapshot."""
+        e, key = self.real, self._key
+        new = e.completed[self._sent:]
+        self._sent = len(e.completed)
+        return {"queue": [key[id(r)] for r in e.queue],
+                "lanes": {v: [None if lane is None else key[id(lane.req)]
+                              for lane in b.lanes]
+                          for v, b in e.batches.items()},
+                "completed": [astuple(r) for r in new],
+                "counts": (e.n_ticks, e.n_prefill_batches,
+                           e.n_decode_batches, e.n_rejected, e._t0,
+                           e._t_last)}
+
+    def restore(self, snap: dict) -> None:
+        reqs = self._requests
+        self.queue = deque(reqs[k] for k in snap["queue"])
+        for v, keys in snap["lanes"].items():
+            self.batches[v].lanes = [
+                None if k is None else _Lane(req=reqs[k], index=0,
+                                             tokens=[], last=0, res=None)
+                for k in keys]
+        self.completed += [ServeResult(*row) for row in snap["completed"]]
+        (self.n_ticks, self.n_prefill_batches, self.n_decode_batches,
+         self.n_rejected, self._t0, self._t_last) = snap["counts"]
+
+
+@contextlib.contextmanager
+def _whole_tensors(engine: ServeEngine):
+    """One tick of a placed replica: its weights and lane caches gathered
+    into whole tensors on each of the replica's ranks (the hand kernels
+    read local tensors, which a DTensor is not), then every lane cache,
+    new rows and all, written back into each rank's own block."""
+    from ...train.train_step import _whole_model
+    placed = engine.params
+    caches = {v: b.caches for v, b in engine.batches.items()}
+    engine.params = _whole_model(engine.cfgs["default"], placed)
+    for v, b in engine.batches.items():
+        b.caches = gather(caches[v])
+    try:
+        yield
+    finally:
+        for v, b in engine.batches.items():
+            for k, t in caches[v].items():
+                t.to_local().copy_(local_block(b.caches[k], t.device_mesh,
+                                               t.placements))
+            b.caches = caches[v]
+        engine.params = placed
+
+
+class MeshRouter(Router):
+    """A :class:`Router` whose replicas live on submeshes of a launch
+    mesh, one process a rank (see the module doc).  Every rank holds this
+    router over every replica (as :class:`_MirrorEngine`\\ s) and steps
+    the replica whose ``submesh`` holds it (``replica``); one
+    ``all_gather_object`` a tick over ``group`` (gloo; None: the world's
+    own gloo group) then hands every rank each replica's outcome, from its
+    first rank.  A :data:`~repro_torch.core.fitness.DEVICE_FAULTS` fault on
+    any rank leaves :meth:`step` on every rank.  ``stats()`` is the same on
+    every rank: its times are those of each replica's first rank, its
+    start rank 0's.  Only rank 0 writes :meth:`publish_stats`' records."""
+
+    def __init__(self, engines: list[_MirrorEngine], *, replica: int,
+                 submesh, group=None, **kw):
+        super().__init__(engines, **kw)
+        self.replica = replica
+        self.submesh = submesh
+        self._group = group
+        self._speaker = int(submesh.mesh.flatten()[0]) == dist.get_rank()
+        self._fault: BaseException | None = None
+
+    def _step_own(self, engine: ServeEngine) -> tuple | None:
+        """Step this rank's replica on its gathered tensors; its fault as
+        (phase, reason), if any (a device fault is kept, to be raised once
+        every rank has heard of it)."""
+        phase = "begin"
+        try:
+            with _whole_tensors(engine):
+                pending = engine.begin_step()
+                phase = "finish"
+                engine.finish_step(pending)
+        except DEVICE_FAULTS as e:
+            self._fault = e
+            return ("device", f"{type(e).__name__}: {e}")
+        except Exception as e:              # noqa: BLE001 — replica fault
+            return (phase, f"{phase}_step: {type(e).__name__}: {e}")
+        return None
+
+    def step(self) -> None:
+        """One tick on every rank: route the backlog (the same on every
+        rank), step this rank's replica, hear every rank's outcome, then
+        fail, heartbeat and harvest as :meth:`Router.step` does: faults of
+        ``begin_step`` first, then of ``finish_step``, each in replica
+        order.  A replica fails when any of its ranks failed; its requests
+        are requeued from its first rank's state."""
+        if self._t0 is None:
+            self._t0 = _time.perf_counter()
+        self.n_ticks += 1
+        self._dispatch()
+        mine = self.replicas[self.replica]
+        fault = self._step_own(mine.engine.real) if mine.alive else None
+        records = self._hear({
+            "replica": self.replica, "fault": fault, "t0": self._t0,
+            "state": (mine.engine.snapshot()
+                      if self._speaker and mine.alive else None)})
+        self._t0 = records[0]["t0"]
+        for rank, rec in enumerate(records):
+            if rec["fault"] is not None and rec["fault"][0] == "device":
+                if self._fault is not None:
+                    err, self._fault = self._fault, None
+                    raise err
+                raise DeviceFault(f"replica {rec['replica']} (rank {rank}): "
+                                  f"{rec['fault'][1]}")
+        faults: dict[int, tuple] = {}
+        for rec in records:
+            if rec["state"] is not None:
+                self.replicas[rec["replica"]].engine.restore(rec["state"])
+            if rec["fault"] is not None:
+                faults.setdefault(rec["replica"], rec["fault"])
+        for phase in ("begin", "finish"):
+            for r in self._live():
+                if faults.get(r.index, ("",))[0] == phase:
+                    self._fail(r, faults[r.index][1])
+        for r in self._live():
+            self.monitor.heartbeat(r.index, now=float(self.n_ticks))
+        self._end_tick()
+
+    def _hear(self, record: dict) -> list:
+        """Every rank's ``record`` of this tick, by rank."""
+        records: list = [None] * dist.get_world_size(self._group)
+        dist.all_gather_object(records, record, group=self._group)
+        return records
+
+    def publish_stats(self, cache: FitnessCache, **kw) -> list[str]:
+        if dist.get_rank() != 0:
+            return []
+        return super().publish_stats(cache, **kw)
+
+
+def _check_split(rows: int, n_replicas: int) -> None:
+    if n_replicas < 1 or rows % n_replicas:
+        raise ValueError(f"cannot split {rows} data rows into "
+                         f"{n_replicas} replicas")
+
+
+def replica_meshes(mesh, n_replicas: int) -> list:
+    """Split a ``(data, model)`` mesh into ``n_replicas`` row-group
+    submeshes — each replica owns ``data_rows / n_replicas`` rows with the
+    full model axis — as ``DeviceMesh``\\ es under the mesh's axis names.
+    A submesh's process groups are made by every rank of the mesh, so
+    every rank calls this with the same arguments, in the same order as
+    its other collectives; a rank outside a submesh holds it with no
+    coordinate (``get_coordinate()`` is None)."""
+    from torch.distributed.device_mesh import DeviceMesh
+    ranks = mesh.mesh
+    rows = ranks.shape[0]
+    _check_split(rows, n_replicas)
+    groups = ranks.reshape(n_replicas, rows // n_replicas, *ranks.shape[1:])
+    return [DeviceMesh(mesh.device_type, g,
+                       mesh_dim_names=tuple(mesh.mesh_dim_names))
+            for g in groups]
+
+
+def _mesh_sizes(mesh) -> tuple[tuple[str, ...], str, int, int]:
+    dp_axes, model_axis = mesh_axes(mesh)
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    dp_size = int(np.prod([sizes[a] for a in dp_axes])) if dp_axes else 1
+    return dp_axes, model_axis, dp_size, int(sizes[model_axis])
+
+
+def shard_replica_params(params, submesh):
+    """Place one replica's parameters on its submesh per ``param_specs``:
+    a model of DTensor parameters, each rank holding its block (the
+    counterpart of the reference's ``jax.device_put``).  The caller's
+    ``params`` are left as they are."""
+    dp_axes, model_axis, _, _ = _mesh_sizes(submesh)
+    placed = copy.deepcopy(params, {id(p): p for p in params.parameters()})
+    specs = param_specs(placed, submesh, dp_axes=dp_axes,
+                        model_axis=model_axis)
+    return distribute(placed, to_shardings(submesh, specs))
+
+
+def shard_engine_caches(engine: ServeEngine, submesh) -> None:
+    """Pre-allocate every variant's stacked lane caches sharded over the
+    replica's submesh per ``cache_specs`` (the lane axis is the cache's
+    batch dim), so decode runs on placed caches from the first tick; the
+    engine's allocation at the first admission then leaves them as they
+    are."""
+    from ...models.transformer import init_cache
+    dp_axes, model_axis, dp_size, model_size = _mesh_sizes(submesh)
+    for variant, cfg in engine.cfgs.items():
+        batch = engine.batches[variant]
+        stacked = init_cache(cfg, batch.n_lanes, engine.max_len,
+                             device=engine.device)
+        specs = cache_specs(cfg, stacked, dp_axes=dp_axes,
+                            model_axis=model_axis, dp_size=dp_size,
+                            model_size=model_size)
+        batch.caches = distribute(stacked, to_shardings(submesh, specs))
+
+
+def _mesh_device(mesh, device) -> torch.device:
+    """The device of this rank of ``mesh``: its GPU, or the CPU."""
+    own = (torch.device("cuda", torch.cuda.current_device())
+           if mesh.device_type == "cuda" else torch.device(mesh.device_type))
+    if device is not None and resolve_device(device).type != own.type:
+        raise ValueError(f"device {device} is not the mesh's "
+                         f"({mesh.device_type})")
+    return own
+
+
 def build_router(cfg, params=None, *, genome: dict | None = None,
-                 max_len: int = 128, device=None, evolved_cfg=None,
+                 max_len: int = 128, mesh=None, device=None, evolved_cfg=None,
                  ab_fraction: float = 0.0, temperature: float = 0.0,
                  seed: int = 0, admit_max_wait: int = 32,
                  heartbeat_timeout: float = 8.0) -> Router:
@@ -338,26 +610,53 @@ def build_router(cfg, params=None, *, genome: dict | None = None,
 
     The genome's ``replicas`` knob picks the fan-out; its KV plan clamps
     each replica's ``max_slots`` to what the plan's pages fit
-    (:meth:`KVPlan.effective_slots`).  Every replica runs on ``device``
-    (the GPU unless the caller names another; given ``params``, where they
-    live) over the one set of weights: ``params``, or random ones from
-    :func:`~repro_torch.models.transformer.init_params` (seed 0) made
-    there."""
+    (:meth:`KVPlan.effective_slots`).  Without ``mesh``, every replica
+    runs on ``device`` (the GPU unless the caller names another; given
+    ``params``, where they live) over the one set of weights: ``params``,
+    or random ones from :func:`~repro_torch.models.transformer.init_params`
+    (seed 0) made there.
+
+    With ``mesh`` (e.g. ``make_smoke_mesh()``; every rank calls this with
+    the same arguments and weights), the mesh's data rows are split
+    across replicas (:func:`replica_meshes`); each rank places its
+    replica's parameters and decode caches on the replica's submesh
+    (:func:`shard_replica_params`, :func:`shard_engine_caches`) and
+    returns a :class:`MeshRouter` on its rank's device."""
     g = dict(DEFAULT_SERVE_PLAN, **(genome or {}))
     plan = KVPlan.from_genome(g)
+    if mesh is not None:
+        device = _mesh_device(mesh, device)
     if params is None:
         from ...models.transformer import init_params
         params = init_params(cfg, device=resolve_device(device))
         device = None               # the replicas run where the weights live
     slots = plan.effective_slots(int(g["max_slots"]), max_len)
-    engines = [ServeEngine(cfg, params, max_len=max_len, max_slots=slots,
-                           prefill_chunk=int(g["prefill_chunk"]),
-                           evolved_cfg=evolved_cfg, ab_fraction=ab_fraction,
-                           temperature=temperature, seed=seed + i,
-                           admit_max_wait=admit_max_wait, device=device)
+    kw = dict(max_len=max_len, max_slots=slots,
+              prefill_chunk=int(g["prefill_chunk"]), evolved_cfg=evolved_cfg,
+              ab_fraction=ab_fraction, temperature=temperature,
+              admit_max_wait=admit_max_wait)
+    if mesh is None:
+        engines = [ServeEngine(cfg, params, seed=seed + i, device=device,
+                               **kw) for i in range(plan.replicas)]
+        return Router(engines, plan=plan, genome=g,
+                      heartbeat_timeout=heartbeat_timeout)
+    if params.device.type != mesh.device_type:
+        raise ValueError(f"params live on {params.device}, the mesh is over "
+                         f"{mesh.device_type} devices")
+    submeshes = replica_meshes(mesh, plan.replicas)
+    own = next(i for i, sm in enumerate(submeshes)
+               if sm.get_coordinate() is not None)
+    engine = ServeEngine(cfg, shard_replica_params(params, submeshes[own]),
+                         seed=seed + own, **kw)
+    shard_engine_caches(engine, submeshes[own])
+    mirrors = [_MirrorEngine(engine.cfgs, max_len, engine.max_slots,
+                             real=engine if i == own else None)
                for i in range(plan.replicas)]
-    return Router(engines, plan=plan, genome=g,
-                  heartbeat_timeout=heartbeat_timeout)
+    group = None if dist.get_backend() == "gloo" \
+        else dist.new_group(backend="gloo")
+    return MeshRouter(mirrors, replica=own, submesh=submeshes[own],
+                      group=group, plan=plan, genome=g,
+                      heartbeat_timeout=heartbeat_timeout)
 
 
 # --------------------------------------------------------------------------
@@ -370,6 +669,9 @@ def main(argv=None) -> int:
     replay a synthesized trace, print the stats JSON.  Exits nonzero if any
     accepted request fails to complete (the CI smoke contract)."""
     import argparse
+    import sys
+
+    from ...launch.mesh import RankFailure, on_mesh, parse_mesh
 
     parser = argparse.ArgumentParser(description=main.__doc__)
     parser.add_argument("--arch", default="qwen3-0.6b")
@@ -379,6 +681,11 @@ def main(argv=None) -> int:
                         help="torch device to serve on (default: the GPU; "
                              "without one, pass --device cpu)")
     parser.add_argument("--replicas", type=int, default=2)
+    parser.add_argument("--mesh", default="",
+                        help="DATAxMODEL smoke mesh, e.g. 2x2, one rank a "
+                             "device (on the CPU this command starts that "
+                             "many gloo ranks; a GPU takes one NCCL rank); "
+                             "empty = no mesh")
     parser.add_argument("--requests", type=int, default=8)
     parser.add_argument("--scenario", default="bursty")
     parser.add_argument("--max-prompt", type=int, default=12)
@@ -394,13 +701,28 @@ def main(argv=None) -> int:
     parser.add_argument("--cache", default="",
                         help="publish serve-tagged fitness records here")
     args = parser.parse_args(argv)
-
-    from ...configs import get_config, smoke_config
-    from ..liveloop.traces import synthesize
     try:
         device = resolve_device(args.device)
     except RuntimeError as e:
         raise SystemExit(f"router: {e}") from None
+    if not args.mesh:
+        return _serve_trace(args, device, None)
+    shape = parse_mesh(args.mesh)
+    _check_split(shape[0], args.replicas)   # before any rank starts
+    argv = sys.argv[1:] if argv is None else list(argv)
+    try:
+        rc = on_mesh("repro_torch.core.deploy.router", argv, device, shape,
+                     lambda mesh: _serve_trace(args, device, mesh))
+    except RankFailure as e:    # a rank exited nonzero, or was killed
+        print(f"router: --mesh {args.mesh}: {e}", file=sys.stderr)
+        return 1
+    return 0 if isinstance(rc, list) else rc    # the ranks all exited 0
+
+
+def _serve_trace(args, device, mesh) -> int:
+    """The CLI's replay on ``device``, or on this rank of ``mesh``."""
+    from ...configs import get_config, smoke_config
+    from ..liveloop.traces import synthesize
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     trace = synthesize(args.scenario, vocab=cfg.vocab,
                        n_requests=args.requests,
@@ -411,7 +733,7 @@ def main(argv=None) -> int:
               "kv_page_size": args.page_size, "kv_dtype": args.kv_dtype,
               "replicas": args.replicas}
     router = build_router(cfg, genome=genome, max_len=trace.max_len(),
-                          device=device, seed=args.seed)
+                          mesh=mesh, device=device, seed=args.seed)
     reqs = trace.requests()
     i, tick = 0, 0
     accepted = 0
@@ -424,7 +746,7 @@ def main(argv=None) -> int:
         router.step()
         tick += 1
     stats = router.stats()
-    if args.cache:
+    if args.cache and (mesh is None or dist.get_rank() == 0):
         cache = FitnessCache(args.cache, writer="serve")
         router.publish_stats(cache, name=f"serve/{args.arch}",
                              shape=(args.requests, args.max_prompt,

@@ -69,6 +69,12 @@ from .canary import CanaryBook, Guardrails, split_indices
 from .traces import Trace
 
 STATE_VERSION = 1
+# A real canary window on the GPU replays its slice this many times under
+# each plan, the base's and the candidate's replays taken in turns: the
+# replays are host-bound and the host's speed drifts over seconds, so
+# three replays of one plan after three of the other rolled back a plan
+# measured against itself (ROADMAP.md, section 3).
+CARD_WINDOW_REPEATS = 15
 
 METRIC_KEYS = ("throughput_tok_s", "mean_ttft_s", "reject_rate")
 
@@ -199,6 +205,12 @@ def _simulate_items(items, last_arrival: int, m: int, c: int,
             "s_per_token": round(wall / gen_tokens, 6) if gen_tokens
             else 0.0,
             "n": n_done}
+
+
+def _median_run(runs: list) -> dict:
+    """The metrics of the median-throughput run."""
+    runs = sorted(runs, key=lambda m: m["throughput_tok_s"])
+    return runs[len(runs) // 2]
 
 
 def _engine_metrics(stats: dict, n_rejected: int, variant: str = "default"
@@ -389,6 +401,12 @@ class LiveLoopController:
         check to the warm incumbent.  A device fault propagates: the
         router lets it through, so it never becomes a reject rate that
         rolls a candidate back."""
+        one = self._replayer(trace, genome)
+        return _median_run([one() for _ in range(self.repeats)])
+
+    def _replayer(self, trace: Trace, genome: dict):
+        """A function replaying ``trace`` once under ``genome`` (see
+        :meth:`_replay_real`), the pair's warmup done."""
         from ..deploy.engine import ServeEngine
         from ..deploy.router import Router
         from .traces import replay
@@ -417,9 +435,7 @@ class LiveLoopController:
         if warm_key not in self._warmed:
             one()
             self._warmed.add(warm_key)
-        runs = sorted((one() for _ in range(self.repeats)),
-                      key=lambda m: m["throughput_tok_s"])
-        return runs[len(runs) // 2]
+        return one
 
     # -- measurement backends ----------------------------------------------
     def _window_slice(self, tick: int) -> Trace:
@@ -448,9 +464,20 @@ class LiveLoopController:
 
     def _measure_real(self, base_genome: dict, cand_genome: dict,
                       tick: int) -> tuple[dict, dict]:
+        """Both plans' metrics on the window's slice: ``_replay_real``'s,
+        one plan after the other, on the CPU; on the GPU the median replay
+        of ``CARD_WINDOW_REPEATS`` each, the two plans' replays in turns."""
         tr = self._window_slice(tick)
-        return (self._replay_real(tr, base_genome),
-                self._replay_real(tr, cand_genome))
+        if self._model()[1].device.type != "cuda":
+            return (self._replay_real(tr, base_genome),
+                    self._replay_real(tr, cand_genome))
+        ones = (self._replayer(tr, base_genome),
+                self._replayer(tr, cand_genome))
+        runs: tuple[list, list] = ([], [])
+        for _ in range(CARD_WINDOW_REPEATS):
+            for one, out in zip(ones, runs):
+                out.append(one())
+        return _median_run(runs[0]), _median_run(runs[1])
 
     # -- serve-record publishing (the surrogate's live training signal) -----
     def _publish_window(self, genome: dict, metrics: dict, *, role: str,

@@ -17,6 +17,11 @@ process group.
 * :func:`launch_ranks` starts one process a rank and waits for them all
   under a deadline, killing every one when one fails or the deadline
   passes.
+* :func:`on_mesh` runs a command's body on the rank this process is
+  (:func:`rank_mesh`: its group started and destroyed around the body,
+  only rank 0's standard output kept), or, on the CPU, starts the
+  command's ranks and relays rank 0's output: ``launch.train --mesh
+  smoke`` and the serving CLIs' ``--mesh DATAxMODEL``.
 * :func:`fake_process_group` stands a group of any size up in this one
   process, whose collectives do nothing: the production mesh of the dry
   run (``launch/dryrun.py``), traced on tensors without data.
@@ -25,8 +30,10 @@ process group.
 from __future__ import annotations
 
 import contextlib
+import io
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -37,6 +44,9 @@ import torch
 import torch.distributed as dist
 
 AXES = ("data", "model")
+# seconds the ranks a command starts (on_mesh) may take together (a smoke
+# run takes about ten)
+MESH_TIMEOUT = 300.0
 
 
 def production_mesh_shape(*, multi_pod: bool = False
@@ -114,9 +124,23 @@ def init_process_group(device_type: str, rank: int, world_size: int,
     else:
         raise ValueError(f"no process group for device type "
                          f"{device_type!r}")
+    _forget_meshes()
     dist.init_process_group(backend, init_method=f"file://{init_file}",
                             rank=rank, world_size=world_size)
     return device
+
+
+def _forget_meshes() -> None:
+    """Drop DTensor's cached sharding propagation before a group starts:
+    it keys its results by meshes compared by value, so an op on a mesh
+    made again in a later group of the process (a CLI's group after a
+    test's) would be handed the earlier group's mesh, whose process
+    groups are gone (torch's debug helper; a version without it has
+    nothing to drop)."""
+    from torch.distributed.tensor import debug
+    clear = getattr(debug, "_clear_sharding_prop_cache", None)
+    if clear is not None:
+        clear()
 
 
 @contextlib.contextmanager
@@ -153,6 +177,11 @@ def rank_env() -> tuple[int, int, str]:
             os.environ["MESH_INIT_FILE"])
 
 
+class RankFailure(RuntimeError):
+    """A rank that :func:`launch_ranks` started exited nonzero, or the
+    ranks outlived their deadline."""
+
+
 def launch_ranks(argv: list[str], world_size: int, init_file: str, *,
                  timeout: float, threads: int = 1, env=None) -> list[str]:
     """Run ``python argv...`` once a rank, each with ``MESH_RANK``,
@@ -160,7 +189,7 @@ def launch_ranks(argv: list[str], world_size: int, init_file: str, *,
     ``threads`` intra-op threads, and wait for all of them.  Returns each
     rank's standard output.  A rank that fails, or the ``timeout`` (in
     seconds, for all of them) passing, kills every rank still running and
-    raises ``RuntimeError`` with the failed rank's error output."""
+    raises :class:`RankFailure` with the failed rank's error output."""
     procs, logs = [], []
     try:
         for rank in range(world_size):
@@ -176,13 +205,13 @@ def launch_ranks(argv: list[str], world_size: int, init_file: str, *,
             if any(p.returncode not in (None, 0) for p in procs):
                 break
             if time.monotonic() > deadline:
-                raise RuntimeError(f"ranks still running after {timeout} s")
+                raise RankFailure(f"ranks still running after {timeout} s")
             time.sleep(0.05)
         for rank, p in enumerate(procs):
             if p.returncode not in (None, 0):
                 err = logs[rank][1]
                 err.seek(0)
-                raise RuntimeError(f"rank {rank} exited {p.returncode}:\n"
+                raise RankFailure(f"rank {rank} exited {p.returncode}:\n"
                                    f"{err.read()[-4000:]}")
         texts = []
         for out, _ in logs:
@@ -197,3 +226,67 @@ def launch_ranks(argv: list[str], world_size: int, init_file: str, *,
         for out, err in logs:
             out.close()
             err.close()
+
+
+def parse_mesh(text: str) -> tuple[int, int]:
+    """``"DATAxMODEL"`` (a ``--mesh`` argument, e.g. ``2x2``) as
+    ``(DATA, MODEL)``."""
+    try:
+        d, m = (int(x) for x in text.lower().split("x"))
+    except ValueError:
+        raise ValueError(f"a mesh is DATAxMODEL, e.g. 2x2; got "
+                         f"{text!r}") from None
+    if d < 1 or m < 1:
+        raise ValueError(f"a mesh has at least one rank a dim; got {text!r}")
+    return d, m
+
+
+@contextlib.contextmanager
+def rank_mesh(device: torch.device, n_data: int, n_model: int):
+    """The ``(n_data, n_model)`` smoke mesh of this process's rank in a
+    group started here and destroyed after, however the block ends: the
+    rank :func:`launch_ranks` made it (:func:`rank_env`), or else a group
+    of one rank (the card's ``(1, 1)`` over NCCL).  A mesh of more ranks
+    than the group has, or of more GPUs than the host has, raises
+    :func:`make_smoke_mesh`'s ``ValueError``."""
+    d = None
+    try:
+        if "MESH_RANK" in os.environ:
+            init_process_group(device.type, *rank_env())
+        else:
+            d = tempfile.mkdtemp(prefix="mesh_")
+            init_process_group(device.type, 0, 1, os.path.join(d, "init"))
+        yield make_smoke_mesh(n_data, n_model, device_type=device.type)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        if d is not None:
+            shutil.rmtree(d, ignore_errors=True)
+
+
+def on_mesh(module: str, argv: list[str], device: torch.device,
+            shape: tuple[int, int], body):
+    """A command's ``body(mesh)`` on this process's rank of the ``shape``
+    smoke mesh (:func:`rank_mesh`), with only rank 0's standard output
+    kept; returns what ``body`` returns.  On the CPU, a process that is no
+    rank yet, for a mesh of more than one rank, starts the ranks instead:
+    ``python -m module argv...`` once a rank (:func:`launch_ranks`,
+    meeting in a temporary directory removed after, killed after
+    ``MESH_TIMEOUT`` seconds), prints rank 0's output and returns every
+    rank's; it raises as :func:`launch_ranks` does."""
+    world = math.prod(shape)
+    if device.type == "cpu" and world > 1 and "MESH_RANK" not in os.environ:
+        d = tempfile.mkdtemp(prefix="mesh_")
+        try:
+            outs = launch_ranks(["-m", module, *argv], world,
+                                os.path.join(d, "init"),
+                                timeout=MESH_TIMEOUT)
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
+        print(outs[0], end="", flush=True)
+        return outs
+    with rank_mesh(device, *shape) as mesh:
+        quiet = dist.get_rank() != 0
+        with (contextlib.redirect_stdout(io.StringIO()) if quiet
+              else contextlib.nullcontext()):
+            return body(mesh)

@@ -9,10 +9,10 @@ publishing the measured per-variant latency into a shared fitness cache
 under the ``serve`` writer tag.  It runs on the GPU unless ``--device``
 names another; without a GPU and without ``--device`` it exits with an
 error.  ``--replicas N`` serves through the deploy router (N engines
-sharing the weights on the device), ``--liveloop ROOT`` with the live
-loop's promoted schedule.  The reference's ``--mesh`` (its replicas on
-submeshes) is not ported yet: see ``core/deploy/router.py`` (ROADMAP.md,
-queue 1, item 1).
+sharing the weights on the device), ``--mesh DATAxMODEL`` through the
+router with its replicas on submeshes of that launch mesh, one process a
+rank (on the CPU this command starts the ranks; a GPU takes one NCCL
+rank), and ``--liveloop ROOT`` with the live loop's promoted schedule.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \
       --smoke --device cpu --requests 8 --prompt-len 24 --gen 8
@@ -32,6 +32,11 @@ queue 1, item 1).
   # `python -m repro_torch.core.deploy.router`)
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \
       --smoke --device cpu --replicas 2 --requests 8 --prompt-len 16 --gen 6
+
+  # the same two replicas, each on a row of a 2 x 2 mesh of gloo ranks
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \
+      --smoke --device cpu --replicas 2 --mesh 2x2 --requests 8 \
+      --prompt-len 16 --gen 6
 
   # the live loop's promoted schedule (see `python -m
   # repro_torch.core.liveloop`), after two more ticks of the loop
@@ -68,6 +73,10 @@ def main(argv=None) -> None:
                     help="engine replicas behind the deploy router "
                          "(default: the resolved serve plan's replicas "
                          "knob, usually 1)")
+    ap.add_argument("--mesh", default=None,
+                    help="DATAxMODEL smoke mesh for the replicas, e.g. 2x2, "
+                         "one rank a device (on the CPU this command starts "
+                         "that many gloo ranks; a GPU takes one NCCL rank)")
     ap.add_argument("--artifacts", default=None,
                     help="ArtifactRegistry directory (serve-schedule and "
                          "plan artifacts)")
@@ -96,11 +105,8 @@ def main(argv=None) -> None:
     import numpy as np
 
     from ..configs import get_config, smoke_config
-    from ..core.deploy import (ArtifactRegistry, ServeEngine,
-                               apply_plan_artifact, build_router,
+    from ..core.deploy import (ArtifactRegistry, apply_plan_artifact,
                                oneshot_generate, serve_plan_from)
-    from ..core.evaluator import FitnessCache
-    from ..core.liveloop.traces import demo_requests
     from ..device import resolve_device
 
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
@@ -165,11 +171,40 @@ def main(argv=None) -> None:
         evolved_cfg = apply_plan_artifact(cfg, plan_art)
         ab = 1.0 if args.variant == "evolved" else args.ab_fraction
 
-    if int(schedule.get("replicas", 1)) > 1:
+    serve = dict(args=args, cfg=cfg, schedule=schedule, device=device,
+                 evolved_cfg=evolved_cfg, ab=ab)
+    if not args.mesh:
+        _serve(mesh=None, **serve)
+        return
+    import sys
+
+    from ..core.deploy.router import _check_split
+    from .mesh import RankFailure, on_mesh, parse_mesh
+    if args.liveloop_ticks:
+        raise SystemExit("serve: --liveloop-ticks advances the loop on "
+                         "every rank; advance it without --mesh first")
+    shape = parse_mesh(args.mesh)
+    _check_split(shape[0], int(schedule["replicas"]))
+    try:
+        on_mesh("repro_torch.launch.serve",
+                sys.argv[1:] if argv is None else list(argv), device, shape,
+                lambda mesh: _serve(mesh=mesh, **serve))
+    except RankFailure as e:
+        raise SystemExit(f"serve: --mesh {args.mesh}: {e}") from None
+
+
+def _serve(args, cfg, schedule, device, evolved_cfg, ab, mesh) -> None:
+    """Replay the demo trace through an engine, or through the router
+    (over ``mesh``, where given), and print what it measured."""
+    from ..core.deploy import ServeEngine, build_router
+    from ..core.evaluator import FitnessCache
+    from ..core.liveloop.traces import demo_requests
+    if int(schedule.get("replicas", 1)) > 1 or mesh is not None:
         engine = build_router(cfg, genome=schedule,
                               max_len=args.prompt_len + args.gen,
-                              device=device, evolved_cfg=evolved_cfg,
-                              ab_fraction=ab, temperature=args.temperature)
+                              mesh=mesh, device=device,
+                              evolved_cfg=evolved_cfg, ab_fraction=ab,
+                              temperature=args.temperature)
     else:
         engine = ServeEngine(cfg, max_len=args.prompt_len + args.gen,
                              max_slots=schedule["max_slots"],
@@ -183,8 +218,10 @@ def main(argv=None) -> None:
     s = engine.stats()
     replica_note = (f" replicas={s['n_live']}/{s['n_replicas']}"
                     if "n_replicas" in s else "")
+    mesh_note = (f" mesh={dict(zip(mesh.mesh_dim_names, mesh.shape))}"
+                 if mesh is not None else "")
     print(f"arch={cfg.name} device={device} requests={len(results)} "
-          f"schedule={schedule}{replica_note} ticks={s['ticks']}")
+          f"schedule={schedule}{replica_note}{mesh_note} ticks={s['ticks']}")
     print(f"wall={s['wall_s']:.2f}s throughput={s['throughput_tok_s']:.1f} "
           f"tok/s")
     for variant, rec in s["per_variant"].items():
@@ -198,7 +235,7 @@ def main(argv=None) -> None:
     for r in results[:2]:
         print(f"  {r.uid} [{r.variant}]: {r.tokens[:12]}...")
 
-    if args.cache:
+    if args.cache and (mesh is None or mesh.get_rank() == 0):
         cache = FitnessCache(args.cache, writer="serve")
         keys = engine.publish_stats(
             cache, name=cfg.name,

@@ -32,22 +32,13 @@ weights and batches, places the parameters and optimizer state under
 from __future__ import annotations
 
 import argparse
-import contextlib
-import io
-import os
-import shutil
 import sys
-import tempfile
 import time
 
 import numpy as np
 import torch
 
-from .mesh import launch_ranks
-
-# seconds the CPU mesh's four ranks may take together (a smoke run takes
-# about ten)
-MESH_TIMEOUT = 300.0
+from .mesh import RankFailure, on_mesh
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -117,54 +108,17 @@ def main(argv=None, on_step=None) -> dict:
         raise SystemExit(f"train: {e}") from None
     if args.mesh == "none":
         return _train(args, device, None, on_step)
-    if device.type == "cpu" and "MESH_RANK" not in os.environ:
-        return _launch_cpu_mesh(argv)
-    import torch.distributed as torch_dist
-    with _smoke_mesh(device) as mesh:
-        quiet = torch_dist.get_rank() != 0
-        with (contextlib.redirect_stdout(io.StringIO()) if quiet
-              else contextlib.nullcontext()):
-            return _train(args, device, mesh, on_step)
-
-
-@contextlib.contextmanager
-def _smoke_mesh(device):
-    """The smoke mesh of this process's rank: the card's (1, 1) over a
-    NCCL group of one rank, or on the CPU the 2 x 2 of the rank that
-    :func:`_launch_cpu_mesh` started; the group is destroyed after."""
-    import torch.distributed as torch_dist
-    from .mesh import init_process_group, make_smoke_mesh, rank_env
-    d = None
-    try:
-        if device.type == "cuda":
-            d = tempfile.mkdtemp(prefix="mesh_")
-            init_process_group("cuda", 0, 1, os.path.join(d, "init"))
-            yield make_smoke_mesh(1, 1, device_type="cuda")
-        else:
-            init_process_group("cpu", *rank_env())
-            yield make_smoke_mesh(2, 2, device_type="cpu")
-    finally:
-        if torch_dist.is_initialized():
-            torch_dist.destroy_process_group()
-        if d is not None:
-            shutil.rmtree(d, ignore_errors=True)
-
-
-def _launch_cpu_mesh(argv) -> dict:
-    """Start the CPU mesh's four ranks on this command's arguments and
-    relay rank 0's output; ranks still running after ``MESH_TIMEOUT``
-    seconds are killed."""
+    # the card's (1, 1) over a NCCL group of one rank, or the CPU's 2 x 2
+    # over four gloo ranks, which this command starts
     argv = sys.argv[1:] if argv is None else list(argv)
-    d = tempfile.mkdtemp(prefix="mesh_")
     try:
-        outs = launch_ranks(["-m", "repro_torch.launch.train", *argv], 4,
-                            os.path.join(d, "init"), timeout=MESH_TIMEOUT)
-    except RuntimeError as e:
+        res = on_mesh("repro_torch.launch.train", argv, device,
+                      (1, 1) if device.type == "cuda" else (2, 2),
+                      lambda mesh: _train(args, device, mesh, on_step))
+    except RankFailure as e:    # a rank failed, or outlived MESH_TIMEOUT
         raise SystemExit(f"train: --mesh smoke: {e}") from None
-    finally:
-        shutil.rmtree(d, ignore_errors=True)
-    print(outs[0], end="", flush=True)
-    return {"printed": outs}
+    # the ranks' outputs where this command started them
+    return {"printed": res} if isinstance(res, list) else res
 
 
 def _train(args, device, mesh, on_step) -> dict:

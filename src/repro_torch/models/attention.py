@@ -17,9 +17,10 @@ Which path a call takes is decided by shape and config before any launch:
 * non-causal attention (the encoder, hubert) is not padded, since every
   query would see a padded key: its tile is the largest divisor of S at
   most the tile;
-* on the card the kernel's gates apply as they are: a head dim it is not
-  built for (it takes 32, 64 and 128; hubert has 80, the smoke configs 16
-  or 18) raises the wrapper's ``ValueError``;
+* on the card the kernel is built for head dims 32, 64 and 128; the
+  wrapper pads a smaller one with zero columns to the next of them
+  (the smoke configs' 16 and 18 to 32, hubert's 80 to 128,
+  ``launch_head_dim``) and raises ``ValueError`` only above 128;
 * MLA's q/k head dim (192) differs from its v head dim (128), which the
   kernel does not take: its attention is torch ops.
 

@@ -2,7 +2,10 @@
 with one killed mid-replay against the direct prefill/decode loop, token
 for token in float32 with TF32 off; a kernel launch the C entry refuses in
 one replica's step, which must leave ``Router.step`` as a device fault and
-not fail the replica; and one real-mode live-loop tick on the card.
+not fail the replica; one real-mode live-loop tick on the card; and a
+replica placed on the card's ``(1, 1)`` mesh (a NCCL group of one rank)
+against the same replica without a mesh, a device fault leaving its
+step, and a mesh of more cards than the host has refused.
 
 Every test here is marked ``cuda`` and skips on hosts without a GPU.  It imports nothing of
 the reference package:
@@ -121,3 +124,75 @@ def test_real_liveloop_tick_on_the_card(cuda, tmp_path):
     assert ctl._params.device.type == "cuda"
     assert s["tick"] == 0 and all(f > 0 for f in s["best_fitness"])
     assert ctl.state["tick"] == 1
+
+
+# --------------------------------------------------------------------------
+# the router's replica on the card's (1, 1) mesh
+# --------------------------------------------------------------------------
+
+@pytest.fixture
+def card_mesh(cuda, tmp_path):
+    """The card's (1, 1) mesh over a NCCL group of one rank, destroyed
+    after the test."""
+    import torch.distributed as torch_dist
+
+    from repro_torch.launch.mesh import init_process_group, make_smoke_mesh
+    init_process_group("cuda", 0, 1, str(tmp_path / "init"))
+    try:
+        assert torch_dist.get_backend() == "nccl"
+        yield make_smoke_mesh(1, 1, device_type="cuda")
+    finally:
+        torch_dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "falcon-mamba-7b"])
+def test_meshed_replica_matches_the_unmeshed_on_the_card(card_mesh, arch):
+    """``build_router(mesh=)`` on (1, 1): its weights and lane caches are
+    DTensors on the mesh, and every request gets the tokens (f32, TF32
+    off) and the router the counts of the same router without a mesh."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.core.deploy import build_router
+    cfg, params = _model(arch)
+    genome = {"max_slots": 2, "prefill_chunk": 2, "replicas": 1}
+    got = {}
+    with full_f32():
+        for name, mesh in (("plain", None), ("mesh", card_mesh)):
+            router = build_router(cfg, params, genome=genome, max_len=16,
+                                  mesh=mesh)
+            results = router.run(demo_requests(cfg, n_requests=6,
+                                               prompt_len=11, gen=5, seed=3))
+            stats = router.stats()
+            got[name] = ({r.uid: r.tokens for r in results},
+                         [stats[k] for k in ("n_completed", "ticks",
+                                             "gen_tokens")])
+    engine = router.replicas[0].engine.real
+    assert all(isinstance(p, DTensor) for p in engine.params.parameters())
+    assert all(isinstance(t, DTensor)
+               for t in engine.batches["default"].caches.values())
+    assert got["mesh"] == got["plain"] and len(got["plain"][0]) == 6
+
+
+def test_device_fault_leaves_the_meshed_router(card_mesh, monkeypatch):
+    """A launch rmsnorm's C entry refuses inside the meshed replica's step
+    is a DeviceFault out of ``MeshRouter.step``; the replica stays alive."""
+    from repro_torch.core.deploy import build_router
+    cfg, params = _model("qwen3-0.6b")
+    router = build_router(cfg, params, genome={"replicas": 1}, max_len=16,
+                          mesh=card_mesh)
+    for r in demo_requests(cfg, n_requests=2, prompt_len=11, gen=3):
+        router.submit(r)
+    monkeypatch.setattr(rmsnorm_ops, "smem_bytes", lambda *a: 0)
+    with pytest.raises(DeviceFault, match="rmsnorm_fwd: CUDA error"):
+        router.step()
+    assert router.n_live == 1 and router.n_requeued == 0
+    torch.cuda.synchronize()
+
+
+def test_router_cli_refuses_more_cards_than_the_host_has(cuda):
+    from repro_torch.core.deploy.router import main
+    n = torch.cuda.device_count()
+    if n >= 4:
+        pytest.skip("this host has the four GPUs")
+    with pytest.raises(ValueError, match="needs 4 CUDA devices"):
+        main(["--smoke", "--replicas", "2", "--mesh", "2x2"])

@@ -29,7 +29,12 @@ Tolerances, each stated where it is used:
 * the compressed step against the exact step: the loss within 1e-3, each
   parameter within 0.05 of its largest value (the reference's), the
   residual x - deq exactly;
-* a checkpoint written from (2, 2) and restored onto (4, 1): bit for bit.
+* a checkpoint written from (2, 2) and restored onto (4, 1): bit for bit;
+* the router's replicas on submeshes of (2, 2) and (4, 1): greedy f32
+  tokens equal, exactly, to the port's unmeshed router's (in the ranks)
+  and to the reference's ``Router`` (computed here while the ranks run),
+  with and without a failover; each rank's block of every parameter and
+  lane cache exactly its block of the whole tensor.
 """
 
 from __future__ import annotations
@@ -49,7 +54,10 @@ import torch
 
 from repro.configs import get_config as ref_get_config
 from repro.configs import smoke_config as ref_smoke_config
+from repro.core.deploy import router as RR
+from repro.core.liveloop.traces import synthesize as ref_synthesize
 from repro.launch import shardings as RS
+from repro.launch.mesh import make_smoke_mesh as ref_make_smoke_mesh
 from repro.launch.mesh import mesh_axes as ref_mesh_axes
 from repro.models import moe as RM
 from repro.models import transformer as R
@@ -59,11 +67,15 @@ from repro.optim.optimizers import adafactor as ref_adafactor
 from repro.optim.optimizers import adamw as ref_adamw
 from repro.optim.optimizers import sgd_momentum as ref_sgd
 from repro_torch.configs import ARCHS, get_config, smoke_config
+from repro_torch.core.deploy import router as PR
+from repro_torch.core.liveloop.traces import synthesize
+from repro_torch.launch import mesh as M
 from repro_torch.launch import shardings as S
 from repro_torch.launch.mesh import (MeshShape, launch_ranks,
                                      make_smoke_mesh, mesh_axes,
                                      production_mesh_shape)
 from repro_torch.models import transformer as T
+from repro_torch.models.weights import reference_key
 from repro_torch.optim import adafactor, adamw, quantize_int8
 from torch_model_oracle import batch
 
@@ -267,6 +279,23 @@ CLI_ARGS = ["--arch", "qwen3-0.6b", "--smoke", "--device", "cpu", "--steps",
 REF_OPTS = {"sgd": lambda: ref_sgd(lr=0.1),
             "sgd05": lambda: ref_sgd(lr=0.05),
             "adafactor": lambda: ref_adafactor()}
+# the router's replicas on submeshes: (mesh, replicas) splits, and the
+# cases (arch, mesh, replicas, the tick replica 0 is killed at or -1) over
+# one trace and serving plan
+ROUTER_GEOMETRY = (("2x2", 1), ("2x2", 2), ("4x1", 4))
+ROUTER_TRACE = {"scenario": "bursty", "n_requests": 8, "max_prompt": 4,
+                "gen": 4, "seed": 0}
+ROUTER_GENOME = {"max_slots": 2, "prefill_chunk": 2}
+ROUTER_KILL_AT = 3
+ROUTER_CASES = [(f"{arch.split('-')[0]}_{mesh}_{'kill' if kill else 'live'}",
+                 arch, mesh, replicas, ROUTER_KILL_AT if kill else -1)
+                for arch in ("qwen3-0.6b", "falcon-mamba-7b")
+                for mesh, replicas in (("2x2", 2), ("4x1", 4))
+                for kill in (False, True)]
+ROUTER_CLI = ["--smoke", "--device", "cpu", "--replicas", "2", "--mesh",
+              "2x2"]
+SERVE_CLI = ROUTER_CLI + ["--requests", "8", "--prompt-len", "8", "--gen",
+                          "4"]
 
 
 def _flat(tree, prefix: str) -> dict:
@@ -393,6 +422,67 @@ def _ref_step(arch, overrides, opt_name, b):
     return _REF[done]
 
 
+def _drive(router, trace, kill_at: int) -> int:
+    """The router CLI's replay (the ranks' ``drive``)."""
+    reqs = trace.requests()
+    i = tick = accepted = 0
+    while i < len(reqs) or router.busy:
+        while i < len(reqs) and trace.items[i].at_tick <= tick:
+            accepted += router.try_submit(reqs[i])
+            i += 1
+        if tick == kill_at and router.n_live > 1:
+            router.kill_replica(0)
+        router.step()
+        tick += 1
+    return accepted
+
+
+@functools.lru_cache(maxsize=None)
+def _router_weights(arch: str) -> dict:
+    """The reference's tree (numpy, layers stacked) of the port's seeded
+    smoke weights of ``arch`` (drawn by torch: quicker than the
+    reference's jitted init)."""
+    model = T.init_params(smoke_config(arch), device="cpu",
+                          generator=torch.Generator().manual_seed(0))
+    flat: dict = {}
+    for name, p in model.named_parameters():
+        key, layer = reference_key(name)
+        flat.setdefault(key, {})[layer] = p.detach().numpy()
+    tree: dict = {}
+    for key, parts in flat.items():
+        *path, last = key.split(".")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[last] = parts[None] if None in parts else \
+            np.stack([parts[i] for i in range(len(parts))])
+    return tree
+
+
+def _ref_router(arch: str, replicas: int, kill_at: int, mesh=None) -> dict:
+    """The reference's router on the case's trace and weights: tokens by
+    request and its stats."""
+    cfg, tree = ref_smoke_config(arch), _router_weights(arch)
+    trace = ref_synthesize(vocab=cfg.vocab, **ROUTER_TRACE)
+    router = RR.build_router(cfg, jax.tree.map(jnp.asarray, tree),
+                             genome=dict(ROUTER_GENOME, replicas=replicas),
+                             max_len=trace.max_len(), mesh=mesh)
+    accepted = _drive(router, trace, kill_at)
+    return {"tokens": {r.uid: [int(t) for t in r.tokens]
+                       for r in router.completed},
+            "stats": router.stats(), "accepted": accepted}
+
+
+def _ref_routers() -> dict:
+    """Each case's reference ``Router`` (no mesh), and one qwen3-0.6b
+    replica placed by the reference's ``build_router(mesh=)`` on a (1, 1)
+    mesh of the one CPU device."""
+    out = {c[0]: _ref_router(c[1], c[3], c[4]) for c in ROUTER_CASES}
+    out["mesh_1x1"] = _ref_router("qwen3-0.6b", 1, -1,
+                                  ref_make_smoke_mesh(1, 1))
+    return out
+
+
 @pytest.fixture(scope="module")
 def group(tmp_path_factory):
     """Start the 4-rank group once and return (each rank's results, the
@@ -425,6 +515,15 @@ def group(tmp_path_factory):
                               "mesh": mesh, "opt": opt, "cf": cf,
                               "grad_shardings": name.endswith("_gradsh"),
                               "compress": name == COMPRESSED[0]})
+    meta["router"] = {"geometry": ROUTER_GEOMETRY, "trace": ROUTER_TRACE,
+                      "genome": ROUTER_GENOME, "cases": [],
+                      "cli": {"router": ROUTER_CLI, "serve": SERVE_CLI}}
+    for name, arch, mesh, replicas, kill_at in ROUTER_CASES:
+        wname = re.sub(r"\W", "_", f"router:{arch}")
+        arrays.update(_flat(_router_weights(arch), f"w/{wname}"))
+        meta["router"]["cases"].append({
+            "name": name, "arch": arch, "weights": wname, "mesh": mesh,
+            "replicas": replicas, "kill_at": kill_at})
     # the checkpoint's weights and batch: qwen3's own
     q = next(s for s in meta["steps"] if s["arch"] == "qwen3-0.6b")
     for kind in ("w", "b"):
@@ -442,7 +541,8 @@ def group(tmp_path_factory):
         ref = {"ep": {c[0]: _ep_reference(*ep_inputs[c[0]], c[3], c[4])
                       for c in EP_CASES},
                "steps": {r[0]: _ref_step(r[1], r[2], r[4], batches[r[0]])
-                         for r in runs}}
+                         for r in runs},
+               "router": _ref_routers()}
         ranks_done.result()
     ranks = [dict(np.load(d / f"rank{r}.npz")) for r in range(4)]
     return ranks, ref, d
@@ -647,3 +747,191 @@ def test_train_cli_mesh_smoke_on_the_cpu(group):
         assert len(r["cli/losses"]) == 3
         assert np.allclose(r["cli/losses"], want, atol=2e-4)
     assert all(str(r["cli/printed"]) == "" for r in ranks[1:])
+
+
+# --------------------------------------------------------------------------
+# the router's replicas on submeshes
+# --------------------------------------------------------------------------
+
+def _ranks_json(ranks, key):
+    return [json.loads(str(r[key])) for r in ranks]
+
+
+@pytest.mark.parametrize("mesh,n", ROUTER_GEOMETRY)
+def test_replica_meshes_are_the_reference_row_groups(group, monkeypatch,
+                                                     mesh, n):
+    """Every rank holds every submesh: each is the reference's reshape of
+    the mesh's ranks into row groups (its ``Mesh`` stubbed to return the
+    group of rank numbers), under the mesh's axis names, and only its own
+    ranks have a coordinate in it."""
+    ranks, _, _ = group
+    shape = tuple(int(s) for s in mesh.split("x"))
+    fake = FakeMesh(shape, ("data", "model"))
+    fake.devices = np.arange(4).reshape(shape)
+    monkeypatch.setattr(jax.sharding, "Mesh", lambda g, names: (g, names))
+    want = RR.replica_meshes(fake, n)
+    assert len(want) == n
+    for rank, subs in enumerate(_ranks_json(ranks, f"router/geo/{mesh}/{n}")):
+        assert len(subs) == n
+        for (got, coord), (g, names) in zip(subs, want):
+            assert names == ("data", "model")
+            assert got == g.tolist()
+            assert (coord is not None) == (rank in g)
+
+
+def test_replica_meshes_refuses_a_split_as_the_reference(group):
+    ranks, _, _ = group
+    fake = FakeMesh((2, 2), ("data", "model"))
+    with pytest.raises(ValueError) as want:
+        RR.replica_meshes(fake, 3)
+    assert {str(r["router/geo/error"]) for r in ranks} == {str(want.value)}
+
+
+def _block_shape(shape, spec, sizes) -> list:
+    """``shape`` over the mesh axes ``spec`` names at each dim."""
+    spec = list(spec) + [None] * (len(shape) - len(spec))
+    ways = [int(np.prod([sizes[a] for a in
+                         ((e,) if isinstance(e, str) else e or ())]))
+            for e in spec]
+    return [d // w for d, w in zip(shape, ways)]
+
+
+@pytest.mark.parametrize("case", [c[0] for c in ROUTER_CASES])
+def test_router_storage_is_each_ranks_block(group, case):
+    """Each rank holds, of its replica's parameters and lane caches,
+    exactly its block under ``param_specs`` / ``cache_specs`` on the
+    replica's submesh: the parameters' blocks of the whole weights, the
+    caches allocated at build (zeros) and, after the replay, the blocks of
+    the unmeshed router's same replica's caches."""
+    ranks, _, _ = group
+    _, arch, _, replicas, _ = next(c for c in ROUTER_CASES if c[0] == case)
+    tcfg = smoke_config(arch)
+    model = T.init_params(tcfg, device="meta")
+    sharded = 0
+    for r in ranks:
+        own, members, sub_shape = json.loads(str(r[f"router/{case}/submesh"]))
+        geo = MeshShape(tuple(sub_shape))
+        sizes = dict(zip(geo.mesh_dim_names, geo.shape))
+        specs = S.param_specs(model, geo)
+        params = json.loads(str(r[f"router/{case}/params"]))
+        assert set(params) == {n for n, _ in model.named_parameters()}
+        for n, p in model.named_parameters():
+            local, equal = params[n]
+            want = _block_shape(p.shape, specs[n], sizes)
+            assert local == want and equal, (n, local, want)
+            sharded += want != list(p.shape)
+        caches = T.init_cache(tcfg, ROUTER_GENOME["max_slots"],
+                              synthesize(vocab=tcfg.vocab,
+                                         **ROUTER_TRACE).max_len(),
+                              device="cpu")
+        dp = int(np.prod([sizes[a] for a in ("data",)]))
+        cspecs = S.cache_specs(tcfg, caches, dp_size=dp,
+                               model_size=sizes["model"])
+        at_build = json.loads(str(r[f"router/{case}/caches_at_build"]))
+        after = json.loads(str(r[f"router/{case}/caches_after"]))
+        assert set(at_build) == set(after) == set(caches)
+        for k, t in caches.items():
+            local, zeros = at_build[k]
+            assert local == _block_shape(t.shape, cspecs[k], sizes) and zeros
+            assert after[k], k
+        assert len(members) * len(members[0]) * replicas == 4
+    assert (sharded > 0) == (replicas < 4)  # a (1, 1) submesh shards none
+
+
+def _counts(stats: dict) -> list:
+    """Each replica's stats row less its failure's wording."""
+    return [{k: v for k, v in row.items() if k != "fail_reason"}
+            for row in stats["per_replica"]]
+
+
+@pytest.mark.parametrize("case", [c[0] for c in ROUTER_CASES])
+def test_router_tokens_match_unmeshed_and_reference(group, case):
+    """Greedy f32 tokens of the meshed router equal the port's unmeshed
+    router's on the same weights and the reference ``Router``'s, through
+    a failover where the case kills replica 0; every accepted request
+    completes, and ``stats()`` is the same on every rank, its counts the
+    unmeshed router's and the reference's."""
+    ranks, ref, _ = group
+    _, arch, _, replicas, kill_at = next(c for c in ROUTER_CASES
+                                         if c[0] == case)
+    want = ref["router"][case]
+    stats = _ranks_json(ranks, f"router/{case}/stats")
+    assert all(s == stats[0] for s in stats)
+    for r, st in zip(ranks, stats):
+        got = json.loads(str(r[f"router/{case}/tokens"]))
+        assert got == json.loads(str(r[f"router/{case}/tokens_plain"]))
+        assert got == want["tokens"]
+        if arch == "qwen3-0.6b":  # the reference's replica placed on (1, 1)
+            assert got == ref["router"]["mesh_1x1"]["tokens"]
+        assert (st["n_completed"] == int(r[f"router/{case}/accepted"])
+                == want["accepted"] == ROUTER_TRACE["n_requests"])
+        plain = json.loads(str(r[f"router/{case}/stats_plain"]))
+        for s in (plain, want["stats"]):
+            for k in ("n_completed", "n_rejected", "n_requeued",
+                      "n_replicas", "n_live", "ticks", "gen_tokens"):
+                assert st[k] == s[k], k
+            assert _counts(st) == _counts(s)
+    assert stats[0]["n_replicas"] == replicas
+    if kill_at >= 0:
+        assert stats[0]["n_live"] == replicas - 1
+        assert stats[0]["n_requeued"] > 0
+    else:
+        assert all(row["n_completed"] > 0 for row in stats[0]["per_replica"])
+
+
+@pytest.mark.parametrize("cli", ("router", "serve"))
+def test_serving_clis_mesh_on_the_cpu(group, cli):
+    """The router's and ``launch.serve``'s main with ``--mesh 2x2 --device
+    cpu`` on each of the group's ranks (the path of every rank the command
+    starts): each exits 0, only rank 0 prints, and every accepted request
+    completed."""
+    ranks, _, _ = group
+    assert [int(r[f"cli/{cli}/rc"]) for r in ranks] == [0] * 4
+    printed = str(ranks[0][f"cli/{cli}/printed"])
+    assert all(str(r[f"cli/{cli}/printed"]) == "" for r in ranks[1:])
+    if cli == "router":
+        stats = json.loads(printed)
+        assert stats["n_completed"] == 8 and stats["n_rejected"] == 0
+        assert stats["n_replicas"] == 2 and stats["n_live"] == 2
+    else:
+        assert "requests=8" in printed and "replicas=2/2" in printed
+        assert "mesh={'data': 2, 'model': 2}" in printed
+
+
+@pytest.mark.parametrize("cli", ("router", "serve"))
+def test_serving_clis_refuse_a_split_as_the_reference(cli):
+    """In process, with no group: ``--replicas 2 --mesh 1x1`` raises the
+    reference's ``ValueError`` before any rank or group starts."""
+    from repro_torch.launch.serve import main as serve_main
+    with pytest.raises(ValueError) as want:
+        RR.replica_meshes(ref_make_smoke_mesh(1, 1), 2)
+    main = PR.main if cli == "router" else serve_main
+    with pytest.raises(ValueError) as got:
+        main(["--smoke", "--device", "cpu", "--replicas", "2", "--mesh",
+              "1x1"])
+    assert str(got.value) == str(want.value)
+    assert not torch.distributed.is_initialized()
+
+
+def test_router_cli_starts_its_ranks_and_relays_rank_0(monkeypatch, capsys):
+    """On the CPU the router CLI starts one rank a device of its mesh
+    (here ``launch_ranks`` stands in, so no process starts), prints rank
+    0's output and exits 0; a rank that fails makes it exit 1."""
+    calls = []
+
+    def ranks(argv, world, init_file, *, timeout, **kw):
+        calls.append((argv, world, timeout))
+        return ["rank 0 says\n", "", "", ""]
+    monkeypatch.delenv("MESH_RANK", raising=False)
+    monkeypatch.setattr(M, "launch_ranks", ranks)
+    argv = ["--smoke", "--device", "cpu", "--replicas", "2", "--mesh", "2x2"]
+    assert PR.main(argv) == 0
+    assert calls == [(["-m", "repro_torch.core.deploy.router", *argv], 4,
+                      M.MESH_TIMEOUT)]
+    assert capsys.readouterr().out == "rank 0 says\n"
+
+    def failing(*a, **kw):
+        raise M.RankFailure("rank 2 exited 1")
+    monkeypatch.setattr(M, "launch_ranks", failing)
+    assert PR.main(argv) == 1
+    assert "rank 2 exited 1" in capsys.readouterr().err

@@ -7,11 +7,12 @@ collects nothing here, and the ranks run it as a program:
 It reads ``TASK_DIR/task.npz`` and ``task.json`` (the reference's weights,
 batches and inputs, written by the test module), runs every multi-rank
 check of the port on ``(2, 2)``, ``(1, 4)`` and ``(4, 1)`` meshes of the
-one group, then ``launch.train``'s main with ``--mesh smoke --device cpu``
-(the path of each rank that command starts, in a group of its own), and
-writes what it found to ``TASK_DIR/rank<r>.npz`` for the
-test module's parametrised cases to hold against the reference.  It
-imports the port only, never JAX.
+one group (the router's replicas on their submeshes among them), then
+the CLIs' own paths on each rank, each in a group of its own:
+``launch.train``'s main with ``--mesh smoke --device cpu``, the router's
+and ``launch.serve``'s with ``--mesh 2x2 --device cpu``.  It writes what it
+found to ``TASK_DIR/rank<r>.npz`` for the test module's parametrised cases
+to hold against the reference.  It imports the port only, never JAX.
 """
 
 from __future__ import annotations
@@ -44,6 +45,99 @@ def _tree(arrays, prefix: str) -> dict:
 
 def _np(t) -> np.ndarray:
     return t.detach().to(torch.float32).numpy()
+
+
+def drive(router, trace, kill_at: int) -> int:
+    """The router CLI's replay of ``trace`` (arrivals at their ticks,
+    replica 0 killed at tick ``kill_at``); returns the requests accepted."""
+    reqs = trace.requests()
+    i = tick = accepted = 0
+    while i < len(reqs) or router.busy:
+        while i < len(reqs) and trace.items[i].at_tick <= tick:
+            accepted += router.try_submit(reqs[i])
+            i += 1
+        if tick == kill_at and router.n_live > 1:
+            router.kill_replica(0)
+        router.step()
+        tick += 1
+    return accepted
+
+
+def router_tasks(task, meta: dict, meshes: dict, out: dict) -> None:
+    """The router's replicas on submeshes: ``replica_meshes``' geometry,
+    then each case's meshed router against the unmeshed one on the same
+    weights (tokens, stats, and each rank's blocks of the parameters and
+    lane caches)."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.core.deploy import build_router, replica_meshes
+    from repro_torch.core.liveloop.traces import synthesize
+    from repro_torch.launch.shardings import local_block
+    from repro_torch.models.weights import params_from_reference
+
+    rt = meta["router"]
+    for name, n in rt["geometry"]:
+        subs = replica_meshes(meshes[name], n)
+        out[f"router/geo/{name}/{n}"] = np.array(json.dumps(
+            [[s.mesh.tolist(), s.get_coordinate()] for s in subs]))
+    try:
+        replica_meshes(meshes["2x2"], 3)
+    except ValueError as e:
+        out["router/geo/error"] = np.array(str(e))
+
+    def equal(a, b) -> bool:
+        return bool(torch.equal(a, b))
+
+    for case in rt["cases"]:
+        tag = f"router/{case['name']}"
+        tcfg = smoke_config(case["arch"])
+        params = params_from_reference(_tree(task, f"w/{case['weights']}"),
+                                       tcfg, "cpu")
+        trace = synthesize(vocab=tcfg.vocab, **rt["trace"])
+        genome = dict(rt["genome"], replicas=case["replicas"])
+        plain = build_router(tcfg, params, genome=genome,
+                             max_len=trace.max_len())
+        drive(plain, trace, case["kill_at"])
+        router = build_router(tcfg, params, genome=genome,
+                              max_len=trace.max_len(),
+                              mesh=meshes[case["mesh"]], device="cpu")
+        engine = router.replicas[router.replica].engine.real
+        sub = router.submesh
+        whole = dict(params.named_parameters())
+        out[f"{tag}/params"] = np.array(json.dumps({
+            n: [list(p.to_local().shape),
+                equal(p.to_local(), local_block(whole[n], sub, p.placements))]
+            for n, p in engine.params.named_parameters()}))
+        caches = engine.batches["default"].caches
+        out[f"{tag}/caches_at_build"] = np.array(json.dumps({
+            k: [list(t.to_local().shape), bool((t.to_local() == 0).all())]
+            for k, t in caches.items()}))
+        accepted = drive(router, trace, case["kill_at"])
+        ref = plain.replicas[router.replica].engine.batches["default"].caches
+        out[f"{tag}/caches_after"] = np.array(json.dumps({
+            k: equal(t.to_local(), local_block(ref[k], sub, t.placements)
+                     if ref is not None else torch.zeros_like(t.to_local()))
+            for k, t in caches.items()}))
+        out[f"{tag}/submesh"] = np.array(json.dumps(
+            [router.replica, sub.mesh.tolist(), list(sub.shape)]))
+        out[f"{tag}/tokens"] = np.array(json.dumps(
+            {r.uid: list(r.tokens) for r in router.completed}))
+        out[f"{tag}/tokens_plain"] = np.array(json.dumps(
+            {r.uid: list(r.tokens) for r in plain.completed}))
+        out[f"{tag}/stats"] = np.array(json.dumps(router.stats()))
+        out[f"{tag}/stats_plain"] = np.array(json.dumps(plain.stats()))
+        out[f"{tag}/accepted"] = np.array(accepted)
+
+
+def captured_main(main, argv) -> tuple:
+    """``main(argv)``'s value (or its ``SystemExit`` code) and what it
+    printed."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        try:
+            value = main(argv)
+        except SystemExit as e:
+            value = e.code
+    return value, buf.getvalue()
 
 
 def main() -> None:
@@ -222,9 +316,14 @@ def main() -> None:
         {n: str(p.placements) for n, p in restored["params"]
          .named_parameters()}))
 
+    # ---- the router's replicas on submeshes -----------------------------
+    router_tasks(task, meta, meshes, out)
+
     torch_dist.destroy_process_group()
 
     # ---- launch.train --mesh smoke --device cpu: this rank's path --------
+    from repro_torch.core.deploy.router import main as router_main
+    from repro_torch.launch.serve import main as serve_main
     from repro_torch.launch.train import main as train_main
     os.environ["MESH_INIT_FILE"] = init_file + "_cli"  # a group of its own
     buf = io.StringIO()
@@ -232,6 +331,13 @@ def main() -> None:
         res = train_main(meta["cli"])
     out["cli/printed"] = np.array(buf.getvalue())
     out["cli/losses"] = np.array(res["losses"])
+
+    # ---- the router's and launch.serve's --mesh 2x2 --device cpu ---------
+    for name, fn in (("router", router_main), ("serve", serve_main)):
+        os.environ["MESH_INIT_FILE"] = f"{init_file}_{name}"
+        rc, printed = captured_main(fn, meta["router"]["cli"][name])
+        out[f"cli/{name}/rc"] = np.array(0 if rc is None else rc)
+        out[f"cli/{name}/printed"] = np.array(printed)
     np.savez(os.path.join(task_dir, f"rank{rank}.npz"), **out)
 
 

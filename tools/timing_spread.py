@@ -1,0 +1,229 @@
+#!/usr/bin/env python3
+"""Where two timing spreads on the card come from (run on a GPU).
+
+    python3 tools/timing_spread.py [--part spread|instances|canary|both]
+
+``spread``: the measured fitness of the unmutated MobileNet (alpha 1.0,
+batch 64, as ``chip_smoke.py``'s ``programs`` phase builds it) evaluated
+again and again, in ``chip_smoke.py``'s order (each evaluation followed by
+its ``replay_profile`` under torch.profiler) and without the profiler
+between them; the SM clock before each; and per-replay CUDA-event times of
+one graph right after its capture and after 300 back-to-back replays.
+
+``instances``: MobileNet's graph captured again and again (each capture
+with its own constants and buffers, as each evaluation makes them): each
+instance's median replay time by CUDA events, its kernels' device times
+from torch.profiler, and where its buffers lie.
+
+``canary``: the real live loop's A/A windows (qwen3-0.6b's smoke config,
+its default trace), each measured four ways: three replays of one plan
+after three of the other (the controller's old window), fifteen and
+thirty-one of each in turns, and fifteen in turns with Python's garbage
+collector off; the ratios and how many fall under the 0.95 floor.
+
+Each part prints one JSON line; the card's name and power limit first.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def smi(query: str) -> str:
+    return subprocess.run(["nvidia-smi", f"--query-gpu={query}",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip()
+
+
+def event_times(torch, run, n: int) -> list:
+    """Per-call device times (ms) of ``n`` calls of ``run``, enqueued
+    while the stream spins, as ``measured_time`` times them."""
+    for cycles in (2_000_000, 8_000_000, 32_000_000, 128_000_000):
+        torch.cuda._sleep(cycles)
+        spun = torch.cuda.Event()
+        spun.record()
+        pairs = []
+        for _ in range(n):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            run()
+            b.record()
+            pairs.append((a, b))
+        ahead = not spun.query()
+        torch.cuda.synchronize()
+        if ahead:
+            return [a.elapsed_time(b) for a, b in pairs]
+    raise RuntimeError("the host never got ahead of the spin")
+
+
+def spread_part(torch) -> dict:
+    import chip_smoke as C
+    from repro_torch.core.interp import ProgramGraph
+    from repro_torch.workloads.mobilenet import \
+        build_mobilenet_prediction_workload
+    w = build_mobilenet_prediction_workload(
+        alpha=1.0, batch=64, n_eval=2048, n_pretrain=6000, pretrain_epochs=3,
+        time_mode="measured")
+    inputs = {"images": w.images[:w.batch]}
+    per_eval = len(w.images) // w.batch
+    out = {"part": "spread"}
+    for label, profiled in (("chip_smoke_order", True),
+                            ("no_profiler", False),
+                            ("chip_smoke_order_2", True)):
+        rows = []
+        for _ in range(4):
+            clock = smi("clocks.sm,power.draw,temperature.gpu")
+            t, _ = w.evaluate(w.program)
+            row = {"measured_s": t, "sm_clock_before": clock}
+            if profiled:
+                row["busy_s"] = C.replay_profile(torch, w, inputs,
+                                                 per_eval)["device_busy_s"]
+            rows.append(row)
+        ts = [r["measured_s"] for r in rows]
+        out[label] = {"rows": rows, "spread": max(ts) / min(ts) - 1}
+    images = torch.as_tensor(w.images[:w.batch]).to("cuda")
+    seqs = []
+    for _ in range(3):
+        with ProgramGraph(w.program, "cuda") as g:
+            g.load({"images": images})
+            g.run()
+            torch.cuda.synchronize()
+            clock0 = smi("clocks.sm")
+            cold = event_times(torch, g.run, 40)
+            for _ in range(300):
+                g.run()
+            torch.cuda.synchronize()
+            clock1 = smi("clocks.sm")
+            warm = event_times(torch, g.run, 40)
+        seqs.append({"clock_cold": clock0, "cold_ms": cold,
+                     "clock_warm": clock1, "warm_ms": warm,
+                     "cold_median": statistics.median(cold),
+                     "warm_median": statistics.median(warm)})
+    out["replays"] = seqs
+    return out
+
+
+def instances_part(torch) -> dict:
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke as C
+    from repro_torch.core.interp import ProgramGraph
+    from repro_torch.workloads.mobilenet import \
+        build_mobilenet_prediction_workload
+    w = build_mobilenet_prediction_workload(
+        alpha=1.0, batch=64, n_eval=2048, n_pretrain=6000, pretrain_epochs=3,
+        time_mode="measured")
+    images = torch.as_tensor(w.images[:w.batch]).to("cuda")
+    rows = []
+    for _ in range(12):
+        with ProgramGraph(w.program, "cuda") as g:
+            g.load({"images": images})
+            g.run()
+            torch.cuda.synchronize()
+            med = statistics.median(event_times(torch, g.run, 20))
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                g.run()
+                torch.cuda.synchronize()
+            spans = C.device_spans(torch, prof)
+            ptrs = [t.data_ptr() for t in (*g._buffers.values(),
+                                           *g._env0.values())]
+        by_name: dict = {}
+        for start, end, name in spans:
+            by_name[name] = by_name.get(name, 0.0) + (end - start)
+        rows.append({"event_ms": med, "kernels": len(spans),
+                     "busy_us": C.busy_us(spans), "by_name": by_name,
+                     "names": [n for _, _, n in spans],
+                     "ptr_mod_2mib": [p % (2 << 20) for p in ptrs[:6]],
+                     "ptr_mod_4k": [p % 4096 for p in ptrs[:6]]})
+    fast = min(rows, key=lambda r: r["event_ms"])
+    slow = max(rows, key=lambda r: r["event_ms"])
+    diff = sorted(((slow["by_name"].get(n, 0.0) - fast["by_name"].get(n, 0.0),
+                    n) for n in set(fast["by_name"]) | set(slow["by_name"])),
+                  reverse=True)
+    for r in rows:
+        r.pop("by_name")
+        r["names"] = hash(tuple(r["names"]))
+    return {"part": "instances", "rows": rows,
+            "same_kernels": fast["names"] == slow["names"],
+            "slow_minus_fast_us": diff[:8] + diff[-3:]}
+
+
+def _window(ones, repeats: int, interleave: bool, no_gc: bool) -> float:
+    """The throughput ratio candidate / base of one A/A window: each
+    plan's median of ``repeats`` replays, taken in turns or one plan's
+    after the other's, with the garbage collector off or on."""
+    import gc
+    runs = ([], [])
+    order = ([0, 1] * repeats if interleave
+             else [0] * repeats + [1] * repeats)
+    if no_gc:
+        gc.collect()
+        gc.disable()
+    try:
+        for side in order:
+            runs[side].append(ones[side]()["throughput_tok_s"])
+    finally:
+        gc.enable()
+    return statistics.median(runs[1]) / statistics.median(runs[0])
+
+
+def canary_part(torch) -> dict:
+    from repro_torch.configs import smoke_config
+    from repro_torch.core.deploy.engine import DEFAULT_SERVE_PLAN
+    from repro_torch.core.liveloop import LiveLoopController
+    from repro_torch.core.liveloop.traces import synthesize
+    vocab = smoke_config("qwen3-0.6b").vocab
+    methods = {"sequential_3": (3, False, False),
+               "turns_15": (15, True, False),
+               "turns_31": (31, True, False),
+               "turns_15_no_gc": (15, True, True)}
+    out = {"part": "canary", "windows": []}
+    with tempfile.TemporaryDirectory() as tmp:
+        ctl = LiveLoopController(f"{tmp}/loop", mode="real",
+                                 trace=synthesize(vocab=vocab))
+        g = dict(DEFAULT_SERVE_PLAN)
+        for w in range(12):
+            tr = ctl._window_slice(1000 + w)
+            one = ctl._replayer(tr, g)      # warms the pair once
+            out["windows"].append({"requests": len(tr), **{
+                name: _window((one, one), *m) for name, m in
+                methods.items()}})
+    out["under_0.95"] = {name: sum(w[name] < 0.95 for w in out["windows"])
+                         for name in methods}
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--part", default="both",
+                    choices=("spread", "instances", "canary", "both"))
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("timing_spread.py: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
+    print(smi("name,power.limit"), flush=True)
+    t0 = time.perf_counter()
+    if args.part in ("canary", "both"):
+        print(json.dumps(canary_part(torch)), flush=True)
+    if args.part in ("spread", "both"):
+        print(json.dumps(spread_part(torch)), flush=True)
+    if args.part == "instances":
+        print(json.dumps(instances_part(torch)), flush=True)
+    print(json.dumps({"seconds": time.perf_counter() - t0}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
