@@ -60,8 +60,10 @@ Phases, each printing one JSON line:
                     against the interpreter on the CPU (same verdict,
                     outputs within tolerance, two eager runs on the card
                     and the measured fitness's CUDA graph bit for bit);
-                    three measured evaluations of each unmutated program,
-                    each beside the device's busy time over the graph's
+                    three measured evaluations of each unmutated program
+                    (each the median over ``MEASURED_CAPTURES`` graph
+                    instances), within 5% of each other, each beside the
+                    device's busy time over the graph's
                     replays (torch.profiler); a measured GEVO search (pop
                     12, 2 generations) on each, whose reserved device
                     memory must stay flat, with its kernel and graph
@@ -81,7 +83,7 @@ Phases, each printing one JSON line:
                     process (no other process beside it, reserved memory
                     flat), with its kernel launches counted from zero.
 9. ``tensor``     — the tensorized engine (``core/tensor_evo``) on the
-                    joint workload: ``TensorGevoML``, pop 1024, 10
+                    joint workload: ``TensorGevoML``, pop 1024, 6
                     generations, counted from zero (every launch comes from
                     filling the error tables, one a launchable error class
                     of the kernel, and the count is asserted); the device
@@ -90,7 +92,7 @@ Phases, each printing one JSON line:
                     selection order too; every reported fitness against
                     ``SerialEvaluator``; a kill after generation 3 and a
                     resume ending at the unbroken run's population; a
-                    4-island x 1024 ``backend="mesh"`` fleet, 6
+                    4-island x 1024 ``backend="mesh"`` fleet, 4
                     generations, migrating every 2, and its resume; the
                     step's generations and lanes per second and the
                     device's idle share over one generation
@@ -158,7 +160,8 @@ Phases, each printing one JSON line:
                     windows of the incumbent against itself, each measured
                     the controller's old way (three replays of one plan,
                     then three of the other) and its way on the card
-                    (``CARD_WINDOW_REPEATS`` of each, in turns), with
+                    (``CARD_WINDOW_REPEATS`` of each, in turns, each by
+                    device time), with
                     their throughput and TTFT ratios and how many fall
                     under the real guardrail's 0.95 floor; ``python -m
                     repro_torch.launch.serve --arch qwen3-0.6b --liveloop
@@ -210,16 +213,22 @@ Phases, each printing one JSON line:
                     tokens/s, peak memory and launches a step; then a
                     NCCL group of one rank (``make_smoke_mesh(2, 2)``
                     refusing, naming the devices it needs) and its
-                    ``(1, 1)`` mesh: one AdamW step sharded against one
-                    unsharded, bit for bit (loss, gradient norm, every
-                    parameter), for qwen3-0.6b at full width and depth
-                    and falcon-mamba-7b at 4 of 64 layers, and a second
-                    step of each timed; granite's prefill through the EP
-                    path against ``moe_dense`` (f32, 4 layers, a capacity
-                    factor that drops nothing); the compressed step on one
-                    rank (the residual x - deq exactly, the parameters
-                    within 0.05 of the exact step's).  Every path's
-                    launches are counted from zero.
+                    ``(1, 1)`` mesh: one AdamW step sharded (the
+                    tensor-parallel step on a model axis of one rank)
+                    against one unsharded, bit for bit (loss, gradient
+                    norm, every parameter), for qwen3-0.6b at full width
+                    and depth and falcon-mamba-7b at 4 of 64 layers, and
+                    a second step of each timed; granite's prefill
+                    through the EP path against ``moe_dense`` (f32, 4
+                    layers, a capacity factor that drops nothing); the
+                    compressed step on one rank (the residual x - deq
+                    exactly, the parameters within 0.05 of the exact
+                    step's).  Every path's launches are counted from
+                    zero.  Then each kernel, forward and backward, at the
+                    per-rank shapes of a 16-way model split at full
+                    width (flash on 1 of qwen3-0.6b's 16 heads, its q/k
+                    norm, the scan on 512 of falcon-mamba-7b's 8192
+                    channels) against its plain version.
 15. ``dryrun``    — the dry run (``launch/dryrun.py``) against the real
                     step: qwen3-0.6b at full width and depth (8 x 1024)
                     and falcon-mamba-7b at 4 of 64 layers (2 x 2048),
@@ -1069,7 +1078,9 @@ MUTANTS = 32
 # search by one segment of torch's caching allocator (2 MiB) at most.
 RESERVED_SLACK = 2 * 2 ** 20
 # The unmutated program's measured time over three evaluations: the
-# spread (max / min - 1) the acceptance asks for.
+# spread (max / min - 1) the acceptance asks for, asserted since each
+# measured time is the median over MEASURED_CAPTURES graph instances
+# (some instances of one graph replayed 8% faster than others).
 REPEAT_SPREAD = 0.05
 
 
@@ -1402,7 +1413,7 @@ def phase_programs(torch) -> dict:
     docstring): 2fcNet training at the builder's defaults, MobileNet
     prediction at alpha 1.0."""
     import numpy as np
-    from repro_torch.core.fitness import static_time
+    from repro_torch.core.fitness import MEASURED_CAPTURES, static_time
     from repro_torch.workloads.mobilenet import \
         build_mobilenet_prediction_workload
     from repro_torch.workloads.twofc import build_twofc_training_workload
@@ -1428,9 +1439,11 @@ def phase_programs(torch) -> dict:
         emit({"phase": "programs", "step": "card_vs_cpu", "workload": name,
               "ops": ops, **cc})
         per_eval = w.steps if name == "twofc" else len(w.images) // w.batch
-        repeats = []
+        repeats, walls = [], []
         for _ in range(3):
+            t0 = time.perf_counter()
             t, e = w.evaluate(w.program)
+            walls.append(time.perf_counter() - t0)
             if not (np.isfinite(t) and 0.0 <= e < 0.9):
                 raise AssertionError(f"{name}: unmutated fitness ({t}, {e})")
             repeats.append({"measured_s": t, "error": e,
@@ -1438,11 +1451,18 @@ def phase_programs(torch) -> dict:
                                              per_eval)})
         times = [r["measured_s"] for r in repeats]
         unmutated = {"measured_s": times, "error": e,
+                     "captures": MEASURED_CAPTURES,
+                     "wall_s_per_evaluation": walls,
                      "spread": max(times) / min(times) - 1,
                      "within_spread": max(times) / min(times) - 1
                      <= REPEAT_SPREAD,
                      "static_s": static_time(w.program) * per_eval,
                      "replays_profiled": repeats}
+        if not unmutated["within_spread"]:
+            raise AssertionError(f"{name}: three measured evaluations of "
+                                 f"the unmutated program spread "
+                                 f"{unmutated['spread']:.4f} > "
+                                 f"{REPEAT_SPREAD}: {times}")
         search = measured_search(torch, w)
         prof = profile_evaluation(torch, w)
         emit({"phase": "programs", "step": "search", "workload": name,
@@ -1473,11 +1493,13 @@ def phase_programs(torch) -> dict:
 
 # The islands phase: 2fcNet at the builder's defaults in static time, 4
 # islands x pop 8, 4 generations; a measured flash-attention search on 2
-# islands.  The tensor phase: the joint workload, pop 1024.
+# islands.  The tensor phase: the joint workload, pop 1024 (its depth cut
+# from 10 and 6 generations to 6 and 4, to keep the script well inside its
+# time limit; the kill after generation 3 and two migrations remain).
 ISLANDS = {"n_islands": 4, "pop_size": 8, "generations": 4,
            "migrate_every": 2, "n_migrants": 2}
-TENSOR_POP, TENSOR_GENERATIONS, TENSOR_KILL_AFTER = 1024, 10, 3
-FLEET = {"n_islands": 4, "pop_size": 1024, "generations": 6,
+TENSOR_POP, TENSOR_GENERATIONS, TENSOR_KILL_AFTER = 1024, 6, 3
+FLEET = {"n_islands": 4, "pop_size": 1024, "generations": 4,
          "migrate_every": 2, "n_migrants": 2}
 
 
@@ -1735,7 +1757,7 @@ def phase_tensor(torch, wl, counters) -> dict:
         for c in counters.values():
             c.launches = 0
 
-    # the main path: one engine, 10 generations, counted from zero
+    # the main path: one engine, TENSOR_GENERATIONS, counted from zero
     reset()
     eng = engine("full")
     t = time.perf_counter()
@@ -1820,7 +1842,7 @@ def phase_tensor(torch, wl, counters) -> dict:
     engine_idle = idle_share(torch, one)
     breakdown = step_breakdown(torch, eng, state["idx"], gen)
 
-    # the fleet: backend="mesh", 4 x 1024, 6 generations, counted from 0
+    # the fleet: backend="mesh", 4 x 1024, FLEET generations, counted from 0
     reset()
     specs = default_island_specs(FLEET["n_islands"],
                                  operators={"attr_tweak": 1.0})
@@ -1841,7 +1863,7 @@ def phase_tensor(torch, wl, counters) -> dict:
                n_migrants=FLEET["n_migrants"])
     with TensorIslandFleet(w, root_dir=str(root / "fleet_killed"),
                            **fkw) as fleet:
-        fleet.run(4)
+        fleet.run(FLEET["generations"] // 2)
     with TensorIslandFleet(w, root_dir=str(root / "fleet_killed"),
                            **fkw) as fleet:
         fleet.run(FLEET["generations"], resume=True)
@@ -2735,7 +2757,7 @@ def phase_liveloop(torch, counters) -> dict:
         # each window measured the old way (the controller's median of
         # three replays of one plan, then of the other) and as the real
         # loop now measures it on the card (CARD_WINDOW_REPEATS each, in
-        # turns)
+        # turns, each replay's throughput by device time)
         windows = {"before": [], "after": []}
         for w in range(LIVELOOP_AA_WINDOWS):
             tr = ctl._window_slice(1000 + w)
@@ -3600,6 +3622,55 @@ def mesh_compressed(torch, mesh, counters) -> dict:
     return out
 
 
+# (d) each kernel, forward and backward, at the per-rank shapes of a
+# 16-way model split at full width (train_4k on 16 x 16: 16 sequences of
+# 4096 a rank): flash on 1 of qwen3-0.6b's 16 heads, the q/k norm of that
+# head, the scan on 512 of falcon-mamba-7b's 8192 channels; against the
+# plain versions at the tolerances of the train phase (BWD_TOL; the
+# forward's o at FULL_ATOL), two calls the same bits, each timed.
+MESH_TP_SHAPES = {
+    "rmsnorm": ({"rows": 65536, "d": 128}, "bfloat16"),
+    "flash_attention": ({"B": 16, "H": 1, "S": 4096, "hd": 128,
+                         "causal": True}, "bfloat16"),
+    "mamba_scan": ({"Bt": 16, "L": 4096, "D": 512, "N": 16, "chunk": 64},
+                   "float32")}
+
+
+def mesh_tp_kernels(torch) -> dict:
+    """(d): the kernels at a 16-way split's per-rank shapes (above)."""
+    from repro_torch.kernels.mamba_scan.mamba_scan import mamba_scan_plain
+    from repro_torch.kernels.mamba_scan.ops import mamba_scan
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm
+    from repro_torch.kernels.rmsnorm.rmsnorm import rmsnorm_plain
+    gen = torch.Generator(device="cuda").manual_seed(28)
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    out = {}
+    for kernel, (s, dtype) in MESH_TP_SHAPES.items():
+        i, fwd = bwd_inputs(torch, kernel, s, dtype, gen, full=True)
+        if kernel == "rmsnorm":
+            got = rmsnorm(i["x"], i["scale"], eps=1e-6, block_rows=128)
+            want = rmsnorm_plain(i["x"], i["scale"], eps=1e-6,
+                                 block_rows=128)
+            fwd["y"] = check_close(torch, kernel, f"per-rank {s}", got,
+                                   want, dtype)
+        elif kernel == "mamba_scan":
+            ins = [i[n] for n in ("dt", "x", "A", "B", "C")]
+            got = mamba_scan(*ins, chunk=s["chunk"])
+            want = mamba_scan_plain(*ins, chunk=s["chunk"])
+            fwd["y"] = check_close(torch, kernel, f"per-rank {s}", got,
+                                   want, dtype)
+        out[kernel] = {
+            "shape": s, "dtype": dtype, "forward_max_abs_err": fwd,
+            "backward_max_abs_err": bwd_check(torch, kernel, i, dtype),
+            "backward_ms": time_ms(torch, lambda: run_bwd(
+                kernel, i, plain=False), reps=20, flush=flush)}
+        del i
+        torch.cuda.empty_cache()
+    del flush
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_mesh(torch, counters) -> dict:
     """The mesh on the card (see the comment above ``MESH_BITWISE``); the
     group is NCCL, never gloo, and no failure of a collective is caught."""
@@ -3633,6 +3704,7 @@ def phase_mesh(torch, counters) -> dict:
             out["compressed"] = mesh_compressed(torch, mesh, counters)
         finally:
             torch_dist.destroy_process_group()
+    out["tp_kernels"] = mesh_tp_kernels(torch)
     runs = [out["granite_train"], *out["bitwise"].values(),
             out["granite_prefill"], out["compressed"]]
     out["launches"] = {k: sum(r["launches"][k] for r in runs)

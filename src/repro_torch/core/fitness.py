@@ -118,6 +118,29 @@ def measured_time(run, device, repeats: int = 5, warmup: int = 2) -> float:
                       "cycles")
 
 
+# Graph instances a measured fitness times on the GPU: captures of one
+# program replay at two speeds (about 0.3 us idle a kernel inside some
+# instances), so a variant's time is the median over this many captures,
+# each released before the next (PERF.md, fault 2)
+MEASURED_CAPTURES = 3
+
+
+def measured_graph_time(graph, device) -> float:
+    """Median over ``MEASURED_CAPTURES`` graph instances of
+    :func:`measured_time` of ``graph.run`` (a captured
+    :class:`~repro_torch.core.interp.ProgramGraph`, its inputs loaded):
+    each instance is timed as one, then released and the op list
+    captured again.  On the CPU, one :func:`measured_time`."""
+    if torch.device(device).type != "cuda":
+        return measured_time(graph.run, device)
+    times = []
+    for i in range(MEASURED_CAPTURES):
+        if i:
+            graph.recapture()
+        times.append(measured_time(graph.run, device))
+    return float(np.median(times))
+
+
 def _check_finite_scalar(x) -> float:
     v = float(x)
     if not np.isfinite(v):
@@ -158,14 +181,14 @@ class PredictionWorkload:
                     if out.ndim != 2 or out.shape[0] != self.batch:
                         raise InvalidVariant(
                             f"bad logits shape {tuple(out.shape)}")
-                    if self.time_mode == "measured" and i == 0:
-                        t_meas = measured_time(graph.run, dev) * \
-                            (n // self.batch)
                     # np.nan_to_num and np.argmax of the reference, on the
                     # device
                     pred = torch.nan_to_num(out.to(torch.float32),
                                             nan=-1e30).argmax(-1)
                     correct += (pred == labels[i:i + self.batch]).sum()
+                    if self.time_mode == "measured" and i == 0:
+                        t_meas = measured_graph_time(graph, dev) * \
+                            (n // self.batch)
                 error = 1.0 - int(correct) / max(n, 1)
             t = t_meas if self.time_mode == "measured" else \
                 static_time(program) * (n // self.batch)
@@ -284,7 +307,8 @@ class TrainingWorkload:
                                 f"weight {k} shape drifted to "
                                 f"{tuple(o.shape)}")
                     if self.time_mode == "measured" and step == 1:
-                        t_meas = measured_time(graph.run, dev) * self.steps
+                        outs = [o.clone() for o in outs]
+                        t_meas = measured_graph_time(graph, dev) * self.steps
                     graph.load(dict(zip(self.weight_names, outs)))
                 final = {k: o.to(torch.float32).cpu().numpy()
                          for k, o in zip(self.weight_names, outs)}

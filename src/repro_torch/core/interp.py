@@ -540,6 +540,19 @@ class ProgramGraph:
         self._graph.replay()
         return list(self._static)
 
+    def recapture(self) -> None:
+        """Release the captured graph and capture the op list again: a new
+        graph instance for the next runs (nothing on the CPU, or before
+        the first run).  The outputs a run returned before are the old
+        instance's."""
+        if self._graph is None:
+            return
+        old, self._graph, self._static = self._graph, None, None
+        old.release()
+        graph = CudaGraph(self.device)
+        self._static = graph.capture(self._outputs_of_run)
+        self._graph = graph
+
     def close(self) -> None:
         graph, self._graph = self._graph, None
         self._static = None

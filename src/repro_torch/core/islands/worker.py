@@ -26,6 +26,7 @@ import importlib
 import pickle
 import traceback
 
+from ...device import resolve_device
 from ..edits import Patch
 from ..evaluator import (FitnessCache, ParallelEvaluator, SerialEvaluator,
                          WorkloadSpec)
@@ -39,11 +40,13 @@ def island_payload(workload, spec: IslandSpec, *, checkpoint_dir: str,
                    n_elite: int, max_tries: int, eval_workers: int = 0,
                    verbose: bool = False, inline: bool = True,
                    screen: bool = False, surrogate: bool = False,
-                   surrogate_keep: float = 0.5, device: str = "cpu") -> dict:
+                   surrogate_keep: float = 0.5, device=None) -> dict:
     """Build the (picklable, unless ``inline``) argument doc for
     :func:`run_island_epoch`.  ``inline=True`` keeps the live workload
     object for in-process execution; ``inline=False`` converts it to
-    spec-or-pickle transport for a spawned worker."""
+    spec-or-pickle transport for a spawned worker.  ``device``: where the
+    island evaluates, resolved as the orchestrator resolves it (the GPU
+    unless the caller names another)."""
     payload = {
         "island": spec.to_doc(),
         "checkpoint_dir": checkpoint_dir,
@@ -59,7 +62,7 @@ def island_payload(workload, spec: IslandSpec, *, checkpoint_dir: str,
         "screen": screen,
         "surrogate": surrogate,
         "surrogate_keep": surrogate_keep,
-        "device": device,
+        "device": str(resolve_device(device)),
     }
     if inline:
         payload["workload"] = workload

@@ -73,8 +73,15 @@ STATE_VERSION = 1
 # each plan, the base's and the candidate's replays taken in turns: the
 # replays are host-bound and the host's speed drifts over seconds, so
 # three replays of one plan after three of the other rolled back a plan
-# measured against itself (ROADMAP.md, section 3).
+# measured against itself (ROADMAP.md, section 3).  A plan is a kernel
+# schedule, so it changes only device time: each replay's throughput is
+# its generated tokens over the device time between a pair of CUDA events
+# around it, recorded while the stream spins ahead of the host
+# (``_device_timed``).
 CARD_WINDOW_REPEATS = 15
+# cycles the stream spins before a timed replay (at least the H100's top
+# SM clock, 1.98 GHz: about 1 ms)
+CARD_WINDOW_SPIN = 2_000_000
 
 METRIC_KEYS = ("throughput_tok_s", "mean_ttft_s", "reject_rate")
 
@@ -211,6 +218,29 @@ def _median_run(runs: list) -> dict:
     """The metrics of the median-throughput run."""
     runs = sorted(runs, key=lambda m: m["throughput_tok_s"])
     return runs[len(runs) // 2]
+
+
+def _device_timed(one):
+    """``one`` (a replay returning its metrics) with its throughput taken
+    over device time: the stream spins ``CARD_WINDOW_SPIN`` cycles, then a
+    pair of CUDA events brackets the replay, as ``measured_time`` brackets
+    a timed call; the replay's own synchronizations wait for the device,
+    not the host's pace before it.  ``device_s`` holds that time."""
+    import torch
+
+    def timed() -> dict:
+        torch.cuda._sleep(CARD_WINDOW_SPIN)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        m = one()
+        end.record()
+        end.synchronize()
+        secs = start.elapsed_time(end) * 1e-3
+        return dict(m, device_s=secs, throughput_tok_s=(
+            m["gen_tokens"] / secs if secs > 0 else 0.0))
+
+    return timed
 
 
 def _engine_metrics(stats: dict, n_rejected: int, variant: str = "default"
@@ -466,13 +496,14 @@ class LiveLoopController:
                       tick: int) -> tuple[dict, dict]:
         """Both plans' metrics on the window's slice: ``_replay_real``'s,
         one plan after the other, on the CPU; on the GPU the median replay
-        of ``CARD_WINDOW_REPEATS`` each, the two plans' replays in turns."""
+        of ``CARD_WINDOW_REPEATS`` each, the two plans' replays in turns,
+        each replay's throughput by device time (``_device_timed``)."""
         tr = self._window_slice(tick)
         if self._model()[1].device.type != "cuda":
             return (self._replay_real(tr, base_genome),
                     self._replay_real(tr, cand_genome))
-        ones = (self._replayer(tr, base_genome),
-                self._replayer(tr, cand_genome))
+        ones = (_device_timed(self._replayer(tr, base_genome)),
+                _device_timed(self._replayer(tr, cand_genome)))
         runs: tuple[list, list] = ([], [])
         for _ in range(CARD_WINDOW_REPEATS):
             for one, out in zip(ones, runs):

@@ -38,7 +38,7 @@ import numpy as np
 import torch
 
 from ..core.evaluator import WorkloadSpec
-from ..core.fitness import KernelWorkload, measured_time
+from ..core.fitness import MEASURED_CAPTURES, KernelWorkload, measured_time
 from ..core.schedule import ScheduleSpace
 from ..device import CudaGraph, resolve_device
 from .costs import schedule_features, schedule_time
@@ -183,8 +183,10 @@ def graph_time(fn, inputs) -> float:
     run of them (outputs go to the graph's own memory, the inputs stay
     where they are, so a kernel's pointers are the same on every replay),
     and :func:`~repro_torch.core.fitness.measured_time` times its replays;
-    each replay adds the launches the capture recorded to the wrappers'
-    counts.  On the CPU, the host clock over the eager call."""
+    the time is the median over ``MEASURED_CAPTURES`` such graphs, each
+    released before the next is captured.  Each replay adds
+    the launches its capture recorded to the wrappers' counts.  On the
+    CPU, the host clock over the eager call."""
     device = next(iter(inputs.values())).device
     if device.type != "cuda":
         return measured_time(lambda: fn(inputs), device)
@@ -193,24 +195,27 @@ def graph_time(fn, inputs) -> float:
         for _ in range(GRAPH_CALLS):
             fn(inputs)
 
-    graph = CudaGraph(device)
-    try:
-        graph.eager(calls)
-        before = [c.launches for c in COUNTERS]
-        graph.capture(calls)
-        # the capture records launches; only replays make them
-        recorded = [c.launches - b for c, b in zip(COUNTERS, before)]
-        for c, b in zip(COUNTERS, before):
-            c.launches = b
+    times = []
+    for _ in range(MEASURED_CAPTURES):
+        graph = CudaGraph(device)
+        try:
+            graph.eager(calls)
+            before = [c.launches for c in COUNTERS]
+            graph.capture(calls)
+            # the capture records launches; only replays make them
+            recorded = [c.launches - b for c, b in zip(COUNTERS, before)]
+            for c, b in zip(COUNTERS, before):
+                c.launches = b
 
-        def replay():
-            graph.replay()
-            for c, n in zip(COUNTERS, recorded):
-                c.launches += n
+            def replay():
+                graph.replay()
+                for c, n in zip(COUNTERS, recorded):
+                    c.launches += n
 
-        return measured_time(replay, device) / GRAPH_CALLS
-    finally:
-        graph.release()
+            times.append(measured_time(replay, device) / GRAPH_CALLS)
+        finally:
+            graph.release()
+    return float(np.median(times))
 
 
 def _ref_output(kernel: str, arrays: dict) -> np.ndarray:

@@ -9,7 +9,9 @@ the whole mesh: rank 0 of a fake process group of 256 (or 512) ranks
 the cell's real sharded step (``launch/specs.py``) run once under a
 ``FakeTensorMode`` and the cost counter (``launch/hlo_analysis.py``).  So
 the collectives counted are the ones the port's step makes: each
-parameter's gather and each gradient's mean.  Nothing is allocated on any
+parameter's gather over the data axes (and over ``model`` for a leaf
+gathered whole), each gradient's mean, and the tensor-parallel layers'
+sums and all-to-alls over ``model``.  Nothing is allocated on any
 device.
 
 The record keeps the reference's keys (``status``, ``memory``,
@@ -19,10 +21,13 @@ where it has ``compile_s``.  The memory record estimates the port's step
 as it is: ``argument_size_in_bytes`` is a rank's local shards of the
 parameters and the optimizer state and its batch (the arguments the step
 is given), ``temp_size_in_bytes`` the peak of the storage the step makes
-above them.  That step gathers the whole model on every rank, so a
-70B-class model does not fit a card: the record says so
-(``fits_80gb``), it does not model a compiler's sharding.  A cell that
-cannot be traced is a ``FAIL`` record naming the op, and the CLI exits 1.
+above them.  For dense GQA and mamba1 models each rank of the
+``model`` axis computes on its block of the weights (heads, FFN units,
+channels, vocabulary), as the reference's GSPMD partitions its step;
+the other families gather their weights whole on every rank, so a
+70B-class model of those does not fit a card: the record says so
+(``fits_80gb``).  A cell that cannot be traced is a ``FAIL`` record
+naming the op, and the CLI exits 1.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch all \\

@@ -20,8 +20,10 @@ data (``FakeTensor``s, ``launch/specs.py``), and sums
   and the scan's arithmetic is ``vector_ops`` (f32, CUDA cores);
 * collective wire bytes, with the reference's ring factors from the
   group's size g: all-reduce 2(g-1)/g, all-gather, reduce-scatter and
-  all-to-all (g-1)/g, permute 1, of the result's bytes (the payload is
-  also a trip to memory, as the reference counts it);
+  all-to-all (g-1)/g, permute 1, of the result's bytes (of the output
+  buffer for an op that writes into its first argument, as
+  ``all_to_all_single`` does; the payload is also a trip to memory, as
+  the reference counts it);
 * memory: the live storage of the tensors the step makes, from the
   dispatch of each op's results (a storage counted once, while any
   tensor holds it, rounded up to the caching allocator's 512 bytes); its
@@ -227,7 +229,9 @@ class CostCounter(TorchDispatchMode):
             else:
                 c.flops_f32 += f
         if name in COLLECTIVES:
-            payload = sum(_nbytes(t) for t in outs)
+            # an op that writes into its first argument returns no tensor
+            # (``alltoall_base_``): the payload is that buffer
+            payload = sum(_nbytes(t) for t in outs or ins[:1])
             kind = COLLECTIVES[name]
             c.collective_bytes[kind] += wire_bytes(
                 kind, payload, _group_size(args, kwargs))

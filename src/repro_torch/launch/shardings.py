@@ -28,8 +28,11 @@ DTensor placements over the mesh (``Shard(i)`` on every mesh dim named at
 tensor dim ``i``, else ``Replicate()``), and :func:`distribute` /
 :func:`gather` move a tree between whole tensors and DTensors.
 
-In the train step (train/train_step.py) the placements shard storage, not
-arithmetic: each rank gathers the whole parameters for its batch block.
+In the train step (train/train_step.py) a leaf whose ``model`` placement
+sits on the dimension the tensor-parallel arithmetic splits (``TP_DIMS``,
+:func:`model_dim`) is gathered over the batch axes only
+(:func:`gather_batch`) and used as the rank's block; every other leaf is
+gathered whole (:func:`gather`).
 """
 
 from __future__ import annotations
@@ -315,15 +318,66 @@ def distribute(tree, shardings):
             else place(v, shardings[k]) for k, v in tree.items()}
 
 
+# leaf name -> the dimension the tensor-parallel arithmetic of the dense
+# GQA and mamba1 layers splits over the model axis (models/attention.py,
+# models/layers.py, models/mamba.py): heads, the FFN hidden units,
+# mamba1's d_inner, the vocabulary
+TP_DIMS = {"embed": 0, "out": 1, "wq": 1, "wk": 1, "wv": 1, "wo": 0,
+           "bq": 0, "bk": 0, "bv": 0, "gate": 1, "up": 1, "down": 0,
+           "in_proj": 1, "conv_w": 1, "conv_b": 0, "x_proj": 0,
+           "dt_proj": 1, "D": 0, "out_proj": 0}
+
+
+def model_dim(x, model_axis: str = "model") -> int | None:
+    """The tensor dimension a DTensor's placement shards over the mesh
+    axis ``model_axis``; None for a plain tensor or one replicated over
+    it."""
+    from torch.distributed.tensor import DTensor, Shard
+    if not isinstance(x, DTensor):
+        return None
+    pl = x.placements[x.device_mesh.mesh_dim_names.index(model_axis)]
+    return pl.dim if isinstance(pl, Shard) else None
+
+
+def batch_placements(x, model_axis: str = "model") -> tuple:
+    """A DTensor's placements with every mesh axis but ``model_axis``
+    replicated."""
+    from torch.distributed.tensor import Replicate
+    return tuple(pl if name == model_axis else Replicate() for name, pl in
+                 zip(x.device_mesh.mesh_dim_names, x.placements))
+
+
+def _same_data(x, placements) -> bool:
+    """Whether a DTensor's local tensor is already its block under
+    ``placements``: they differ only on mesh axes of one rank."""
+    mesh = x.device_mesh
+    return all(a == b or mesh.size(i) == 1
+               for i, (a, b) in enumerate(zip(x.placements, placements)))
+
+
+def gather_batch(x, model_axis: str = "model") -> torch.Tensor:
+    """This rank's block over ``model_axis`` of a DTensor, whole over every
+    other mesh axis: gathered over the batch (fsdp) axes only."""
+    want = batch_placements(x, model_axis)
+    if not _same_data(x, want):
+        x = x.redistribute(x.device_mesh, want)
+    return x._local_tensor.detach()
+
+
 def gather(x):
     """The whole tensor of a DTensor (a plain tensor as it is); a dict
-    tree or a model (keyed by parameter name) mapped leaf by leaf."""
-    from torch.distributed.tensor import DTensor
+    tree or a model (keyed by parameter name) mapped leaf by leaf.  A
+    DTensor sharded only over mesh axes of one rank is its local tensor,
+    with no collective."""
+    from torch.distributed.tensor import DTensor, Replicate
     if isinstance(x, nn.Module):
         x = dict(x.named_parameters())
     if isinstance(x, dict):
         return {k: gather(v) for k, v in x.items()}
     if x.dim() == 0 and not isinstance(x, DTensor):
         return x  # host state (a step count): its value stays readable
-    x = x.detach()
-    return x.full_tensor() if isinstance(x, DTensor) else x
+    if not isinstance(x, DTensor):
+        return x.detach()
+    if _same_data(x, (Replicate(),) * x.device_mesh.ndim):
+        return x._local_tensor.detach()
+    return x.detach().full_tensor()

@@ -25,10 +25,20 @@ Which path a call takes is decided by shape and config before any launch:
   kernel does not take: its attention is torch ops.
 
 Under an active ``Dist`` (models/transformer.py) each rank runs the
-attention of its own batch block, replicated over the ``model`` axis, so
-``_shard`` — the reference's ``with_sharding_constraint`` on q, k and v —
-places nothing (launch/shardings.py: the ``model`` axis shards storage,
-not arithmetic).
+attention of its own batch block.  In the train step's tensor-parallel
+arithmetic (``Dist.tensor_parallel``, a ``model`` axis of m > 1 ranks and
+H divisible by m) it runs on its H/m query heads, as the reference's
+GSPMD partitions by its ``with_sharding_constraint`` on q, k and v
+(``_shard`` here: each holds this rank's heads).  The input enters the
+region whole; ``wq`` (and ``bq``) are the rank's heads.  KV heads split
+over the axis (``wk`` placed on it) are the rank's own; when
+``launch/shardings.py`` left ``wk`` and ``wv`` whole (K not divisible by
+m), the rank projects the KV heads its query heads read (head h reads h //
+(H/K)) from a slice of the whole weights, whose gradient is summed over
+the axis.  The flash kernel runs on the local heads, and ``wo``'s
+row-parallel product ends in one sum over the axis.  Otherwise (serving,
+H not divisible, one rank) the attention is the one-device function and
+``_shard`` places nothing.
 """
 
 from __future__ import annotations
@@ -37,7 +47,8 @@ import numpy as np
 import torch
 
 from ..kernels.flash_attention.ops import flash_attention
-from .common import ModelConfig
+from .common import ModelConfig, axis_index, axis_size, tp_axis, tp_block, \
+    tp_enter, tp_exit
 from .layers import Params, apply_mrope, apply_rope, dense_init, rms_norm
 
 NEG_INF = -1e30
@@ -51,11 +62,19 @@ MAX_TILE = {torch.bfloat16: 256, torch.float32: 128}
 MIN_TILE = 16
 
 
-def _shard(x, dist, *axes):
-    """The reference's activation sharding constraint, which places
-    nothing here: a rank holds its batch block of every activation, the
-    same on each rank of the ``model`` axis (module docstring)."""
-    del dist, axes
+def _shard(x, dist, *axes, heads: int = 0):
+    """The reference's activation sharding constraint: under
+    tensor-parallel arithmetic over ``heads`` (module docstring) each
+    dimension ``axes`` names by the model axis holds this rank's block of
+    them (taken here when ``x`` holds them all); a rank holds its batch
+    block already, so the batch axes place nothing, and without ``heads``
+    (attention that runs whole) nothing is placed."""
+    name = tp_axis(dist)
+    if name is None or not heads:
+        return x
+    for dim, entry in enumerate(axes):
+        if entry == name:
+            x = tp_block(x, name, dim, heads)
     return x
 
 
@@ -198,7 +217,12 @@ def gqa_forward(p, cfg: ModelConfig, x, positions, dist=None):
     """Full-sequence attention (training / prefill). Returns (y, (k, v)).
 
     KV heads are expanded to the full head count, as the reference does, so
-    the kernel runs plain MHA."""
+    the kernel runs plain MHA.  Under tensor-parallel arithmetic (module
+    docstring) y is the same on every rank and the caches hold the rank's
+    KV heads."""
+    name = tp_axis(dist)
+    if name is not None and cfg.n_heads % axis_size(name) == 0:
+        return _gqa_tensor_parallel(p, cfg, x, positions, dist, name)
     q, k, v = _project_qkv(p, cfg, x, positions)
     G = cfg.n_heads // cfg.n_kv_heads
     ke = k.repeat_interleave(G, dim=2) if G > 1 else k
@@ -210,6 +234,58 @@ def gqa_forward(p, cfg: ModelConfig, x, positions, dist=None):
         ve = _shard(ve, dist, dp, None, mdl, None)
     out = flash_sdpa(q, ke, ve, cfg)
     return _out(out, p["wo"]), (k, v)
+
+
+def _kv_slice(p, cfg: ModelConfig, name: str) -> tuple:
+    """(KV weights for this rank, the KV head each local query head reads):
+    the rank's own ``wk``/``wv`` heads when they are split over the axis;
+    else the slice of the whole weights its query heads read, whose
+    gradients are summed over the axis."""
+    H, K = cfg.n_heads, cfg.n_kv_heads
+    m, r = axis_size(name), axis_index(name)
+    Hl, G = H // m, H // K
+    keys = [k for k in ("wk", "wv", "bk", "bv") if k in p]
+    if K % m == 0:
+        w = {k: tp_block(p[k], name, 1 if k[0] == "w" else 0, K)
+             for k in keys}
+        return w, [i // G for i in range(Hl)]
+    lo, hi = (r * Hl) // G, ((r + 1) * Hl - 1) // G + 1
+    w = {k: tp_enter(p[k], name).narrow(1 if k[0] == "w" else 0, lo, hi - lo)
+         for k in keys}
+    return w, [(r * Hl + i) // G - lo for i in range(Hl)]
+
+
+def _gqa_tensor_parallel(p, cfg: ModelConfig, x, positions, dist, name):
+    """:func:`gqa_forward` on this rank's query heads (module docstring)."""
+    H = cfg.n_heads
+    x = tp_enter(x, name)
+    kv, heads = _kv_slice(p, cfg, name)
+    q = _proj(x, tp_block(p["wq"], name, 1, H))
+    k, v = _proj(x, kv["wk"]), _proj(x, kv["wv"])
+    if cfg.qkv_bias:
+        q = q + tp_block(p["bq"], name, 0, H)
+        k, v = k + kv["bk"], v + kv["bv"]
+    if cfg.qk_norm:
+        q = rms_norm(q, tp_enter(p["q_scale"], name), cfg.norm_eps)
+        k = rms_norm(k, tp_enter(p["k_scale"], name), cfg.norm_eps)
+    rope = apply_mrope if cfg.mrope else apply_rope if cfg.causal else None
+    if rope is not None:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    rep = len(heads) // k.shape[2]
+    if heads == [i // rep for i in range(len(heads))]:
+        ke = k.repeat_interleave(rep, dim=2) if rep > 1 else k
+        ve = v.repeat_interleave(rep, dim=2) if rep > 1 else v
+    else:  # the rank's query heads start inside a KV head's group
+        idx = torch.tensor(heads, device=k.device)
+        ke, ve = k.index_select(2, idx), v.index_select(2, idx)
+    dp = dist.batch_axes
+    q = _shard(q, dist, dp, None, name, None, heads=H)
+    ke = _shard(ke, dist, dp, None, name, None, heads=H)
+    ve = _shard(ve, dist, dp, None, name, None, heads=H)
+    out = flash_sdpa(q, ke, ve, cfg)
+    y = _out(out, tp_block(p["wo"], name, 0, H))
+    return tp_exit(y, name), (k, v)
 
 
 def lane_index(index, batch: int, device) -> torch.Tensor | int:

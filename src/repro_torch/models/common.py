@@ -31,6 +31,16 @@ the cotangent, and ``psum``'s backward is the identity.  An
 a rank.  ``all_to_all`` moves blocks from rank to rank, and its backward
 is the same exchange of the gradient's blocks.
 
+Tensor-parallel regions (the train step's arithmetic over the model axis,
+models/transformer.py ``Dist.tensor_parallel``) are Megatron's: an
+activation every rank holds whole enters a region through ``tp_enter``
+(the identity; its gradient summed over the axis) and a row-parallel
+product leaves it through ``tp_exit`` (one sum; the identity backward);
+``tp_block`` takes the rank's block of a weight left whole, and
+``realign_pairs`` moves a product's columns so a rank holds its block of
+each of two halves.  On an axis of one rank each is the identity and
+makes no collective.
+
 The distribution knobs of the config (``remat``, ``fsdp``, ``moe_mode``,
 ``expert_shards``) read as the reference's; ``moe_mode="ep_a2a"`` takes
 the expert-parallel path under an active ``Dist`` (models/transformer.py),
@@ -44,6 +54,7 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import math
+import weakref
 
 from dataclasses import dataclass, replace
 
@@ -82,11 +93,23 @@ def _manual(mesh) -> frozenset:
     return out
 
 
+# (a weak reference to the mesh, its axis's (group, size, index)) by the
+# mesh's identity and the axis name: the layers ask at every call, and a
+# DeviceMesh answers its rank through the process group each time
+_AXES: dict = {}
+
+
 def mesh_axis(mesh, name: str):
     """(process group, size, this rank's index) of ``mesh``'s axis
     ``name``."""
+    key = (id(mesh), name)
+    hit = _AXES.get(key)
+    if hit is not None and hit[0]() is mesh:
+        return hit[1]
     dim = mesh.mesh_dim_names.index(name)
-    return mesh.get_group(dim), mesh.size(dim), mesh.get_local_rank(dim)
+    out = mesh.get_group(dim), mesh.size(dim), mesh.get_local_rank(dim)
+    _AXES[key] = (weakref.ref(mesh), out)
+    return out
 
 
 def _axis(name: str):
@@ -179,14 +202,21 @@ class _Gather(torch.autograd.Function):
 
 
 def psum(x, axis_name):
-    """The sum of ``x`` over a bound axis (or tuple of axes)."""
+    """The sum of ``x`` over a bound axis (or tuple of axes); an axis of
+    one rank adds nothing and makes no collective."""
     for a in _names(axis_name):
-        x = _Psum.apply(x, _axis(a)[0])
+        group, size, _ = _axis(a)
+        if size > 1:
+            x = _Psum.apply(x, group)
     return x
 
 
 def pmean(x, axis_name):
-    """The mean of ``x`` over a bound axis: its ``psum`` over the size."""
+    """The mean of ``x`` over a bound axis: its ``psum`` over the size;
+    ``x`` itself over axes of one rank (no collective, and no divisor
+    made on the device, which waits for it)."""
+    if axis_size(axis_name) == 1:
+        return x
     n = torch.tensor(float(axis_size(axis_name)), dtype=torch.float32,
                      device=x.device)
     return psum(x, axis_name) / n.to(x.dtype)
@@ -219,6 +249,126 @@ def all_to_all(x, axis_name: str, split_axis: int, concat_axis: int, *,
     group, size, _ = _axis(axis_name)
     recv = _AllToAll.apply(torch.stack(x.chunk(size, split_axis)), group)
     return torch.cat(recv.unbind(0), dim=concat_axis)
+
+
+# --------------------------------------------------------------------------
+# tensor-parallel regions over the model axis (Megatron's layout)
+# --------------------------------------------------------------------------
+
+
+def tp_axis(dist) -> str | None:
+    """The model axis of ``dist`` when the arithmetic is split over it:
+    the train step's ``Dist`` with ``tensor_parallel`` set, its model axis
+    bound (models/transformer.py ``_forward``) and of more than one rank.
+    None otherwise, and then every layer runs its one-device operations."""
+    if dist is None or not getattr(dist, "tensor_parallel", False):
+        return None
+    name = dist.model_axis
+    if not any(name in names for _, names in _BINDINGS.get()):
+        return None
+    return name if axis_size(name) > 1 else None
+
+
+def tp_enter(x, axis_name: str):
+    """Enter a tensor-parallel region: ``x``, which every rank of the axis
+    holds whole and uses on its own block of the weights, as it is; its
+    gradient is the sum of the ranks' (Megatron's ``f``)."""
+    group, size, _ = _axis(axis_name)
+    return x if size == 1 else _SumGrad.apply(x, group)
+
+
+def tp_exit(x, axis_name: str):
+    """Leave a tensor-parallel region: the sum over the axis of each
+    rank's partial result (a row-parallel product), the same on every
+    rank; each summand's gradient is the sum's (Megatron's ``g``)."""
+    group, size, _ = _axis(axis_name)
+    return x if size == 1 else _Psum.apply(x, group)
+
+
+def tp_block(x, axis_name: str, dim: int, whole: int):
+    """This rank's block along ``dim`` of ``x``: ``x`` as it is when it
+    holds the block already (``whole`` / size entries there), else the
+    block of the whole ``x`` every rank holds, whose gradient gathers the
+    ranks' blocks (each rank's the whole gradient)."""
+    group, size, index = _axis(axis_name)
+    n = x.shape[dim]
+    if size == 1 or n * size == whole:
+        return x
+    if n != whole:
+        raise ValueError(f"{n} entries along dim {dim} are neither the "
+                         f"whole {whole} nor a block of {size}")
+    return _Split.apply(x, group, size, index, dim)
+
+
+def pmax(x, axis_name: str) -> torch.Tensor:
+    """The elementwise maximum over a bound axis, outside autograd (a
+    constant shift, as a softmax's maximum)."""
+    group, size, _ = _axis(axis_name)
+    out = x.detach().clone()
+    if size > 1:
+        torch_dist.all_reduce(out, op=torch_dist.ReduceOp.MAX, group=group)
+    return out
+
+
+class _Exchange(torch.autograd.Function):
+    """Rows of dim 0 to the ranks in order, ``send[j]`` of them to rank j,
+    ``recv[j]`` received from rank j; the gradient goes back the same
+    way."""
+
+    @staticmethod
+    def forward(ctx, x, group, send, recv):
+        ctx.args = (group, send, recv)
+        out = x.new_empty((sum(recv),) + tuple(x.shape[1:]))
+        torch_dist.all_to_all_single(out, x.contiguous(), list(recv),
+                                     list(send), group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        group, send, recv = ctx.args
+        back = g.new_empty((sum(send),) + tuple(g.shape[1:]))
+        torch_dist.all_to_all_single(back, g.contiguous(), list(send),
+                                     list(recv), group=group)
+        return back, None, None, None
+
+
+def paired_blocks_plan(size: int, index: int) -> tuple:
+    """Where rank ``index`` sends its two column blocks of a product whose
+    2n columns hold two n-column halves (mamba1's x then z), each rank
+    holding 2n / size contiguous columns, so that rank t ends with its
+    block t of each half; returns (the order this rank's two blocks are
+    sent in, blocks sent to each rank, blocks received from each rank).
+    Block b of the 2 size blocks sits on rank b // 2 and belongs to rank
+    b mod size; rank t receives block t (of the first half) from rank
+    t // 2 before block size + t (of the second) from rank
+    (size + t) // 2."""
+    dests = [(2 * index) % size, (2 * index + 1) % size]
+    order = sorted(range(2), key=lambda i: dests[i])
+    send, recv = [0] * size, [0] * size
+    for d in dests:
+        send[d] += 1
+    recv[index // 2] += 1
+    recv[(size + index) // 2] += 1
+    return order, send, recv
+
+
+def realign_pairs(x, axis_name: str):
+    """``x`` (..., 2w), this rank's contiguous columns of a product whose
+    columns are two halves, as (..., 2w) holding this rank's block of the
+    first half and then its block of the second: one all-to-all over the
+    axis (uneven: each rank sends its two blocks to at most two ranks,
+    since the tiled, even form cannot put contiguous blocks of both
+    halves on one rank beyond two ranks)."""
+    group, size, index = _axis(axis_name)
+    if size == 1:
+        return x
+    order, send, recv = paired_blocks_plan(size, index)
+    w = x.shape[-1] // 2
+    parts = x.movedim(-1, 0).split(w)
+    rows = torch.cat([parts[i] for i in order])
+    out = _Exchange.apply(rows, group, [w * n for n in send],
+                          [w * n for n in recv])
+    return out.movedim(0, -1)
 
 
 class P(tuple):

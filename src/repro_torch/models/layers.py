@@ -18,6 +18,7 @@ from torch import nn
 
 from ..kernels import trace
 from ..kernels.rmsnorm.ops import rmsnorm
+from .common import axis_index, pmax, tp_block, tp_enter, tp_exit
 
 MAX_NORM_BLOCK_ROWS = 128
 
@@ -130,14 +131,62 @@ def apply_mrope(x, positions3, theta: float = 1e4,
                    torch.sin(ang)[..., None, :])
 
 
-def swiglu(x, w_gate, w_up, w_down):
-    """SwiGLU MLP: down( silu(x@gate) * (x@up) )."""
-    return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+def swiglu(x, w_gate, w_up, w_down, axis_name: str | None = None,
+           d_ff: int = 0):
+    """SwiGLU MLP: down( silu(x@gate) * (x@up) ).  With ``axis_name`` (a
+    bound model axis) the ``d_ff`` hidden units are split over it: ``x``
+    enters the region whole, ``gate`` and ``up`` are this rank's columns
+    and ``down`` its rows (each the block, or the whole weight, whose
+    block is taken), and the row-parallel product ends in one sum over the
+    axis."""
+    if axis_name is None:
+        return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+    x = tp_enter(x, axis_name)
+    g = tp_block(w_gate, axis_name, 1, d_ff)
+    u = tp_block(w_up, axis_name, 1, d_ff)
+    d = tp_block(w_down, axis_name, 0, d_ff)
+    return tp_exit((F.silu(x @ g) * (x @ u)) @ d, axis_name)
 
 
-def softmax_cross_entropy(logits, labels):
-    """logits: (..., V) fp32-accumulated; labels: int (...,)."""
+def softmax_cross_entropy(logits, labels, axis_name: str | None = None):
+    """logits: (..., V) fp32-accumulated; labels: int (...,).  With
+    ``axis_name`` (a bound model axis) ``logits`` are this rank's block of
+    the vocabulary (rank r's ids r V_local .. (r + 1) V_local - 1): the
+    vocabulary-parallel form, a maximum over the axis, one sum of the
+    exponentials and one of the gold logit, which only the rank whose
+    block holds the label contributes."""
     logits = logits.to(torch.float32)
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    return logz - gold
+    if axis_name is None:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+        return logz - gold
+    v = logits.shape[-1]
+    local = labels.long() - axis_index(axis_name) * v
+    mine = (local >= 0) & (local < v)
+    top = pmax(logits.amax(-1), axis_name)
+    sumexp = tp_exit(torch.exp(logits - top[..., None]).sum(-1), axis_name)
+    gold = torch.gather(logits, -1, local.clamp(0, v - 1)[..., None])[..., 0]
+    gold = tp_exit(torch.where(mine, gold, torch.zeros_like(gold)),
+                   axis_name)
+    return torch.log(sumexp) + top - gold
+
+
+def embed_lookup(table, ids, vocab: int, axis_name: str | None = None):
+    """Rows ``ids`` of the (vocab, d) embedding ``table``; an id at or
+    beyond ``vocab`` raises as indexing does.  With ``axis_name`` (a bound
+    model axis) the vocabulary is split over it: ``table`` is this rank's
+    block of rows (or the whole table, whose block is taken), each rank
+    gathers the ids its block holds, zeros elsewhere, and one sum over the
+    axis puts the rows together."""
+    if axis_name is None:
+        return table[ids]
+    table = tp_block(table, axis_name, 0, vocab)
+    v = table.shape[0]
+    local = ids - axis_index(axis_name) * v
+    mine = (local >= 0) & (local < v)
+    # an id past the vocabulary keeps its index, out of the block's range
+    index = torch.where(mine, local, torch.where(ids < vocab,
+                                                 torch.zeros_like(ids), ids))
+    rows = torch.where(mine[..., None], table[index],
+                       torch.zeros((), dtype=table.dtype, device=ids.device))
+    return tp_exit(rows, axis_name)

@@ -7,6 +7,17 @@ reference computes the same recurrence with a chunked associative scan
 (``mamba1_seq``, "same blocking as the Pallas mamba_scan kernel").  The
 mamba2 SSD and naive forms and both decode steps are torch ops.
 
+Under the train step's tensor-parallel arithmetic (``Dist.tensor_parallel``,
+a ``model`` axis of m > 1 ranks dividing ``d_inner``) ``mamba1_seq`` runs
+on this rank's d_inner / m channels, as the reference's GSPMD partitions
+mamba d_inner: the input enters the region whole; ``in_proj``'s local
+columns (a contiguous block of [x | z]) are realigned by one all-to-all
+so the rank holds its x channels and the z channels that gate them; the
+conv, ``dt_proj``, ``dt_bias``, ``A_log``, ``D`` and the scan kernel run
+on those channels; ``x_proj``'s row-parallel product is summed over the
+axis (dt_low, B and C whole on every rank, their gradients summed back),
+and so is ``out_proj``'s.
+
 The depthwise causal conv is its four taps as shifted multiply-adds in f32
 (the form the reference's decode step takes): no cuDNN, so no TF32 on the
 card.  Decode keeps (conv_state, ssm_state) and is a single fused update
@@ -20,7 +31,8 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.mamba_scan.ops import mamba_scan
-from .common import ModelConfig
+from .common import ModelConfig, axis_size, realign_pairs, tp_axis, \
+    tp_block, tp_enter, tp_exit
 from .layers import Params, dense_init, rms_norm
 
 # timesteps the scan kernel stages at a time (kernels/workloads.py
@@ -116,14 +128,27 @@ def scan_padded(dt, x, A, B, C, chunk: int = SCAN_CHUNK):
     return y[:, :L], h
 
 
-def mamba1_seq(p, cfg: ModelConfig, x, chunk: int = SCAN_CHUNK):
+def mamba1_seq(p, cfg: ModelConfig, x, chunk: int = SCAN_CHUNK, dist=None):
     """Full-sequence mamba1 from a zero state (every caller's, as in the
     reference).  x: (B, L, d) -> (y, (conv_tail, h_final)).  ``chunk`` is
-    the scan kernel's tile of timesteps; it does not change the result."""
-    di, n = cfg.d_inner, cfg.ssm_state
+    the scan kernel's tile of timesteps; it does not change the result.
+    Under tensor-parallel arithmetic (module docstring) y is the same on
+    every rank and the caches hold the rank's channels."""
+    name = tp_axis(dist)
+    if name is not None and cfg.d_inner % axis_size(name):
+        name = None  # channels not divisible: the one-device function
+    n = cfg.ssm_state
     dt_rank = p["dt_proj"].shape[0]
-    xi, z, conv_tail = _in_proj(p, cfg, x)
-    proj = xi @ p["x_proj"]
+    if name is None:
+        xi, z, conv_tail = _in_proj(p, cfg, x)
+        proj = xi @ p["x_proj"]
+    else:
+        p = _channel_block(p, cfg, name)
+        xz = realign_pairs(tp_enter(x, name) @ p["in_proj"], name)
+        xi, z = xz.chunk(2, dim=-1)
+        conv_tail = xi[:, -(cfg.ssm_conv - 1):, :]
+        xi = F.silu(_causal_conv(xi, p["conv_w"], p["conv_b"]))
+        proj = tp_enter(tp_exit(xi @ p["x_proj"], name), name)
     dt = F.softplus(proj[..., :dt_rank] @ p["dt_proj"]
                     + p["dt_bias"]).to(torch.float32)             # (B, L, di)
     Bv = proj[..., dt_rank:dt_rank + n].to(torch.float32)         # (B, L, n)
@@ -132,8 +157,18 @@ def mamba1_seq(p, cfg: ModelConfig, x, chunk: int = SCAN_CHUNK):
     xi32 = xi.to(torch.float32)
     y, h_final = scan_padded(dt, xi32, A, Bv, Cv, chunk)
     y = y + p["D"] * xi32
-    y = y.to(x.dtype) * F.silu(z)
-    return y @ p["out_proj"], (conv_tail, h_final)
+    y = (y.to(x.dtype) * F.silu(z)) @ p["out_proj"]
+    return (y if name is None else tp_exit(y, name)), (conv_tail, h_final)
+
+
+def _channel_block(p, cfg: ModelConfig, name: str) -> dict:
+    """mamba1's weights for this rank's channels: each the rank's block
+    along its d_inner dimension (taken here when the weight is whole)."""
+    di = cfg.d_inner
+    dims = {"in_proj": (1, 2 * di), "conv_w": (1, di), "conv_b": (0, di),
+            "x_proj": (0, di), "dt_proj": (1, di), "dt_bias": (0, di),
+            "A_log": (0, di), "D": (0, di), "out_proj": (0, di)}
+    return {k: tp_block(p[k], name, *dims[k]) for k in dims}
 
 
 def mamba1_decode(p, cfg: ModelConfig, x, conv_state, h):

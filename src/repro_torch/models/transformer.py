@@ -29,11 +29,17 @@ layer; the backward kernels' counts do not change.
 Distribution is carried by :class:`Dist` (mesh + axis names), threaded as
 the reference threads it.  One process drives each device: under an
 active ``Dist`` the model runs on this rank's batch block (the batch axes
-are manual, models/common.py), with whole parameters, and the same on
-every rank of the ``model`` axis, except the MoE FFN with ``moe_mode=
-"ep_a2a"``, which takes the reference's expert-parallel ``shard_map``
-branches over ``model``.  The train step (train/train_step.py) gathers
-the sharded parameters and reduces the gradients.
+are manual, models/common.py).  With ``Dist.tensor_parallel`` (the train
+step's, for the families :func:`tensor_parallel_family` names) the
+``model`` axis is manual too and each layer splits its arithmetic over it
+where its dimension divides (Megatron's layout, models/common.py
+``tp_enter``/``tp_exit``): attention heads, the FFN hidden units, mamba1's
+channels and the vocabulary of the embedding, the head and the loss, each
+on the rank's block of the weights; activations between the layers are
+the same on every rank.  Otherwise the model runs with whole parameters,
+the same on every rank of ``model``, except the MoE FFN with
+``moe_mode="ep_a2a"``, which takes the reference's expert-parallel
+``shard_map`` branches over ``model``.
 
 ``train_loss`` records autograd's graph (the kernel wrappers'
 gradients are the backward kernels); ``prefill`` and ``decode_step`` run
@@ -56,9 +62,10 @@ from typing import Any
 from ..device import resolve_device
 from .attention import gqa_decode, gqa_forward, init_attn, mla_decode, \
     mla_forward
-from .common import P, ModelConfig, manual_axes, shard_map
-from .layers import Params, dense_init, rms_norm, softmax_cross_entropy, \
-    swiglu
+from .common import P, ModelConfig, axis_size, manual_axes, shard_map, \
+    tp_axis, tp_block, tp_enter
+from .layers import Params, dense_init, embed_lookup, rms_norm, \
+    softmax_cross_entropy, swiglu
 from .mamba import init_mamba, mamba1_decode, mamba1_seq, mamba2_decode, \
     mamba2_seq, mamba2_seq_naive
 from .moe import (init_moe, moe_dense, moe_ep_a2a, moe_ep_a2a_decode,
@@ -71,15 +78,33 @@ class Dist:
     ``DeviceMesh`` with ``mesh_dim_names`` and the names of its batch and
     model axes.  ``capacity_factor`` is the expert-parallel MoE's (None:
     the reference's defaults, 1.25 for full sequences and 2.0 for
-    decode)."""
+    decode).  ``tensor_parallel``: the layers split their arithmetic over
+    the model axis (module docstring); the train step sets it."""
     mesh: Any = None
     batch_axes: tuple = ("data",)
     model_axis: str = "model"
     capacity_factor: float | None = None
+    tensor_parallel: bool = False
 
     @property
     def active(self) -> bool:
         return self.mesh is not None
+
+    @property
+    def manual(self) -> tuple:
+        """The mesh axes the model runs manual over: the batch axes, and
+        the model axis under tensor-parallel arithmetic."""
+        return tuple(self.batch_axes) + (
+            (self.model_axis,) if self.tensor_parallel else ())
+
+
+def tensor_parallel_family(cfg: ModelConfig) -> bool:
+    """Whether the train step splits ``cfg``'s arithmetic over the model
+    axis: dense GQA and mamba1 models.  MLA, mamba2 and the hybrid's
+    shared block, the MoE FFN (its expert-parallel path aside) and the
+    vision and audio stubs gather their parameters whole."""
+    return (cfg.family == "dense" and not cfg.mla) or (
+        cfg.family == "ssm" and cfg.ssm_version == 1)
 
 
 def _dtype(cfg: ModelConfig):
@@ -114,7 +139,10 @@ class AttnBlock(Params):
         if "moe" in self:
             return x + _moe_apply(self.moe, cfg, h, dist, decoding)
         m = self.mlp
-        return x + swiglu(h, m.gate, m.up, m.down)
+        name = tp_axis(dist)
+        if name is not None and cfg.d_ff % axis_size(name):
+            name = None
+        return x + swiglu(h, m.gate, m.up, m.down, name, cfg.d_ff)
 
 
 def _moe_apply(p, cfg: ModelConfig, x, dist, decoding: bool):
@@ -146,12 +174,13 @@ def _moe_apply(p, cfg: ModelConfig, x, dist, decoding: bool):
 class MambaBlock(Params):
     """Pre-norm mamba1 or mamba2 mixer with a residual."""
 
-    def forward(self, cfg: ModelConfig, x):
+    def forward(self, cfg: ModelConfig, x, dist=None):
+        h = rms_norm(x, self.ln, cfg.norm_eps)
         if cfg.ssm_version == 1:
-            seq = mamba1_seq
+            y, cache = mamba1_seq(self.mamba, cfg, h, dist=dist)
         else:
             seq = mamba2_seq if cfg.ssm_impl == "ssd" else mamba2_seq_naive
-        y, cache = seq(self.mamba, cfg, rms_norm(x, self.ln, cfg.norm_eps))
+            y, cache = seq(self.mamba, cfg, h)
         return x + y, cache
 
     def decode(self, cfg: ModelConfig, x, cache):
@@ -275,12 +304,20 @@ def _as_tensor(v, device, dtype=None):
     return torch.as_tensor(np.array(v), device=device, dtype=dtype)
 
 
-def _embed(params: Model, cfg: ModelConfig, batch: dict):
+def _vocab_axis(cfg: ModelConfig, dist) -> str | None:
+    """The model axis when the vocabulary is split over it."""
+    name = tp_axis(dist)
+    return None if name is None or cfg.vocab % axis_size(name) else name
+
+
+def _embed(params: Model, cfg: ModelConfig, batch: dict, dist=None):
     dev = params.device
     if cfg.embedding_inputs:
         x = _as_tensor(batch["embeds"], dev, _dtype(cfg))
     else:
-        x = params.embed[_as_tensor(batch["tokens"], dev, torch.long)]
+        x = embed_lookup(params.embed,
+                         _as_tensor(batch["tokens"], dev, torch.long),
+                         cfg.vocab, _vocab_axis(cfg, dist))
     B, S = x.shape[:2]
     if cfg.mrope:
         positions = _as_tensor(batch["positions3"], dev)        # (B, S, 3)
@@ -296,13 +333,14 @@ def _remat(cfg: ModelConfig, dist, fn, decoding: bool):
     path, ``torch.utils.checkpoint`` of it (non-reentrant: the recorded
     kernels' saved outputs, flash's log-sum-exp and the scan's tile-start
     states, are the recomputed ones).  The recomputation runs in the
-    backward, outside ``_forward``'s binding of the batch axes, so the
-    body binds them again."""
+    backward, outside ``_forward``'s binding of the manual axes, so the
+    body binds them again; its collectives (tensor-parallel arithmetic)
+    run again there, in the same order on every rank."""
     if cfg.remat != "full" or decoding:
         return fn
 
     def body(*args):
-        with (manual_axes(dist.mesh, dist.batch_axes)
+        with (manual_axes(dist.mesh, dist.manual)
               if dist is not None and dist.active
               else contextlib.nullcontext()):
             return fn(*args)
@@ -347,13 +385,13 @@ def _mamba_layers(layers, cfg, x, decoding, conv, ssm, out):
     return x
 
 
-def _stack_ssm(params, cfg, x, decoding, caches):
+def _stack_ssm(params, cfg, x, decoding, caches, dist=None):
     if decoding:
         x = _mamba_layers(params.layers, cfg, x, True, caches["conv"],
                           caches["ssm"], None)
         return x, caches
     per_layer = []
-    body = _remat(cfg, None, lambda layer, h: layer(cfg, h), False)
+    body = _remat(cfg, dist, lambda layer, h: layer(cfg, h, dist), False)
     for layer in params.layers:
         x, cache = body(layer, x)
         per_layer.append(cache)
@@ -409,11 +447,12 @@ def _forward(params: Model, cfg: ModelConfig, batch: dict, dist: Dist,
              decoding=False, caches=None, index=None):
     """Returns (final hidden states (B, S, d), new caches).  Under an
     active ``dist`` ``batch`` is this rank's block over the batch axes."""
-    with (manual_axes(dist.mesh, dist.batch_axes) if dist.active
+    with (manual_axes(dist.mesh, dist.manual) if dist.active
           else contextlib.nullcontext()):
-        x, positions = _embed(params, cfg, batch)
+        x, positions = _embed(params, cfg, batch, dist)
         if cfg.family == "ssm":
-            x, new_caches = _stack_ssm(params, cfg, x, decoding, caches)
+            x, new_caches = _stack_ssm(params, cfg, x, decoding, caches,
+                                       dist)
         elif cfg.family == "hybrid":
             x, new_caches = _stack_hybrid(params, cfg, x, positions, dist,
                                           decoding, caches, index)
@@ -423,8 +462,13 @@ def _forward(params: Model, cfg: ModelConfig, batch: dict, dist: Dist,
         return rms_norm(x, params.ln_f, cfg.norm_eps), new_caches
 
 
-def _head(params: Model, h):
-    return h @ params.out
+def _head(params: Model, h, cfg: ModelConfig | None = None,
+          name: str | None = None):
+    """The vocabulary head; with ``name`` (the model axis the vocabulary
+    is split over) this rank's block of the logits."""
+    if name is None:
+        return h @ params.out
+    return tp_enter(h, name) @ tp_block(params.out, name, 1, cfg.vocab)
 
 
 # --------------------------------------------------------------------------
@@ -437,18 +481,29 @@ def train_loss(params: Model, batch: dict, cfg: ModelConfig,
     """Mean next-token (or frame-label for encoders) cross-entropy.
 
     With ``cfg.loss_chunk`` the vocabulary head + xent run per sequence
-    chunk, so the (B, S, V) logits tensor never materializes."""
+    chunk, so the (B, S, V) logits tensor never materializes.  Under
+    tensor-parallel arithmetic over a vocabulary it divides, each rank
+    makes its block of the logits and the loss is the
+    vocabulary-parallel cross entropy, the same on every rank."""
     h, _ = _forward(params, cfg, batch, dist)
     labels = _as_tensor(batch["labels"], h.device, torch.long)
     B, S, d = h.shape
-    if cfg.loss_chunk and S % cfg.loss_chunk == 0 and S > cfg.loss_chunk:
-        total = torch.zeros((), dtype=torch.float32, device=h.device)
-        for c0 in range(0, S, cfg.loss_chunk):
-            c1 = c0 + cfg.loss_chunk
-            total = total + softmax_cross_entropy(
-                _head(params, h[:, c0:c1]), labels[:, c0:c1]).sum()
-        return total / (B * S)
-    return softmax_cross_entropy(_head(params, h), labels).mean()
+    with (manual_axes(dist.mesh, dist.manual) if dist.active
+          else contextlib.nullcontext()):
+        name = _vocab_axis(cfg, dist)
+
+        def xent(hc, lc):
+            return softmax_cross_entropy(_head(params, hc, cfg, name), lc,
+                                         name)
+
+        if cfg.loss_chunk and S % cfg.loss_chunk == 0 \
+                and S > cfg.loss_chunk:
+            total = torch.zeros((), dtype=torch.float32, device=h.device)
+            for c0 in range(0, S, cfg.loss_chunk):
+                c1 = c0 + cfg.loss_chunk
+                total = total + xent(h[:, c0:c1], labels[:, c0:c1]).sum()
+            return total / (B * S)
+        return xent(h, labels).mean()
 
 
 @torch.no_grad()

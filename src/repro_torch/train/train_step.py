@@ -10,20 +10,32 @@ f32, from zeros), the optimizer's in-place update, and the gradient norm.
 Under an active ``Dist`` (one process a rank, launch/mesh.py):
 
 * **The sharded step.**  Parameters and optimizer state may be DTensors
-  placed by ``launch/shardings.py`` (``distribute``).  Each rank gathers
-  the whole parameters, runs the one-device model on its block of the
-  (global) batch under ``batch_specs`` — the kernels stay on local tensors,
-  which DTensor could not see into — and the mean of the loss and of the
-  gradients over the batch axes is all-reduced.  The MoE FFN with
-  ``moe_mode="ep_a2a"`` takes the expert-parallel path over the ``model``
-  axis; everything else is the same on every rank of ``model``, so that
-  axis shards storage, not arithmetic.  The update then acts on each
-  rank's shard: an elementwise optimizer (SGD, AdamW) on the local blocks
-  of the parameter, gradient and state; Adafactor, whose factored moments
-  and clipping reduce over whole leaves, on the gathered leaves, keeping
-  each rank's block.  With the same batch the step is the one-device step:
-  bit for bit on a ``(1, 1)`` mesh, and up to the order of the data
-  axes' sums otherwise.
+  placed by ``launch/shardings.py`` (``distribute``).  Each rank runs the
+  model on its block of the (global) batch under ``batch_specs``, and the
+  mean of the loss and of the gradients over the batch axes is
+  all-reduced.  For a family whose arithmetic splits over the ``model``
+  axis (``tensor_parallel_family``: dense GQA, mamba1) the step runs
+  under ``Dist.tensor_parallel``, as the reference's GSPMD partitions its
+  step by the parameters' specs: a leaf whose ``model`` placement sits on
+  the dimension the layer splits (``shardings.TP_DIMS``) is gathered over
+  the batch axes only and used as the rank's block; a leaf ``_fit`` left
+  whole on ``model`` (a KV projection of too few heads, ``dt_bias``,
+  ``A_log``, the norms) comes whole and the layer takes what its block
+  reads; any other leaf (one ``_fit`` relocated, or of another family) is
+  gathered whole.  The layers' collectives over ``model`` (Megatron's:
+  a sum after each row-parallel product, a summed gradient for each
+  replicated input) make each block's gradient the rank's block of the
+  whole gradient, so no parameter is gathered over ``model``.  The MoE
+  FFN with ``moe_mode="ep_a2a"`` takes the expert-parallel path over
+  ``model``.  The kernels run on local tensors.  The update then acts on
+  each rank's shard: an elementwise optimizer (SGD, AdamW) on the local
+  blocks of the parameter, gradient and state; Adafactor, whose factored
+  moments and clipping reduce over whole leaves, on the gathered leaves,
+  keeping each rank's block.  The gradient norm sums each split leaf's
+  squares over ``model`` once, and each replicated leaf's once.  On a
+  ``model`` axis of one rank the step makes no collective over it and
+  runs the one-device operations: bit for bit on a ``(1, 1)`` mesh; up
+  to the order of sums otherwise.
 * **The compressed step** (``compress_grads=True``): the reference's
   replicated-parameter data parallelism — local gradients on the batch
   block, ``compress_tree_psum`` over ``"data"`` with the residuals carried
@@ -35,14 +47,17 @@ Under an active ``Dist`` (one process a rank, launch/mesh.py):
 from __future__ import annotations
 
 import math
+from dataclasses import replace
 
 import numpy as np
 import torch
 
-from ..launch.shardings import (NamedSharding, batch_specs, gather,
-                                local_block, place)
-from ..models.common import P, manual_axes, pmean
-from ..models.transformer import Dist, Model, init_params, train_loss
+from ..launch.shardings import (TP_DIMS, NamedSharding, batch_placements,
+                                batch_specs, gather, gather_batch,
+                                local_block, model_dim, place)
+from ..models.common import P, manual_axes, pmean, psum
+from ..models.transformer import (Dist, Model, init_params,
+                                  tensor_parallel_family, train_loss)
 from ..optim.grad_compress import compress_tree_psum
 from ..optim.optimizers import Optimizer
 
@@ -101,15 +116,30 @@ def _grads(cfg, params: Model, batches: list, dist: Dist = Dist()):
     return _accum_grads(cfg, params, batches, dist)
 
 
+def _squares(cfg, g) -> torch.Tensor:
+    if cfg.gnorm_vdot:
+        return torch.dot(g.flatten(), g.flatten())
+    return torch.sum(torch.square(g.to(torch.float32)))
+
+
 def grad_norm(cfg, grads: dict) -> torch.Tensor:
     """The global gradient norm in f32; ``cfg.gnorm_vdot`` takes the
     reference's A/B baseline form (a dot product of each flattened
-    gradient with itself)."""
-    if cfg.gnorm_vdot:
-        return torch.sqrt(sum(torch.dot(g.flatten(), g.flatten())
-                              for g in grads.values()).to(torch.float32))
-    return torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
-                          for g in grads.values()))
+    gradient with itself).  A gradient that is a DTensor (the rank's
+    block over the model axis of a split leaf) adds its local squares,
+    summed over that axis once for all such leaves."""
+    split = [g for g in grads.values() if _is_dtensor(g)]
+    if not split:
+        total = sum(_squares(cfg, g) for g in grads.values())
+        return torch.sqrt(total.to(torch.float32))
+    mesh = split[0].device_mesh
+    names = {mesh.mesh_dim_names[i] for g in split
+             for i, pl in enumerate(g.placements) if pl.is_shard()}
+    local = sum(_squares(cfg, g.to_local()) for g in split)
+    with manual_axes(mesh, mesh.mesh_dim_names):
+        local = psum(local, tuple(sorted(names)))
+    rest = [_squares(cfg, g) for g in grads.values() if not _is_dtensor(g)]
+    return torch.sqrt((local + sum(rest)).to(torch.float32))
 
 
 def _is_dtensor(x) -> bool:
@@ -120,11 +150,30 @@ def _is_dtensor(x) -> bool:
 def _whole_model(cfg, params: Model) -> Model:
     """``params`` as a model of whole plain tensors: itself, or, when any
     parameter is a DTensor, a new model of the gathered tensors."""
-    if not any(_is_dtensor(p) for p in params.parameters()):
-        return params
+    return _local_model(cfg, params, Dist())[0]
+
+
+def _local_model(cfg, params: Model, dist: Dist) -> tuple[Model, set]:
+    """``params`` as a model of plain tensors for this rank's arithmetic
+    under ``dist`` (module docstring), and the names of the leaves it
+    holds as the rank's block over the model axis: itself when no
+    parameter is a DTensor."""
+    named = dict(params.named_parameters())
+    if not any(_is_dtensor(p) for p in named.values()):
+        return params, set()
     model = init_params(cfg, device="meta")
-    model.load_state_dict(gather(params), strict=True, assign=True)
-    return model
+    kept = set()
+    for n, p in named.items():
+        if dist.tensor_parallel and model_dim(p, dist.model_axis) \
+                == TP_DIMS.get(n.rpartition(".")[2], -1):
+            t = gather_batch(p, dist.model_axis)
+            kept.add(n)
+        else:
+            t = gather(p)
+        mod, _, leaf = n.rpartition(".")
+        model.get_submodule(mod).register_parameter(
+            leaf, torch.nn.Parameter(t, requires_grad=p.requires_grad))
+    return model, kept
 
 
 def _as_tensors(batch: dict) -> dict:
@@ -139,18 +188,31 @@ def _blocks(batch: dict, mesh, specs: dict) -> dict:
 
 
 def _sharded_grads(cfg, dist: Dist, params: Model, batch: dict, k: int):
-    """The mean loss and whole gradients over the batch axes: each
-    microbatch of the global ``batch`` blocked under ``batch_specs``."""
+    """The mean loss and the gradients over the batch axes: each
+    microbatch of the global ``batch`` blocked under ``batch_specs``.  A
+    gradient is whole, or, under tensor-parallel arithmetic over a model
+    axis of more than one rank, a DTensor of the rank's block over it for
+    each leaf used as its block."""
     mesh = dist.mesh
     dp = math.prod(mesh.size(mesh.mesh_dim_names.index(a))
                    for a in dist.batch_axes)
     mbs = [_blocks(mb, mesh, batch_specs(cfg, mb, dist.batch_axes,
                                          dist.model_axis, dp))
            for mb in _split_microbatches(_as_tensors(batch), k)]
-    loss, grads = _grads(cfg, _whole_model(cfg, params), mbs, dist)
+    if tensor_parallel_family(cfg):
+        dist = replace(dist, tensor_parallel=True)
+    model, kept = _local_model(cfg, params, dist)
+    loss, grads = _grads(cfg, model, mbs, dist)
     with manual_axes(mesh, mesh.mesh_dim_names):
         loss = pmean(loss, dist.batch_axes)
         grads = {n: pmean(g, dist.batch_axes) for n, g in grads.items()}
+    if mesh.size(mesh.mesh_dim_names.index(dist.model_axis)) > 1:
+        from torch.distributed.tensor import DTensor
+        named = dict(params.named_parameters())
+        for n in kept:
+            grads[n] = DTensor.from_local(
+                grads[n], mesh, batch_placements(named[n], dist.model_axis),
+                run_check=False)
     return loss, grads
 
 
@@ -169,16 +231,21 @@ def _compressed_grads(cfg, dist: Dist, params: Model, batch: dict,
 
 
 def _local(t):
-    return t.to_local() if _is_dtensor(t) else t
+    """A DTensor's local tensor itself (no autograd: the update's), a
+    plain tensor as it is."""
+    return t._local_tensor if _is_dtensor(t) else t
 
 
 def _block(g, like):
     """``like``'s own block of ``g``: a whole tensor, or a DTensor under
-    other placements (a gradient under ``grad_shardings``)."""
+    other placements (a gradient under ``grad_shardings``, or a split
+    leaf's block over the model axis)."""
     if _is_dtensor(g):
         if not _is_dtensor(like):
             return g.full_tensor()
-        return g.redistribute(like.device_mesh, like.placements).to_local()
+        if tuple(g.placements) != tuple(like.placements):
+            g = g.redistribute(like.device_mesh, like.placements)
+        return g.to_local()
     if _is_dtensor(like):
         return local_block(g, like.device_mesh, like.placements)
     return g
@@ -198,7 +265,8 @@ def _store(tree: dict, new: dict, whole: bool) -> None:
         if isinstance(v, dict):
             _store(t, v, whole)
         elif _is_dtensor(t):
-            t.to_local().copy_(_block(v, t) if whole else v)
+            if v is not t._local_tensor:  # updated in place already
+                t._local_tensor.copy_(_block(v, t) if whole else v)
         elif v is not t:
             tree[k] = v
 

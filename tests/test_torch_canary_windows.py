@@ -1,12 +1,13 @@
 """The real live loop's canary windows on the card, held on the CPU.
 
 On the GPU a real window replays its slice ``CARD_WINDOW_REPEATS`` times
-under each plan, the two plans' replays in turns, and keeps each plan's
-median-throughput replay; elsewhere it keeps the controller's own
+under each plan, the two plans' replays in turns, each replay's
+throughput taken over device time (``_device_timed``), and keeps each
+plan's median-throughput replay; elsewhere it keeps the controller's own
 measurement (``_replay_real`` of one plan, then of the other), so the
 real-backend tests on the CPU keep their window settings.  The replays
-here are stand-ins that record their order; the device is named, not
-used.
+here are stand-ins that record their order, and the device timing a
+stand-in that marks what it timed; the device is named, not used.
 """
 
 from __future__ import annotations
@@ -46,10 +47,13 @@ def test_card_windows_take_turns_and_keep_each_median(ctl, monkeypatch):
     monkeypatch.setattr(ctl, "_replayer", _stand_in(order, speeds))
     monkeypatch.setattr(ctl, "_model", lambda: (
         None, SimpleNamespace(device=torch.device("cuda", 0))))
+    monkeypatch.setattr(C, "_device_timed",
+                        lambda one: lambda: dict(one(), device_timed=True))
     base, cand = ctl.measure({"plan": "a"}, {"plan": "b"}, 3)
     assert order == ["a", "b"] * n
     assert base["throughput_tok_s"] == sorted(speeds["a"])[n // 2]
     assert cand["throughput_tok_s"] == sorted(speeds["b"])[n // 2]
+    assert base["device_timed"] and cand["device_timed"]
 
 
 def test_cpu_windows_keep_the_controllers_measurement(ctl, monkeypatch):

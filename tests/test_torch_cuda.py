@@ -695,11 +695,13 @@ def test_measured_kernel_time_is_its_graphs_device_time(cuda, kernel):
     spans = [e.time_range.end - e.time_range.start for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA
              and KERNEL_NAMES[kernel] in e.name]
-    # one eager call for the error, GRAPH_CALLS eager calls before the
-    # capture, then 2 warm-up and 5 timed replays of GRAPH_CALLS calls (the
-    # profiler may drop the first event of a window)
-    assert counter.launches - before == 1 + wl.GRAPH_CALLS * 8
-    assert wl.GRAPH_CALLS * 8 <= len(spans) <= 1 + wl.GRAPH_CALLS * 8
+    # one eager call for the error, then for each of the
+    # MEASURED_CAPTURES graphs GRAPH_CALLS eager calls before its capture,
+    # 2 warm-up and 5 timed replays of GRAPH_CALLS calls (the profiler may
+    # drop the first event of a window)
+    calls = wl.GRAPH_CALLS * 8 * wl.MEASURED_CAPTURES
+    assert counter.launches - before == 1 + calls
+    assert calls <= len(spans) <= 1 + calls
     kernel_s = sorted(spans)[len(spans) // 2] * 1e-6
     assert abs(t - kernel_s) <= GRAPH_TIME_TOL * kernel_s, (t, kernel_s)
 

@@ -464,9 +464,11 @@ def test_smoke_cell_against_reference_analyze(kind):
 
 def test_full_width_qwen3_train_on_16x16():
     """qwen3-0.6b train_4k on the 16x16 fake mesh: traced, each rank's 16
-    sequences through every kernel, each parameter's gather and each
-    gradient's mean counted, and the port's gather-whole step reported not
-    to fit a card."""
+    sequences through every kernel, each parameter's gather over the data
+    axis, each gradient's mean and the tensor-parallel sums counted, and
+    the step, which splits heads, FFN units and the vocabulary over the
+    16-way model axis, reported to fit a card (the step that gathered
+    whole weights needed 312.1 GB a rank)."""
     rec = dryrun.run_cell("qwen3-0.6b", "train_4k", False)
     assert rec["status"] == "ok", rec.get("traceback")
     cfg = get_config("qwen3-0.6b")
@@ -476,7 +478,7 @@ def test_full_width_qwen3_train_on_16x16():
     assert k["flash_attention/fwd"]["events"] == cfg.n_layers
     cb = rec["hlo"]["collective_bytes"]
     assert cb["all_gather"] > 0 and cb["all_reduce"] > 0
-    assert rec["memory"]["fits_80gb"] is False
+    assert rec["memory"]["fits_80gb"] is True
     assert rec["roofline"]["step_s"] > 0
 
 

@@ -474,3 +474,21 @@ def test_cli_runs_exports_and_resumes(tmp_path, capsys):
     with pytest.raises(SystemExit):
         cli.main(["--workload", "twofc", "--engine", "tensor",
                   "--device", "cpu"])
+
+
+def test_island_payload_resolves_its_device_as_the_orchestrator(
+        tiny_workload, tmp_path):
+    """``island_payload``'s device is None by default, resolved as the
+    orchestrator resolves its own: the GPU unless the caller names
+    another, and without one a refusal rather than the host."""
+    kw = dict(checkpoint_dir=str(tmp_path / "i"), cache_path=None,
+              generations=1, resume=False, migrants=[], pop_size=4,
+              n_elite=2, max_tries=4)
+    spec = default_island_specs(1)[0]
+    assert island_payload(tiny_workload, spec, device="cpu",
+                          **kw)["device"] == "cpu"
+    if torch.cuda.is_available():
+        assert island_payload(tiny_workload, spec, **kw)["device"] == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            island_payload(tiny_workload, spec, **kw)

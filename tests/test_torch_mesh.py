@@ -26,6 +26,11 @@ Tolerances, each stated where it is used:
 * the sharded step against the reference's single-device step: loss and
   parameters within the reference's own 1e-4 (tests/test_distributed.py),
   every gradient within 1e-3 |ref| + 1e-4 max |ref| (probes: ~1e-7);
+* the tensor-parallel step (qwen3-0.6b and falcon-mamba-7b smoke, f32,
+  (2, 2) and (1, 4), one AdamW step) against the port's unsharded step:
+  loss, gradient norm and every parameter within 1e-5 relative and 1e-5
+  max(1, max |.|) absolute; its loss against the reference's one-device
+  loss within 1e-5 + 1e-5 |ref|; no covered leaf gathered over ``model``;
 * the compressed step against the exact step: the loss within 1e-3, each
   parameter within 0.05 of its largest value (the reference's), the
   residual x - deq exactly;
@@ -272,13 +277,26 @@ STEPS = [  # name, arch, overrides, mesh, optimizer, capacity factor
      {"moe_mode": "ep_a2a", "expert_shards": 4}, "2x2", "sgd", 8.0),
     ("granite_sgd_1x4", "granite-moe-3b-a800m",
      {"moe_mode": "ep_a2a", "expert_shards": 4}, "1x4", "sgd", 8.0),
+    # tensor-parallel arithmetic over "model": (2, 2) splits qwen3's 2 KV
+    # heads, (1, 4) leaves them whole (each rank reads its query heads'
+    # KV head); AdamW at lr 1e-4 (test_tp_step_matches_unsharded_step)
+    *[(f"{arch.split('-')[0]}_adamw_{mesh}", arch, {}, mesh, "adamw4", None)
+      for arch in ("qwen3-0.6b", "falcon-mamba-7b") for mesh in ("2x2", "1x4")],
+    # the same with each layer checkpointed: its collectives run again in
+    # the backward
+    ("qwen3_adamw_remat_1x4", "qwen3-0.6b", {"remat": "full"}, "1x4",
+     "adamw4", None),
+    ("falcon_adamw_remat_2x2", "falcon-mamba-7b", {"remat": "full"}, "2x2",
+     "adamw4", None),
 ]
+TP_STEPS = [s[0] for s in STEPS if s[4] == "adamw4"]
 COMPRESSED = ("qwen3_compress_4x1", "qwen3-0.6b", "4x1")
 CLI_ARGS = ["--arch", "qwen3-0.6b", "--smoke", "--device", "cpu", "--steps",
             "3", "--batch", "4", "--seq", "16", "--log-every", "1"]
 REF_OPTS = {"sgd": lambda: ref_sgd(lr=0.1),
             "sgd05": lambda: ref_sgd(lr=0.05),
-            "adafactor": lambda: ref_adafactor()}
+            "adafactor": lambda: ref_adafactor(),
+            "adamw4": lambda: ref_adamw(lr=1e-4)}
 # the router's replicas on submeshes: (mesh, replicas) splits, and the
 # cases (arch, mesh, replicas, the tick replica 0 is killed at or -1) over
 # one trace and serving plan
@@ -514,6 +532,7 @@ def group(tmp_path_factory):
                               "weights": wname, "batch": wname,
                               "mesh": mesh, "opt": opt, "cf": cf,
                               "grad_shardings": name.endswith("_gradsh"),
+                              "tp": name in TP_STEPS,
                               "compress": name == COMPRESSED[0]})
     meta["router"] = {"geometry": ROUTER_GEOMETRY, "trace": ROUTER_TRACE,
                       "genome": ROUTER_GENOME, "cases": [],
@@ -698,6 +717,79 @@ def test_sharded_storage_is_each_ranks_block(group, run):
             assert local[n] == want, (n, local[n], want)
             sharded += want != list(p.shape)
     assert sharded > 0
+
+
+def _within(got, want, tol: float, what: str) -> None:
+    """|got - want| <= tol |want| + tol max(1, max |want|), elementwise."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    bound = tol * np.abs(want) + tol * max(1.0, float(np.abs(want).max(
+        initial=0.0)))
+    err = np.abs(got - want)
+    assert np.all(err <= bound), f"{what}: {float(err.max()):.3e}"
+
+
+@pytest.mark.parametrize("run", TP_STEPS)
+def test_tp_step_matches_unsharded_step(group, run):
+    """The tensor-parallel step against the port's unsharded step on the
+    same weights and batch, f32: loss, gradient norm and every parameter
+    after one AdamW step within 1e-5 relative and 1e-5 max(1, max |.|)
+    absolute (other orders of the same sums, over the model axis's
+    partial products and the data axis's batch blocks).  The step's lr is
+    1e-4, so 1e-5 is a tenth of one step's lr, tests/test_torch_train.py's
+    rule for parameters after AdamW steps: AdamW's first update g / (|g| +
+    eps) is O(lr) even for an element whose gradient is about eps (1e-8),
+    and a difference of 5e-8 in such a gradient (the leaves' gradients
+    agree within 5e-8 of maxima near 0.1) moves it by up to 4e-2 lr
+    (probes: 1.2e-5 at lr 1e-3 on (1, 4)'s embed and out, 1.14e-5 at lr
+    3e-4 on falcon-mamba's x_proj)."""
+    ranks, _, _ = group
+    tag = f"step/{run}"
+    for r in ranks:
+        _within(r[f"{tag}/loss"], r[f"{tag}/plain/loss"], 1e-5, "loss")
+        _within(r[f"{tag}/gnorm"], r[f"{tag}/plain/gnorm"], 1e-5, "gnorm")
+        names = [k[len(f"{tag}/plain/param/"):] for k in r
+                 if k.startswith(f"{tag}/plain/param/")]
+        assert names
+        for n in names:
+            _within(r[f"{tag}/param/{n}"], r[f"{tag}/plain/param/{n}"], 1e-5,
+                    n)
+
+
+@pytest.mark.parametrize("run", TP_STEPS)
+def test_tp_step_gathers_no_covered_leaf_over_model(group, run):
+    """A spy on ``DTensor.full_tensor`` and ``redistribute`` over the
+    tensor-parallel step: no leaf whose spec puts ``model`` on the
+    dimension its layer splits (``TP_DIMS``) is gathered over ``model``
+    (here no leaf at all: the smoke configs divide every such dimension),
+    while the same spy over ``gather`` of the state sees every covered
+    leaf gathered."""
+    ranks, _, _ = group
+    _, arch, over, mesh, _, _ = next(s for s in STEPS if s[0] == run)
+    shape = tuple(int(x) for x in mesh.split("x"))
+    model = T.init_params(smoke_config(arch).scaled(**over), device="meta")
+    specs = S.param_specs(model, MeshShape(shape))
+    covered = {n for n in specs if n.rpartition(".")[2] in S.TP_DIMS
+               and S.TP_DIMS[n.rpartition(".")[2]] < len(specs[n])
+               and specs[n][S.TP_DIMS[n.rpartition(".")[2]]] == "model"}
+    assert covered
+    for r in ranks:
+        gathered = set(json.loads(str(r[f"step/{run}/gathered_over_model"])))
+        assert not gathered & covered, sorted(gathered & covered)
+        assert not gathered, sorted(gathered)
+        seen = set(json.loads(str(r[f"step/{run}/gathered_by_gather"])))
+        assert covered <= seen, sorted(covered - seen)
+
+
+@pytest.mark.parametrize("run", TP_STEPS)
+def test_tp_step_loss_matches_reference_one_device(group, run):
+    """The tensor-parallel step's loss against the reference's
+    one-device loss on the same weights (``models/weights.py``), at
+    tests/test_torch_train.py's tolerance: 1e-5 + 1e-5 |ref|."""
+    ranks, ref, _ = group
+    want = ref["steps"][run]["loss"]
+    for r in ranks:
+        assert abs(float(r[f"step/{run}/loss"]) - want) <= 1e-5 + 1e-5 * abs(
+            want)
 
 
 def test_compressed_step_close_to_exact(group):

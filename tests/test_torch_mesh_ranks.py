@@ -128,6 +128,48 @@ def router_tasks(task, meta: dict, meshes: dict, out: dict) -> None:
         out[f"{tag}/accepted"] = np.array(accepted)
 
 
+class GatherSpy:
+    """Records, while it is entered, the parameters that a DTensor
+    ``full_tensor`` or ``redistribute`` call gathers over the ``model``
+    axis (a ``Shard`` there made ``Replicate``), each known by its local
+    storage."""
+
+    def __init__(self, params):
+        self.names = {p.to_local().untyped_storage().data_ptr(): n
+                      for n, p in params.named_parameters()}
+        self.gathered: set = set()
+
+    def _seen(self, x, target) -> None:
+        name = self.names.get(x._local_tensor.untyped_storage().data_ptr())
+        dim = x.device_mesh.mesh_dim_names.index("model")
+        if name is not None and x.placements[dim].is_shard() \
+                and not target[dim].is_shard():
+            self.gathered.add(name)
+
+    def __enter__(self):
+        from torch.distributed.tensor import DTensor, Replicate
+        self._saved = (DTensor.full_tensor, DTensor.redistribute)
+        full, redistribute = self._saved
+        spy = self
+
+        def full_tensor(x, *a, **k):
+            spy._seen(x, [Replicate()] * x.device_mesh.ndim)
+            return full(x, *a, **k)
+
+        def redistributed(x, device_mesh=None, placements=None, **k):
+            if placements is not None:
+                spy._seen(x, list(placements))
+            return redistribute(x, device_mesh, placements, **k)
+
+        DTensor.full_tensor, DTensor.redistribute = full_tensor, redistributed
+        return self
+
+    def __exit__(self, *exc):
+        from torch.distributed.tensor import DTensor
+        DTensor.full_tensor, DTensor.redistribute = self._saved
+        return False
+
+
 def captured_main(main, argv) -> tuple:
     """``main(argv)``'s value (or its ``SystemExit`` code) and what it
     printed."""
@@ -235,7 +277,8 @@ def main() -> None:
     # ---- the sharded and the compressed train steps ----------------------
     opts = {"sgd": lambda: sgd_momentum(lr=0.1),
             "sgd05": lambda: sgd_momentum(lr=0.05),
-            "adafactor": lambda: adafactor(), "adamw": lambda: adamw(lr=1e-3)}
+            "adafactor": lambda: adafactor(), "adamw": lambda: adamw(lr=1e-3),
+            "adamw4": lambda: adamw(lr=1e-4)}
     for run in meta["steps"]:
         tcfg = smoke_config(run["arch"]).scaled(**run["overrides"])
         tree = _tree(task, f"w/{run['weights']}")
@@ -262,6 +305,15 @@ def main() -> None:
                     gl.to(torch.float32) - deq)).abs().max()))
             out[f"{tag}/res_err"] = np.array(res_err)
         else:
+            if run.get("tp"):  # the unsharded step on the same weights
+                plain = params_from_reference(tree, tcfg, "cpu")
+                pst = TS.TrainState(plain, opt.init(
+                    dict(plain.named_parameters())))
+                pst, pm = TS.make_train_step(tcfg, opt)(pst, batch)
+                out[f"{tag}/plain/loss"] = _np(pm["loss"])
+                out[f"{tag}/plain/gnorm"] = _np(pm["grad_norm"])
+                for n, p in pst["params"].named_parameters():
+                    out[f"{tag}/plain/param/{n}"] = _np(p)
             params = distribute(params, to_shardings(
                 mesh, param_specs(params, mesh, fsdp=tcfg.fsdp)))
             ost = opt.init(dict(params.named_parameters()))
@@ -270,11 +322,18 @@ def main() -> None:
             state = TS.TrainState(params, ost)
             loss, grads = TS._sharded_grads(tcfg, dist, params, batch, 1)
             for n, g in grads.items():
-                out[f"{tag}/grad/{n}"] = _np(g)
+                out[f"{tag}/grad/{n}"] = _np(gather(g))
             gs = to_shardings(mesh, param_specs(params, mesh, fsdp=False)) \
                 if run["grad_shardings"] else None
             step = TS.make_train_step(tcfg, opt, dist, grad_shardings=gs)
-            state, m = step(state, batch)
+            with GatherSpy(params) as spy:
+                state, m = step(state, batch)
+            out[f"{tag}/gathered_over_model"] = np.array(json.dumps(
+                sorted(spy.gathered)))
+            with GatherSpy(state["params"]) as seen:  # the spy sees a gather
+                gather(state["params"])
+            out[f"{tag}/gathered_by_gather"] = np.array(json.dumps(
+                sorted(seen.gathered)))
             out[f"{tag}/local_shapes"] = np.array(json.dumps(
                 {n: list(p.to_local().shape)
                  for n, p in state["params"].named_parameters()}))

@@ -1,0 +1,416 @@
+"""Tensor-parallel arithmetic over the ``model`` axis, in one process.
+
+Each layer's tensor-parallel form (models/common.py ``tp_enter`` /
+``tp_exit`` / ``realign_pairs``, the vocabulary-parallel cross entropy and
+lookup, SwiGLU, GQA attention with split and with whole KV heads, mamba1)
+runs on m ranks played by m threads of this process: a mesh stand-in gives
+each thread its rank on a one-axis ``model`` mesh, and the collectives the
+layers call (``all_reduce``, ``all_gather``, ``all_to_all_single``) are
+exchanged between the threads.  Each is held against the one-device
+function of the port on the same whole inputs (seeded numpy), outputs and
+the gradients of every input and weight (each rank's gradient of a whole
+weight is the whole gradient; of a block, its block).  Tolerance: 1e-5
+relative and 1e-5 max(1, max |.|) absolute in f32 (the same products,
+summed over the ranks' partial sums in another order); the lookup is
+exact.
+
+Then the realignment plan of mamba1's ``in_proj`` (m = 2 and 4) alone,
+and a dry-run trace on a fake 4 x 4 mesh whose per-rank dot FLOPs equal a
+count derived by hand from the config.  The 4-rank gloo group of
+tests/test_torch_mesh.py runs the whole tensor-parallel train step.
+"""
+
+from __future__ import annotations
+
+import threading
+from concurrent.futures import ThreadPoolExecutor
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+import torch.distributed as torch_dist
+
+from repro_torch.configs import smoke_config
+from repro_torch.models import attention as A
+from repro_torch.models import common as C
+from repro_torch.models import layers as LY
+from repro_torch.models import mamba as MB
+from repro_torch.models.transformer import init_params
+
+TOL = 1e-5
+
+
+class _Axis:
+    """The ranks of one axis, played by threads: each collective is an
+    exchange of every rank's contribution."""
+
+    def __init__(self, m: int):
+        self.m = m
+        self.barrier = threading.Barrier(m)
+        self.slots = [None] * m
+
+    def exchange(self, rank: int, value) -> list:
+        self.slots[rank] = value
+        self.barrier.wait()
+        out = list(self.slots)
+        self.barrier.wait()
+        return out
+
+
+class _Group(SimpleNamespace):
+    pass
+
+
+class _Mesh:
+    """A one-axis ``model`` mesh as ``mesh_axis`` reads it."""
+    mesh_dim_names = ("model",)
+
+    def __init__(self, axis: _Axis, rank: int):
+        self.group = _Group(axis=axis, rank=rank)
+
+    def get_group(self, dim):
+        return self.group
+
+    def size(self, dim=None):
+        return self.group.axis.m
+
+    def get_local_rank(self, dim=None):
+        return self.group.rank
+
+
+def _all_reduce(t, op=torch_dist.ReduceOp.SUM, group=None):
+    vals = group.axis.exchange(group.rank, t.clone())
+    if op == torch_dist.ReduceOp.MAX:
+        t.copy_(torch.stack(vals).amax(0))
+    else:
+        t.copy_(sum(vals[1:], vals[0]))
+
+
+def _all_gather(parts, t, group=None):
+    for p, v in zip(parts, group.axis.exchange(group.rank, t.clone())):
+        p.copy_(v)
+
+
+def _all_to_all_single(out, inp, out_splits, in_splits, group=None):
+    sent = group.axis.exchange(group.rank, list(inp.split(list(in_splits))))
+    got = [sent[j][group.rank] for j in range(group.axis.m)]
+    assert [g.shape[0] for g in got] == list(out_splits)
+    out.copy_(torch.cat(got))
+
+
+@pytest.fixture
+def threads(monkeypatch):
+    """``run(m, fn)``: ``fn(rank)`` on m threads, each with its rank of a
+    bound ``model`` axis of m; returns the ranks' results."""
+    monkeypatch.setattr(C, "torch_dist", SimpleNamespace(
+        all_reduce=_all_reduce, all_gather=_all_gather,
+        all_to_all_single=_all_to_all_single, ReduceOp=torch_dist.ReduceOp))
+
+    def run(m: int, fn):
+        axis = _Axis(m)
+
+        def one(rank):
+            torch.set_num_threads(1)
+            with C.manual_axes(_Mesh(axis, rank), ("model",)):
+                return fn(rank)
+
+        with ThreadPoolExecutor(m) as pool:
+            return list(pool.map(one, range(m)))
+
+    return run
+
+
+DIST = SimpleNamespace(tensor_parallel=True, model_axis="model",
+                       batch_axes=(), active=True)
+
+
+def _close(got, want, what: str, tol: float = TOL) -> None:
+    got = got.detach().double()
+    want = want.detach().double()
+    assert got.shape == want.shape, (what, got.shape, want.shape)
+    bound = tol * want.abs() + tol * max(1.0, float(want.abs().max()))
+    err = (got - want).abs()
+    assert bool((err <= bound).all()), f"{what}: {float(err.max()):.3e}"
+
+
+def _grads(out, cot, inputs: dict) -> dict:
+    names = list(inputs)
+    gs = torch.autograd.grad((out * cot).sum(), [inputs[n] for n in names],
+                             allow_unused=True)
+    return {n: torch.zeros_like(inputs[n]) if g is None else g
+            for n, g in zip(names, gs)}
+
+
+def _leaves(arrays: dict) -> dict:
+    return {k: torch.tensor(v, requires_grad=True) for k, v in arrays.items()}
+
+
+def _block(x: torch.Tensor, m: int, r: int, dim: int) -> torch.Tensor:
+    return x.chunk(m, dim)[r]
+
+
+# --------------------------------------------------------------------------
+# the vocabulary-parallel cross entropy and lookup
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("m", (2, 4))
+def test_vocab_parallel_cross_entropy_matches_whole(threads, m):
+    rng = np.random.default_rng(m)
+    V = 32
+    logits = rng.standard_normal((3, 5, V)).astype(np.float32) * 4
+    v = V // m
+    # labels on every block's edges, and inside
+    labels = np.array([[0, v - 1, v, 2 * v - 1, V - 1]] * 3, np.int64)
+    labels[1] = rng.integers(0, V, 5)
+    cot = torch.from_numpy(rng.standard_normal((3, 5)).astype(np.float32))
+    whole = torch.tensor(logits, requires_grad=True)
+    want = LY.softmax_cross_entropy(whole, torch.from_numpy(labels))
+    gwant = torch.autograd.grad((want * cot).sum(), whole)[0]
+
+    def rank(r):
+        local = torch.tensor(logits[..., r * v:(r + 1) * v],
+                             requires_grad=True)
+        y = LY.softmax_cross_entropy(local, torch.from_numpy(labels),
+                                     "model")
+        return y, torch.autograd.grad((y * cot).sum(), local)[0]
+
+    for r, (y, g) in enumerate(threads(m, rank)):
+        _close(y, want, f"loss r{r}")
+        _close(g, gwant[..., r * v:(r + 1) * v], f"dlogits r{r}")
+
+
+@pytest.mark.parametrize("m", (2, 4))
+def test_vocab_parallel_lookup_matches_whole(threads, m):
+    rng = np.random.default_rng(10 + m)
+    V, d = 24, 6
+    table = rng.standard_normal((V, d)).astype(np.float32)
+    v = V // m
+    ids = torch.tensor([[0, v - 1, v, V - 1, V - v, 1]])
+    cot = torch.from_numpy(rng.standard_normal((1, 6, d)).astype(np.float32))
+    whole = torch.tensor(table, requires_grad=True)
+    want = LY.embed_lookup(whole, ids, V)
+    gwant = torch.autograd.grad((want * cot).sum(), whole)[0]
+
+    def rank(r):
+        local = torch.tensor(table[r * v:(r + 1) * v], requires_grad=True)
+        y = LY.embed_lookup(local, ids, V, "model")
+        return y, torch.autograd.grad((y * cot).sum(), local)[0]
+
+    for r, (y, g) in enumerate(threads(m, rank)):
+        assert torch.equal(y, want)
+        assert torch.equal(g, gwant[r * v:(r + 1) * v])
+
+
+def test_vocab_parallel_lookup_raises_beyond_the_vocabulary(threads):
+    table = np.ones((8, 2), np.float32)
+
+    def rank(r):
+        with pytest.raises(IndexError):
+            LY.embed_lookup(torch.tensor(table[r * 4:(r + 1) * 4]),
+                            torch.tensor([[1, 8]]), 8, "model")
+        return True
+
+    assert threads(2, rank) == [True, True]
+    with pytest.raises(IndexError):
+        LY.embed_lookup(torch.tensor(table), torch.tensor([[8]]), 8)
+
+
+# --------------------------------------------------------------------------
+# SwiGLU, attention, mamba1: the layer on each rank's block
+# --------------------------------------------------------------------------
+
+def _layer_check(threads, m, arrays, fn, dims, x_shape, seed):
+    """``fn(weights, x, dist)`` on whole leaves against m ranks on their
+    blocks (``dims``: leaf -> the dimension it is split on, or None for a
+    leaf every rank holds whole); outputs and gradients."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal(x_shape).astype(np.float32)
+    whole = _leaves(arrays)
+    xw = torch.tensor(x, requires_grad=True)
+    want = fn(whole, xw, None)
+    cot = torch.from_numpy(
+        rng.standard_normal(tuple(want.shape)).astype(np.float32))
+    gwant = _grads(want, cot, {"x": xw, **whole})
+
+    def rank(r):
+        local = {k: torch.tensor(
+            v if dims[k] is None else
+            np.ascontiguousarray(np.split(v, m, dims[k])[r]),
+            requires_grad=True) for k, v in arrays.items()}
+        xl = torch.tensor(x, requires_grad=True)
+        y = fn(local, xl, DIST)
+        return y, _grads(y, cot, {"x": xl, **local})
+
+    for r, (y, g) in enumerate(threads(m, rank)):
+        _close(y, want, f"y r{r}")
+        _close(g["x"], gwant["x"], f"dx r{r}")
+        for k, d in dims.items():
+            w = gwant[k] if d is None else _block(gwant[k], m, r, d)
+            _close(g[k], w, f"d{k} r{r}")
+
+
+@pytest.mark.parametrize("m", (2, 4))
+def test_swiglu_tensor_parallel_matches_whole(threads, m):
+    rng = np.random.default_rng(m)
+    d, ff = 8, 16
+    arrays = {k: rng.standard_normal(s).astype(np.float32) / 3
+              for k, s in (("gate", (d, ff)), ("up", (d, ff)),
+                           ("down", (ff, d)))}
+
+    def fn(w, x, dist):
+        name = C.tp_axis(dist)
+        return LY.swiglu(x, w["gate"], w["up"], w["down"], name, ff)
+
+    _layer_check(threads, m, arrays, fn, {"gate": 1, "up": 1, "down": 0},
+                 (2, 5, d), seed=m)
+
+
+def _attn_arrays(cfg, seed: int) -> dict:
+    p = A.init_attn(cfg, torch.float32,
+                    generator=torch.Generator().manual_seed(seed),
+                    device="cpu")
+    out = {k: v.detach().numpy() for k, v in p.named_parameters()}
+    rng = np.random.default_rng(seed)
+    for k in ("bq", "bk", "bv", "q_scale", "k_scale"):
+        if k in out:  # not the init's constants: every gradient counts
+            out[k] = out[k] + rng.standard_normal(out[k].shape).astype(
+                np.float32) * 0.1
+    return out
+
+
+ATTN_CASES = {  # name: (config overrides, m)
+    "split_kv_m2": ({}, 2),                     # 4 heads, 2 KV heads
+    "whole_kv_m4": ({}, 4),                     # 2 KV heads on 4 ranks
+    "bias_whole_kv_m4": ({"qk_norm": False, "qkv_bias": True,
+                          "n_heads": 8, "n_kv_heads": 2}, 4),
+    # rank 0 reads KV heads 0-1, rank 1 heads 1-2
+    "kv_group_straddles_m2": ({"n_heads": 12, "n_kv_heads": 3}, 2),
+    # 6 heads on 4 ranks: the attention runs whole on every rank
+    "heads_not_divisible_m4": ({"n_heads": 6, "n_kv_heads": 2}, 4),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ATTN_CASES))
+def test_gqa_tensor_parallel_matches_whole(threads, case):
+    over, m = ATTN_CASES[case]
+    cfg = smoke_config("qwen3-0.6b").scaled(**over)
+    arrays = _attn_arrays(cfg, seed=len(case))
+    kv = 1 if cfg.n_kv_heads % m == 0 else None
+    dims = {"wq": 1, "wo": 0, "wk": kv, "wv": kv, "bq": 0,
+            "bk": None if kv is None else 0, "bv": None if kv is None else 0,
+            "q_scale": None, "k_scale": None}
+    dims = {k: v if cfg.n_heads % m == 0 else None
+            for k, v in dims.items() if k in arrays}
+    S = 7
+    pos = torch.arange(S)[None].expand(2, S)
+
+    def fn(w, x, dist):
+        return A.gqa_forward(w, cfg, x, pos, dist)[0]
+
+    _layer_check(threads, m, arrays, fn, dims, (2, S, cfg.d_model),
+                 seed=m)
+
+
+@pytest.mark.parametrize("m", (2, 4))
+def test_mamba1_tensor_parallel_matches_whole(threads, m):
+    cfg = smoke_config("falcon-mamba-7b")
+    p = init_params(cfg, generator=torch.Generator().manual_seed(m),
+                    device="cpu").layers[0].mamba
+    arrays = {k: v.detach().numpy() for k, v in p.named_parameters()}
+    rng = np.random.default_rng(m)
+    for k in ("conv_b", "D", "dt_bias"):
+        arrays[k] = arrays[k] + rng.standard_normal(arrays[k].shape).astype(
+            np.float32) * 0.1
+    # in_proj: the rank's contiguous columns of [x | z], as stored
+    dims = {"in_proj": 1, "conv_w": 1, "conv_b": 0, "out_proj": 0,
+            "D": 0, "x_proj": 0, "dt_proj": 1, "dt_bias": None,
+            "A_log": None}
+
+    def fn(w, x, dist):
+        return MB.mamba1_seq(w, cfg, x, dist=dist)[0]
+
+    _layer_check(threads, m, arrays, fn, dims, (2, 9, cfg.d_model), seed=7)
+
+
+@pytest.mark.parametrize("m", (2, 4))
+def test_in_proj_realignment_plan(m):
+    """Each rank's contiguous columns of [x | z] (2 m blocks of w), sent
+    by ``paired_blocks_plan``, leave rank t with x block t, then z block
+    t."""
+    w = 3
+    cols = np.arange(2 * m * w)
+    sent = {}
+    for s in range(m):
+        order, send, recv = C.paired_blocks_plan(m, s)
+        local = cols[s * 2 * w:(s + 1) * 2 * w].reshape(2, w)[order]
+        dests = [d for d in range(m) for _ in range(send[d])]
+        for block, d in zip(local, dests):
+            sent.setdefault(d, []).append((s, block))
+        assert sum(send) == sum(recv) == 2
+    for t in range(m):
+        got = np.concatenate([b for _, b in sorted(sent[t],
+                                                   key=lambda e: e[0])])
+        xs = cols[t * w:(t + 1) * w]
+        zs = cols[m * w + t * w:m * w + (t + 1) * w]
+        np.testing.assert_array_equal(got, np.concatenate([xs, zs]))
+        _, _, recv = C.paired_blocks_plan(m, t)
+        assert [len([1 for s, _ in sent[t] if s == j])
+                for j in range(m)] == recv
+
+
+def test_one_rank_axis_is_the_one_device_function(threads):
+    """On a model axis of one rank no layer enters a region: tp_axis is
+    None and the results are the one-device ones bit for bit."""
+    cfg = smoke_config("qwen3-0.6b")
+    arrays = _attn_arrays(cfg, 3)
+    x = torch.randn(2, 5, cfg.d_model, generator=torch.Generator()
+                    .manual_seed(0))
+    pos = torch.arange(5)[None].expand(2, 5)
+    want = A.gqa_forward({k: torch.tensor(v) for k, v in arrays.items()},
+                         cfg, x, pos)[0]
+
+    def rank(r):
+        assert C.tp_axis(DIST) is None
+        return A.gqa_forward({k: torch.tensor(v) for k, v in arrays.items()},
+                             cfg, x, pos, DIST)[0]
+
+    assert torch.equal(threads(1, rank)[0], want)
+
+
+# --------------------------------------------------------------------------
+# the dry run on a fake 4 x 4 mesh
+# --------------------------------------------------------------------------
+
+def _hand_dot_flops(cfg, batch: int, seq: int, data: int, m: int) -> float:
+    """A rank's dot FLOPs of a tensor-parallel train step of the dense
+    config, from its dimensions: each projection on the rank's share
+    (query heads H / m; the KV heads its query heads read: K / m when they
+    split, else the ones a group of H / m query heads spans; the FFN's
+    d_ff / m; the head's vocab / m), forward once and backward twice (the
+    input's and the weight's gradient)."""
+    T = batch // data * seq
+    d, hd = cfg.d_model, cfg.hd
+    hl = cfg.n_heads // m
+    G = cfg.n_heads // cfg.n_kv_heads
+    kv = cfg.n_kv_heads // m if cfg.n_kv_heads % m == 0 else -(-hl // G)
+    per_layer = (2 * T * d * hd * hl * 2        # q and o
+                 + 2 * T * d * hd * kv * 2      # k and v
+                 + 2 * T * d * (cfg.d_ff // m) * 3)
+    head = 2 * T * d * (cfg.vocab // m)
+    return 3.0 * (cfg.n_layers * per_layer + head)
+
+
+@pytest.mark.parametrize("arch,over", [("qwen3-0.6b", {}),
+                                       ("qwen3-0.6b", {"n_kv_heads": 4})])
+def test_dry_run_4x4_dot_flops_are_the_hand_count(arch, over):
+    from repro_torch.launch import dryrun
+    cfg = smoke_config(arch).scaled(**over)
+    batch, seq = 8, 16
+    rec = dryrun.run_cell(arch, (seq, batch, "train"), False,
+                          cfg_override=cfg, mesh=((4, 4), ("data", "model")))
+    assert rec["status"] == "ok", rec.get("traceback")
+    assert sum(rec["hlo"]["aten_flops"].values()) == \
+        _hand_dot_flops(cfg, batch, seq, 4, 4)
+    cb = rec["hlo"]["collective_bytes"]
+    assert cb["all_reduce"] > 0

@@ -21,6 +21,17 @@ after three of the other (the controller's old window), fifteen and
 thirty-one of each in turns, and fifteen in turns with Python's garbage
 collector off; the ratios and how many fall under the 0.95 floor.
 
+``captures``: the measured fitness of the unmutated MobileNet evaluated
+six times with each count of graph instances its time is the median of
+(``core/fitness.py`` ``MEASURED_CAPTURES``: 1, 3, 5): each triple's
+spread, the six's, and the wall seconds of an evaluation.
+
+``device_canary``: 24 A/A windows (three runs' worth of ``chip_smoke.py``'s
+8) of the real live loop, each measured two ways in turns, fifteen
+replays a plan: by the host's clock (the controller's window before) and
+by device time (``_device_timed``, the controller's window on the card
+now); how many fall under the 0.95 floor.
+
 Each part prints one JSON line; the card's name and power limit first.
 """
 
@@ -158,6 +169,61 @@ def instances_part(torch) -> dict:
             "slow_minus_fast_us": diff[:8] + diff[-3:]}
 
 
+def captures_part(torch) -> dict:
+    from repro_torch.core import fitness
+    from repro_torch.workloads.mobilenet import \
+        build_mobilenet_prediction_workload
+    w = build_mobilenet_prediction_workload(
+        alpha=1.0, batch=64, n_eval=2048, n_pretrain=6000, pretrain_epochs=3,
+        time_mode="measured")
+    out = {"part": "captures", "default": fitness.MEASURED_CAPTURES,
+           "by_captures": {}}
+    saved = fitness.MEASURED_CAPTURES
+    try:
+        for k in (1, 3, 5):
+            fitness.MEASURED_CAPTURES = k
+            ts, walls = [], []
+            for _ in range(6):
+                t0 = time.perf_counter()
+                t, _ = w.evaluate(w.program)
+                walls.append(time.perf_counter() - t0)
+                ts.append(t)
+            out["by_captures"][k] = {
+                "measured_s": ts,
+                "triple_spreads": [max(ts[i:i + 3]) / min(ts[i:i + 3]) - 1
+                                   for i in (0, 3)],
+                "spread": max(ts) / min(ts) - 1,
+                "wall_s_per_evaluation": statistics.median(walls)}
+    finally:
+        fitness.MEASURED_CAPTURES = saved
+    return out
+
+
+def device_canary_part(torch) -> dict:
+    from repro_torch.configs import smoke_config
+    from repro_torch.core.deploy.engine import DEFAULT_SERVE_PLAN
+    from repro_torch.core.liveloop import LiveLoopController
+    from repro_torch.core.liveloop.controller import _device_timed
+    from repro_torch.core.liveloop.traces import synthesize
+    vocab = smoke_config("qwen3-0.6b").vocab
+    out = {"part": "device_canary", "windows": []}
+    with tempfile.TemporaryDirectory() as tmp:
+        ctl = LiveLoopController(f"{tmp}/loop", mode="real",
+                                 trace=synthesize(vocab=vocab))
+        g = dict(DEFAULT_SERVE_PLAN)
+        for w in range(24):
+            tr = ctl._window_slice(2000 + w)
+            one = ctl._replayer(tr, g)
+            dev = _device_timed(one)
+            out["windows"].append({
+                "requests": len(tr),
+                "host_turns_15": _window((one, one), 15, True, False),
+                "device_turns_15": _window((dev, dev), 15, True, False)})
+    out["under_0.95"] = {k: sum(w[k] < 0.95 for w in out["windows"])
+                         for k in ("host_turns_15", "device_turns_15")}
+    return out
+
+
 def _window(ones, repeats: int, interleave: bool, no_gc: bool) -> float:
     """The throughput ratio candidate / base of one A/A window: each
     plan's median of ``repeats`` replays, taken in turns or one plan's
@@ -206,7 +272,8 @@ def canary_part(torch) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--part", default="both",
-                    choices=("spread", "instances", "canary", "both"))
+                    choices=("spread", "instances", "canary", "both",
+                             "captures", "device_canary"))
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -221,6 +288,10 @@ def main() -> int:
         print(json.dumps(spread_part(torch)), flush=True)
     if args.part == "instances":
         print(json.dumps(instances_part(torch)), flush=True)
+    if args.part == "captures":
+        print(json.dumps(captures_part(torch)), flush=True)
+    if args.part == "device_canary":
+        print(json.dumps(device_canary_part(torch)), flush=True)
     print(json.dumps({"seconds": time.perf_counter() - t0}), flush=True)
     return 0
 
