@@ -61,8 +61,10 @@ Phases, each printing one JSON line:
                     outputs within tolerance, two eager runs on the card
                     and the measured fitness's CUDA graph bit for bit);
                     three measured evaluations of each unmutated program
-                    (each the median over ``MEASURED_CAPTURES`` graph
-                    instances), within 5% of each other, each beside the
+                    (each the mean over ``PROGRAM_INSTANCES`` program
+                    graphs on memory of their own, every instance's time
+                    and their spread printed), within 5% of each other,
+                    each beside the
                     device's busy time over the graph's
                     replays (torch.profiler); a measured GEVO search (pop
                     12, 2 generations) on each, whose reserved device
@@ -83,7 +85,7 @@ Phases, each printing one JSON line:
                     process (no other process beside it, reserved memory
                     flat), with its kernel launches counted from zero.
 9. ``tensor``     — the tensorized engine (``core/tensor_evo``) on the
-                    joint workload: ``TensorGevoML``, pop 1024, 6
+                    joint workload: ``TensorGevoML``, pop 1024, 5
                     generations, counted from zero (every launch comes from
                     filling the error tables, one a launchable error class
                     of the kernel, and the count is asserted); the device
@@ -151,7 +153,7 @@ Phases, each printing one JSON line:
 12. ``liveloop``  — the live loop (``core/liveloop``) on the card:
                     ``python -m repro_torch.core.liveloop synth`` and ``run
                     --mode real`` (qwen3-0.6b at its smoke config, head
-                    dim 16 run padded to the flash kernel's 32, 3 ticks,
+                    dim 16 run padded to the flash kernel's 32, 2 ticks,
                     pop 4, one generation a tick) through ``main(argv)``,
                     its journal and windows, its kernel launches counted
                     from zero, and every distinct call it made of a
@@ -161,7 +163,8 @@ Phases, each printing one JSON line:
                     the controller's old way (three replays of one plan,
                     then three of the other) and its way on the card
                     (``CARD_WINDOW_REPEATS`` of each, in turns, each by
-                    device time), with
+                    the device's busy time from torch.profiler, and by
+                    CUDA events around the same replays), with
                     their throughput and TTFT ratios and how many fall
                     under the real guardrail's 0.95 floor; ``python -m
                     repro_torch.launch.serve --arch qwen3-0.6b --liveloop
@@ -217,7 +220,13 @@ Phases, each printing one JSON line:
                     tensor-parallel step on a model axis of one rank)
                     against one unsharded, bit for bit (loss, gradient
                     norm, every parameter), for qwen3-0.6b at full width
-                    and depth and falcon-mamba-7b at 4 of 64 layers, and
+                    and depth and falcon-mamba-7b at 4 of 64 layers,
+                    and for every other family at full width, depth cut:
+                    qwen2-vl-72b 2 of 80 layers, hubert-xlarge 4 of 48,
+                    granite-moe-3b-a800m 4 of 32 through the
+                    expert-parallel branch (against the same step on
+                    whole parameters), zamba2-1.2b 7 of 38,
+                    deepseek-v3-671b 1 of 61 (13.4B parameters, SGD), and
                     a second step of each timed; granite's prefill
                     through the EP path against ``moe_dense`` (f32, 4
                     layers, a capacity factor that drops nothing); the
@@ -228,7 +237,10 @@ Phases, each printing one JSON line:
                     per-rank shapes of a 16-way model split at full
                     width (flash on 1 of qwen3-0.6b's 16 heads, its q/k
                     norm, the scan on 512 of falcon-mamba-7b's 8192
-                    channels) against its plain version.
+                    channels) against its plain version, and flash at
+                    the other families' per-rank shapes (hubert's 1
+                    non-causal head of 80, zamba2's shared block's 2 of
+                    64, qwen2-vl's 4 of 128).
 15. ``dryrun``    — the dry run (``launch/dryrun.py``) against the real
                     step: qwen3-0.6b at full width and depth (8 x 1024)
                     and falcon-mamba-7b at 4 of 64 layers (2 x 2048),
@@ -1079,8 +1091,9 @@ MUTANTS = 32
 RESERVED_SLACK = 2 * 2 ** 20
 # The unmutated program's measured time over three evaluations: the
 # spread (max / min - 1) the acceptance asks for, asserted since each
-# measured time is the median over MEASURED_CAPTURES graph instances
-# (some instances of one graph replayed 8% faster than others).
+# measured time is the mean over PROGRAM_INSTANCES program graphs on
+# memory of their own (a graph replays at one of two speeds about 8%
+# apart, set by where its memory lies).
 REPEAT_SPREAD = 0.05
 
 
@@ -1287,7 +1300,7 @@ def replay_profile(torch, w, inputs, per_eval: int) -> dict:
     busy = busy_us(device_spans(torch, prof)) * 1e-6 / replays
     return {"replays": replays, "measured_s_per_replay": per_replay,
             "device_busy_s_per_replay": busy,
-            "measured_s": per_replay * per_eval,
+            "profiled_measured_s": per_replay * per_eval,
             "device_busy_s": busy * per_eval,
             "measured_over_busy": per_replay / busy}
 
@@ -1413,7 +1426,8 @@ def phase_programs(torch) -> dict:
     docstring): 2fcNet training at the builder's defaults, MobileNet
     prediction at alpha 1.0."""
     import numpy as np
-    from repro_torch.core.fitness import MEASURED_CAPTURES, static_time
+    from repro_torch.core.fitness import LAST_INSTANCES, PROGRAM_INSTANCES, \
+        static_time
     from repro_torch.workloads.mobilenet import \
         build_mobilenet_prediction_workload
     from repro_torch.workloads.twofc import build_twofc_training_workload
@@ -1446,19 +1460,36 @@ def phase_programs(torch) -> dict:
             walls.append(time.perf_counter() - t0)
             if not (np.isfinite(t) and 0.0 <= e < 0.9):
                 raise AssertionError(f"{name}: unmutated fitness ({t}, {e})")
+            # each graph instance's time of this evaluation (s a replay)
+            inst = list(LAST_INSTANCES)
+            if len(inst) != PROGRAM_INSTANCES:
+                raise AssertionError(f"{name}: {len(inst)} graph instances "
+                                     f"recorded, not {PROGRAM_INSTANCES}")
             repeats.append({"measured_s": t, "error": e,
+                            "instances_s": inst,
+                            "instance_spread": max(inst) / min(inst) - 1,
                             **replay_profile(torch, w, inputs[name],
                                              per_eval)})
         times = [r["measured_s"] for r in repeats]
+        spread = max(times) / min(times) - 1
+        inst_spreads = [r["instance_spread"] for r in repeats]
         unmutated = {"measured_s": times, "error": e,
-                     "captures": MEASURED_CAPTURES,
+                     "instances": PROGRAM_INSTANCES,
+                     "instances_s": [r["instances_s"] for r in repeats],
+                     "instance_spreads": inst_spreads,
+                     # the fault-2 evidence: slow instances showed in an
+                     # evaluation and the medians held within the limit
+                     "median_held_against_slow_instance":
+                         max(inst_spreads) > REPEAT_SPREAD
+                         and spread <= REPEAT_SPREAD,
                      "wall_s_per_evaluation": walls,
-                     "spread": max(times) / min(times) - 1,
-                     "within_spread": max(times) / min(times) - 1
-                     <= REPEAT_SPREAD,
+                     "spread": spread,
+                     "within_spread": spread <= REPEAT_SPREAD,
                      "static_s": static_time(w.program) * per_eval,
                      "replays_profiled": repeats}
         if not unmutated["within_spread"]:
+            emit({"phase": "programs", "step": "unmutated",
+                  "workload": name, "unmutated": unmutated})
             raise AssertionError(f"{name}: three measured evaluations of "
                                  f"the unmutated program spread "
                                  f"{unmutated['spread']:.4f} > "
@@ -1476,6 +1507,7 @@ def phase_programs(torch) -> dict:
         out[name] = {"ops": ops, "programs_checked": cc["programs"],
                      "max_abs_err": cc["max_abs_err"],
                      "unmutated_measured_s": times,
+                     "unmutated_instance_spreads": inst_spreads,
                      "unmutated_device_busy_s": [r["device_busy_s"]
                                                  for r in repeats],
                      "search_wall_s": search["wall_s"],
@@ -1494,11 +1526,11 @@ def phase_programs(torch) -> dict:
 # The islands phase: 2fcNet at the builder's defaults in static time, 4
 # islands x pop 8, 4 generations; a measured flash-attention search on 2
 # islands.  The tensor phase: the joint workload, pop 1024 (its depth cut
-# from 10 and 6 generations to 6 and 4, to keep the script well inside its
+# from 10 and 6 generations to 5 and 4, to keep the script well inside its
 # time limit; the kill after generation 3 and two migrations remain).
 ISLANDS = {"n_islands": 4, "pop_size": 8, "generations": 4,
            "migrate_every": 2, "n_migrants": 2}
-TENSOR_POP, TENSOR_GENERATIONS, TENSOR_KILL_AFTER = 1024, 6, 3
+TENSOR_POP, TENSOR_GENERATIONS, TENSOR_KILL_AFTER = 1024, 5, 3
 FLEET = {"n_islands": 4, "pop_size": 1024, "generations": 4,
          "migrate_every": 2, "n_migrants": 2}
 
@@ -2369,7 +2401,7 @@ ROUTER_MESH_SERVE = ["--arch", "qwen3-0.6b", "--mesh", "1x1", "--requests",
                      "4", "--prompt-len", "64", "--gen", "8"]
 # the live loop: the real backend on the card, qwen3-0.6b (its smoke
 # config), then 8 A/A canary windows and the served plan
-LIVELOOP_RUN = ["--mode", "real", "--ticks", "3", "--pop", "4",
+LIVELOOP_RUN = ["--mode", "real", "--ticks", "2", "--pop", "4",
                 "--gens-per-tick", "1"]
 LIVELOOP_AA_WINDOWS = 8
 
@@ -2705,6 +2737,13 @@ def hold_calls(torch, counters, calls: dict) -> list:
     return rows
 
 
+def _clock_ratios(base: dict, cand: dict) -> dict:
+    """A window's candidate / base throughput by each device clock its
+    replays carried (``median_by_clock``, each plan's median)."""
+    b, c = base.get("median_by_clock", {}), cand.get("median_by_clock", {})
+    return {k: c[k] / b[k] for k in b if k in c}
+
+
 def phase_liveloop(torch, counters) -> dict:
     """The live loop on the card (see the module docstring)."""
     import tempfile
@@ -2745,7 +2784,7 @@ def phase_liveloop(torch, counters) -> dict:
                                  f"{sorted({r['kernel'] for r in out['held']})}")
         state = json.load(open(f"{root}/state.json"))
         book = json.load(open(f"{root}/canary.json"))
-        if state["tick"] != 3 or state["mode"] != "real":
+        if state["tick"] != 2 or state["mode"] != "real":
             raise AssertionError(f"liveloop: state {state}")
         out["state"] = state
         out["canary"] = {k: book[k] for k in ("active", "promoted",
@@ -2757,8 +2796,10 @@ def phase_liveloop(torch, counters) -> dict:
         # each window measured the old way (the controller's median of
         # three replays of one plan, then of the other) and as the real
         # loop now measures it on the card (CARD_WINDOW_REPEATS each, in
-        # turns, each replay's throughput by device time)
-        windows = {"before": [], "after": []}
+        # turns, each replay's throughput by busy time); the same replays
+        # give the ratio of the medians by busy time and by CUDA events
+        windows = {"before": [], "after": [], "after_busy": [],
+                   "after_events": []}
         for w in range(LIVELOOP_AA_WINDOWS):
             tr = ctl._window_slice(1000 + w)
             pairs = {"before": (ctl._replay_real(tr, g),
@@ -2770,10 +2811,15 @@ def phase_liveloop(torch, counters) -> dict:
                     / base["throughput_tok_s"],
                     "ttft": cand["mean_ttft_s"] / base["mean_ttft_s"],
                     "n": base["n"]})
+            base, cand = pairs["after"]
+            for c, ratio in _clock_ratios(base, cand).items():
+                windows[f"after_{c}"].append({"throughput": ratio,
+                                              "n": base["n"]})
         out["aa_canary"] = {
-            "genome": g, "floor": floor, "windows": windows,
+            "genome": g, "floor": floor,
+            "windows": windows,
             "under_floor": {k: sum(w["throughput"] < floor for w in v)
-                            for k, v in windows.items()}}
+                            for k, v in windows.items() if v}}
         _, served = captured(serve_main, ["--arch", "qwen3-0.6b",
                                           "--liveloop", root,
                                           "--replicas", "2"])
@@ -3239,10 +3285,18 @@ def bf16_against_f32(torch, arch, cfg, card, b, loss32, grads32, counters,
 def expected_train_launches(cfg) -> dict:
     """Forward (and, as many, backward) launches of each kernel a training
     step of ``cfg`` makes: rmsnorm at each layer's norms and the final
-    one, flash once an attention layer, the scan once a mamba1 layer."""
+    one, flash once an attention layer, the scan once a mamba1 layer (with
+    ``remat="full"`` the forwards of a checkpointed body run twice)."""
     if cfg.family == "ssm":
         return {"rmsnorm": cfg.n_layers + 1, "flash_attention": 0,
                 "mamba_scan": cfg.n_layers}
+    if cfg.family == "hybrid":  # a mamba2 layer: its norm and gated norm;
+        G = cfg.n_layers // cfg.attn_every  # the shared block's two, flash
+        return {"rmsnorm": 2 * cfg.n_layers + 2 * G + 1,
+                "flash_attention": G, "mamba_scan": 0}
+    if cfg.mla:  # the q and kv norms; the attention is torch ops
+        return {"rmsnorm": 4 * cfg.n_layers + 1, "flash_attention": 0,
+                "mamba_scan": 0}
     per = 2 + (2 if cfg.qk_norm else 0)
     return {"rmsnorm": cfg.n_layers * per + 1,
             "flash_attention": cfg.n_layers, "mamba_scan": 0}
@@ -3368,6 +3422,27 @@ def phase_train(torch, counters) -> dict:
 # each leaf's largest value of the exact step's (the reference's bound).
 MESH_BITWISE = {"qwen3-0.6b": {"n_layers": 28, "batch": 4, "seq": 1024},
                 "falcon-mamba-7b": {"n_layers": 4, "batch": 2, "seq": 1024}}
+# (e) every other family's (1, 1) tensor-parallel step against its
+# unsharded step, bit for bit, at full width, depth cut to fit the card
+# and the run's time: qwen2-vl-72b 2 of 80 layers (4.3B parameters, M-RoPE,
+# q/k/v biases; SGD, as AdamW's f32 moments and update temporaries of its
+# 1.25B-parameter embedding and head ran out of the card's memory),
+# hubert-xlarge 4 of 48 (non-causal, head dim 80, frame
+# embeddings), granite-moe-3b-a800m 4 of 32 through the expert-parallel
+# branch as the granite train run takes it, zamba2-1.2b 7 of 38 (one group
+# of 6 mamba2 layers with the shared block, one trailing layer) and
+# deepseek-v3-671b 1 of 61 (13.4B parameters: MLA, moe_dense over its 256
+# experts and the shared expert, SGD without momentum so that weights and
+# gradients alone take the card, 27 GB each in bf16; the unsharded result
+# kept on the host)
+MESH_FAMILIES = {
+    "qwen2-vl-72b": {"n_layers": 2, "batch": 2, "seq": 1024, "opt": "sgd"},
+    "hubert-xlarge": {"n_layers": 4, "batch": 4, "seq": 1024},
+    "granite-moe-3b-a800m": {"n_layers": 4, "batch": 4, "seq": 1024,
+                             "ep": True},
+    "zamba2-1.2b": {"n_layers": 7, "batch": 2, "seq": 1024},
+    "deepseek-v3-671b": {"n_layers": 1, "batch": 1, "seq": 512,
+                         "opt": "sgd", "overrides": {"moe_mode": "dense"}}}
 MESH_GRANITE_PREFILL = {"n_layers": 4, "batch": 2, "seq": 512}
 MESH_GRANITE_TRAIN = ["--arch", "granite-moe-3b-a800m", "--scale",
                       "n_layers=4", "--batch", "4", "--seq", "1024",
@@ -3385,11 +3460,31 @@ def timed_step(torch, step, state, b) -> float:
     return time.perf_counter() - t0
 
 
+def plain_sgd(lr: float):
+    """SGD without momentum, in place (no state and no temporary:
+    deepseek's one full-width layer, 13.4B parameters in bf16, and
+    qwen2-vl's two, hold their weights and gradients on the card and
+    little more)."""
+    from repro_torch.optim.optimizers import Optimizer
+
+    def update(grads, state, params, step):
+        import torch
+        with torch.no_grad():
+            for k, p in params.items():
+                p.add_(grads[k], alpha=-lr)
+        return params, state
+
+    return Optimizer(lambda params: {}, update, 0.0)
+
+
 def mesh_sharded_against_unsharded(torch, arch: str, mesh, counters) -> dict:
-    """(a) for one arch: loss, gradient norm and every parameter after one
-    AdamW step, sharded on ``mesh`` against unsharded, bit for bit; the
-    sharded step's launches counted from zero; the time of a second step
-    of each."""
+    """(a) and (e) for one arch (``MESH_BITWISE``, ``MESH_FAMILIES``): loss,
+    gradient norm and every parameter after one step, the tensor-parallel
+    step on ``mesh`` against the unsharded step (for the expert-parallel
+    branch the same ``Dist`` step on whole parameters, since the one-device
+    step takes ``moe_dense``), bit for bit, compared a parameter at a time
+    on the host; the sharded step's launches counted from zero; the time
+    of a second step of each."""
     from repro_torch.configs import get_config
     from repro_torch.data.tokens import TokenPipeline
     from repro_torch.launch.shardings import (distribute, gather,
@@ -3398,8 +3493,9 @@ def mesh_sharded_against_unsharded(torch, arch: str, mesh, counters) -> dict:
     from repro_torch.models import transformer as T
     from repro_torch.optim import adamw
     from repro_torch.train.train_step import TrainState, make_train_step
-    run = MESH_BITWISE[arch]
-    cfg = get_config(arch).scaled(n_layers=run["n_layers"])
+    run = {**MESH_BITWISE, **MESH_FAMILIES}[arch]
+    cfg = get_config(arch).scaled(n_layers=run["n_layers"],
+                                  **run.get("overrides", {}))
     pipe = TokenPipeline(vocab=cfg.vocab, seq_len=run["seq"],
                          global_batch=run["batch"])
     b = device_batch(cfg, pipe, 0, "cuda")
@@ -3408,10 +3504,11 @@ def mesh_sharded_against_unsharded(torch, arch: str, mesh, counters) -> dict:
         return T.init_params(cfg, generator=torch.Generator(
             device="cuda").manual_seed(0), device="cuda")
 
-    opt = adamw(lr=3e-4)
+    opt = plain_sgd(1e-3) if run.get("opt") == "sgd" else adamw(lr=3e-4)
+    dist = T.Dist(mesh=mesh)
     params = fresh()
     state = TrainState(params, opt.init(dict(params.named_parameters())))
-    step = make_train_step(cfg, opt)
+    step = make_train_step(cfg, opt, dist if run.get("ep") else T.Dist())
     state, m = step(state, b)
     want = {n: p.detach().to("cpu", copy=True) for n, p in
             state["params"].named_parameters()}
@@ -3420,7 +3517,6 @@ def mesh_sharded_against_unsharded(torch, arch: str, mesh, counters) -> dict:
     del state, params, m
     torch.cuda.empty_cache()
 
-    dist = T.Dist(mesh=mesh)
     params = fresh()
     params = distribute(params, to_shardings(mesh, param_specs(params, mesh)))
     opt_state = opt.init(dict(params.named_parameters()))
@@ -3435,24 +3531,33 @@ def mesh_sharded_against_unsharded(torch, arch: str, mesh, counters) -> dict:
     state, m = step(state, b)
     torch.cuda.synchronize()
     launches = {k: fn.launches for k, fn in counters.items()}
-    got = {n: p.cpu() for n, p in gather(state["params"]).items()}
-    unequal = [n for n in want if not torch.equal(got[n], want[n])]
+    unequal = [n for n, p in gather(state["params"]).items()
+               if not torch.equal(p.cpu(), want[n])]
     for k in ("loss", "grad_norm"):
         if not torch.equal(m[k].cpu(), want_m[k]):
             unequal.append(k)
     if unequal:
         raise AssertionError(f"{arch}: the (1, 1) sharded step differs from "
                              f"the unsharded one in {unequal[:6]}")
-    expect = expected_train_launches(cfg)
-    for k, n in expect.items():
-        for name in (k, BWD_NAMES[k]):
-            if launches[name] != n:
-                raise AssertionError(f"{arch}: {launches[name]} launches of "
-                                     f"{name} in the sharded step, the "
-                                     f"layers imply {n}")
+    if cfg.remat == "full":
+        remat_launches(cfg, launches)
+    else:
+        for k, n in expected_train_launches(cfg).items():
+            for name in (k, BWD_NAMES[k]):
+                if launches[name] != n:
+                    raise AssertionError(
+                        f"{arch}: {launches[name]} launches of {name} in "
+                        f"the sharded step, the layers imply {n}")
+    n_params = sum(p.numel() for p in want.values())
     out = {"config": {"n_layers": cfg.n_layers, "d_model": cfg.d_model,
-                      "vocab": cfg.vocab, "dtype": cfg.dtype},
+                      "vocab": cfg.vocab, "dtype": cfg.dtype,
+                      "family": cfg.family, "moe_mode": cfg.moe_mode,
+                      "remat": cfg.remat,
+                      "optimizer": run.get("opt", "adamw")},
            "cut": f"{cfg.n_layers} of {get_config(arch).n_layers} layers",
+           "parameters": n_params,
+           "unsharded_step": "the Dist step on whole parameters"
+           if run.get("ep") else "the one-device step",
            "tokens": [run["batch"], run["seq"]],
            "parameters_compared": len(want), "bit_identical": True,
            "loss": float(want_m["loss"]),
@@ -3463,7 +3568,7 @@ def mesh_sharded_against_unsharded(torch, arch: str, mesh, counters) -> dict:
            "placements": sorted({str(p.placements) for p in
                                  state["params"].parameters()}),
            "launches": launches}
-    del state, params, opt_state, got, want
+    del state, params, m, want
     torch.cuda.empty_cache()
     return out
 
@@ -3671,6 +3776,75 @@ def mesh_tp_kernels(torch) -> dict:
     return out
 
 
+# (f) flash at the per-rank shapes a 16-way split gives the other
+# families' attention in train_4k on 16 x 16 (16 sequences of 4096 a
+# rank): hubert-xlarge's 1 of 16 heads of 80, non-causal (the wrapper pads
+# it to 128); zamba2-1.2b's shared block, 2 of 32 heads of 64; qwen2-vl-72b's
+# 4 of 64 heads of 128; through the wrapper's autograd Function (the
+# forward and the backward kernel), against the plain forward and backward
+# (BWD_TOL; the forward at FULL_ATOL), two calls the same bits, timed.
+MESH_TP_FLASH = {
+    "hubert-xlarge": {"B": 16, "H": 1, "S": 4096, "hd": 80,
+                      "causal": False},
+    "zamba2-1.2b shared block": {"B": 16, "H": 2, "S": 4096, "hd": 64,
+                                 "causal": True},
+    "qwen2-vl-72b": {"B": 16, "H": 4, "S": 4096, "hd": 128,
+                     "causal": True}}
+
+
+def mesh_tp_flash(torch) -> dict:
+    """(f): flash forward and backward at the per-rank shapes above."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_bwd_plain, flash_attention_plain)
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    out = {}
+    for name, s in MESH_TP_FLASH.items():
+        shape = (s["B"], s["H"], s["S"], s["hd"])
+        q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
+                       .to(torch.bfloat16) for _ in range(4))
+        tile, _ = flash_tile(s["S"], s["causal"])
+        scale = s["hd"] ** -0.5
+
+        def fwd_bwd():
+            qq, kk, vv = (t.detach().requires_grad_(True) for t in (q, k, v))
+            o = flash_attention(qq, kk, vv, causal=s["causal"],
+                                block_q=tile, block_k=tile)
+            return (o, *torch.autograd.grad(o, (qq, kk, vv), do))
+
+        got, again = fwd_bwd(), fwd_bwd()
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"flash at {name}'s per-rank shape: two "
+                                 "calls gave other bits")
+        o_p, lse_p = flash_attention_plain(
+            q, k, v, causal=s["causal"], scale=scale, block_q=128,
+            block_k=128, return_lse=True)
+        grads_p = flash_attention_bwd_plain(q, k, v, o_p, do, lse_p,
+                                            causal=s["causal"], scale=scale)
+        fwd_err = check_close(torch, "flash_attention",
+                              f"per-rank {name} {s}", got[0], o_p,
+                              "bfloat16", atol=FULL_ATOL["flash_attention"])
+        bwd_err = max(within(torch, g, w, *BWD_TOL["bfloat16"])
+                      for g, w in zip(got[1:], grads_p))
+        with torch.no_grad():
+            fwd_ms = time_ms(torch, lambda: flash_attention(
+                q, k, v, causal=s["causal"], block_q=tile, block_k=tile),
+                reps=10, flush=flush)
+        out[name] = {"shape": s, "dtype": "bfloat16", "tile": tile,
+                     "forward_max_abs_err": fwd_err,
+                     "backward_max_abs_err": bwd_err,
+                     "forward_ms": fwd_ms,
+                     "forward_backward_ms": time_ms(torch, fwd_bwd, reps=10,
+                                                    flush=flush)}
+        del q, k, v, do, got, again, o_p, lse_p, grads_p
+        torch.cuda.empty_cache()
+    del flush
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_mesh(torch, counters) -> dict:
     """The mesh on the card (see the comment above ``MESH_BITWISE``); the
     group is NCCL, never gloo, and no failure of a collective is caught."""
@@ -3699,14 +3873,18 @@ def phase_mesh(torch, counters) -> dict:
                            "names": list(mesh.mesh_dim_names)}
             out["bitwise"] = {a: mesh_sharded_against_unsharded(
                 torch, a, mesh, counters) for a in MESH_BITWISE}
+            out["families"] = {a: mesh_sharded_against_unsharded(
+                torch, a, mesh, counters) for a in MESH_FAMILIES}
             out["granite_prefill"] = mesh_granite_prefill(torch, mesh,
                                                           counters)
             out["compressed"] = mesh_compressed(torch, mesh, counters)
         finally:
             torch_dist.destroy_process_group()
     out["tp_kernels"] = mesh_tp_kernels(torch)
+    out["tp_flash"] = mesh_tp_flash(torch)
     runs = [out["granite_train"], *out["bitwise"].values(),
-            out["granite_prefill"], out["compressed"]]
+            *out["families"].values(), out["granite_prefill"],
+            out["compressed"]]
     out["launches"] = {k: sum(r["launches"][k] for r in runs)
                        for k in counters}
     emit(out)
@@ -3985,7 +4163,7 @@ def main() -> int:
     # falcon-mamba-7b; launches_router: in build_router's runs of both;
     # launches_router_mesh: in one run of the router's replica on the
     # (1, 1) mesh;
-    # launches_liveloop: in the real live loop's three ticks;
+    # launches_liveloop: in the real live loop's two ticks;
     # launches_train: in the training runs of both models;
     # launches_mesh: in the mesh phase's runs under Dist;
     # launches_dryrun: in the dryrun phase's real steps of both models

@@ -118,27 +118,45 @@ def measured_time(run, device, repeats: int = 5, warmup: int = 2) -> float:
                       "cycles")
 
 
-# Graph instances a measured fitness times on the GPU: captures of one
-# program replay at two speeds (about 0.3 us idle a kernel inside some
-# instances), so a variant's time is the median over this many captures,
-# each released before the next (PERF.md, fault 2)
+# Graph instances a kernel's measured time (kernels/workloads.py
+# graph_time) is the median of, each a capture of its own
 MEASURED_CAPTURES = 3
+# Program graphs a program's measured fitness times on the GPU: a
+# program's graph replays at two speeds about 8% apart (idle time between
+# its kernels), set by where its memory lies, and every capture on one
+# graph's memory shares its speed; so a variant's time is the mean over
+# this many graphs, each on memory of its own (its constants, input
+# buffers and pool), one after another (PERF.md, fault 2)
+PROGRAM_INSTANCES = 5
+# each graph instance's time (s) of the last measured_graph_time or
+# kernels/workloads.py graph_time call on the GPU, in order: the record
+# that shows whether the measured time held against a slow instance
+LAST_INSTANCES: list[float] = []
+
+
+def record_instances(times: list) -> float:
+    """Keep ``times`` (one a graph instance) as :data:`LAST_INSTANCES`
+    and return their median."""
+    LAST_INSTANCES[:] = [float(t) for t in times]
+    return float(np.median(times))
 
 
 def measured_graph_time(graph, device) -> float:
-    """Median over ``MEASURED_CAPTURES`` graph instances of
-    :func:`measured_time` of ``graph.run`` (a captured
-    :class:`~repro_torch.core.interp.ProgramGraph`, its inputs loaded):
-    each instance is timed as one, then released and the op list
-    captured again.  On the CPU, one :func:`measured_time`."""
+    """Mean over ``PROGRAM_INSTANCES`` program graphs of
+    :func:`measured_time` of their replays: ``graph`` (a captured
+    :class:`~repro_torch.core.interp.ProgramGraph`, its inputs loaded),
+    then twins of it (the same program and inputs on memory of their own,
+    each released before the next); each instance's time is kept in
+    :data:`LAST_INSTANCES`.  On the CPU, one :func:`measured_time`."""
     if torch.device(device).type != "cuda":
         return measured_time(graph.run, device)
-    times = []
-    for i in range(MEASURED_CAPTURES):
-        if i:
-            graph.recapture()
-        times.append(measured_time(graph.run, device))
-    return float(np.median(times))
+    times = [measured_time(graph.run, device)]
+    for _ in range(PROGRAM_INSTANCES - 1):
+        with graph.twin() as twin:
+            twin.run()
+            times.append(measured_time(twin.run, device))
+    record_instances(times)
+    return float(np.mean(times))
 
 
 def _check_finite_scalar(x) -> float:

@@ -493,6 +493,7 @@ class ProgramGraph:
 
     def __init__(self, program: Program, device=None):
         self.device = resolve_device(device)
+        self._program = program
         self._env0, self._steps = _lower(program, self.device)
         self._decl = {name: (vid, ttype) for name, vid, ttype in
                       program.inputs}
@@ -540,18 +541,13 @@ class ProgramGraph:
         self._graph.replay()
         return list(self._static)
 
-    def recapture(self) -> None:
-        """Release the captured graph and capture the op list again: a new
-        graph instance for the next runs (nothing on the CPU, or before
-        the first run).  The outputs a run returned before are the old
-        instance's."""
-        if self._graph is None:
-            return
-        old, self._graph, self._static = self._graph, None, None
-        old.release()
-        graph = CudaGraph(self.device)
-        self._static = graph.capture(self._outputs_of_run)
-        self._graph = graph
+    def twin(self) -> "ProgramGraph":
+        """The same program on memory of its own: its constants lowered
+        again and the inputs loaded here copied into buffers of its own;
+        its first run captures a graph of its own."""
+        twin = ProgramGraph(self._program, self.device)
+        twin.load(self._buffers)
+        return twin
 
     def close(self) -> None:
         graph, self._graph = self._graph, None

@@ -55,6 +55,7 @@ from __future__ import annotations
 import hashlib
 import json
 import os
+import statistics
 from collections import deque
 
 from ..deploy.engine import DEFAULT_SERVE_PLAN, serve_schedule_space
@@ -75,13 +76,18 @@ STATE_VERSION = 1
 # three replays of one plan after three of the other rolled back a plan
 # measured against itself (ROADMAP.md, section 3).  A plan is a kernel
 # schedule, so it changes only device time: each replay's throughput is
-# its generated tokens over the device time between a pair of CUDA events
-# around it, recorded while the stream spins ahead of the host
-# (``_device_timed``).
+# its generated tokens over the device's busy time (``_device_timed``):
+# CUDA events around a replay hold the host's pauses, since the engine
+# reads its tokens back every tick (on an H100 they put A/A windows under
+# the 0.95 floor where busy time put none: ROADMAP.md, fault 3).
 CARD_WINDOW_REPEATS = 15
 # cycles the stream spins before a timed replay (at least the H100's top
 # SM clock, 1.98 GHz: about 1 ms)
 CARD_WINDOW_SPIN = 2_000_000
+# a card replay's throughputs, by the device's busy time (the canary's)
+# and by CUDA events around the replay (reported beside it)
+CLOCK_KEYS = {"busy": "throughput_busy_tok_s",
+              "events": "throughput_event_tok_s"}
 
 METRIC_KEYS = ("throughput_tok_s", "mean_ttft_s", "reject_rate")
 
@@ -215,30 +221,58 @@ def _simulate_items(items, last_arrival: int, m: int, c: int,
 
 
 def _median_run(runs: list) -> dict:
-    """The metrics of the median-throughput run."""
+    """The metrics of the median-throughput run; where every run carries
+    a throughput by each clock (``CLOCK_KEYS``), ``median_by_clock`` holds
+    the median of each over the runs."""
+    by_clock = {c: statistics.median(r[k] for r in runs)
+                for c, k in CLOCK_KEYS.items() if all(k in r for r in runs)}
     runs = sorted(runs, key=lambda m: m["throughput_tok_s"])
-    return runs[len(runs) // 2]
+    mid = runs[len(runs) // 2]
+    return dict(mid, median_by_clock=by_clock) if by_clock else mid
+
+
+def busy_seconds(prof) -> tuple[float, int]:
+    """(seconds, count) of the device's kernels and copies in a
+    torch.profiler profile, summed, but for the spin a stream is held
+    with (``torch.cuda._sleep``'s ``spin_kernel``)."""
+    from torch.autograd import DeviceType
+    total, n = 0, 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA \
+                and "spin_kernel" not in e.name():
+            total += e.duration_ns()
+            n += 1
+    return total * 1e-9, n
 
 
 def _device_timed(one):
     """``one`` (a replay returning its metrics) with its throughput taken
-    over device time: the stream spins ``CARD_WINDOW_SPIN`` cycles, then a
-    pair of CUDA events brackets the replay, as ``measured_time`` brackets
-    a timed call; the replay's own synchronizations wait for the device,
-    not the host's pace before it.  ``device_s`` holds that time."""
+    over the device's busy time: the replay runs under torch.profiler with
+    CUDA activity, and ``busy_s`` is the sum of its kernel and copy
+    durations.  Beside it, CUDA events bracket the replay after the stream
+    spun ``CARD_WINDOW_SPIN`` cycles, as ``measured_time`` brackets a
+    timed call: ``device_s`` and ``throughput_event_tok_s``."""
     import torch
+    from torch.profiler import ProfilerActivity, profile
 
     def timed() -> dict:
-        torch.cuda._sleep(CARD_WINDOW_SPIN)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        m = one()
-        end.record()
-        end.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(CARD_WINDOW_SPIN)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            m = one()
+            end.record()
+            end.synchronize()
         secs = start.elapsed_time(end) * 1e-3
-        return dict(m, device_s=secs, throughput_tok_s=(
-            m["gen_tokens"] / secs if secs > 0 else 0.0))
+        busy, kernels = busy_seconds(prof)
+        if kernels == 0:
+            raise RuntimeError("the profiler saw no device work in a canary "
+                               "replay")
+        return dict(m, device_s=secs, busy_s=busy, device_events=kernels,
+                    throughput_event_tok_s=m["gen_tokens"] / secs,
+                    throughput_busy_tok_s=m["gen_tokens"] / busy,
+                    throughput_tok_s=m["gen_tokens"] / busy)
 
     return timed
 
@@ -497,7 +531,8 @@ class LiveLoopController:
         """Both plans' metrics on the window's slice: ``_replay_real``'s,
         one plan after the other, on the CPU; on the GPU the median replay
         of ``CARD_WINDOW_REPEATS`` each, the two plans' replays in turns,
-        each replay's throughput by device time (``_device_timed``)."""
+        each replay's throughput by the device's busy time
+        (``_device_timed``)."""
         tr = self._window_slice(tick)
         if self._model()[1].device.type != "cuda":
             return (self._replay_real(tr, base_genome),

@@ -38,7 +38,8 @@ import numpy as np
 import torch
 
 from ..core.evaluator import WorkloadSpec
-from ..core.fitness import MEASURED_CAPTURES, KernelWorkload, measured_time
+from ..core.fitness import MEASURED_CAPTURES, KernelWorkload, \
+    measured_time, record_instances
 from ..core.schedule import ScheduleSpace
 from ..device import CudaGraph, resolve_device
 from .costs import schedule_features, schedule_time
@@ -184,7 +185,8 @@ def graph_time(fn, inputs) -> float:
     where they are, so a kernel's pointers are the same on every replay),
     and :func:`~repro_torch.core.fitness.measured_time` times its replays;
     the time is the median over ``MEASURED_CAPTURES`` such graphs, each
-    released before the next is captured.  Each replay adds
+    released before the next is captured (each graph's time kept in
+    ``core/fitness.py`` ``LAST_INSTANCES``).  Each replay adds
     the launches its capture recorded to the wrappers' counts.  On the
     CPU, the host clock over the eager call."""
     device = next(iter(inputs.values())).device
@@ -215,7 +217,7 @@ def graph_time(fn, inputs) -> float:
             times.append(measured_time(replay, device) / GRAPH_CALLS)
         finally:
             graph.release()
-    return float(np.median(times))
+    return record_instances(times)
 
 
 def _ref_output(kernel: str, arrays: dict) -> np.ndarray:

@@ -21,13 +21,13 @@ where it has ``compile_s``.  The memory record estimates the port's step
 as it is: ``argument_size_in_bytes`` is a rank's local shards of the
 parameters and the optimizer state and its batch (the arguments the step
 is given), ``temp_size_in_bytes`` the peak of the storage the step makes
-above them.  For dense GQA and mamba1 models each rank of the
-``model`` axis computes on its block of the weights (heads, FFN units,
-channels, vocabulary), as the reference's GSPMD partitions its step;
-the other families gather their weights whole on every rank, so a
-70B-class model of those does not fit a card: the record says so
-(``fits_80gb``).  A cell that cannot be traced is a ``FAIL`` record
-naming the op, and the CLI exits 1.
+above them.  In a train cell each rank of the ``model`` axis computes
+on its block of the weights (heads, FFN units, experts, channels,
+vocabulary), as the reference's GSPMD partitions its step; a leaf whose
+dimension does not divide the axis (one ``_fit`` relocated) is gathered
+whole and its layer computes whole on every rank.  A cell that needs
+more than a card holds says so (``fits_80gb``).  A cell that cannot be
+traced is a ``FAIL`` record naming the op, and the CLI exits 1.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch all \\

@@ -24,7 +24,8 @@ data (``FakeTensor``s, ``launch/specs.py``), and sums
   buffer for an op that writes into its first argument, as
   ``all_to_all_single`` does; the payload is also a trip to memory, as
   the reference counts it);
-* memory: the live storage of the tensors the step makes, from the
+* memory: the live storage of the tensors the step makes (a meta
+  tensor holds none), from the
   dispatch of each op's results (a storage counted once, while any
   tensor holds it, rounded up to the caching allocator's 512 bytes); its
   peak is ``temp_size_in_bytes``.  Storages that exist before the step
@@ -247,6 +248,8 @@ class CostCounter(TorchDispatchMode):
                 for t in outs))
 
     def _track(self, t: torch.Tensor) -> None:
+        if t.device.type == "meta":
+            return  # no memory (a model's skeleton, train_step._local_model)
         st = t.untyped_storage()
         if st in self._seen:
             return

@@ -29,10 +29,11 @@ tensor dim ``i``, else ``Replicate()``), and :func:`distribute` /
 :func:`gather` move a tree between whole tensors and DTensors.
 
 In the train step (train/train_step.py) a leaf whose ``model`` placement
-sits on the dimension the tensor-parallel arithmetic splits (``TP_DIMS``,
-:func:`model_dim`) is gathered over the batch axes only
-(:func:`gather_batch`) and used as the rank's block; every other leaf is
-gathered whole (:func:`gather`).
+sits on the dimension the tensor-parallel arithmetic of every family
+splits (``TP_DIMS``, :func:`tp_dims`, :func:`model_dim`) is gathered over
+the batch axes only (:func:`gather_batch`) and used as the rank's block;
+every other leaf (one ``_fit`` relocated, or replicated over ``model``)
+is gathered whole (:func:`gather`).
 """
 
 from __future__ import annotations
@@ -318,14 +319,27 @@ def distribute(tree, shardings):
             else place(v, shardings[k]) for k, v in tree.items()}
 
 
-# leaf name -> the dimension the tensor-parallel arithmetic of the dense
-# GQA and mamba1 layers splits over the model axis (models/attention.py,
-# models/layers.py, models/mamba.py): heads, the FFN hidden units,
-# mamba1's d_inner, the vocabulary
+# leaf name -> the dimension of the layer's tensor that its
+# tensor-parallel arithmetic splits over the model axis
+# (models/attention.py, models/layers.py, models/mamba.py, models/moe.py):
+# attention heads (GQA and MLA), the FFN's and the shared experts' hidden
+# units, the experts, mamba's d_inner (mamba2's heads), the vocabulary
 TP_DIMS = {"embed": 0, "out": 1, "wq": 1, "wk": 1, "wv": 1, "wo": 0,
            "bq": 0, "bk": 0, "bv": 0, "gate": 1, "up": 1, "down": 0,
+           "wq_b": 1, "wkv_b": 1,
+           "w_gate": 0, "w_up": 0, "w_down": 0,
+           "sh_gate": 1, "sh_up": 1, "sh_down": 0,
            "in_proj": 1, "conv_w": 1, "conv_b": 0, "x_proj": 0,
-           "dt_proj": 1, "D": 0, "out_proj": 0}
+           "dt_proj": 1, "dt_w": 1, "D": 0, "out_proj": 0}
+
+
+def tp_dims(cfg: ModelConfig) -> dict:
+    """``TP_DIMS`` for ``cfg``'s layers: under ``moe_mode="ep_a2a"`` the
+    expert-parallel branch uses the shared experts whole (the reference's
+    ``shard_map`` spec ``P()``), so they are not split there."""
+    if cfg.moe_mode != "ep_a2a":
+        return TP_DIMS
+    return {k: v for k, v in TP_DIMS.items() if not k.startswith("sh_")}
 
 
 def model_dim(x, model_axis: str = "model") -> int | None:
@@ -357,11 +371,27 @@ def _same_data(x, placements) -> bool:
 
 def gather_batch(x, model_axis: str = "model") -> torch.Tensor:
     """This rank's block over ``model_axis`` of a DTensor, whole over every
-    other mesh axis: gathered over the batch (fsdp) axes only."""
-    want = batch_placements(x, model_axis)
-    if not _same_data(x, want):
-        x = x.redistribute(x.device_mesh, want)
-    return x._local_tensor.detach()
+    other mesh axis: gathered over the batch (fsdp) axes only, minor axis
+    first, by an all-gather of the local block along its dimension (a
+    DTensor redistribute of a leaf whose model axis splits an earlier
+    dimension than a batch axis gathers it whole first, and its block is a
+    view that keeps the whole storage)."""
+    import torch.distributed as torch_dist
+    mesh, names = x.device_mesh, x.device_mesh.mesh_dim_names
+    model = x.placements[names.index(model_axis)]
+    out = x._local_tensor.detach()
+    for i in reversed(range(mesh.ndim)):
+        pl = x.placements[i]
+        if names[i] == model_axis or not pl.is_shard() or mesh.size(i) == 1:
+            continue
+        if model.is_shard() and model.dim == pl.dim:
+            return x.redistribute(mesh, batch_placements(
+                x, model_axis))._local_tensor.detach()
+        parts = [torch.empty_like(out) for _ in range(mesh.size(i))]
+        torch_dist.all_gather(parts, out.contiguous(),
+                              group=mesh.get_group(i))
+        out = torch.cat(parts, dim=pl.dim)
+    return out
 
 
 def gather(x):

@@ -19,8 +19,9 @@ What each kind's function is, as the port runs it:
 
 * **train**: ``make_train_step`` under ``Dist`` on the mesh, the
   parameters and optimizer state placed by ``param_specs`` (DTensors), the
-  global batch given to every rank; the step gathers the whole model on
-  each rank (``train/train_step.py``).  The optimizer's 0-d step count is
+  global batch given to every rank; the step gathers each leaf over the
+  batch axes and keeps its block over ``model`` where its layer splits
+  (``train/train_step.py``).  The optimizer's 0-d step count is
   host state on every device: a real host tensor, not a placed one.
 * **prefill** and **decode**: ``prefill``/``decode_step`` under ``Dist``
   on this rank's block of the batch (and of the caches) over the batch

@@ -36,9 +36,12 @@ over the axis (``wk`` placed on it) are the rank's own; when
 m), the rank projects the KV heads its query heads read (head h reads h //
 (H/K)) from a slice of the whole weights, whose gradient is summed over
 the axis.  The flash kernel runs on the local heads, and ``wo``'s
-row-parallel product ends in one sum over the axis.  Otherwise (serving,
-H not divisible, one rank) the attention is the one-device function and
-``_shard`` places nothing.
+row-parallel product ends in one sum over the axis.  This holds for
+every GQA family (M-RoPE and the biases on the local heads, the
+encoder's non-causal attention) and for zamba2's shared block; MLA splits
+the same way over ``wq_b``/``wkv_b``'s heads, with its low-rank
+projections whole.  Otherwise (serving, H not divisible, one rank) the
+attention is the one-device function and ``_shard`` places nothing.
 """
 
 from __future__ import annotations
@@ -356,7 +359,22 @@ def _mla_latent(p, cfg: ModelConfig, x, positions):
 def mla_forward(p, cfg: ModelConfig, x, positions, dist=None):
     """Full-sequence MLA. Returns (y, (c_kv, k_rope)) — the compressed
     cache.  Torch ops for either ``attn_impl``: the kernel takes no q/k
-    head dim that differs from v's."""
+    head dim that differs from v's.  Under tensor-parallel arithmetic
+    (module docstring) on this rank's heads: ``wq_b`` and ``wkv_b`` are
+    its heads and ``wo`` its rows; the low-rank projections ``wq_a`` and
+    ``wkv_a`` and their norms are used whole, their gradients summed over
+    the axis; ``wo``'s row-parallel product ends in one sum."""
+    name = tp_axis(dist)
+    H = cfg.n_heads
+    if name is not None and H % axis_size(name) == 0:
+        x = tp_enter(x, name)
+        p = {**{k: tp_enter(p[k], name)
+                for k in ("wq_a", "q_norm", "wkv_a", "kv_norm")},
+             "wq_b": tp_block(p["wq_b"], name, 1, H),
+             "wkv_b": tp_block(p["wkv_b"], name, 1, H),
+             "wo": tp_block(p["wo"], name, 0, H)}
+    else:
+        name = None
     nope, rope = cfg.qk_nope_dim, cfg.qk_rope_dim
     q_nope, q_rope = _mla_query(p, cfg, x, positions)
     c_kv, k_rope = _mla_latent(p, cfg, x, positions)
@@ -366,13 +384,16 @@ def mla_forward(p, cfg: ModelConfig, x, positions, dist=None):
     qk = torch.cat([q_nope, q_rope], -1)
     if dist is not None and dist.active:
         dp, mdl = dist.batch_axes, dist.model_axis
-        qk = _shard(qk, dist, dp, None, mdl, None)
-        k = _shard(k, dist, dp, None, mdl, None)
-        v = _shard(v, dist, dp, None, mdl, None)
+        heads = H if name is not None else 0
+        qk = _shard(qk, dist, dp, None, mdl, None, heads=heads)
+        k = _shard(k, dist, dp, None, mdl, None, heads=heads)
+        v = _shard(v, dist, dp, None, mdl, None, heads=heads)
     S = x.shape[1]
     out = _sdpa(qk, k, v, causal_mask(S, S, device=x.device),
                 1.0 / np.sqrt(nope + rope))
-    return _out(out, p["wo"]), (c_kv, k_rope[..., 0, :])
+    y = _out(out, p["wo"])
+    return (y if name is None else tp_exit(y, name)), \
+        (c_kv, k_rope[..., 0, :])
 
 
 def mla_decode(p, cfg: ModelConfig, x, cache_ckv, cache_krope, index,

@@ -36,7 +36,8 @@ models/transformer.py ``Dist.tensor_parallel``) are Megatron's: an
 activation every rank holds whole enters a region through ``tp_enter``
 (the identity; its gradient summed over the axis) and a row-parallel
 product leaves it through ``tp_exit`` (one sum; the identity backward);
-``tp_block`` takes the rank's block of a weight left whole, and
+``tp_block`` takes the rank's block of a weight left whole (or of an
+activation, which ``tp_gather`` puts back together), and
 ``realign_pairs`` moves a product's columns so a rank holds its block of
 each of two halves.  On an axis of one rank each is the identity and
 makes no collective.
@@ -298,6 +299,15 @@ def tp_block(x, axis_name: str, dim: int, whole: int):
         raise ValueError(f"{n} entries along dim {dim} are neither the "
                          f"whole {whole} nor a block of {size}")
     return _Split.apply(x, group, size, index, dim)
+
+
+def tp_gather(x, axis_name: str, dim: int):
+    """The ranks' blocks of ``x`` along ``dim`` put together, the same
+    on every rank of the axis; each rank's gradient is its block of the
+    (replicated) cotangent: the way back from :func:`tp_block` of a
+    replicated activation."""
+    group, size, index = _axis(axis_name)
+    return x if size == 1 else _Gather.apply(x, group, size, index, dim)
 
 
 def pmax(x, axis_name: str) -> torch.Tensor:

@@ -76,6 +76,22 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     return y.reshape(x.shape)
 
 
+def split_rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float,
+                   d: int, axis_name: str) -> torch.Tensor:
+    """:func:`rms_norm` of rows whose ``d`` entries are split over a bound
+    model axis: ``x`` (..., d / m) and ``scale`` this rank's block (or the
+    whole scale, whose block is taken); each row's sum of squares is one
+    sum over the axis (forward, and of its gradient: each rank's
+    cotangent is its block's), in f32 as the kernel's plain version
+    computes it.  Torch ops: the kernel takes no outside row scale."""
+    scale = tp_block(scale, axis_name, 0, d)
+    x32 = x.to(torch.float32)
+    ss = tp_enter(tp_exit((x32 * x32).sum(-1, keepdim=True), axis_name),
+                  axis_name)
+    y = x32 * torch.rsqrt(ss / d + eps) * scale.to(torch.float32)
+    return y.to(x.dtype)
+
+
 def rope_freqs(hd: int, theta: float):
     return 1.0 / (theta ** (np.arange(0, hd, 2) / hd))
 

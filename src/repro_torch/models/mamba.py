@@ -16,7 +16,15 @@ so the rank holds its x channels and the z channels that gate them; the
 conv, ``dt_proj``, ``dt_bias``, ``A_log``, ``D`` and the scan kernel run
 on those channels; ``x_proj``'s row-parallel product is summed over the
 axis (dt_low, B and C whole on every rank, their gradients summed back),
-and so is ``out_proj``'s.
+and so is ``out_proj``'s.  ``mamba2_seq`` and ``mamba2_seq_naive`` run on
+the rank's H/m heads (its d_inner / m channels) the same way: ``in_proj``
+realigned, ``conv_w``/``conv_b``/``D``/``norm_scale`` the rank's channels,
+``dt_w``/``dt_bias``/``A_log`` its heads, ``bc_proj`` whole (B and C are
+shared by the heads; its gradient summed over the axis).  The gated norm
+reduces over the whole d_inner, so each row's sum of squares is summed
+over the axis (``layers.split_rms_norm``: one all-reduce of (B, L)
+floats, not a gather of y), in torch ops, since the kernel takes no
+outside row scale; ``out_proj``'s product ends in one sum.
 
 The depthwise causal conv is its four taps as shifted multiply-adds in f32
 (the form the reference's decode step takes): no cuDNN, so no TF32 on the
@@ -33,7 +41,7 @@ import torch.nn.functional as F
 from ..kernels.mamba_scan.ops import mamba_scan
 from .common import ModelConfig, axis_size, realign_pairs, tp_axis, \
     tp_block, tp_enter, tp_exit
-from .layers import Params, dense_init, rms_norm
+from .layers import Params, dense_init, rms_norm, split_rms_norm
 
 # timesteps the scan kernel stages at a time (kernels/workloads.py
 # BASELINES); a sequence is padded at the end to a multiple of it
@@ -97,11 +105,26 @@ def _conv_step(window, w, b):
     return (acc + b.to(torch.float32)).to(window.dtype)
 
 
-def _in_proj(p, cfg: ModelConfig, x):
-    xi, z = (x @ p["in_proj"]).chunk(2, dim=-1)
+def _in_proj(p, cfg: ModelConfig, x, name: str | None = None):
+    """(silu(conv(x channels)), z, the conv's tail) of ``in_proj``'s
+    product; with ``name`` (a bound model axis) ``in_proj`` is the rank's
+    contiguous columns of [x | z], realigned so the rank holds its block
+    of each half."""
+    xz = x @ p["in_proj"]
+    if name is not None:
+        xz = realign_pairs(xz, name)
+    xi, z = xz.chunk(2, dim=-1)
     conv_tail = xi[:, -(cfg.ssm_conv - 1):, :]
     xi = F.silu(_causal_conv(xi, p["conv_w"], p["conv_b"]))
     return xi, z, conv_tail
+
+
+def _tp_name(cfg: ModelConfig, dist, groups: int) -> str | None:
+    """The model axis a mamba layer splits over: ``tp_axis`` when it
+    divides ``groups`` (mamba1's channels, mamba2's heads), else None
+    (the one-device function)."""
+    name = tp_axis(dist)
+    return None if name is None or groups % axis_size(name) else name
 
 
 # --------------------------------------------------------------------------
@@ -134,9 +157,7 @@ def mamba1_seq(p, cfg: ModelConfig, x, chunk: int = SCAN_CHUNK, dist=None):
     the scan kernel's tile of timesteps; it does not change the result.
     Under tensor-parallel arithmetic (module docstring) y is the same on
     every rank and the caches hold the rank's channels."""
-    name = tp_axis(dist)
-    if name is not None and cfg.d_inner % axis_size(name):
-        name = None  # channels not divisible: the one-device function
+    name = _tp_name(cfg, dist, cfg.d_inner)
     n = cfg.ssm_state
     dt_rank = p["dt_proj"].shape[0]
     if name is None:
@@ -144,10 +165,7 @@ def mamba1_seq(p, cfg: ModelConfig, x, chunk: int = SCAN_CHUNK, dist=None):
         proj = xi @ p["x_proj"]
     else:
         p = _channel_block(p, cfg, name)
-        xz = realign_pairs(tp_enter(x, name) @ p["in_proj"], name)
-        xi, z = xz.chunk(2, dim=-1)
-        conv_tail = xi[:, -(cfg.ssm_conv - 1):, :]
-        xi = F.silu(_causal_conv(xi, p["conv_w"], p["conv_b"]))
+        xi, z, conv_tail = _in_proj(p, cfg, tp_enter(x, name), name)
         proj = tp_enter(tp_exit(xi @ p["x_proj"], name), name)
     dt = F.softplus(proj[..., :dt_rank] @ p["dt_proj"]
                     + p["dt_bias"]).to(torch.float32)             # (B, L, di)
@@ -197,11 +215,31 @@ def mamba1_decode(p, cfg: ModelConfig, x, conv_state, h):
 # mamba2 (zamba2) — scalar-decay-per-head SSD
 # --------------------------------------------------------------------------
 
-def _mamba2_inputs(p, cfg: ModelConfig, x):
-    di, n = cfg.d_inner, cfg.ssm_state
-    H = cfg.ssm_heads or di // 64
+def _heads(cfg: ModelConfig) -> int:
+    return cfg.ssm_heads or cfg.d_inner // 64
+
+
+def _head_block(p, cfg: ModelConfig, name: str) -> dict:
+    """mamba2's weights for this rank's H/m heads (its d_inner / m
+    channels): each the rank's block along its head or channel dimension
+    (taken here when the weight is whole); ``bc_proj``, used whole on
+    every rank, with its gradient summed over the axis."""
+    di, H = cfg.d_inner, _heads(cfg)
+    dims = {"in_proj": (1, 2 * di), "conv_w": (1, di), "conv_b": (0, di),
+            "dt_w": (1, H), "dt_bias": (0, H), "A_log": (0, H), "D": (0, di),
+            "norm_scale": (0, di), "out_proj": (0, di)}
+    out = {k: tp_block(p[k], name, *dims[k]) for k in dims}
+    out["bc_proj"] = tp_enter(p["bc_proj"], name)
+    return out
+
+
+def _mamba2_inputs(p, cfg: ModelConfig, x, name: str | None = None):
+    """The SSD's inputs on the heads of ``p`` (all, or with ``name`` the
+    rank's block: ``p`` from :func:`_head_block`, ``x`` entered)."""
+    n = cfg.ssm_state
+    H, di = p["dt_w"].shape[1], p["D"].shape[0]
     B, L, _ = x.shape
-    xi, z, conv_tail = _in_proj(p, cfg, x)
+    xi, z, conv_tail = _in_proj(p, cfg, x, name)
     bc = (x @ p["bc_proj"]).to(torch.float32)
     dt = F.softplus(x @ p["dt_w"] + p["dt_bias"]).to(torch.float32)  # (B,L,H)
     A = -torch.exp(p["A_log"])                                       # (H,)
@@ -209,19 +247,39 @@ def _mamba2_inputs(p, cfg: ModelConfig, x):
     return xi, z, conv_tail, bc[..., :n], bc[..., n:], dt, A, xh
 
 
-def _mamba2_out(p, cfg: ModelConfig, x, y, xi, z):
-    y = y.reshape(x.shape[0], x.shape[1], cfg.d_inner)
+def _mamba2_out(p, cfg: ModelConfig, x, y, xi, z, name: str | None = None):
+    """The gated norm and ``out_proj``; with ``name`` on the rank's
+    channels: the norm's sum of squares over the whole d_inner is one sum
+    over the axis (:func:`split_rms_norm`), and ``out_proj``'s
+    row-parallel product one more."""
+    y = y.reshape(x.shape[0], x.shape[1], -1)
     y = y + p["D"] * xi.to(torch.float32)
-    y = rms_norm(y.to(x.dtype), p["norm_scale"], cfg.norm_eps)
-    return (y * F.silu(z)) @ p["out_proj"]
+    if name is None:
+        y = rms_norm(y.to(x.dtype), p["norm_scale"], cfg.norm_eps)
+        return (y * F.silu(z)) @ p["out_proj"]
+    y = split_rms_norm(y.to(x.dtype), p["norm_scale"], cfg.norm_eps,
+                       cfg.d_inner, name)
+    return tp_exit((y * F.silu(z)) @ p["out_proj"], name)
 
 
-def mamba2_seq_naive(p, cfg: ModelConfig, x, h0=None):
+def _mamba2_split(p, cfg: ModelConfig, x, dist):
+    """(p, x, name): with tensor-parallel arithmetic over heads that
+    divide, the rank's blocks, the entered input and the axis; else the
+    whole layer."""
+    name = _tp_name(cfg, dist, _heads(cfg))
+    if name is None:
+        return p, x, None
+    return _head_block(p, cfg, name), tp_enter(x, name), name
+
+
+def mamba2_seq_naive(p, cfg: ModelConfig, x, h0=None, dist=None):
     """Reference mamba2: the elementwise recurrence, one timestep after
     another over the (B, H, dh, n) state (the numerical oracle of
-    :func:`mamba2_seq`)."""
+    :func:`mamba2_seq`).  Under tensor-parallel arithmetic (module
+    docstring) on the rank's heads."""
     B, L, _ = x.shape
-    xi, z, conv_tail, Bv, Cv, dt, A, xh = _mamba2_inputs(p, cfg, x)
+    p, x, name = _mamba2_split(p, cfg, x, dist)
+    xi, z, conv_tail, Bv, Cv, dt, A, xh = _mamba2_inputs(p, cfg, x, name)
     a = torch.exp(dt * A)                                          # (B,L,H)
     h = (torch.zeros((B,) + xh.shape[2:] + (cfg.ssm_state,),
                      dtype=torch.float32, device=x.device)
@@ -233,21 +291,25 @@ def mamba2_seq_naive(p, cfg: ModelConfig, x, h0=None):
         h = a[:, t, :, None, None] * h + bterm
         ys.append(torch.einsum("bhdn,bn->bhd", h, Cv[:, t]))
     y = torch.stack(ys, dim=1)
-    return _mamba2_out(p, cfg, x, y, xi, z), (conv_tail, h)
+    return _mamba2_out(p, cfg, x, y, xi, z, name), (conv_tail, h)
 
 
-def mamba2_seq(p, cfg: ModelConfig, x, h0=None, chunk: int = 128):
+def mamba2_seq(p, cfg: ModelConfig, x, h0=None, chunk: int = 128,
+               dist=None):
     """Mamba2 in the SSD matmul form (Dao & Gu 2024).
 
     Per chunk of length Q the scalar-decay recurrence collapses to
       y_intra[t] = sum_{s<=t} exp(cum_t - cum_s) * (C_t . B_s) * dt_s * x_s
     — an attention-like (B, H, Q, Q) matmul — plus a carried-state term and
-    a decay-weighted state update.  Equal to :func:`mamba2_seq_naive`."""
+    a decay-weighted state update.  Equal to :func:`mamba2_seq_naive`.
+    Under tensor-parallel arithmetic (module docstring) on the rank's
+    heads."""
     B, L, _ = x.shape
     Q = min(chunk, L)
     while L % Q:
         Q -= 1
-    xi, z, conv_tail, Bv, Cv, dt, A, xh = _mamba2_inputs(p, cfg, x)
+    p, x, name = _mamba2_split(p, cfg, x, dist)
+    xi, z, conv_tail, Bv, Cv, dt, A, xh = _mamba2_inputs(p, cfg, x, name)
     loga = dt * A                                                  # <= 0
     h = (torch.zeros((B,) + xh.shape[2:] + (cfg.ssm_state,),
                      dtype=torch.float32, device=x.device)
@@ -272,7 +334,7 @@ def mamba2_seq(p, cfg: ModelConfig, x, h0=None, chunk: int = 128):
             "bqh,bqn,bqhd->bhdn", dt_c * tail, B_c, x_c)
         ys.append(y)
     y = torch.cat(ys, dim=1)
-    return _mamba2_out(p, cfg, x, y, xi, z), (conv_tail, h)
+    return _mamba2_out(p, cfg, x, y, xi, z, name), (conv_tail, h)
 
 
 def mamba2_decode(p, cfg: ModelConfig, x, conv_state, h):

@@ -12,6 +12,13 @@ Three execution modes, as the reference's:
   their experts' ranks in capacity-C buffers through a pair of
   ``all_to_all`` exchanges and come back weighted by their gates.
 
+Under the train step's tensor-parallel arithmetic (``Dist.tensor_parallel``,
+a ``model`` axis of m > 1 ranks) ``moe_dense`` computes the rank's block of
+E_pad / m experts over all of its batch block's tokens, as the reference's
+GSPMD partitions the expert dimension, and the weighted combine is summed
+over the axis; the expert-parallel path receives the rank's expert block
+as it is (models/transformer.py ``_moe_apply``).
+
 Experts whose count does not divide the configured expert shards
 (granite's 40 experts for 16 shards) are zero-padded to ``expert_pad``;
 the router has no columns for them, so they are never selected.
@@ -24,7 +31,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from .common import ModelConfig, all_to_all, axis_index, axis_size, psum
+from .common import ModelConfig, all_to_all, axis_index, axis_size, psum, \
+    tp_block, tp_enter, tp_exit
 from .layers import Params, dense_init, swiglu
 
 NEG_INF = -1e30
@@ -68,8 +76,14 @@ def _shared(p, x):
     return swiglu(x, p["sh_gate"], p["sh_up"], p["sh_down"])
 
 
-def moe_dense(p, cfg: ModelConfig, x):
-    """x: (B, S, d).  Computes all experts (full sequences on one device)."""
+def moe_dense(p, cfg: ModelConfig, x, axis_name: str | None = None):
+    """x: (B, S, d).  Computes all experts (full sequences on one device).
+    With ``axis_name`` (a bound model axis dividing the padded experts)
+    each rank computes its block of experts over every token and the
+    weighted combine is summed over the axis (module docstring)."""
+    if axis_name is not None and \
+            expert_pad(cfg, cfg.expert_shards) % axis_size(axis_name) == 0:
+        return _moe_dense_split(p, cfg, x, axis_name)
     B, S, d = x.shape
     x2 = x.reshape(-1, d)
     w, idx = _route(x2, p["router"], cfg.top_k)
@@ -80,6 +94,41 @@ def moe_dense(p, cfg: ModelConfig, x):
     ye = torch.einsum("enf,efd->end", g * u, p["w_down"])
     y = torch.einsum("end,ne->nd", ye, combine)
     y = y + _shared(p, x2)
+    return y.reshape(B, S, d)
+
+
+def _moe_dense_split(p, cfg: ModelConfig, x, name: str):
+    """:func:`moe_dense` on this rank's E_pad / m experts: the input
+    enters the region whole, the router is used whole (its gradient
+    summed over the axis), ``w_gate``/``w_up``/``w_down`` are the rank's
+    expert block and the combine the matching columns, so a padded expert
+    (no router column) gets no weight; the shared experts split over
+    their hidden units as SwiGLU does.  One sum over the axis ends both."""
+    B, S, d = x.shape
+    e_pad = expert_pad(cfg, cfg.expert_shards)
+    m, r = axis_size(name), axis_index(name)
+    el = e_pad // m
+    x2 = tp_enter(x.reshape(-1, d), name)
+    w, idx = _route(x2, tp_enter(p["router"], name), cfg.top_k)
+    onehot = F.one_hot(idx, e_pad).to(x.dtype)                   # (n,k,E)
+    combine = torch.einsum("nk,nke->ne", w, onehot)[:, r * el:(r + 1) * el]
+    wg, wu, wd = (tp_block(p[k], name, 0, e_pad)
+                  for k in ("w_gate", "w_up", "w_down"))
+    g = F.silu(torch.einsum("nd,edf->enf", x2, wg))
+    u = torch.einsum("nd,edf->enf", x2, wu)
+    ye = torch.einsum("enf,efd->end", g * u, wd)
+    y = torch.einsum("end,ne->nd", ye, combine)
+    whole_shared = 0.0
+    if "sh_gate" in p:
+        sff = cfg.moe_d_ff * cfg.n_shared_experts
+        if sff % m == 0:
+            sg, su = (tp_block(p[k], name, 1, sff) for k in ("sh_gate",
+                                                             "sh_up"))
+            y = y + (F.silu(x2 @ sg) * (x2 @ su)) @ tp_block(
+                p["sh_down"], name, 0, sff)
+        else:  # computed whole on every rank, outside the region
+            whole_shared = _shared(p, x.reshape(-1, d))
+    y = tp_exit(y, name) + whole_shared
     return y.reshape(B, S, d)
 
 

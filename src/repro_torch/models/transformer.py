@@ -30,16 +30,18 @@ Distribution is carried by :class:`Dist` (mesh + axis names), threaded as
 the reference threads it.  One process drives each device: under an
 active ``Dist`` the model runs on this rank's batch block (the batch axes
 are manual, models/common.py).  With ``Dist.tensor_parallel`` (the train
-step's, for the families :func:`tensor_parallel_family` names) the
-``model`` axis is manual too and each layer splits its arithmetic over it
-where its dimension divides (Megatron's layout, models/common.py
-``tp_enter``/``tp_exit``): attention heads, the FFN hidden units, mamba1's
-channels and the vocabulary of the embedding, the head and the loss, each
+step's, for every family) the ``model`` axis is manual too and each layer
+splits its arithmetic over it where its dimension divides (Megatron's
+layout, models/common.py ``tp_enter``/``tp_exit``): GQA and MLA heads,
+the FFN's and the shared experts' hidden units, the MoE's experts,
+mamba1's channels, mamba2's heads (zamba2's shared block as a dense
+layer) and the vocabulary of the embedding, the head and the loss, each
 on the rank's block of the weights; activations between the layers are
-the same on every rank.  Otherwise the model runs with whole parameters,
-the same on every rank of ``model``, except the MoE FFN with
-``moe_mode="ep_a2a"``, which takes the reference's expert-parallel
-``shard_map`` branches over ``model``.
+the same on every rank.  A layer whose dimension does not divide runs
+whole, the same on every rank.  Otherwise (serving) the model runs with
+whole parameters, the same on every rank of ``model``.  The MoE FFN with
+``moe_mode="ep_a2a"`` takes the reference's expert-parallel branches
+over ``model`` either way.
 
 ``train_loss`` records autograd's graph (the kernel wrappers'
 gradients are the backward kernels); ``prefill`` and ``decode_step`` run
@@ -63,13 +65,13 @@ from ..device import resolve_device
 from .attention import gqa_decode, gqa_forward, init_attn, mla_decode, \
     mla_forward
 from .common import P, ModelConfig, axis_size, manual_axes, shard_map, \
-    tp_axis, tp_block, tp_enter
+    tp_axis, tp_block, tp_enter, tp_gather
 from .layers import Params, dense_init, embed_lookup, rms_norm, \
     softmax_cross_entropy, swiglu
 from .mamba import init_mamba, mamba1_decode, mamba1_seq, mamba2_decode, \
     mamba2_seq, mamba2_seq_naive
-from .moe import (init_moe, moe_dense, moe_ep_a2a, moe_ep_a2a_decode,
-                  moe_gather)
+from .moe import (expert_pad, init_moe, moe_dense, moe_ep_a2a,
+                  moe_ep_a2a_decode, moe_gather)
 
 
 @dataclass(frozen=True)
@@ -96,15 +98,6 @@ class Dist:
         the model axis under tensor-parallel arithmetic."""
         return tuple(self.batch_axes) + (
             (self.model_axis,) if self.tensor_parallel else ())
-
-
-def tensor_parallel_family(cfg: ModelConfig) -> bool:
-    """Whether the train step splits ``cfg``'s arithmetic over the model
-    axis: dense GQA and mamba1 models.  MLA, mamba2 and the hybrid's
-    shared block, the MoE FFN (its expert-parallel path aside) and the
-    vision and audio stubs gather their parameters whole."""
-    return (cfg.family == "dense" and not cfg.mla) or (
-        cfg.family == "ssm" and cfg.ssm_version == 1)
 
 
 def _dtype(cfg: ModelConfig):
@@ -148,14 +141,20 @@ class AttnBlock(Params):
 def _moe_apply(p, cfg: ModelConfig, x, dist, decoding: bool):
     """The MoE FFN: the reference's expert-parallel ``shard_map`` over the
     model axis when ``moe_mode="ep_a2a"`` under an active ``dist``, else
-    ``moe_gather`` (decode) or ``moe_dense``."""
+    ``moe_gather`` (decode) or ``moe_dense`` (under tensor-parallel
+    arithmetic on the rank's experts).  Under tensor-parallel arithmetic
+    the expert-parallel branch takes the rank's expert block of ``w_*``
+    as it is, the router and the shared experts whole (the reference's
+    spec ``P()``, their gradients summed over the axis), and the rank's
+    sequence block of the activations, which every rank holds whole."""
+    name = tp_axis(dist)
     if not (cfg.moe_mode == "ep_a2a" and dist is not None and dist.active):
-        return (moe_gather if decoding else moe_dense)(p, cfg, x)
+        return moe_gather(p, cfg, x) if decoding \
+            else moe_dense(p, cfg, x, name)
     mdl, dp = dist.model_axis, dist.batch_axes
     names = ["router", "w_gate", "w_up", "w_down"]
     if "sh_gate" in p:
         names += ["sh_gate", "sh_up", "sh_down"]
-    pspec = {n: P(mdl) if n.startswith("w_") else P() for n in names}
     cf = {} if dist.capacity_factor is None \
         else {"capacity_factor": dist.capacity_factor}
     moe, spec = (moe_ep_a2a_decode, P(dp, None, None)) if decoding \
@@ -166,6 +165,13 @@ def _moe_apply(p, cfg: ModelConfig, x, dist, decoding: bool):
         y = moe(pp, cfg, xb.reshape(bl * sl, d), expert_axis=mdl, **cf)
         return y.reshape(bl, sl, d)
 
+    if name is not None and not decoding:
+        e_pad = expert_pad(cfg, cfg.expert_shards)
+        pp = {n: tp_block(p[n], name, 0, e_pad) if n.startswith("w_")
+              else tp_enter(p[n], name) for n in names}
+        y = local(tp_block(x, name, 1, x.shape[1]), pp)
+        return tp_gather(y, name, 1)
+    pspec = {n: P(mdl) if n.startswith("w_") else P() for n in names}
     fn = shard_map(local, mesh=dist.mesh, in_specs=(spec, pspec),
                    out_specs=spec, check_vma=False)
     return fn(x, {n: p[n] for n in names})
@@ -180,7 +186,7 @@ class MambaBlock(Params):
             y, cache = mamba1_seq(self.mamba, cfg, h, dist=dist)
         else:
             seq = mamba2_seq if cfg.ssm_impl == "ssd" else mamba2_seq_naive
-            y, cache = seq(self.mamba, cfg, h)
+            y, cache = seq(self.mamba, cfg, h, dist=dist)
         return x + y, cache
 
     def decode(self, cfg: ModelConfig, x, cache):
@@ -370,7 +376,7 @@ def _stack_attn(params, cfg, x, positions, dist, decoding, caches, index):
     return x, dict(zip(names, _stack(per_layer)))
 
 
-def _mamba_layers(layers, cfg, x, decoding, conv, ssm, out):
+def _mamba_layers(layers, cfg, x, decoding, conv, ssm, out, dist=None):
     """Run mamba ``layers``; decoding writes their new states into the
     stacked ``conv``/``ssm`` slices in place, else appends them to
     ``out``."""
@@ -380,7 +386,7 @@ def _mamba_layers(layers, cfg, x, decoding, conv, ssm, out):
             conv[i].copy_(nconv)
             ssm[i].copy_(nh)
         else:
-            x, cache = layer(cfg, x)
+            x, cache = layer(cfg, x, dist)
             out.append(cache)
     return x
 
@@ -414,7 +420,7 @@ def _stack_hybrid(params, cfg, x, positions, dist, decoding, caches,
     def group(h, lo, hi):
         out = []
         h = _mamba_layers(params.layers[lo:hi], cfg, h, False, None, None,
-                          out)
+                          out, dist)
         h, cache = shared(cfg, h, positions, dist)
         return h, out, cache
 
@@ -425,7 +431,7 @@ def _stack_hybrid(params, cfg, x, positions, dist, decoding, caches,
             x = _mamba_layers(params.layers[lo:hi], cfg, x, decoding,
                               None if conv is None else conv[lo:hi],
                               None if ssm is None else ssm[lo:hi],
-                              mamba_caches)
+                              mamba_caches, dist)
         if g == G:  # the trailing mamba-only layers
             break
         if decoding:

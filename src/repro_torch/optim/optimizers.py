@@ -38,8 +38,40 @@ class Optimizer:
     state_bytes_per_param: float  # for memory-planning math
     # an element's update reads only that element of the parameter, its
     # gradient and its state: the update of a shard is the shard of the
-    # update (the sharded train step relies on it)
+    # update (the sharded train step relies on it); an update that is not
+    # elementwise takes ``split=``, a :class:`LeafSplit` of the groups
+    # given as the rank's blocks, whose reductions over the whole leaf it
+    # completes by sums over the mesh
     elementwise: bool = True
+
+
+class LeafSplit:
+    """How the rank's blocks of an optimizer's leaves lie in the whole
+    leaf: ``axes[key]`` holds, for each dimension of the group's (stacked)
+    leaf, the process groups of the mesh axes (of more than one rank)
+    that split it, and ``shape[key]`` the whole leaf's shape.  A group it
+    does not name is given whole."""
+
+    def __init__(self, axes: dict, shape: dict):
+        self.axes, self.shape = axes, shape
+
+    def sharded(self, key: str, dims) -> bool:
+        return key in self.axes and any(self.axes[key][d] for d in dims)
+
+    def mean(self, x: torch.Tensor, key: str, xdims, leafdims,
+             keepdim: bool = False) -> torch.Tensor:
+        """The mean over the whole leaf's ``leafdims`` of ``x``, whose
+        dimensions ``xdims`` are those of the rank's block: its sum there,
+        summed over the axes that split them, over the whole count."""
+        import torch.distributed as torch_dist
+        out = x.sum(dim=xdims, keepdim=keepdim)
+        for d in leafdims:
+            for group in self.axes[key][d]:
+                torch_dist.all_reduce(out, group=group)
+        n = 1
+        for d in leafdims:
+            n *= self.shape[key][d]
+        return out / n
 
 
 def _lr_at(lr, step) -> float:
@@ -151,20 +183,35 @@ def adafactor(lr=1e-2, decay=0.8, eps=1e-30, clip_threshold=1.0,
         return {"f": f, "count": torch.zeros((), dtype=torch.int32)}
 
     @torch.no_grad()
-    def update(grads, state, params, step):
+    def update(grads, state, params, step, split: LeafSplit | None = None):
+        """``split``: the groups given as the rank's blocks (each row and
+        column mean, and the clipping's, over the whole leaf by sums over
+        the mesh where a block splits it); every other group whole."""
         lr_t = _lr_at(lr, step)
         count = state["count"] + 1
         beta = 1.0 - float(count.to(F32) ** (-decay))
+
+        def mean(x, key, xdim, leafdims, keepdim=False):
+            # the mean over x's dimension ``xdim``, the leaf's ``leafdims``
+            # (all of them: ``xdim`` None), by torch.mean where no block
+            # splits them (so an unsplit leaf's arithmetic is unchanged)
+            if split is None or not split.sharded(key, leafdims):
+                return torch.mean(x) if xdim is None else \
+                    torch.mean(x, dim=xdim, keepdim=keepdim)
+            dims = tuple(range(x.dim())) if xdim is None else xdim
+            return split.mean(x, key, dims, leafdims, keepdim=keepdim)
+
         for key, names in _groups(params).items():
             f = state["f"][key]
             stacked = key.split(".")[0] == _STACKED
             g32 = torch.stack([grads[n].to(F32) for n in names]) \
                 if stacked else grads[names[0]].to(F32)
             g2 = torch.square(g32) + eps
-            if g32.dim() >= 2:
-                r = beta * f["r"] + (1 - beta) * torch.mean(g2, dim=-1)
-                c = beta * f["c"] + (1 - beta) * torch.mean(g2, dim=-2)
-                rmean = torch.mean(r, dim=-1, keepdim=True)
+            nd = g32.dim()
+            if nd >= 2:
+                r = beta * f["r"] + (1 - beta) * mean(g2, key, -1, [nd - 1])
+                c = beta * f["c"] + (1 - beta) * mean(g2, key, -2, [nd - 2])
+                rmean = mean(r, key, -1, [nd - 2], keepdim=True)
                 vhat = (r[..., None] / (rmean[..., None] + eps)) \
                     * c[..., None, :]
                 upd = g32 / (torch.sqrt(vhat) + eps)
@@ -176,7 +223,8 @@ def adafactor(lr=1e-2, decay=0.8, eps=1e-30, clip_threshold=1.0,
                 f["v"].copy_(v)
             del g32, g2
             # update clipping (RMS), over the whole leaf
-            rms = torch.sqrt(torch.mean(torch.square(upd)) + eps)
+            ms = mean(torch.square(upd), key, None, range(nd))
+            rms = torch.sqrt(ms + eps)
             upd = upd / torch.clamp(rms / clip_threshold, min=1.0)
             for i, n in enumerate(names):
                 p = params[n]

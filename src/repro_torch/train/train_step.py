@@ -13,25 +13,29 @@ Under an active ``Dist`` (one process a rank, launch/mesh.py):
   placed by ``launch/shardings.py`` (``distribute``).  Each rank runs the
   model on its block of the (global) batch under ``batch_specs``, and the
   mean of the loss and of the gradients over the batch axes is
-  all-reduced.  For a family whose arithmetic splits over the ``model``
-  axis (``tensor_parallel_family``: dense GQA, mamba1) the step runs
-  under ``Dist.tensor_parallel``, as the reference's GSPMD partitions its
-  step by the parameters' specs: a leaf whose ``model`` placement sits on
-  the dimension the layer splits (``shardings.TP_DIMS``) is gathered over
-  the batch axes only and used as the rank's block; a leaf ``_fit`` left
-  whole on ``model`` (a KV projection of too few heads, ``dt_bias``,
-  ``A_log``, the norms) comes whole and the layer takes what its block
-  reads; any other leaf (one ``_fit`` relocated, or of another family) is
-  gathered whole.  The layers' collectives over ``model`` (Megatron's:
-  a sum after each row-parallel product, a summed gradient for each
-  replicated input) make each block's gradient the rank's block of the
-  whole gradient, so no parameter is gathered over ``model``.  The MoE
-  FFN with ``moe_mode="ep_a2a"`` takes the expert-parallel path over
-  ``model``.  The kernels run on local tensors.  The update then acts on
+  all-reduced.  The step runs under ``Dist.tensor_parallel``, as the
+  reference's GSPMD partitions its step by the parameters' specs: a leaf
+  whose ``model`` placement sits on the dimension its layer splits
+  (``shardings.tp_dims``) is gathered over the batch axes only and used
+  as the rank's block; a leaf ``_fit`` left whole on ``model`` (a KV
+  projection of too few heads, MLA's low-rank projections, the router,
+  ``bc_proj``, ``dt_bias``, ``A_log``, the norms) comes whole and the
+  layer takes what its block reads; any other leaf (one ``_fit``
+  relocated, and the shared experts under ``moe_mode="ep_a2a"``) is
+  gathered whole and its layer computes whole.  The layers' collectives
+  over ``model`` (Megatron's: a sum after each row-parallel product, a
+  summed gradient for each replicated input) make each block's gradient
+  the rank's block of the whole gradient, so no parameter is gathered
+  over ``model``.  The MoE FFN with ``moe_mode="ep_a2a"`` takes the
+  expert-parallel path over ``model``.  The kernels run on local
+  tensors.  The update then acts on
   each rank's shard: an elementwise optimizer (SGD, AdamW) on the local
   blocks of the parameter, gradient and state; Adafactor, whose factored
-  moments and clipping reduce over whole leaves, on the gathered leaves,
-  keeping each rank's block.  The gradient norm sums each split leaf's
+  moments and clipping reduce over whole leaves, on the rank's blocks
+  too, each of those means a sum over the mesh axes that split the leaf
+  (``optimizers.LeafSplit``), where its state is placed as the
+  parameter's block implies, and on the gathered leaf otherwise, keeping
+  each rank's block.  The gradient norm sums each split leaf's
   squares over ``model`` once, and each replicated leaf's once.  On a
   ``model`` axis of one rank the step makes no collective over it and
   runs the one-device operations: bit for bit on a ``(1, 1)`` mesh; up
@@ -52,14 +56,13 @@ from dataclasses import replace
 import numpy as np
 import torch
 
-from ..launch.shardings import (TP_DIMS, NamedSharding, batch_placements,
+from ..launch.shardings import (NamedSharding, batch_placements,
                                 batch_specs, gather, gather_batch,
-                                local_block, model_dim, place)
+                                local_block, model_dim, place, tp_dims)
 from ..models.common import P, manual_axes, pmean, psum
-from ..models.transformer import (Dist, Model, init_params,
-                                  tensor_parallel_family, train_loss)
+from ..models.transformer import Dist, Model, init_params, train_loss
 from ..optim.grad_compress import compress_tree_psum
-from ..optim.optimizers import Optimizer
+from ..optim.optimizers import LeafSplit, Optimizer, _stack_key
 
 
 def TrainState(params: Model, opt_state, step=0, residuals=None) -> dict:
@@ -116,10 +119,19 @@ def _grads(cfg, params: Model, batches: list, dist: Dist = Dist()):
     return _accum_grads(cfg, params, batches, dist)
 
 
+# elements of a gradient squared in f32 at a time: a larger leaf (a
+# full-width expert stack, 3.8e9 elements) is summed a chunk at a time, so
+# its f32 square never takes the card's memory twice over
+SQUARES_CHUNK = 1 << 28
+
+
 def _squares(cfg, g) -> torch.Tensor:
     if cfg.gnorm_vdot:
         return torch.dot(g.flatten(), g.flatten())
-    return torch.sum(torch.square(g.to(torch.float32)))
+    if g.numel() <= SQUARES_CHUNK:
+        return torch.sum(torch.square(g.to(torch.float32)))
+    return sum(torch.sum(torch.square(c.to(torch.float32)))
+               for c in g.reshape(-1).split(SQUARES_CHUNK))
 
 
 def grad_norm(cfg, grads: dict) -> torch.Tensor:
@@ -163,9 +175,10 @@ def _local_model(cfg, params: Model, dist: Dist) -> tuple[Model, set]:
         return params, set()
     model = init_params(cfg, device="meta")
     kept = set()
+    dims = tp_dims(cfg)
     for n, p in named.items():
         if dist.tensor_parallel and model_dim(p, dist.model_axis) \
-                == TP_DIMS.get(n.rpartition(".")[2], -1):
+                == dims.get(n.rpartition(".")[2], -1):
             t = gather_batch(p, dist.model_axis)
             kept.add(n)
         else:
@@ -199,8 +212,7 @@ def _sharded_grads(cfg, dist: Dist, params: Model, batch: dict, k: int):
     mbs = [_blocks(mb, mesh, batch_specs(cfg, mb, dist.batch_axes,
                                          dist.model_axis, dp))
            for mb in _split_microbatches(_as_tensors(batch), k)]
-    if tensor_parallel_family(cfg):
-        dist = replace(dist, tensor_parallel=True)
+    dist = replace(dist, tensor_parallel=True)
     model, kept = _local_model(cfg, params, dist)
     loss, grads = _grads(cfg, model, mbs, dist)
     with manual_axes(mesh, mesh.mesh_dim_names):
@@ -247,7 +259,11 @@ def _block(g, like):
             g = g.redistribute(like.device_mesh, like.placements)
         return g.to_local()
     if _is_dtensor(like):
-        return local_block(g, like.device_mesh, like.placements)
+        mesh = like.device_mesh
+        if all(mesh.size(i) == 1 or not pl.is_shard()
+               for i, pl in enumerate(like.placements)):
+            return g  # the whole gradient is the block: no copy
+        return local_block(g, mesh, like.placements)
     return g
 
 
@@ -284,11 +300,74 @@ def _update(optimizer: Optimizer, grads: dict, state: dict) -> None:
                          state["step"])
         _store(state["opt_state"], opt, whole=False)
         return
-    whole = gather(named)
-    opt = gather(state["opt_state"])
-    optimizer.update(gather(grads), opt, whole, state["step"])
-    _store(named, whole, whole=True)
-    _store(state["opt_state"], opt, whole=True)
+    split = _leaf_split(named, state["opt_state"])
+    mine = {n for n in named if _stack_key(n) in split.axes}
+    params = {n: _local(p) if n in mine else gather(p)
+              for n, p in named.items()}
+    g = {n: _block(v, named[n]) if n in mine else gather(v)
+         for n, v in grads.items()}
+    opt = {k: gather(v) for k, v in state["opt_state"].items() if k != "f"}
+    if "f" in state["opt_state"]:
+        opt["f"] = {k: _local_tree(v) if k in split.axes else gather(v)
+                    for k, v in state["opt_state"]["f"].items()}
+    optimizer.update(g, opt, params, state["step"], split=split)
+    _store(named, {n: v for n, v in params.items() if n not in mine},
+           whole=True)
+    _store(state["opt_state"], {k: v for k, v in opt.items() if k != "f"},
+           whole=True)
+    if "f" in opt:
+        f = state["opt_state"]["f"]
+        _store(f, {k: v for k, v in opt["f"].items() if k in split.axes},
+               whole=False)
+        _store(f, {k: v for k, v in opt["f"].items()
+                   if k not in split.axes}, whole=True)
+
+
+def _leaf_split(named: dict, opt_state: dict) -> LeafSplit:
+    """The factored optimizer's groups it may update on the rank's blocks
+    (``LeafSplit``): those whose layers are DTensors under one placement
+    and whose state (Adafactor's row and column factors, or its
+    unfactored moment) is placed as the rank's block of the parameter
+    implies; any other group is updated whole.  A row factor drops the
+    last dimension and is whole over the axes that split it, a column
+    factor the second to last; a mesh axis of one rank splits nothing."""
+    from torch.distributed.tensor import Replicate, Shard
+    groups: dict = {}
+    for n in named:
+        groups.setdefault(_stack_key(n), []).append(n)
+    axes, shapes = {}, {}
+    for key, names in groups.items():
+        ps = [named[n] for n in names]
+        f = opt_state.get("f", {}).get(key)
+        if f is None or not all(_is_dtensor(p) for p in ps) or len(
+                {tuple(p.placements) for p in ps}) > 1:
+            continue
+        p = ps[0]
+        mesh, nd = p.device_mesh, p.dim()
+        lead = int(key.split(".")[0] == "layers")
+        dims = [[] for _ in range(nd + lead)]
+        want = {k: [] for k in f}
+        for i, pl in enumerate(p.placements):
+            if mesh.size(i) == 1 or not pl.is_shard():
+                for k in want:
+                    want[k].append(None if mesh.size(i) == 1
+                                   else Replicate())
+                continue
+            d = pl.dim
+            dims[d + lead].append(mesh.get_group(i))
+            drop = {"r": nd - 1, "c": nd - 2, "v": None}
+            for k in want:
+                if d == drop[k]:
+                    want[k].append(Replicate())
+                else:
+                    dd = d - 1 if k == "c" and d == nd - 1 else d
+                    want[k].append(Shard(dd + lead))
+        if all(_is_dtensor(f[k]) and all(
+                w is None or f[k].placements[i] == w
+                for i, w in enumerate(want[k])) for k in f):
+            axes[key] = dims
+            shapes[key] = (len(names),) * lead + tuple(p.shape)
+    return LeafSplit(axes, shapes)
 
 
 def make_train_step(cfg, optimizer: Optimizer, dist: Dist = Dist(),

@@ -26,8 +26,11 @@ Tolerances, each stated where it is used:
 * the sharded step against the reference's single-device step: loss and
   parameters within the reference's own 1e-4 (tests/test_distributed.py),
   every gradient within 1e-3 |ref| + 1e-4 max |ref| (probes: ~1e-7);
-* the tensor-parallel step (qwen3-0.6b and falcon-mamba-7b smoke, f32,
-  (2, 2) and (1, 4), one AdamW step) against the port's unsharded step:
+* the tensor-parallel step (qwen3-0.6b and falcon-mamba-7b smoke on
+  (2, 2) and (1, 4); qwen2-vl-72b, hubert-xlarge, granite-moe-3b-a800m
+  and zamba2-1.2b on (2, 2); granite's expert-parallel branch,
+  deepseek-v3-671b and zamba2 checkpointed on (1, 4); f32, one AdamW
+  step) against the port's unsharded step:
   loss, gradient norm and every parameter within 1e-5 relative and 1e-5
   max(1, max |.|) absolute; its loss against the reference's one-device
   loss within 1e-5 + 1e-5 |ref|; no covered leaf gathered over ``model``;
@@ -288,15 +291,38 @@ STEPS = [  # name, arch, overrides, mesh, optimizer, capacity factor
      "adamw4", None),
     ("falcon_adamw_remat_2x2", "falcon-mamba-7b", {"remat": "full"}, "2x2",
      "adamw4", None),
+    # every other family on its blocks: the vision and audio stubs (M-RoPE
+    # with biases; non-causal attention on embeddings), the MoE's experts
+    # (moe_dense; and the expert-parallel branch on the rank's expert
+    # block, a capacity that drops nothing), MLA with the shared expert,
+    # mamba2 with the hybrid's shared block (and each group checkpointed)
+    ("qwen2vl_adamw_2x2", "qwen2-vl-72b", {}, "2x2", "adamw4", None),
+    ("hubert_adamw_2x2", "hubert-xlarge", {}, "2x2", "adamw4", None),
+    ("granite_adamw_2x2", "granite-moe-3b-a800m", {}, "2x2", "adamw4", None),
+    ("granite_adamw_ep_1x4", "granite-moe-3b-a800m",
+     {"moe_mode": "ep_a2a", "expert_shards": 4}, "1x4", "adamw4", 8.0),
+    ("deepseek_adamw_1x4", "deepseek-v3-671b", {}, "1x4", "adamw4", None),
+    ("zamba2_adamw_2x2", "zamba2-1.2b", {}, "2x2", "adamw4", None),
+    ("zamba2_adamw_remat_1x4", "zamba2-1.2b", {"remat": "full"}, "1x4",
+     "adamw4", None),
 ]
 TP_STEPS = [s[0] for s in STEPS if s[4] == "adamw4"]
+# the tensor-parallel runs' AdamW eps: AdamW's first update of an element
+# is lr g / (|g| + eps), whose change with g is at most lr / eps, so at
+# eps 1e-6 gradients that agree within 1e-7 (other orders of the same f32
+# sums) give parameters within 1e-5 lr / 1e-4 = the bound; at the default
+# 1e-8 an element whose gradient cancels to about eps takes noise of up
+# to lr (zamba2's shared.attn.wk: 2.2e-9, the sum of two batch halves of
+# +-0.01108, 3.4e-9 with the batch's rows permuted on one device).  A sign
+# error still moves a parameter by 2 lr.
+ADAMW_EPS = 1e-6
 COMPRESSED = ("qwen3_compress_4x1", "qwen3-0.6b", "4x1")
 CLI_ARGS = ["--arch", "qwen3-0.6b", "--smoke", "--device", "cpu", "--steps",
             "3", "--batch", "4", "--seq", "16", "--log-every", "1"]
 REF_OPTS = {"sgd": lambda: ref_sgd(lr=0.1),
             "sgd05": lambda: ref_sgd(lr=0.05),
             "adafactor": lambda: ref_adafactor(),
-            "adamw4": lambda: ref_adamw(lr=1e-4)}
+            "adamw4": lambda: ref_adamw(lr=1e-4, eps=ADAMW_EPS)}
 # the router's replicas on submeshes: (mesh, replicas) splits, and the
 # cases (arch, mesh, replicas, the tick replica 0 is killed at or -1) over
 # one trace and serving plan
@@ -508,7 +534,8 @@ def group(tmp_path_factory):
     inputs, so the reference's results are computed while they run."""
     d = tmp_path_factory.mktemp("mesh_group")
     arrays, meta = {}, {"ep": {"cfg": EP_CFG, "cases": []}, "steps": [],
-                        "cli": CLI_ARGS + ["--mesh", "smoke"]}
+                        "cli": CLI_ARGS + ["--mesh", "smoke"],
+                        "adamw_eps": ADAMW_EPS}
     ep_inputs, batches = {}, {}
     for name, ne, tokens, cf, decode, skew in EP_CASES:
         cfg, p, x, cot = ep_inputs[name] = _ep_inputs(name, ne, tokens, cf,
@@ -737,11 +764,12 @@ def test_tp_step_matches_unsharded_step(group, run):
     partial products and the data axis's batch blocks).  The step's lr is
     1e-4, so 1e-5 is a tenth of one step's lr, tests/test_torch_train.py's
     rule for parameters after AdamW steps: AdamW's first update g / (|g| +
-    eps) is O(lr) even for an element whose gradient is about eps (1e-8),
-    and a difference of 5e-8 in such a gradient (the leaves' gradients
-    agree within 5e-8 of maxima near 0.1) moves it by up to 4e-2 lr
-    (probes: 1.2e-5 at lr 1e-3 on (1, 4)'s embed and out, 1.14e-5 at lr
-    3e-4 on falcon-mamba's x_proj)."""
+    eps) is O(lr) even for an element whose gradient is about eps, so its
+    eps is ``ADAMW_EPS`` (1e-6), where a difference of 1e-7 in a gradient
+    moves the update by at most a hundredth of lr (at eps 1e-8 zamba2's
+    noise-level element moved by 0.46 lr; probes at eps 1e-8: 1.2e-5 at
+    lr 1e-3 on (1, 4)'s embed and out, 1.14e-5 at lr 3e-4 on
+    falcon-mamba's x_proj)."""
     ranks, _, _ = group
     tag = f"step/{run}"
     for r in ranks:
@@ -790,6 +818,20 @@ def test_tp_step_loss_matches_reference_one_device(group, run):
     for r in ranks:
         assert abs(float(r[f"step/{run}/loss"]) - want) <= 1e-5 + 1e-5 * abs(
             want)
+
+
+@pytest.mark.parametrize("run", [s[0] for s in STEPS if s[4] == "adafactor"])
+def test_adafactor_updates_every_leaf_on_its_blocks(group, run):
+    """The sharded Adafactor step updates every group on the rank's
+    blocks (its means summed over the mesh), gathering none whole; its
+    result is held to the reference's by the tests above."""
+    ranks, _, _ = group
+    _, arch, over, _, _, _ = next(s for s in STEPS if s[0] == run)
+    model = T.init_params(smoke_config(arch).scaled(**over), device="meta")
+    groups = {reference_key(n)[0] for n, _ in model.named_parameters()}
+    for r in ranks:
+        split = set(json.loads(str(r[f"step/{run}/split_groups"])))
+        assert split == groups, sorted(groups - split)
 
 
 def test_compressed_step_close_to_exact(group):

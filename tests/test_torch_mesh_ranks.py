@@ -278,7 +278,7 @@ def main() -> None:
     opts = {"sgd": lambda: sgd_momentum(lr=0.1),
             "sgd05": lambda: sgd_momentum(lr=0.05),
             "adafactor": lambda: adafactor(), "adamw": lambda: adamw(lr=1e-3),
-            "adamw4": lambda: adamw(lr=1e-4)}
+            "adamw4": lambda: adamw(lr=1e-4, eps=meta["adamw_eps"])}
     for run in meta["steps"]:
         tcfg = smoke_config(run["arch"]).scaled(**run["overrides"])
         tree = _tree(task, f"w/{run['weights']}")
@@ -320,6 +320,10 @@ def main() -> None:
             ost = distribute(ost, to_shardings(
                 mesh, param_specs(ost, mesh, fsdp=tcfg.fsdp)))
             state = TS.TrainState(params, ost)
+            if not opt.elementwise:  # the groups it updates on blocks
+                split = TS._leaf_split(dict(params.named_parameters()), ost)
+                out[f"{tag}/split_groups"] = np.array(json.dumps(
+                    sorted(split.axes)))
             loss, grads = TS._sharded_grads(tcfg, dist, params, batch, 1)
             for n, g in grads.items():
                 out[f"{tag}/grad/{n}"] = _np(gather(g))

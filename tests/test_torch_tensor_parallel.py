@@ -2,8 +2,11 @@
 
 Each layer's tensor-parallel form (models/common.py ``tp_enter`` /
 ``tp_exit`` / ``realign_pairs``, the vocabulary-parallel cross entropy and
-lookup, SwiGLU, GQA attention with split and with whole KV heads, mamba1)
-runs on m ranks played by m threads of this process: a mesh stand-in gives
+lookup, SwiGLU, GQA attention with split and with whole KV heads, mamba1;
+qwen2-vl's M-RoPE with q/k/v biases and hubert's non-causal attention,
+MLA, ``moe_dense`` over padded experts and skewed routing with its shared
+experts, mamba2's SSD and naive forms with the split gated norm) runs on
+m ranks played by m threads of this process: a mesh stand-in gives
 each thread its rank on a one-axis ``model`` mesh, and the collectives the
 layers call (``all_reduce``, ``all_gather``, ``all_to_all_single``) are
 exchanged between the threads.  Each is held against the one-device
@@ -12,12 +15,15 @@ the gradients of every input and weight (each rank's gradient of a whole
 weight is the whole gradient; of a block, its block).  Tolerance: 1e-5
 relative and 1e-5 max(1, max |.|) absolute in f32 (the same products,
 summed over the ranks' partial sums in another order); the lookup is
-exact.
+exact.  Each family's one-device layer is also held to the reference's
+JAX function on the reference's weights (models/weights.py), at
+tests/torch_model_oracle.py's tolerance.
 
 Then the realignment plan of mamba1's ``in_proj`` (m = 2 and 4) alone,
-and a dry-run trace on a fake 4 x 4 mesh whose per-rank dot FLOPs equal a
-count derived by hand from the config.  The 4-rank gloo group of
-tests/test_torch_mesh.py runs the whole tensor-parallel train step.
+and dry-run traces on a fake 4 x 4 mesh whose per-rank dot FLOPs equal a
+count derived by hand from the config (qwen3, deepseek, zamba2 smoke).
+The 4-rank gloo group of tests/test_torch_mesh.py runs the whole
+tensor-parallel train step.
 """
 
 from __future__ import annotations
@@ -333,6 +339,270 @@ def test_mamba1_tensor_parallel_matches_whole(threads, m):
     _layer_check(threads, m, arrays, fn, dims, (2, 9, cfg.d_model), seed=7)
 
 
+# --------------------------------------------------------------------------
+# the families split in a later slice: GQA with M-RoPE and biases, the
+# encoder's non-causal GQA, MLA, the MoE's experts and shared experts,
+# mamba2 with its split norm
+# --------------------------------------------------------------------------
+
+def _perturbed(p, keys, seed: int) -> dict:
+    """``p``'s leaves as numpy arrays, the init's constants among ``keys``
+    moved off their fill so every gradient counts."""
+    out = {k: v.detach().numpy().copy() for k, v in p.named_parameters()}
+    rng = np.random.default_rng(seed)
+    for k in keys:
+        if k in out:
+            out[k] = out[k] + rng.standard_normal(out[k].shape).astype(
+                np.float32) * 0.1
+    return out
+
+
+def _positions(cfg, B: int, S: int) -> torch.Tensor:
+    pos = torch.arange(S)[None].expand(B, S)
+    return pos[..., None].expand(B, S, 3).contiguous() if cfg.mrope else pos
+
+
+STUB_ATTN = [("qwen2-vl-72b", 2), ("qwen2-vl-72b", 4),   # KV split, whole
+             ("hubert-xlarge", 2), ("hubert-xlarge", 4)]
+
+
+@pytest.mark.parametrize("arch,m", STUB_ATTN)
+def test_stub_gqa_tensor_parallel_matches_whole(threads, arch, m):
+    """qwen2-vl's M-RoPE with q/k/v biases (its 2 KV heads split on 2
+    ranks, read by each rank's query heads from the whole weights on 4)
+    and hubert's non-causal attention, on each rank's heads."""
+    cfg = smoke_config(arch)
+    arrays = _attn_arrays(cfg, seed=m)
+    kv = 1 if cfg.n_kv_heads % m == 0 else None
+    dims = {"wq": 1, "wo": 0, "wk": kv, "wv": kv, "bq": 0,
+            "bk": None if kv is None else 0, "bv": None if kv is None else 0}
+    dims = {k: v for k, v in dims.items() if k in arrays}
+    S = 7
+    pos = _positions(cfg, 2, S)
+
+    def fn(w, x, dist):
+        return A.gqa_forward(w, cfg, x, pos, dist)[0]
+
+    _layer_check(threads, m, arrays, fn, dims, (2, S, cfg.d_model), seed=m)
+
+
+@pytest.mark.parametrize("m", (2, 4))
+def test_mla_tensor_parallel_matches_whole(threads, m):
+    """MLA on each rank's heads of ``wq_b``/``wkv_b`` and rows of ``wo``;
+    ``wq_a``, ``wkv_a`` and their norms whole on every rank."""
+    cfg = smoke_config("deepseek-v3-671b")
+    p = A.init_attn(cfg, torch.float32,
+                    generator=torch.Generator().manual_seed(m), device="cpu")
+    arrays = _perturbed(p, ("q_norm", "kv_norm"), m)
+    dims = {"wq_a": None, "q_norm": None, "wq_b": 1, "wkv_a": None,
+            "kv_norm": None, "wkv_b": 1, "wo": 0}
+    S = 6
+    pos = _positions(cfg, 2, S)
+
+    def fn(w, x, dist):
+        return A.mla_forward(w, cfg, x, pos, dist)[0]
+
+    _layer_check(threads, m, arrays, fn, dims, (2, S, cfg.d_model), seed=m)
+
+
+MOE_CASES = {  # name: (arch, config overrides, m, input shift)
+    # 6 experts padded to 8: rank 3 of 4 holds the two padded experts
+    "padded_m2": ("granite-moe-3b-a800m", {"n_experts": 6,
+                                           "expert_shards": 4}, 2, 0.0),
+    "padded_m4": ("granite-moe-3b-a800m", {"n_experts": 6,
+                                           "expert_shards": 4}, 4, 0.0),
+    # the router's column 0 aligned with a shifted input: most tokens
+    # route to expert 0, on rank 0
+    "skewed_m4": ("granite-moe-3b-a800m", {}, 4, 0.5),
+    # the shared expert split over its 48 hidden units
+    "shared_m2": ("deepseek-v3-671b", {}, 2, 0.0),
+    "shared_m4": ("deepseek-v3-671b", {}, 4, 0.0),
+    # 42 shared hidden units on 4 ranks: the shared expert runs whole
+    "shared_whole_m4": ("deepseek-v3-671b", {"moe_d_ff": 42}, 4, 0.0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(MOE_CASES))
+def test_moe_dense_tensor_parallel_matches_whole(threads, case):
+    """``moe_dense`` on each rank's block of the (padded) experts over
+    all tokens, the router whole, the combine summed over the axis; the
+    shared experts split over their hidden units where they divide."""
+    from repro_torch.models import moe as MO
+    arch, over, m, shift = MOE_CASES[case]
+    cfg = smoke_config(arch).scaled(**over)
+    p = MO.init_moe(cfg, torch.float32, n_expert_shards=cfg.expert_shards,
+                    generator=torch.Generator().manual_seed(m), device="cpu")
+    arrays = _perturbed(p, (), m)
+    if shift:
+        arrays["router"][:, 0] += shift
+    sff = cfg.moe_d_ff * cfg.n_shared_experts
+    sh = sff and sff % m == 0
+    dims = {"router": None, "w_gate": 0, "w_up": 0, "w_down": 0,
+            "sh_gate": 1 if sh else None, "sh_up": 1 if sh else None,
+            "sh_down": 0 if sh else None}
+    dims = {k: v for k, v in dims.items() if k in arrays}
+
+    def fn(w, x, dist):
+        return MO.moe_dense(w, cfg, x + shift, C.tp_axis(dist))
+
+    _layer_check(threads, m, arrays, fn, dims, (2, 8, cfg.d_model), seed=m)
+    if "padded" in case:  # the padded experts' weights get no gradient
+        assert MO.expert_pad(cfg, cfg.expert_shards) > cfg.n_experts
+
+
+@pytest.mark.parametrize("form", ("ssd", "naive"))
+@pytest.mark.parametrize("m", (2, 4))
+def test_mamba2_tensor_parallel_matches_whole(threads, m, form):
+    """mamba2 on each rank's H/m heads, its gated norm's sum of squares
+    summed over the axis; each rank's final state is its heads' block of
+    the whole state."""
+    cfg = smoke_config("zamba2-1.2b")
+    p = init_params(cfg, generator=torch.Generator().manual_seed(m),
+                    device="cpu").layers[0].mamba
+    arrays = _perturbed(p, ("conv_b", "D", "dt_bias", "A_log",
+                            "norm_scale"), m)
+    dims = {"in_proj": 1, "conv_w": 1, "conv_b": 0, "bc_proj": None,
+            "dt_w": 1, "dt_bias": None, "A_log": None, "D": 0,
+            "norm_scale": None, "out_proj": 0}
+    seq = MB.mamba2_seq if form == "ssd" else MB.mamba2_seq_naive
+    states = {}
+
+    def fn(w, x, dist):
+        y, (_, h) = seq(w, cfg, x, dist=dist,
+                        **({"chunk": 4} if form == "ssd" else {}))
+        states[None if dist is None else C.axis_index("model")] = h
+        return y
+
+    _layer_check(threads, m, arrays, fn, dims, (2, 9, cfg.d_model), seed=m)
+    H = cfg.ssm_heads
+    for r in range(m):
+        _close(states[r], states[None][:, r * H // m:(r + 1) * H // m],
+               f"state r{r}")
+
+
+# one layer function of each family the later slice splits, on one device,
+# against the reference's on the reference's weights (models/weights.py)
+FAMILY_LAYERS = {
+    "vlm": ("qwen2-vl-72b", "attn"), "encoder": ("hubert-xlarge", "attn"),
+    "moe": ("granite-moe-3b-a800m", "moe"),
+    "mla": ("deepseek-v3-671b", "attn"),
+    "mla_moe_shared": ("deepseek-v3-671b", "moe"),
+    "hybrid": ("zamba2-1.2b", "mamba"),
+    "hybrid_shared_block": ("zamba2-1.2b", "shared")}
+
+
+@pytest.mark.parametrize("family", sorted(FAMILY_LAYERS))
+def test_one_device_layer_matches_reference(family):
+    import jax
+    import jax.numpy as jnp
+    from repro.models import attention as RA
+    from repro.models import mamba as RMB
+    from repro.models import moe as RMO
+    from repro_torch.models import moe as MO
+    from torch_model_oracle import assert_close, weights
+
+    arch, part = FAMILY_LAYERS[family]
+    rcfg, ref, tcfg, params = weights(arch)
+    S = 7
+    x = np.random.default_rng(5).standard_normal(
+        (2, S, tcfg.d_model)).astype(np.float32)
+    pos = _positions(tcfg, 2, S)
+    rpos = jnp.asarray(pos.numpy())
+    layer0 = jax.tree.map(lambda a: a[0], ref["layers"])
+    if part == "attn":
+        fwd = (RA.mla_forward, A.mla_forward) if tcfg.mla \
+            else (RA.gqa_forward, A.gqa_forward)
+        want = fwd[0](layer0["attn"], rcfg, jnp.asarray(x), rpos)[0]
+        got = fwd[1](params.layers[0].attn, tcfg, torch.from_numpy(x),
+                     pos)[0]
+    elif part == "moe":
+        want = RMO.moe_dense(layer0["moe"], rcfg, jnp.asarray(x))
+        got = MO.moe_dense(params.layers[0].moe, tcfg, torch.from_numpy(x))
+    elif part == "mamba":
+        want = RMB.mamba2_seq(layer0["mamba"], rcfg, jnp.asarray(x))[0]
+        got = MB.mamba2_seq(params.layers[0].mamba, tcfg,
+                            torch.from_numpy(x))[0]
+    else:  # the hybrid's weight-shared attention + MLP block
+        want = _ref_shared_block(ref["shared"], rcfg, jnp.asarray(x), rpos)
+        got = params.shared(tcfg, torch.from_numpy(x), pos)[0]
+    assert_close(got, want, family)
+
+
+def _ref_shared_block(p, cfg, x, positions):
+    """The reference's shared block as its hybrid stack applies it
+    (src/repro/models/transformer.py, ``_stack_hybrid``): pre-norm GQA
+    then a pre-norm SwiGLU MLP, each with its residual."""
+    from repro.models import attention as RA
+    from repro.models import layers as RL
+    h = x + RA.gqa_forward(p["attn"], cfg, RL.rms_norm(x, p["ln1"],
+                                                       cfg.norm_eps),
+                           positions)[0]
+    m = p["mlp"]
+    return h + RL.swiglu(RL.rms_norm(h, p["ln2"], cfg.norm_eps),
+                         m["gate"], m["up"], m["down"])
+
+
+@pytest.mark.parametrize("m", (2, 4))
+def test_adafactor_on_blocks_matches_whole(threads, monkeypatch, m):
+    """Adafactor's update on each rank's blocks (``LeafSplit``: its row
+    and column means and the clipping's summed over the ranks that split
+    a leaf) against the update of the whole leaves: a stacked leaf split
+    on its rows, one split on its columns, a vector split, and a leaf
+    given whole; two steps, parameters and factors.  The sums over the
+    ranks run in another order, so within TOL."""
+    from repro_torch.optim.optimizers import LeafSplit, adafactor
+    monkeypatch.setattr(torch_dist, "all_reduce", _all_reduce)
+    rng = np.random.default_rng(m)
+    shapes = {"layers.0.a": (8, 12), "layers.1.a": (8, 12), "b": (4, 16),
+              "v": (16,), "w": (6, 5)}
+    split_dim = {"layers.a": 1, "b": 1, "v": 0}   # of the stacked leaf
+    params = {k: rng.standard_normal(s).astype(np.float32)
+              for k, s in shapes.items()}
+    grads = [{k: rng.standard_normal(s).astype(np.float32)
+              for k, s in shapes.items()} for _ in range(2)]
+    key = {k: k if not k.startswith("layers") else "layers.a"
+           for k in shapes}
+
+    def dim_of(k):  # the split dimension of the layer's tensor
+        return split_dim[key[k]] - (key[k] == "layers.a")
+
+    opt = adafactor(lr=0.1)
+    whole = {k: torch.tensor(v) for k, v in params.items()}
+    st = opt.init(whole)
+    for g in grads:
+        opt.update({k: torch.tensor(v) for k, v in g.items()}, st, whole,
+                   torch.tensor(0))
+
+    def rank(r):
+        def blk(x, k):
+            return torch.tensor(np.ascontiguousarray(
+                np.split(x, m, dim_of(k))[r]) if key[k] in split_dim else x)
+        local = {k: blk(v, k) for k, v in params.items()}
+        ls = opt.init(local)
+        group = _Group(axis=C._axis("model")[0].axis, rank=r)
+        axes = {kk: [[group] if d == split_dim[kk] else []
+                     for d in range(len(shapes[kk if kk != "layers.a"
+                                                else "layers.0.a"])
+                                    + (kk == "layers.a"))]
+                for kk in split_dim}
+        whole_shape = {"layers.a": (2, 8, 12), "b": (4, 16), "v": (16,)}
+        sp = LeafSplit(axes, whole_shape)
+        for g in grads:
+            opt.update({k: blk(v, k) for k, v in g.items()}, ls, local,
+                       torch.tensor(0), split=sp)
+        return local, ls
+
+    for r, (local, ls) in enumerate(threads(m, rank)):
+        for k in shapes:
+            want = whole[k] if key[k] not in split_dim else \
+                whole[k].chunk(m, dim_of(k))[r]
+            _close(local[k], want, f"{k} r{r}")
+        # the row factor of the column-split leaf is whole on every rank
+        _close(ls["f"]["b"]["r"], st["f"]["b"]["r"], f"b.r r{r}")
+        _close(ls["f"]["b"]["c"], st["f"]["b"]["c"].chunk(m, -1)[r],
+               f"b.c r{r}")
+
+
 @pytest.mark.parametrize("m", (2, 4))
 def test_in_proj_realignment_plan(m):
     """Each rank's contiguous columns of [x | z] (2 m blocks of w), sent
@@ -414,3 +684,80 @@ def test_dry_run_4x4_dot_flops_are_the_hand_count(arch, over):
         _hand_dot_flops(cfg, batch, seq, 4, 4)
     cb = rec["hlo"]["collective_bytes"]
     assert cb["all_reduce"] > 0
+
+
+def _hand_dot_flops_mla_moe(cfg, batch: int, seq: int, data: int,
+                            m: int) -> float:
+    """A rank's dot FLOPs of a tensor-parallel train step of deepseek's
+    smoke config (MLA, ``moe_dense`` with a shared expert): forward once
+    and backward twice for every product whose inputs both take a
+    gradient; the gate's combine einsum once more (the one-hot takes
+    none).  MLA: ``wq_a`` and ``wkv_a`` whole, ``wq_b``/``wkv_b``/``wo``
+    and the score and value products on the rank's H / m heads (torch
+    ops, not the kernel); the MoE: the router whole, the E / m experts'
+    three products, the combine over them, the shared expert's hidden
+    units / m; the head's vocab / m."""
+    Bl, T = batch // data, batch // data * seq
+    d, hl = cfg.d_model, cfg.n_heads // m
+    qk, v = cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim
+    attn = (2 * T * d * cfg.q_lora_rank + 2 * T * cfg.q_lora_rank * hl * qk
+            + 2 * T * d * (cfg.kv_lora_rank + cfg.qk_rope_dim)
+            + 2 * T * cfg.kv_lora_rank * hl * (cfg.qk_nope_dim + v)
+            + 2 * Bl * hl * seq * seq * (qk + v) + 2 * T * hl * v * d)
+    E, el = cfg.n_experts, cfg.n_experts // m
+    sff = cfg.moe_d_ff * cfg.n_shared_experts // m
+    moe = (3 * 2 * T * d * E                    # the router, f32
+           + 2 * 2 * T * cfg.top_k * E          # gates x one-hot
+           + 9 * 2 * el * T * d * cfg.moe_d_ff  # the rank's experts
+           + 3 * 2 * T * d * el                 # their combine
+           + 9 * 2 * T * d * sff)               # the shared expert
+    return cfg.n_layers * (3.0 * attn + moe) + 3.0 * 2 * T * d * (
+        cfg.vocab // m)
+
+
+def _hand_dot_flops_hybrid(cfg, batch: int, seq: int, data: int,
+                           m: int) -> float:
+    """A rank's dot FLOPs of a tensor-parallel train step of zamba2's
+    smoke config (one SSD chunk: seq at most its 128): each mamba2 layer
+    on the rank's H / m heads (``in_proj``'s 2 d_inner / m columns,
+    ``dt_w``'s heads, ``out_proj``'s rows; ``bc_proj`` whole; the chunk's
+    C B^T and its products with x; C h0 and the final state, whose
+    zero start and unused end take no gradient), the shared block's
+    G = n_layers // attn_every invocations as a dense layer (q, k, v, o on
+    H / m heads, the attention on the kernel, the MLP's d_ff / m), the
+    head's vocab / m."""
+    assert seq <= 128
+    Bl, T = batch // data, batch // data * seq
+    d, n = cfg.d_model, cfg.ssm_state
+    hl, dh = cfg.ssm_heads // m, cfg.d_inner // cfg.ssm_heads
+    mamba = (3 * 2 * T * d * (2 * cfg.d_inner // m)        # in_proj
+             + 3 * 2 * T * d * 2 * n                      # bc_proj
+             + 3 * 2 * T * d * hl                         # dt_w
+             + 3 * 2 * Bl * seq * seq * n                 # C B^T
+             + 3 * 2 * Bl * hl * seq * seq * dh           # M x
+             + 2 * 2 * Bl * seq * hl * dh * n             # C h0
+             + 2 * Bl * hl * dh * n * seq                 # the final state
+             + 3 * 2 * T * (cfg.d_inner // m) * d)        # out_proj
+    G = cfg.n_layers // cfg.attn_every
+    shared = 3 * (4 * 2 * T * d * (cfg.n_heads // m) * cfg.hd
+                  + 3 * 2 * T * d * (cfg.d_ff // m))
+    return (cfg.n_layers * mamba + G * shared
+            + 3.0 * 2 * T * d * (cfg.vocab // m))
+
+
+@pytest.mark.parametrize("arch,hand", [
+    ("deepseek-v3-671b", _hand_dot_flops_mla_moe),
+    ("zamba2-1.2b", _hand_dot_flops_hybrid)])
+def test_dry_run_4x4_dot_flops_are_the_hand_count_mla_moe_hybrid(arch,
+                                                                 hand):
+    """The same on a fake 4 x 4 mesh for MLA with the MoE (deepseek) and
+    mamba2 with the shared block (zamba2), smoke configs."""
+    from repro_torch.launch import dryrun
+    cfg = smoke_config(arch)
+    batch, seq = 8, 16
+    rec = dryrun.run_cell(arch, (seq, batch, "train"), False,
+                          cfg_override=cfg, mesh=((4, 4), ("data", "model")))
+    assert rec["status"] == "ok", rec.get("traceback")
+    assert sum(rec["hlo"]["aten_flops"].values()) == hand(cfg, batch, seq,
+                                                          4, 4)
+    assert rec["hlo"]["collective_bytes"]["all_reduce"] > 0

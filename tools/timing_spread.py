@@ -22,15 +22,21 @@ thirty-one of each in turns, and fifteen in turns with Python's garbage
 collector off; the ratios and how many fall under the 0.95 floor.
 
 ``captures``: the measured fitness of the unmutated MobileNet evaluated
-six times with each count of graph instances its time is the median of
-(``core/fitness.py`` ``MEASURED_CAPTURES``: 1, 3, 5): each triple's
-spread, the six's, and the wall seconds of an evaluation.
+six times with each count of program graphs its time is the mean of
+(``core/fitness.py`` ``PROGRAM_INSTANCES``: 1, 3, 5): each evaluation's
+graph instances' times (s a replay, ``LAST_INSTANCES``) and their spread,
+each triple's spread, the six's, and the wall seconds of an evaluation.
 
 ``device_canary``: 24 A/A windows (three runs' worth of ``chip_smoke.py``'s
-8) of the real live loop, each measured two ways in turns, fifteen
-replays a plan: by the host's clock (the controller's window before) and
-by device time (``_device_timed``, the controller's window on the card
-now); how many fall under the 0.95 floor.
+8) of the real live loop, each measured in turns, fifteen replays a plan,
+each replay under torch.profiler (``_device_timed``): by the
+device's busy time and by CUDA events around the same replays; how many
+fall under the 0.95 floor.
+
+``placement``: 8 program graphs each of 2fcNet and MobileNet, each timed
+over 3 graph instances on its own buffers and constants and over 3 more,
+each after its buffers and constants were moved to new memory: whether
+an instance's speed follows its graph or where its data lies.
 
 Each part prints one JSON line; the card's name and power limit first.
 """
@@ -176,26 +182,85 @@ def captures_part(torch) -> dict:
     w = build_mobilenet_prediction_workload(
         alpha=1.0, batch=64, n_eval=2048, n_pretrain=6000, pretrain_epochs=3,
         time_mode="measured")
-    out = {"part": "captures", "default": fitness.MEASURED_CAPTURES,
+    out = {"part": "captures", "default": fitness.PROGRAM_INSTANCES,
            "by_captures": {}}
-    saved = fitness.MEASURED_CAPTURES
+    saved = fitness.PROGRAM_INSTANCES
     try:
         for k in (1, 3, 5):
-            fitness.MEASURED_CAPTURES = k
-            ts, walls = [], []
+            fitness.PROGRAM_INSTANCES = k
+            ts, walls, inst = [], [], []
             for _ in range(6):
                 t0 = time.perf_counter()
                 t, _ = w.evaluate(w.program)
                 walls.append(time.perf_counter() - t0)
                 ts.append(t)
+                inst.append(list(fitness.LAST_INSTANCES))
             out["by_captures"][k] = {
                 "measured_s": ts,
+                "instances_s": inst,
+                "instance_spreads": [max(i) / min(i) - 1 for i in inst],
                 "triple_spreads": [max(ts[i:i + 3]) / min(ts[i:i + 3]) - 1
                                    for i in (0, 3)],
                 "spread": max(ts) / min(ts) - 1,
                 "wall_s_per_evaluation": statistics.median(walls)}
     finally:
-        fitness.MEASURED_CAPTURES = saved
+        fitness.PROGRAM_INSTANCES = saved
+    return out
+
+
+def _recapture(g) -> None:
+    """Release ``g``'s captured graph and capture its op list again, on
+    the same constants and input buffers."""
+    from repro_torch.device import CudaGraph
+    g._graph.release()
+    graph = CudaGraph(g.device)
+    g._static = graph.capture(g._outputs_of_run)
+    g._graph = graph
+
+
+def placement_part(torch) -> dict:
+    """Whether a graph instance's speed follows its program graph: for
+    2fcNet and MobileNet (as the ``programs`` phase builds them), 8
+    program graphs, each timed as the measured fitness times it
+    (``measured_time``) over 3 instances captured on its own buffers and
+    constants (``_recapture``), then over 3 more, each captured after its
+    buffers and constants were copied to new memory (allocated while the
+    old was held, so at other addresses)."""
+    import numpy as np
+
+    from repro_torch.core.fitness import measured_time
+    from repro_torch.core.interp import ProgramGraph
+    from repro_torch.workloads.mobilenet import \
+        build_mobilenet_prediction_workload
+    from repro_torch.workloads.twofc import build_twofc_training_workload
+    twofc = build_twofc_training_workload(time_mode="measured")
+    mobilenet = build_mobilenet_prediction_workload(
+        alpha=1.0, batch=64, n_eval=2048, n_pretrain=6000, pretrain_epochs=3,
+        time_mode="measured")
+    eye = np.eye(twofc.num_classes, dtype=np.float32)
+    inputs = {"twofc": {**twofc.init_weights, "x": twofc.train_x[:32],
+                        "y_onehot": eye[twofc.train_y[:32]]},
+              "mobilenet": {"images": mobilenet.images[:mobilenet.batch]}}
+    out = {"part": "placement"}
+    for name, w in (("twofc", twofc), ("mobilenet", mobilenet)):
+        rows = []
+        for _ in range(8):
+            with ProgramGraph(w.program, "cuda") as g:
+                g.load(inputs[name])
+                g.run()
+                same, moved = [], []
+                for i in range(3):
+                    if i:
+                        _recapture(g)
+                    same.append(measured_time(g.run, "cuda"))
+                for _ in range(3):
+                    g._buffers = {k: v.clone()
+                                  for k, v in g._buffers.items()}
+                    g._env0 = {k: v.clone() for k, v in g._env0.items()}
+                    _recapture(g)
+                    moved.append(measured_time(g.run, "cuda"))
+            rows.append({"same": same, "moved": moved})
+        out[name] = rows
     return out
 
 
@@ -213,22 +278,33 @@ def device_canary_part(torch) -> dict:
         g = dict(DEFAULT_SERVE_PLAN)
         for w in range(24):
             tr = ctl._window_slice(2000 + w)
-            one = ctl._replayer(tr, g)
-            dev = _device_timed(one)
-            out["windows"].append({
-                "requests": len(tr),
-                "host_turns_15": _window((one, one), 15, True, False),
-                "device_turns_15": _window((dev, dev), 15, True, False)})
+            busy = _device_timed(ctl._replayer(tr, g))
+            # busy time and CUDA events over the same profiled replays
+            out["windows"].append({"requests": len(tr), **dict(zip(
+                ("busy_turns_15", "events_turns_15"),
+                _window((busy, busy), 15, True, False,
+                        keys=("throughput_busy_tok_s",
+                              "throughput_event_tok_s"))))})
     out["under_0.95"] = {k: sum(w[k] < 0.95 for w in out["windows"])
-                         for k in ("host_turns_15", "device_turns_15")}
+                         for k in ("busy_turns_15", "events_turns_15")}
     return out
 
 
-def _window(ones, repeats: int, interleave: bool, no_gc: bool) -> float:
+def _window(ones, repeats: int, interleave: bool, no_gc: bool,
+            keys=None):
     """The throughput ratio candidate / base of one A/A window: each
     plan's median of ``repeats`` replays, taken in turns or one plan's
-    after the other's, with the garbage collector off or on."""
+    after the other's, with the garbage collector off or on; with
+    ``keys``, the ratio by each of those throughputs of the same
+    replays."""
     import gc
+    if keys is not None:
+        runs = ([], [])
+        for side in [0, 1] * repeats:
+            runs[side].append(ones[side]())
+        return tuple(statistics.median(r[k] for r in runs[1])
+                     / statistics.median(r[k] for r in runs[0])
+                     for k in keys)
     runs = ([], [])
     order = ([0, 1] * repeats if interleave
              else [0] * repeats + [1] * repeats)
@@ -273,7 +349,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--part", default="both",
                     choices=("spread", "instances", "canary", "both",
-                             "captures", "device_canary"))
+                             "captures", "device_canary", "placement"))
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -292,6 +368,8 @@ def main() -> int:
         print(json.dumps(captures_part(torch)), flush=True)
     if args.part == "device_canary":
         print(json.dumps(device_canary_part(torch)), flush=True)
+    if args.part == "placement":
+        print(json.dumps(placement_part(torch)), flush=True)
     print(json.dumps({"seconds": time.perf_counter() - t0}), flush=True)
     return 0
 

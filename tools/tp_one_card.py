@@ -1,16 +1,19 @@
 #!/usr/bin/env python3
 """Tensor-parallel arithmetic on one card: two ranks share the GPU.
 
-    python3 tools/tp_one_card.py [--arch qwen3-0.6b|falcon-mamba-7b|both]
+    python3 tools/tp_one_card.py [--arch ARCH|all]
 
 Starts two processes (``launch/mesh.py`` ``launch_ranks``), each a rank
 of a gloo group over CUDA tensors on the one card, with a ``(1, 2)``
 mesh: the ``model`` axis has two ranks, so the train step splits its
 arithmetic over them (attention heads, the FFN hidden units, mamba1's
-channels, the vocabulary) and the hand kernels run on each rank's local
-blocks.  Each rank runs one AdamW step of the model (full width, 2
-layers, f32 with TF32 off) sharded and unsharded from the same seeded
-weights and batch, and holds the loss, the gradient norm and every
+channels, the vocabulary; zamba2's mamba2 heads with their split norm and
+its shared block; deepseek's MLA heads, experts and shared expert) and
+the hand kernels run on each rank's local blocks.  Each rank runs one
+AdamW step of the model (qwen3-0.6b and falcon-mamba-7b at full width, 2
+layers; zamba2-1.2b and deepseek-v3-671b at their smoke configs; f32 with
+TF32 off) sharded and unsharded from the same seeded weights and batch,
+and holds the loss, the gradient norm and every
 parameter to the card-against-CPU tolerance, |tp - one| <= 1e-3 |one|
 + 1e-4 max(1, max |one|).  The kernels are built once, before the ranks
 start.  First each collective the step calls (all-reduce, all-gather,
@@ -34,7 +37,11 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-ARCHS = ("qwen3-0.6b", "falcon-mamba-7b")
+ARCHS = ("qwen3-0.6b", "falcon-mamba-7b", "zamba2-1.2b",
+         "deepseek-v3-671b")
+# run at their smoke configs (realign_pairs' uneven all-to-all of mamba2's
+# in_proj, the split norm's all-reduce, the MoE's collectives)
+SMOKE = ("zamba2-1.2b", "deepseek-v3-671b")
 RTOL, ATOL = 1e-3, 1e-4
 BATCH, SEQ, LAYERS = 2, 256, 2
 
@@ -73,7 +80,7 @@ def rank_main(arch: str) -> dict:
     import torch.distributed as dist
     from torch.distributed.device_mesh import DeviceMesh
 
-    from repro_torch.configs import get_config
+    from repro_torch.configs import get_config, smoke_config
     from repro_torch.core.interp import full_f32
     from repro_torch.kernels.flash_attention.ops import (flash_attention,
                                                          flash_attention_bwd)
@@ -87,7 +94,8 @@ def rank_main(arch: str) -> dict:
     counters = {f.__name__: f for f in (rmsnorm, flash_attention, mamba_scan,
                                         rmsnorm_bwd, flash_attention_bwd,
                                         mamba_scan_bwd)}
-    cfg = get_config(arch).scaled(n_layers=LAYERS, dtype="float32")
+    cfg = smoke_config(arch) if arch in SMOKE else \
+        get_config(arch).scaled(n_layers=LAYERS, dtype="float32")
     gen = torch.Generator().manual_seed(0)
     b = {"tokens": torch.randint(0, cfg.vocab, (BATCH, SEQ), generator=gen),
          "labels": torch.randint(0, cfg.vocab, (BATCH, SEQ), generator=gen)}
@@ -194,12 +202,12 @@ def ranks(archs: list, kind: str | None) -> int:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="both", choices=(*ARCHS, "both"))
+    ap.add_argument("--arch", default="all", choices=(*ARCHS, "all"))
     ap.add_argument("--rank", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--collective", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     sys.path[:0] = [str(ROOT / "src")]
-    archs = list(ARCHS) if args.arch == "both" else [args.arch]
+    archs = list(ARCHS) if args.arch == "all" else [args.arch]
     if args.rank:
         return ranks(archs, args.collective)
     import torch
