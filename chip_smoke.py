@@ -144,8 +144,11 @@ Phases, each printing one JSON line:
                     ``DeviceFault``, both replicas alive.  The same model,
                     one replica of 4 slots over the trace, without a mesh
                     and placed on the ``(1, 1)`` mesh of a NCCL group of
-                    one rank (``build_router(mesh=)``), in turns: tokens
-                    bit for bit, the same launches, s/token both ways,
+                    one rank (``build_router(mesh=)``: the replica serves
+                    on its local blocks under the tensor-parallel
+                    ``Dist``, here whole, with no gather a tick), in
+                    turns: tokens bit for bit, the same launches,
+                    s/token both ways,
                     every kernel call of the meshed runs held against its
                     plain version; ``python -m repro_torch.launch.serve
                     --mesh 1x1`` at full width and depth, every request
@@ -2175,8 +2178,8 @@ def serve_model(torch, arch: str, counters, keep: dict) -> dict:
     recorded = []
     prefill = T.prefill
 
-    def recording(params_, batch, cfg_):
-        logits, caches = prefill(params_, batch, cfg_)
+    def recording(params_, batch, cfg_, *dist):
+        logits, caches = prefill(params_, batch, cfg_, *dist)
         recorded.append((batch["tokens"].cpu().numpy(), logits.cpu()))
         return logits, caches
 
@@ -2557,7 +2560,9 @@ def router_mesh(torch, counters) -> dict:
     one rank against the same router without a mesh (``ROUTER_MESH_*``),
     in turns: every request's tokens bit for bit, the same kernel launches
     (counted from zero in each run), s/token both ways (the meshed replica
-    gathers its weights and caches every tick), and every distinct kernel
+    serves on its local blocks under the tensor-parallel ``Dist``, made
+    once at build: on ``(1, 1)`` the whole tensors, the one-device
+    operations, no gather a tick), and every distinct kernel
     call of the meshed runs held against its plain version; then
     ``launch.serve --mesh 1x1`` through its main, which starts and ends a
     group of its own."""
@@ -2587,6 +2592,10 @@ def router_mesh(torch, counters) -> dict:
                     router = build_router(
                         cfg, params, genome=ROUTER_MESH_GENOME,
                         max_len=max_len, mesh=mesh if turn == "mesh" else None)
+                    hear = [0.0]
+                    if turn == "mesh":
+                        split_path(router)
+                        router._hear = timed_exchange(router._hear, hear)
                     torch.cuda.synchronize()
                     for fn in counters.values():
                         fn.launches = 0
@@ -2598,6 +2607,7 @@ def router_mesh(torch, counters) -> dict:
                         torch.cuda.synchronize()
                     runs.append({"turn": turn,
                                  "run_s": time.perf_counter() - t0,
+                                 "exchange_s": hear[0],
                                  "launches": {k: fn.launches
                                               for k, fn in counters.items()},
                                  "tokens": {r.uid: r.tokens for r in results},
@@ -2636,6 +2646,34 @@ def router_mesh(torch, counters) -> dict:
             "runs": [{k: v for k, v in r.items() if k != "tokens"}
                      for r in runs],
             "held": held, "serve": served.splitlines()}
+
+
+def timed_exchange(hear, total: list):
+    """``MeshRouter._hear`` adding its host seconds to ``total[0]``: the
+    per-tick exchange of every rank's outcome, what a meshed router does
+    that the plain one does not besides its engine's split path."""
+    def timed(record):
+        t0 = time.perf_counter()
+        try:
+            return hear(record)
+        finally:
+            total[0] += time.perf_counter() - t0
+    return timed
+
+
+def split_path(router) -> None:
+    """The meshed replica's engine serves under the tensor-parallel
+    ``Dist`` on plain local tensors (weights and lane caches), with its
+    placed DTensors only as the record."""
+    from torch.distributed.tensor import DTensor
+    engine = router.replicas[router.replica].engine.real
+    batch = engine.batches["default"]
+    if not (engine.dist.tensor_parallel and engine.dist.active) or any(
+            isinstance(t, DTensor) for t in [*engine.params.parameters(),
+                                             *batch.caches.values()]) \
+            or not isinstance(next(router.placed.parameters()), DTensor):
+        raise AssertionError("router mesh: the replica does not serve on "
+                             "its local blocks")
 
 
 def phase_router(torch, counters, keep: dict) -> dict:

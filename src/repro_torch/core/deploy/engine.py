@@ -46,7 +46,14 @@ Model functions are imported lazily from ``repro_torch.models`` (this
 module is the bridge between the core search stack and the model stack).
 Several engines behind one queue are the router's
 (:mod:`~repro_torch.core.deploy.router`), on one device or each on a
-submesh of a launch mesh.
+submesh of a launch mesh.  There an engine serves under the router's
+tensor-parallel ``Dist`` (``dist``): its weights and lane caches are this
+rank's blocks, plain tensors, every prefill and decode step runs on them,
+each rank decodes its block of the lanes (the lane axis split over the
+data axes where ``cache_specs`` puts it) and the logits of every lane are
+gathered before sampling, so every rank samples the same tokens (at a
+temperature, from identical generators).  Without a mesh ``dist`` is the
+empty ``Dist()`` and nothing of this runs.
 """
 
 from __future__ import annotations
@@ -180,12 +187,24 @@ class _LaneBatch:
     sequences sharing ONE stacked cache (lane axis 1, the batch axis of the
     model's caches), advanced by a single decode step per tick with a
     per-lane cache index.  Lane shapes never change; a finished lane's
-    cache is simply overwritten at the next admission."""
+    cache is simply overwritten at the next admission.  On a replica's
+    submesh ``caches`` are this rank's blocks (``blocks`` says where each
+    lies, ``placed`` keeps them as DTensors over the same memory, the
+    record of the placement)."""
 
     def __init__(self, n_lanes: int):
         self.n_lanes = n_lanes
         self.lanes: list[_Lane | None] = [None] * n_lanes
         self.caches = None           # allocated lazily at first admission
+        self.blocks: dict | None = None
+        self.placed: dict | None = None
+
+    def lane_block(self) -> tuple[int, int]:
+        """(first lane, lanes) of the rank's block: every lane unplaced."""
+        if not self.blocks:
+            return 0, self.n_lanes
+        b = next(iter(self.blocks.values()))
+        return b.lane0, b.lanes
 
     def free_lanes(self) -> list[int]:
         return [i for i, l in enumerate(self.lanes) if l is None]
@@ -202,21 +221,56 @@ class _LaneBatch:
 # --------------------------------------------------------------------------
 
 
+# the cache leaves indexed by token position (models/transformer.py
+# ``init_cache``); the others are recurrent states
+TOKEN_LEAVES = ("k", "v", "ckv", "krope", "shared_k", "shared_v")
+
+
+@dataclass(frozen=True)
+class CacheBlock:
+    """Where this rank's block of a stacked lane-cache leaf lies on a
+    replica's submesh: its first lane and lane count (the lane axis over
+    the data axes)."""
+    lane0: int
+    lanes: int
+
+    @classmethod
+    def of(cls, t, model_axis: str) -> "CacheBlock":
+        """The block of the DTensor ``t`` (a (L, lanes, ...) leaf)."""
+        mesh = t.device_mesh
+        lane0, lanes = 0, t.shape[1]
+        for i, (name, pl) in enumerate(zip(mesh.mesh_dim_names,
+                                           t.placements)):
+            if pl.is_shard() and name != model_axis:
+                # the lanes, over the batch axes, the first the major
+                size = mesh.size(i)
+                lanes //= size
+                lane0 += mesh.get_local_rank(i) * lanes
+        return cls(lane0, lanes)
+
+
 def _write_lane(stacked: dict, lane: int, pre: dict, row: int,
-                plen: int, max_len: int) -> None:
-    """Install row ``row`` of a prefill's caches (sequence length ``plen``)
-    into lane ``lane`` of the stacked lane caches, in place: the lane's
-    token-indexed leaves take the prefill's ``plen`` positions and zeros
-    after them, its recurrent state leaves the prefill's states (the only
-    per-admission cache traffic — decode itself never restacks)."""
+                blocks: dict | None = None) -> None:
+    """Install row ``row`` of a prefill's caches into lane ``lane`` of the
+    stacked lane caches, in place: the lane's token-indexed leaves take
+    the prefill's positions and zeros after them, its recurrent state
+    leaves the prefill's states (the only per-admission cache traffic —
+    decode itself never restacks).  With
+    ``blocks`` (:class:`CacheBlock` a leaf) ``stacked`` holds this rank's
+    blocks, and the prefill returned each leaf's block as its layer
+    computed it (models/attention.py ``_cache_rows`` for a sequence split
+    over the model axis): a lane outside the rank's lanes is left alone."""
     for name, full in stacked.items():
-        dst, src = full[:, lane], pre[name][:, row]
-        if src.shape == dst.shape:
-            dst.copy_(src)
-        elif (src.dim() == dst.dim() and src.shape[1] == plen
-              and dst.shape[1] == max_len):
+        b = blocks[name] if blocks else CacheBlock(0, full.shape[1])
+        if not b.lane0 <= lane < b.lane0 + b.lanes:
+            continue
+        dst, src = full[:, lane - b.lane0], pre[name][:, row]
+        if name in TOKEN_LEAVES:
+            n = min(src.shape[1], dst.shape[1])
             dst.zero_()
-            dst[:, :plen].copy_(src)
+            dst[:, :n].copy_(src[:, :n])
+        elif src.shape == dst.shape:
+            dst.copy_(src)
         else:  # a conv tail shorter than the conv (prompt < taps - 1)
             dst.zero_()
 
@@ -248,7 +302,8 @@ class ServeEngine:
                  max_slots: int = 4, prefill_chunk: int = 2,
                  evolved_cfg=None, ab_fraction: float = 0.0,
                  temperature: float = 0.0, seed: int = 0,
-                 admit_max_wait: int = 32, device=None):
+                 admit_max_wait: int = 32, device=None, dist=None):
+        from ...models.transformer import Dist
         if cfg.family == "encoder":
             raise ValueError("encoder-only arch has no decode step")
         if max_slots < 1 or prefill_chunk < 1:
@@ -277,6 +332,7 @@ class ServeEngine:
         self._sample_gen = torch.Generator(
             device=self.device).manual_seed(seed + 1)
         self.params = params
+        self.dist = Dist() if dist is None else dist
         self.queue: deque[ServeRequest] = deque()
         self.batches = {v: _LaneBatch(max_slots) for v in self.cfgs}
         self.completed: list[ServeResult] = []
@@ -393,7 +449,8 @@ class ServeEngine:
             pos = np.broadcast_to(np.arange(plen, dtype=np.int32)[None],
                                   (G, plen))
             logits, pre_caches = prefill(
-                self.params, self._token_batch(cfg, toks, pos), cfg)
+                self.params, self._token_batch(cfg, toks, pos), cfg,
+                self.dist)
             self.n_prefill_batches += 1
             first = self._sample(logits)
             t_first = _time.perf_counter()
@@ -412,8 +469,8 @@ class ServeEngine:
                 if not self._maybe_finish(lane, t_first):
                     li = free.pop(0)
                     batch.lanes[li] = lane
-                    _write_lane(batch.caches, li, pre_caches, i, plen,
-                                self.max_len)
+                    _write_lane(batch.caches, li, pre_caches, i,
+                                batch.blocks)
 
     # -- decode --------------------------------------------------------------
     def _sample(self, logits):
@@ -452,12 +509,27 @@ class ServeEngine:
             for i, lane in active:
                 toks[i, 0] = lane.last
                 pos[i, 0] = lane.index
-            tb = self._token_batch(cfg, toks, pos)
+            lo, n = batch.lane_block()
+            tb = self._token_batch(cfg, toks[lo:lo + n], pos[lo:lo + n])
             logits, batch.caches = decode_step(
-                self.params, tb, batch.caches, tb["positions"][:, 0], cfg)
+                self.params, tb, batch.caches, tb["positions"][:, 0], cfg,
+                self.dist)
+            if n < N:
+                logits = self._all_lanes(logits)
             self.n_decode_batches += 1
             pending.append((variant, active, logits))
         return pending
+
+    def _all_lanes(self, logits):
+        """Every lane's logits from the ranks' lane blocks: gathered over
+        the batch axes, minor first (the blocks' order), so every rank
+        samples the same tokens."""
+        from ...models.common import manual_axes, tp_gather
+        axes = self.dist.batch_axes
+        with manual_axes(self.dist.mesh, axes):
+            for a in reversed(axes):
+                logits = tp_gather(logits, a, 0)
+        return logits
 
     def _decode_complete(self, pending: list[tuple]) -> None:
         """Phase 2 of a decode tick: sample next tokens (this is where the

@@ -39,14 +39,27 @@ device becomes one :class:`MeshRouter` on every rank:
   submeshes, the reference's reshape;
 * :func:`shard_replica_params` and :func:`shard_engine_caches` place a
   replica's weights and lane caches on its submesh under ``param_specs``
-  and ``cache_specs`` (DTensors, each rank its block);
-* each tick, the replica's ranks gather its weights and caches into whole
-  tensors, step its engine on them (the hand kernels read local tensors,
-  which a DTensor is not), and write each rank's block of the caches back:
-  the ``model`` axis shards storage, not arithmetic;
+  and ``cache_specs`` (DTensors, each rank its block: the record of the
+  placement);
+* the replica's engine serves under a tensor-parallel ``Dist`` over the
+  submesh, as the reference's GSPMD partitions its jitted prefill and
+  decode by those placements: its weights are each rank's local tensors,
+  made once at build (``shardings.local_model``: a leaf placed on its
+  layer's split dimension kept as the rank's block over ``model``,
+  gathered over the data axes only; any other gathered whole), and its
+  lane caches each rank's blocks, plain tensors (``engine.CacheBlock``);
+  each layer computes on its blocks (models/transformer.py), the logits
+  are gathered over ``model`` and over the lanes' data axes, and no tick
+  gathers a weight or a cache;
 * every rank routes, fails and drains the same way, steps only its own
   replica, and after each tick hears every replica's outcome from its
-  first rank in one ``all_gather_object`` over a gloo group.
+  first rank in one ``all_gather_object`` over a gloo group of its own;
+* a replica fails when any of its ranks failed.  A fault that only one
+  rank hits leaves its peers waiting in a layer's collective: the
+  replica's process groups time out after ``FAULT_TIMEOUT`` seconds,
+  which fails the step on those ranks too (gloo raises; on NCCL the
+  watchdog ends the process at the timeout instead, so there such a
+  fault ends the replica's ranks rather than failing the replica over).
 
 ``python -m repro_torch.core.deploy.router`` is the CLI smoke: build a
 router (``--mesh DATAxMODEL``: over that many ranks, which it starts on
@@ -56,22 +69,23 @@ killing a replica mid-replay to show the failover path).
 
 from __future__ import annotations
 
-import contextlib
 import copy
 import hashlib
 import json
 import time as _time
 from collections import deque
 from dataclasses import astuple, dataclass
+from datetime import timedelta
 
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.distributed.distributed_c10d import _set_pg_timeout
 
 from ...device import DeviceFault, resolve_device
 from ...launch.mesh import mesh_axes
-from ...launch.shardings import (cache_specs, distribute, gather,
-                                 local_block, param_specs, to_shardings)
+from ...launch.shardings import (cache_specs, distribute, local_model,
+                                 param_specs, to_shardings)
 from ...train.fault import HeartbeatMonitor
 from ..evaluator import EvalOutcome, FitnessCache
 from ..fitness import DEVICE_FAULTS
@@ -80,6 +94,11 @@ from .engine import (DEFAULT_SERVE_PLAN, ServeEngine, ServeRequest,
 from .kvplan import KVPlan
 from .registry import shape_tag
 
+
+# seconds a rank of a meshed replica waits in one of its replica's
+# collectives before its step fails (the module doc): longer than any
+# wait for a peer in a step, a kernel build included
+FAULT_TIMEOUT = 300.0
 
 @dataclass
 class _Replica:
@@ -418,60 +437,42 @@ class _MirrorEngine:
          self.n_rejected, self._t0, self._t_last) = snap["counts"]
 
 
-@contextlib.contextmanager
-def _whole_tensors(engine: ServeEngine):
-    """One tick of a placed replica: its weights and lane caches gathered
-    into whole tensors on each of the replica's ranks (the hand kernels
-    read local tensors, which a DTensor is not), then every lane cache,
-    new rows and all, written back into each rank's own block."""
-    from ...train.train_step import _whole_model
-    placed = engine.params
-    caches = {v: b.caches for v, b in engine.batches.items()}
-    engine.params = _whole_model(engine.cfgs["default"], placed)
-    for v, b in engine.batches.items():
-        b.caches = gather(caches[v])
-    try:
-        yield
-    finally:
-        for v, b in engine.batches.items():
-            for k, t in caches[v].items():
-                t.to_local().copy_(local_block(b.caches[k], t.device_mesh,
-                                               t.placements))
-            b.caches = caches[v]
-        engine.params = placed
-
-
 class MeshRouter(Router):
     """A :class:`Router` whose replicas live on submeshes of a launch
     mesh, one process a rank (see the module doc).  Every rank holds this
     router over every replica (as :class:`_MirrorEngine`\\ s) and steps
     the replica whose ``submesh`` holds it (``replica``); one
-    ``all_gather_object`` a tick over ``group`` (gloo; None: the world's
-    own gloo group) then hands every rank each replica's outcome, from its
-    first rank.  A :data:`~repro_torch.core.fitness.DEVICE_FAULTS` fault on
+    ``all_gather_object`` a tick over ``group`` (gloo, none of the
+    replicas' own) then hands every rank each replica's outcome, from its
+    first rank; a fault on one rank mid-step fails its peers' step when
+    the replica's groups time out (:data:`FAULT_TIMEOUT`, the module
+    doc).  ``placed`` is the rank's replica's model of DTensor
+    parameters (:func:`shard_replica_params`), the record its engine's
+    local weights were made from.  A
+    :data:`~repro_torch.core.fitness.DEVICE_FAULTS` fault on
     any rank leaves :meth:`step` on every rank.  ``stats()`` is the same on
     every rank: its times are those of each replica's first rank, its
     start rank 0's.  Only rank 0 writes :meth:`publish_stats`' records."""
 
     def __init__(self, engines: list[_MirrorEngine], *, replica: int,
-                 submesh, group=None, **kw):
+                 submesh, group=None, placed=None, **kw):
         super().__init__(engines, **kw)
         self.replica = replica
         self.submesh = submesh
+        self.placed = placed        # this rank's replica's DTensor weights
         self._group = group
         self._speaker = int(submesh.mesh.flatten()[0]) == dist.get_rank()
         self._fault: BaseException | None = None
 
     def _step_own(self, engine: ServeEngine) -> tuple | None:
-        """Step this rank's replica on its gathered tensors; its fault as
-        (phase, reason), if any (a device fault is kept, to be raised once
-        every rank has heard of it)."""
+        """Step this rank's replica on its blocks; its fault as (phase,
+        reason), if any (a device fault is kept, to be raised once every
+        rank has heard of it)."""
         phase = "begin"
         try:
-            with _whole_tensors(engine):
-                pending = engine.begin_step()
-                phase = "finish"
-                engine.finish_step(pending)
+            pending = engine.begin_step()
+            phase = "finish"
+            engine.finish_step(pending)
         except DEVICE_FAULTS as e:
             self._fault = e
             return ("device", f"{type(e).__name__}: {e}")
@@ -578,8 +579,11 @@ def shard_engine_caches(engine: ServeEngine, submesh) -> None:
     replica's submesh per ``cache_specs`` (the lane axis is the cache's
     batch dim), so decode runs on placed caches from the first tick; the
     engine's allocation at the first admission then leaves them as they
-    are."""
+    are.  The engine steps on each rank's blocks, plain tensors
+    (``caches``, where each lies in ``blocks``); the DTensors over the same
+    memory stay as the record (``placed``)."""
     from ...models.transformer import init_cache
+    from .engine import CacheBlock
     dp_axes, model_axis, dp_size, model_size = _mesh_sizes(submesh)
     for variant, cfg in engine.cfgs.items():
         batch = engine.batches[variant]
@@ -588,7 +592,10 @@ def shard_engine_caches(engine: ServeEngine, submesh) -> None:
         specs = cache_specs(cfg, stacked, dp_axes=dp_axes,
                             model_axis=model_axis, dp_size=dp_size,
                             model_size=model_size)
-        batch.caches = distribute(stacked, to_shardings(submesh, specs))
+        batch.placed = distribute(stacked, to_shardings(submesh, specs))
+        batch.caches = {k: t._local_tensor for k, t in batch.placed.items()}
+        batch.blocks = {k: CacheBlock.of(t, model_axis)
+                        for k, t in batch.placed.items()}
 
 
 def _mesh_device(mesh, device) -> torch.device:
@@ -620,8 +627,13 @@ def build_router(cfg, params=None, *, genome: dict | None = None,
     the same arguments and weights), the mesh's data rows are split
     across replicas (:func:`replica_meshes`); each rank places its
     replica's parameters and decode caches on the replica's submesh
-    (:func:`shard_replica_params`, :func:`shard_engine_caches`) and
-    returns a :class:`MeshRouter` on its rank's device."""
+    (:func:`shard_replica_params`, :func:`shard_engine_caches`), gives
+    its engine the rank's local weights and a tensor-parallel ``Dist``
+    over the submesh (its data axes the lanes' batch axes, its caches
+    ``max_len`` long), and returns a :class:`MeshRouter` on its rank's
+    device.  The replica's process groups time out after
+    ``FAULT_TIMEOUT`` seconds, so that a fault on one of its ranks fails
+    the step on the others too (the module doc)."""
     g = dict(DEFAULT_SERVE_PLAN, **(genome or {}))
     plan = KVPlan.from_genome(g)
     if mesh is not None:
@@ -646,16 +658,24 @@ def build_router(cfg, params=None, *, genome: dict | None = None,
     submeshes = replica_meshes(mesh, plan.replicas)
     own = next(i for i, sm in enumerate(submeshes)
                if sm.get_coordinate() is not None)
-    engine = ServeEngine(cfg, shard_replica_params(params, submeshes[own]),
-                         seed=seed + own, **kw)
+    from ...models.transformer import Dist
+    dp_axes, model_axis, _, _ = _mesh_sizes(submeshes[own])
+    serve = Dist(mesh=submeshes[own], batch_axes=dp_axes,
+                 model_axis=model_axis, tensor_parallel=True,
+                 cache_len=max_len)
+    for i in range(submeshes[own].ndim):
+        _set_pg_timeout(timedelta(seconds=FAULT_TIMEOUT),
+                        submeshes[own].get_group(i))
+    placed = shard_replica_params(params, submeshes[own])
+    engine = ServeEngine(cfg, local_model(cfg, placed, serve)[0],
+                         dist=serve, seed=seed + own, **kw)
     shard_engine_caches(engine, submeshes[own])
     mirrors = [_MirrorEngine(engine.cfgs, max_len, engine.max_slots,
                              real=engine if i == own else None)
                for i in range(plan.replicas)]
-    group = None if dist.get_backend() == "gloo" \
-        else dist.new_group(backend="gloo")
+    group = dist.new_group(backend="gloo")
     return MeshRouter(mirrors, replica=own, submesh=submeshes[own],
-                      group=group, plan=plan, genome=g,
+                      group=group, placed=placed, plan=plan, genome=g,
                       heartbeat_timeout=heartbeat_timeout)
 
 

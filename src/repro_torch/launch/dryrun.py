@@ -8,26 +8,31 @@ the whole mesh: rank 0 of a fake process group of 256 (or 512) ranks
 (``launch/mesh.py`` :func:`fake_process_group`), its ``DeviceMesh``, and
 the cell's real sharded step (``launch/specs.py``) run once under a
 ``FakeTensorMode`` and the cost counter (``launch/hlo_analysis.py``).  So
-the collectives counted are the ones the port's step makes: each
-parameter's gather over the data axes (and over ``model`` for a leaf
-gathered whole), each gradient's mean, and the tensor-parallel layers'
-sums and all-to-alls over ``model``.  Nothing is allocated on any
-device.
+the collectives counted are the ones the port's step makes: in a train
+cell each parameter's gather over the data axes (and over ``model`` for a
+leaf gathered whole) and each gradient's mean, and in every cell the
+tensor-parallel layers' sums, gathers and all-to-alls over ``model``.
+Nothing is allocated on any device.
 
 The record keeps the reference's keys (``status``, ``memory``,
 ``roofline``, ``hlo``, ``error``, ``traceback``, ``wall_s``); building the
 cell's state stands where the reference has ``lower_s``, and the trace
-where it has ``compile_s``.  The memory record estimates the port's step
-as it is: ``argument_size_in_bytes`` is a rank's local shards of the
+where it has ``compile_s``.  The memory record estimates the port's step as
+it is: ``argument_size_in_bytes`` is a rank's local shards of the
 parameters and the optimizer state and its batch (the arguments the step
 is given), ``temp_size_in_bytes`` the peak of the storage the step makes
-above them.  In a train cell each rank of the ``model`` axis computes
-on its block of the weights (heads, FFN units, experts, channels,
-vocabulary), as the reference's GSPMD partitions its step; a leaf whose
-dimension does not divide the axis (one ``_fit`` relocated) is gathered
-whole and its layer computes whole on every rank.  A cell that needs
-more than a card holds says so (``fits_80gb``).  A cell that cannot be
-traced is a ``FAIL`` record naming the op, and the CLI exits 1.
+above them.  In every cell each rank of the ``model`` axis computes on its
+block of the weights (heads, FFN units, experts, channels, vocabulary), as
+the reference's GSPMD partitions its step; a leaf whose dimension does not
+divide the axis (one ``_fit`` relocated) is gathered whole and its layer
+computes whole on every rank.  A prefill or decode cell is a meshed
+server's step: its arguments are the rank's local weights (its blocks over
+``model``, whole over the data axes, as the server holds them from build)
+and its blocks of the caches under ``cache_specs``; the flash-decode sums
+over a split sequence and the head's gather over the vocabulary are
+counted among its collectives.  A cell that needs more than a card holds
+says so (``fits_80gb``).  A cell that cannot be traced is a ``FAIL`` record
+naming the op, and the CLI exits 1.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch all \\

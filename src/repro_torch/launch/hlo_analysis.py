@@ -249,7 +249,7 @@ class CostCounter(TorchDispatchMode):
 
     def _track(self, t: torch.Tensor) -> None:
         if t.device.type == "meta":
-            return  # no memory (a model's skeleton, train_step._local_model)
+            return  # no memory (a model's skeleton, shardings.local_model)
         st = t.untyped_storage()
         if st in self._seen:
             return

@@ -28,12 +28,13 @@ DTensor placements over the mesh (``Shard(i)`` on every mesh dim named at
 tensor dim ``i``, else ``Replicate()``), and :func:`distribute` /
 :func:`gather` move a tree between whole tensors and DTensors.
 
-In the train step (train/train_step.py) a leaf whose ``model`` placement
-sits on the dimension the tensor-parallel arithmetic of every family
-splits (``TP_DIMS``, :func:`tp_dims`, :func:`model_dim`) is gathered over
-the batch axes only (:func:`gather_batch`) and used as the rank's block;
+In the train step (train/train_step.py) and a meshed server
+(core/deploy/router.py) a leaf whose ``model`` placement sits on the
+dimension the tensor-parallel arithmetic of every family splits
+(``TP_DIMS``, :func:`tp_dims`, :func:`model_dim`) is gathered over the
+batch axes only (:func:`gather_batch`) and used as the rank's block;
 every other leaf (one ``_fit`` relocated, or replicated over ``model``)
-is gathered whole (:func:`gather`).
+is gathered whole (:func:`gather`): :func:`local_model`.
 """
 
 from __future__ import annotations
@@ -227,7 +228,10 @@ def cache_specs(cfg: ModelConfig, cache_shapes: dict, dp_axes=("data",),
                 model_axis: str = "model", dp_size: int = 1,
                 model_size: int = 1):
     """Decode-cache specs: batch over DP; KV heads over model when they
-    divide, otherwise the sequence dim over model (flash-decode style)."""
+    divide, otherwise the sequence dim over model (flash-decode style); a
+    mamba layer's states over the channels its decode splits on
+    (models/mamba.py ``_tp_name``: mamba1's d_inner, mamba2's heads, the
+    ``ssm`` state's dim 2), the ``conv`` window's d_inner with them."""
     out = {}
     for k, v in cache_shapes.items():
         shape = tuple(v.shape)          # leading L (or G) stacked dim
@@ -242,14 +246,11 @@ def cache_specs(cfg: ModelConfig, cache_shapes: dict, dp_axes=("data",),
         elif k in ("ckv", "krope"):
             if shape[2] % model_size == 0:          # sequence (MLA latent)
                 spec[2] = model_axis
-        elif k == "conv":                            # (L, B, K-1, d_inner)
-            if shape[-1] % model_size == 0:
-                spec[-1] = model_axis
-        elif k == "ssm":
-            # mamba1: (L, B, d_inner, n) -> d_inner; mamba2: (L, B, H, dh, n) -> H
-            dim = 2
-            if shape[dim] % model_size == 0:
-                spec[dim] = model_axis
+        elif k in ("conv", "ssm"):
+            # ssm: mamba1 (L, B, d_inner, n) -> d_inner; mamba2 (L, B, H,
+            # dh, n) -> H; conv (L, B, K-1, d_inner) -> d_inner with them
+            if cache_shapes["ssm"].shape[2] % model_size == 0:
+                spec[2 if k == "ssm" else -1] = model_axis
         out[k] = P(*spec)
     return out
 
@@ -411,3 +412,31 @@ def gather(x):
     if _same_data(x, (Replicate(),) * x.device_mesh.ndim):
         return x._local_tensor.detach()
     return x.detach().full_tensor()
+
+
+def local_model(cfg: ModelConfig, params, dist) -> tuple:
+    """``params`` (a model whose parameters may be DTensors) as a model of
+    plain tensors for this rank's arithmetic under ``dist`` (a
+    ``models.transformer.Dist``; see the module docstring), and the names
+    of the leaves it holds as the rank's block over the model axis:
+    itself, and no names, when no parameter is a DTensor."""
+    from torch.distributed.tensor import DTensor
+
+    from ..models.transformer import init_params
+    named = dict(params.named_parameters())
+    if not any(isinstance(p, DTensor) for p in named.values()):
+        return params, set()
+    model = init_params(cfg, device="meta")
+    kept = set()
+    dims = tp_dims(cfg)
+    for n, p in named.items():
+        if dist.tensor_parallel and model_dim(p, dist.model_axis) \
+                == dims.get(n.rpartition(".")[2], -1):
+            t = gather_batch(p, dist.model_axis)
+            kept.add(n)
+        else:
+            t = gather(p)
+        mod, _, leaf = n.rpartition(".")
+        model.get_submodule(mod).register_parameter(
+            leaf, nn.Parameter(t, requires_grad=p.requires_grad))
+    return model, kept

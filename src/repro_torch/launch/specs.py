@@ -23,10 +23,15 @@ What each kind's function is, as the port runs it:
   batch axes and keeps its block over ``model`` where its layer splits
   (``train/train_step.py``).  The optimizer's 0-d step count is
   host state on every device: a real host tensor, not a placed one.
-* **prefill** and **decode**: ``prefill``/``decode_step`` under ``Dist``
-  on this rank's block of the batch (and of the caches) over the batch
-  axes, with whole parameters: the port serves unsharded replicas, so the
-  parameters' specs are recorded in ``in_shardings`` but not applied.
+* **prefill** and **decode**: a meshed server's step
+  (core/deploy/router.py): ``prefill``/``decode_step`` under the
+  tensor-parallel ``Dist`` (``cache_len`` the shape's sequence) on this
+  rank's block of the batch over the batch axes, of the caches under
+  ``cache_specs`` over the batch and model axes, and of the parameters:
+  placed under ``param_specs``, then made the rank's local tensors as the
+  server makes them once at build (``shardings.local_model``: a leaf on
+  its layer's split dimension its block over ``model``, gathered over the
+  data axes; any other whole), which are the step's arguments.
 
 ``make_cell(..., device=...)`` makes the same cell on real tensors of a
 device (random weights from seed 0, random tokens), the step the dry run's
@@ -36,7 +41,7 @@ count is held against.
 from __future__ import annotations
 
 import contextlib
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Any, Callable
 
 import numpy as np
@@ -51,7 +56,7 @@ from ..train.train_step import TrainState, make_train_step
 from .mesh import MeshShape, mesh_axes
 from .roofline import shape_of
 from .shardings import (NamedSharding, batch_specs, cache_specs, distribute,
-                        local_block, param_specs, to_shardings)
+                        local_block, local_model, param_specs, to_shardings)
 
 _BF16 = torch.bfloat16
 _I32 = torch.int32
@@ -236,27 +241,30 @@ def make_cell(arch: str, shape_name, mesh, *,
             in_sh = (to_shardings(mesh, state_specs),
                      to_shardings(mesh, b_specs))
             fn = step
-        elif spec["kind"] == "prefill":
+        else:  # a server's prefill or decode step, on the rank's blocks
+            seq = shape_of(shape_name)[0]
+            serve = replace(dist, tensor_parallel=True, cache_len=seq)
             if placed:
+                params = local_model(cfg, distribute(
+                    params, to_shardings(mesh, p_specs)), serve)[0]
                 batch = _batch_block(batch, b_specs, mesh, dp_axes)
-            args = (params, batch)
             in_sh = (to_shardings(mesh, p_specs), to_shardings(mesh, b_specs))
-            fn = lambda p, b: prefill(p, b, cfg, dist)  # noqa: E731
-        else:  # decode
+        if spec["kind"] == "prefill":
+            args = (params, batch)
+            fn = lambda p, b: prefill(p, b, cfg, serve)  # noqa: E731
+        elif spec["kind"] == "decode":
             c_specs = cache_specs(cfg, spec["caches"], dp_axes, model_axis,
                                   dp_size, model_size)
-            seq = shape_of(shape_name)[0]
             caches = init_cache(cfg, _batch_size(spec["batch"]), seq,
                                 device=dev)
             if placed:
-                batch = _batch_block(batch, b_specs, mesh, dp_axes)
-                caches = _batch_block(caches, c_specs, mesh, dp_axes)
+                caches = {k: local_block(v, mesh, NamedSharding(
+                    mesh, c_specs[k]).placements) for k, v in caches.items()}
             index = _host_zero(_I32) + (seq - 1)
             args = (params, batch, caches, index)
-            in_sh = (to_shardings(mesh, p_specs), to_shardings(mesh, b_specs),
-                     to_shardings(mesh, c_specs), NamedSharding(mesh, P()))
+            in_sh += (to_shardings(mesh, c_specs), NamedSharding(mesh, P()))
             fn = lambda p, b, c, i: decode_step(p, b, c, i, cfg,  # noqa: E731
-                                                dist)
+                                                serve)
     return Cell(arch=arch, shape=shape_name, kind=spec["kind"], cfg=cfg,
                 fn=fn if placed else None, args=args, in_shardings=in_sh,
                 mode=mode)

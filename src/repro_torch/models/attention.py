@@ -40,8 +40,18 @@ row-parallel product ends in one sum over the axis.  This holds for
 every GQA family (M-RoPE and the biases on the local heads, the
 encoder's non-causal attention) and for zamba2's shared block; MLA splits
 the same way over ``wq_b``/``wkv_b``'s heads, with its low-rank
-projections whole.  Otherwise (serving, H not divisible, one rank) the
-attention is the one-device function and ``_shard`` places nothing.
+projections whole.  A server (``Dist.cache_len``) keeps every KV head in
+its prefill's caches when they do not split, and returns them as
+``cache_specs`` lays them out (:func:`_cache_rows`: the rank's block of
+the positions where the sequence splits).  Its decode runs on the
+rank's block of the caches, as ``cache_specs`` lays them out
+(:func:`kv_layout`): the rank's KV heads; or, where they do not divide
+the axis, its block of the positions, the softmax combined over the axis
+(the flash-decode form: a maximum, then one sum of the exponentials and
+one of the weighted values) with the query heads gathered whole; or the
+whole cache on every rank.  Otherwise (H not divisible in training, one
+rank, no ``Dist``) the attention is the one-device function and
+``_shard`` places nothing.
 """
 
 from __future__ import annotations
@@ -50,8 +60,8 @@ import numpy as np
 import torch
 
 from ..kernels.flash_attention.ops import flash_attention
-from .common import ModelConfig, axis_index, axis_size, tp_axis, tp_block, \
-    tp_enter, tp_exit
+from .common import ModelConfig, axis_index, axis_size, pmax, tp_axis, \
+    tp_block, tp_enter, tp_exit, tp_gather
 from .layers import Params, apply_mrope, apply_rope, dense_init, rms_norm
 
 NEG_INF = -1e30
@@ -129,23 +139,40 @@ def _out(o, wo):
     return o.reshape(o.shape[:2] + (-1,)) @ wo.reshape(-1, wo.shape[-1])
 
 
-def _sdpa(q, k, v, mask, scale):
+def _softmax(logits, name: str | None, dtype):
+    """The softmax over the last axis of masked f32 ``logits``, cast to
+    ``dtype``.  With ``name``, the positions are split over that model
+    axis (the flash-decode form): one maximum over the axis and one sum of
+    the exponentials; a product of the probabilities with the rank's values
+    is then one more sum over the axis."""
+    if name is None:
+        return torch.softmax(logits, dim=-1).to(dtype)
+    top = pmax(logits.amax(-1, keepdim=True), name)
+    e = torch.exp(logits - top)
+    return (e / tp_exit(e.sum(-1, keepdim=True), name)).to(dtype)
+
+
+def _sdpa(q, k, v, mask, scale, name: str | None = None):
     """q:(B,S,H,hd) k/v:(B,T,K,*) grouped-query attention with fp32 softmax;
-    mask (B or 1, S, T), True where a query may attend."""
+    mask (B or 1, S, T), True where a query may attend.  With ``name``,
+    k/v hold this rank's block of the positions of a sequence split over
+    that model axis: the softmax is combined over the axis
+    (:func:`_softmax`) and the values' product summed over it."""
     B, S, H, hd = q.shape
     K = k.shape[2]
     G = H // K
     if G == 1:
         logits = torch.einsum("bshk,bthk->bhst", q, k).to(torch.float32)
         logits = (logits * scale).masked_fill(~mask[:, None], NEG_INF)
-        probs = torch.softmax(logits, dim=-1).to(v.dtype)
-        return torch.einsum("bhst,bthk->bshk", probs, v)
-    q = q.reshape(B, S, K, G, hd)
-    logits = torch.einsum("bskgh,btkh->bkgst", q, k).to(torch.float32)
-    logits = (logits * scale).masked_fill(~mask[:, None, None], NEG_INF)
-    probs = torch.softmax(logits, dim=-1).to(v.dtype)
-    out = torch.einsum("bkgst,btkh->bskgh", probs, v)
-    return out.reshape(B, S, H, -1)
+        probs = _softmax(logits, name, v.dtype)
+        out = torch.einsum("bhst,bthk->bshk", probs, v)
+    else:
+        q = q.reshape(B, S, K, G, hd)
+        logits = torch.einsum("bskgh,btkh->bkgst", q, k).to(torch.float32)
+        logits = (logits * scale).masked_fill(~mask[:, None, None], NEG_INF)
+        probs = _softmax(logits, name, v.dtype)
+        out = torch.einsum("bkgst,btkh->bskgh", probs, v).reshape(B, S, H, -1)
+    return out if name is None else tp_exit(out, name)
 
 
 def causal_mask(S: int, T: int, device=None):
@@ -236,33 +263,74 @@ def gqa_forward(p, cfg: ModelConfig, x, positions, dist=None):
         ke = _shard(ke, dist, dp, None, mdl, None)
         ve = _shard(ve, dist, dp, None, mdl, None)
     out = flash_sdpa(q, ke, ve, cfg)
-    return _out(out, p["wo"]), (k, v)
+    return _out(out, p["wo"]), _cache_rows(cfg, dist, k, v)
 
 
-def _kv_slice(p, cfg: ModelConfig, name: str) -> tuple:
-    """(KV weights for this rank, the KV head each local query head reads):
-    the rank's own ``wk``/``wv`` heads when they are split over the axis;
-    else the slice of the whole weights its query heads read, whose
-    gradients are summed over the axis."""
+def _cache_rows(cfg: ModelConfig, dist, *caches) -> tuple:
+    """A server's caches of a full sequence as ``cache_specs`` lays them
+    out: where they split the sequence over the model axis
+    (:func:`kv_layout` ``"seq"``), this rank's block of the positions,
+    [r T/m, (r + 1) T/m) of the ``dist.cache_len`` positions T, those the
+    sequence reaches (a copy, so the whole is freed); else as they are."""
+    name = tp_axis(dist)
+    if name is None or not dist.cache_len or \
+            kv_layout(cfg, axis_size(name), dist.cache_len) != "seq":
+        return caches
+    T = dist.cache_len // axis_size(name)
+    lo = axis_index(name) * T
+    return tuple(c[:, lo:lo + T].clone() for c in caches)
+
+
+def _kv_heads(cfg: ModelConfig, name: str, whole: bool = False) -> tuple:
+    """(lo, hi, heads): the KV heads [lo, hi) this rank's H/m query heads
+    read, and for each of those query heads the one it reads, counted from
+    lo: the rank's own block when the KV heads divide the axis; else those
+    its query heads read, or with ``whole`` all of them."""
     H, K = cfg.n_heads, cfg.n_kv_heads
     m, r = axis_size(name), axis_index(name)
     Hl, G = H // m, H // K
-    keys = [k for k in ("wk", "wv", "bk", "bv") if k in p]
     if K % m == 0:
-        w = {k: tp_block(p[k], name, 1 if k[0] == "w" else 0, K)
-             for k in keys}
-        return w, [i // G for i in range(Hl)]
-    lo, hi = (r * Hl) // G, ((r + 1) * Hl - 1) // G + 1
-    w = {k: tp_enter(p[k], name).narrow(1 if k[0] == "w" else 0, lo, hi - lo)
-         for k in keys}
-    return w, [(r * Hl + i) // G - lo for i in range(Hl)]
+        return r * K // m, (r + 1) * K // m, [i // G for i in range(Hl)]
+    lo, hi = (0, K) if whole else \
+        ((r * Hl) // G, ((r + 1) * Hl - 1) // G + 1)
+    return lo, hi, [(r * Hl + i) // G - lo for i in range(Hl)]
+
+
+def _kv_slice(p, cfg: ModelConfig, name: str, whole: bool = False) -> tuple:
+    """(KV weights for this rank, the KV head each local query head reads)
+    by :func:`_kv_heads`: the rank's own ``wk``/``wv`` heads when they are
+    split over the axis; else the slice of the whole weights its query
+    heads read (with ``whole``, the whole weights: a server keeps every KV
+    head in its cache), whose gradients are summed over the axis."""
+    lo, hi, heads = _kv_heads(cfg, name, whole)
+    keys = [k for k in ("wk", "wv", "bk", "bv") if k in p]
+    if cfg.n_kv_heads % axis_size(name) == 0:
+        w = {k: tp_block(p[k], name, 1 if k[0] == "w" else 0,
+                         cfg.n_kv_heads) for k in keys}
+    else:
+        w = {k: tp_enter(p[k], name).narrow(1 if k[0] == "w" else 0, lo,
+                                            hi - lo) for k in keys}
+    return w, heads
+
+
+def _grouped(kv, heads: list):
+    """(B, T, K', hd) keys or values as the query heads read them
+    (``heads``: the one each reads): as they are where the query heads
+    read them in equal groups in order (grouped attention), else one KV
+    head a query head."""
+    rep = len(heads) // kv.shape[2]
+    if rep and heads == [i // rep for i in range(len(heads))]:
+        return kv
+    return kv.index_select(2, torch.tensor(heads, device=kv.device))
 
 
 def _gqa_tensor_parallel(p, cfg: ModelConfig, x, positions, dist, name):
-    """:func:`gqa_forward` on this rank's query heads (module docstring)."""
+    """:func:`gqa_forward` on this rank's query heads (module docstring);
+    for a server (``dist.cache_len``) whose KV heads do not split, the
+    cache holds every KV head."""
     H = cfg.n_heads
     x = tp_enter(x, name)
-    kv, heads = _kv_slice(p, cfg, name)
+    kv, heads = _kv_slice(p, cfg, name, whole=bool(dist.cache_len))
     q = _proj(x, tp_block(p["wq"], name, 1, H))
     k, v = _proj(x, kv["wk"]), _proj(x, kv["wv"])
     if cfg.qkv_bias:
@@ -275,20 +343,17 @@ def _gqa_tensor_parallel(p, cfg: ModelConfig, x, positions, dist, name):
     if rope is not None:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
-    rep = len(heads) // k.shape[2]
-    if heads == [i // rep for i in range(len(heads))]:
-        ke = k.repeat_interleave(rep, dim=2) if rep > 1 else k
-        ve = v.repeat_interleave(rep, dim=2) if rep > 1 else v
-    else:  # the rank's query heads start inside a KV head's group
-        idx = torch.tensor(heads, device=k.device)
-        ke, ve = k.index_select(2, idx), v.index_select(2, idx)
+    ke, ve = _grouped(k, heads), _grouped(v, heads)
+    rep = len(heads) // ke.shape[2]
+    if rep > 1:
+        ke, ve = ke.repeat_interleave(rep, 2), ve.repeat_interleave(rep, 2)
     dp = dist.batch_axes
     q = _shard(q, dist, dp, None, name, None, heads=H)
     ke = _shard(ke, dist, dp, None, name, None, heads=H)
     ve = _shard(ve, dist, dp, None, name, None, heads=H)
     out = flash_sdpa(q, ke, ve, cfg)
     y = _out(out, tp_block(p["wo"], name, 0, H))
-    return tp_exit(y, name), (k, v)
+    return tp_exit(y, name), _cache_rows(cfg, dist, k, v)
 
 
 def lane_index(index, batch: int, device) -> torch.Tensor | int:
@@ -313,20 +378,60 @@ def _write_rows(cache, new, index):
               index] = new
 
 
-def _decode_mask(index, T: int, device):
+def _decode_mask(index, T: int, device, off: int = 0):
+    """(B or 1, 1, T) True where a position off.. off + T - 1 is at or
+    before the lane's ``index``."""
     kj = torch.arange(T, device=device)
+    if off:
+        kj = kj + off
     if isinstance(index, int):
         return (kj <= index)[None, None]                  # (1, 1, T)
     return (kj[None] <= index[:, None])[:, None]          # (B, 1, T)
 
 
-def gqa_decode(p, cfg: ModelConfig, x, cache_k, cache_v, index, positions):
+def kv_layout(cfg: ModelConfig, m: int, cache_len: int) -> str:
+    """Where a server's attention caches of ``cache_len`` positions lie on a
+    model axis of ``m`` ranks, by ``launch/shardings.py`` ``cache_specs``'
+    rule: ``"heads"`` (each rank its block of the GQA KV heads, which
+    divide the axis), ``"seq"`` (each rank its block of the positions,
+    every KV head or MLA's whole latent) or ``"whole"`` (every rank the
+    whole cache)."""
+    if not cfg.mla and cfg.n_kv_heads % m == 0:
+        return "heads"
+    return "seq" if cache_len % m == 0 else "whole"
+
+
+def _write_block(cache, new, index, off: int):
+    """:func:`_write_rows` into a (B, T_loc, ...) block that holds
+    positions [off, off + T_loc) of the sequence: a lane whose ``index``
+    lies outside the block leaves it as it was."""
+    T = cache.shape[1]
+    if isinstance(index, int):
+        if off <= index < off + T:
+            cache[:, index - off] = new
+        return
+    lanes = torch.arange(cache.shape[0], device=cache.device)
+    mine = (index >= off) & (index < off + T)
+    at = (index - off).clamp(0, T - 1)
+    keep = cache[lanes, at]
+    mine = mine.reshape((-1,) + (1,) * (new.dim() - 1))
+    cache[lanes, at] = torch.where(mine, new, keep)
+
+
+def gqa_decode(p, cfg: ModelConfig, x, cache_k, cache_v, index, positions,
+               dist=None):
     """One-token decode against a (B, S_max, K, hd) KV cache.
 
     ``index`` is the current length: an int, or one a lane as a (B,)
     tensor; the new token's K/V are written at ``index`` (in place: the
     caches passed in are the ones returned) and attention spans positions
-    <= index."""
+    <= index.  Under a server's tensor-parallel arithmetic
+    (``dist.cache_len``; module docstring) on this rank's block of the
+    caches (:func:`kv_layout`) and of the heads."""
+    name = tp_axis(dist)
+    if name is not None:
+        return _gqa_decode_split(p, cfg, x, cache_k, cache_v, index,
+                                 positions, dist, name)
     q, k, v = _project_qkv(p, cfg, x, positions)           # S == 1
     index = lane_index(index, x.shape[0], x.device)
     _write_rows(cache_k, k[:, 0], index)
@@ -334,6 +439,52 @@ def gqa_decode(p, cfg: ModelConfig, x, cache_k, cache_v, index, positions):
     mask = _decode_mask(index, cache_k.shape[1], x.device)
     out = _sdpa(q, cache_k, cache_v, mask, 1.0 / np.sqrt(cfg.hd))
     return _out(out, p["wo"]), (cache_k, cache_v)
+
+
+def _gqa_decode_split(p, cfg: ModelConfig, x, cache_k, cache_v, index,
+                      positions, dist, name):
+    """:func:`gqa_decode` on this rank's blocks.  The query heads are the
+    rank's H/m when they divide the axis (``wo`` row-parallel, one sum),
+    else all of them.  ``"heads"``: the rank's KV heads, projected and
+    attended on its own.  ``"whole"``: every rank projects and writes every
+    KV head and attends with its query heads to the KV heads they read.
+    ``"seq"``: every rank projects every KV head, the rank holding
+    position ``index`` writes it, the query heads are gathered whole, and
+    each rank scores every head over its positions (:func:`_sdpa` over the
+    axis), then keeps its heads' output."""
+    H = cfg.n_heads
+    m, r = axis_size(name), axis_index(name)
+    layout = kv_layout(cfg, m, dist.cache_len)
+    split = H % m == 0
+    w, _ = _kv_slice(p, cfg, name, whole=True)
+    w["wq"] = tp_block(p["wq"], name, 1, H) if split else p["wq"]
+    if cfg.qkv_bias:
+        w["bq"] = tp_block(p["bq"], name, 0, H) if split else p["bq"]
+    if cfg.qk_norm:
+        w.update(q_scale=p["q_scale"], k_scale=p["k_scale"])
+    q, k, v = _project_qkv(w, cfg, x, positions)
+    index = lane_index(index, x.shape[0], x.device)
+    scale = 1.0 / np.sqrt(cfg.hd)
+    if layout == "seq":
+        T = cache_k.shape[1]
+        _write_block(cache_k, k[:, 0], index, r * T)
+        _write_block(cache_v, v[:, 0], index, r * T)
+        out = _sdpa(tp_gather(q, name, 2) if split else q, cache_k, cache_v,
+                    _decode_mask(index, T, x.device, r * T), scale, name)
+        if split:
+            out = out[:, :, r * (H // m):(r + 1) * (H // m)]
+    else:
+        _write_rows(cache_k, k[:, 0], index)
+        _write_rows(cache_v, v[:, 0], index)
+        ck, cv = cache_k, cache_v
+        if layout == "whole" and split:  # the KV heads the rank's read
+            lo, hi, heads = _kv_heads(cfg, name)
+            ck, cv = (_grouped(c.narrow(2, lo, hi - lo), heads)
+                      for c in (ck, cv))
+        out = _sdpa(q, ck, cv,
+                    _decode_mask(index, cache_k.shape[1], x.device), scale)
+    y = _out(out, tp_block(p["wo"], name, 0, H) if split else p["wo"])
+    return (tp_exit(y, name) if split else y), (cache_k, cache_v)
 
 
 # --------------------------------------------------------------------------
@@ -393,29 +544,61 @@ def mla_forward(p, cfg: ModelConfig, x, positions, dist=None):
                 1.0 / np.sqrt(nope + rope))
     y = _out(out, p["wo"])
     return (y if name is None else tp_exit(y, name)), \
-        (c_kv, k_rope[..., 0, :])
+        _cache_rows(cfg, dist, c_kv, k_rope[..., 0, :])
 
 
 def mla_decode(p, cfg: ModelConfig, x, cache_ckv, cache_krope, index,
-               positions):
+               positions, dist=None):
     """Absorbed-weight MLA decode: attention runs in the compressed
     kv_lora space, so the cache is (B, S, r_kv) + (B, S, rope) only.
-    ``index`` as for :func:`gqa_decode`; the caches are written in place."""
-    nope, rope = cfg.qk_nope_dim, cfg.qk_rope_dim
+    ``index`` as for :func:`gqa_decode`; the caches are written in place.
+    Under a server's tensor-parallel arithmetic (``dist.cache_len``) on
+    this rank's heads of ``wq_b``/``wkv_b`` and rows of ``wo`` (when the
+    heads divide the axis; ``wq_a``, ``wkv_a`` and their norms whole) and
+    its block of the latent caches (:func:`kv_layout`): ``"seq"``, the
+    rank holding position ``index`` writes it, the absorbed queries are
+    gathered over the heads, each rank scores every head over its
+    positions (:func:`_softmax` over the axis) and the context is summed
+    over the axis before each rank un-absorbs its own heads; ``"whole"``,
+    each rank writes the whole cache and attends with its own heads."""
+    name = tp_axis(dist)
+    H, nope, rope = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
+    m = 1 if name is None else axis_size(name)
+    split = name is not None and H % m == 0
+    if split:
+        p = {**{k: p[k] for k in ("wq_a", "q_norm", "wkv_a", "kv_norm")},
+             "wq_b": tp_block(p["wq_b"], name, 1, H),
+             "wkv_b": tp_block(p["wkv_b"], name, 1, H),
+             "wo": tp_block(p["wo"], name, 0, H)}
     q_nope, q_rope = _mla_query(p, cfg, x, positions)
     # absorb k_nope projection into the query:  q' = q_nope @ W_kv_b[:, :, :nope]^T
     q_abs = torch.einsum("bshk,rhk->bshr", q_nope, p["wkv_b"][..., :nope])
     c_kv, k_rope = _mla_latent(p, cfg, x, positions)
     index = lane_index(index, x.shape[0], x.device)
-    _write_rows(cache_ckv, c_kv[:, 0], index)
-    _write_rows(cache_krope, k_rope[:, 0, 0], index)
+    seq = name is not None and kv_layout(cfg, m, dist.cache_len) == "seq"
+    off = axis_index(name) * cache_ckv.shape[1] if seq else 0
+    if seq:
+        _write_block(cache_ckv, c_kv[:, 0], index, off)
+        _write_block(cache_krope, k_rope[:, 0, 0], index, off)
+        if split:
+            q_abs, q_rope = tp_gather(q_abs, name, 2), tp_gather(q_rope,
+                                                                name, 2)
+    else:
+        _write_rows(cache_ckv, c_kv[:, 0], index)
+        _write_rows(cache_krope, k_rope[:, 0, 0], index)
     logits = (torch.einsum("bshr,btr->bhst", q_abs, cache_ckv)
               + torch.einsum("bshk,btk->bhst", q_rope, cache_krope))
     logits = logits.to(torch.float32) / np.sqrt(nope + rope)
-    mask = _decode_mask(index, cache_ckv.shape[1], x.device)   # (B|1,1,T)
+    mask = _decode_mask(index, cache_ckv.shape[1], x.device, off)
     logits = logits.masked_fill(~mask[:, None], NEG_INF)
-    probs = torch.softmax(logits, -1).to(x.dtype)
+    probs = _softmax(logits, name if seq else None, x.dtype)
     ctx = torch.einsum("bhst,btr->bshr", probs, cache_ckv)
+    if seq:
+        ctx = tp_exit(ctx, name)
+        if split:
+            r, hl = axis_index(name), H // m
+            ctx = ctx[:, :, r * hl:(r + 1) * hl]
     # un-absorb the value projection
     out = torch.einsum("bshr,rhk->bshk", ctx, p["wkv_b"][..., nope:])
-    return _out(out, p["wo"]), (cache_ckv, cache_krope)
+    y = _out(out, p["wo"])
+    return (tp_exit(y, name) if split else y), (cache_ckv, cache_krope)

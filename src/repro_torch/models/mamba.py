@@ -24,7 +24,9 @@ shared by the heads; its gradient summed over the axis).  The gated norm
 reduces over the whole d_inner, so each row's sum of squares is summed
 over the axis (``layers.split_rms_norm``: one all-reduce of (B, L)
 floats, not a gather of y), in torch ops, since the kernel takes no
-outside row scale; ``out_proj``'s product ends in one sum.
+outside row scale; ``out_proj``'s product ends in one sum.  A server's
+decode steps (``mamba1_decode``, ``mamba2_decode``) run the same way on
+the rank's block of the conv and SSM states.
 
 The depthwise causal conv is its four taps as shifted multiply-adds in f32
 (the form the reference's decode step takes): no cuDNN, so no TF32 on the
@@ -189,15 +191,29 @@ def _channel_block(p, cfg: ModelConfig, name: str) -> dict:
     return {k: tp_block(p[k], name, *dims[k]) for k in dims}
 
 
-def mamba1_decode(p, cfg: ModelConfig, x, conv_state, h):
-    """One-token decode.  x: (B, 1, d); conv_state: (B, K-1, di); h: (B, di, n)."""
+def mamba1_decode(p, cfg: ModelConfig, x, conv_state, h, dist=None):
+    """One-token decode.  x: (B, 1, d); conv_state: (B, K-1, di);
+    h: (B, di, n).  Under tensor-parallel arithmetic (module docstring)
+    on the rank's channels: ``conv_state`` and ``h`` hold them,
+    ``in_proj``'s [x | z] block is realigned as :func:`mamba1_seq`
+    realigns it, ``x_proj``'s row-parallel product is summed over the
+    axis, and so is ``out_proj``'s."""
+    name = _tp_name(cfg, dist, cfg.d_inner)
+    if name is not None:
+        p = _channel_block(p, cfg, name)
+        x = tp_enter(x, name)
     n = cfg.ssm_state
     dt_rank = p["dt_proj"].shape[0]
-    xi, z = (x @ p["in_proj"]).chunk(2, dim=-1)                  # (B, 1, di)
+    xz = x @ p["in_proj"]
+    if name is not None:
+        xz = realign_pairs(xz, name)
+    xi, z = xz.chunk(2, dim=-1)                                  # (B, 1, di)
     window = torch.cat([conv_state, xi], dim=1)                  # (B, K, di)
     new_conv = window[:, 1:]
     xi = F.silu(_conv_step(window, p["conv_w"], p["conv_b"]))[:, None]
     proj = xi @ p["x_proj"]
+    if name is not None:
+        proj = tp_exit(proj, name)
     dt = F.softplus(proj[..., :dt_rank] @ p["dt_proj"]
                     + p["dt_bias"])[:, 0].to(torch.float32)       # (B, di)
     Bv = proj[:, 0, dt_rank:dt_rank + n].to(torch.float32)
@@ -207,8 +223,8 @@ def mamba1_decode(p, cfg: ModelConfig, x, conv_state, h):
     x32 = xi[:, 0].to(torch.float32)
     h = a * h + (dt * x32)[..., None] * Bv[:, None, :]
     y = torch.einsum("bdn,bn->bd", h, Cv) + p["D"] * x32
-    y = (y.to(x.dtype) * F.silu(z[:, 0]))[:, None]
-    return y @ p["out_proj"], (new_conv, h)
+    y = (y.to(x.dtype) * F.silu(z[:, 0]))[:, None] @ p["out_proj"]
+    return (y if name is None else tp_exit(y, name)), (new_conv, h)
 
 
 # --------------------------------------------------------------------------
@@ -337,11 +353,20 @@ def mamba2_seq(p, cfg: ModelConfig, x, h0=None, chunk: int = 128,
     return _mamba2_out(p, cfg, x, y, xi, z, name), (conv_tail, h)
 
 
-def mamba2_decode(p, cfg: ModelConfig, x, conv_state, h):
+def mamba2_decode(p, cfg: ModelConfig, x, conv_state, h, dist=None):
+    """One-token decode.  x: (B, 1, d); conv_state: (B, K-1, di); h: (B, H,
+    dh, n).  Under tensor-parallel arithmetic (module docstring) on the
+    rank's H/m heads: ``conv_state`` holds their channels and ``h`` the
+    heads, the gated norm's sum of squares is summed over the axis and so
+    is ``out_proj``'s product."""
     B = x.shape[0]
-    di, n = cfg.d_inner, cfg.ssm_state
-    H = cfg.ssm_heads or di // 64
-    xi, z = (x @ p["in_proj"]).chunk(2, dim=-1)
+    n = cfg.ssm_state
+    p, x, name = _mamba2_split(p, cfg, x, dist)
+    H, di = p["dt_w"].shape[1], p["D"].shape[0]
+    xz = x @ p["in_proj"]
+    if name is not None:
+        xz = realign_pairs(xz, name)
+    xi, z = xz.chunk(2, dim=-1)
     window = torch.cat([conv_state, xi], dim=1)
     new_conv = window[:, 1:]
     xi = F.silu(_conv_step(window, p["conv_w"], p["conv_b"]))      # (B, di)
@@ -355,6 +380,10 @@ def mamba2_decode(p, cfg: ModelConfig, x, conv_state, h):
          + dt[..., None, None] * xh[..., None] * Bv[:, None, None, :])
     y = torch.einsum("bhdn,bn->bhd", h, Cv).reshape(B, di)
     y = y + p["D"] * xi.to(torch.float32)
-    y = rms_norm(y.to(x.dtype), p["norm_scale"], cfg.norm_eps)
-    y = (y * F.silu(z[:, 0]))[:, None]
-    return y @ p["out_proj"], (new_conv, h)
+    if name is None:
+        y = rms_norm(y.to(x.dtype), p["norm_scale"], cfg.norm_eps)
+    else:
+        y = split_rms_norm(y.to(x.dtype), p["norm_scale"], cfg.norm_eps,
+                           cfg.d_inner, name)
+    y = ((y * F.silu(z[:, 0]))[:, None]) @ p["out_proj"]
+    return (y if name is None else tp_exit(y, name)), (new_conv, h)

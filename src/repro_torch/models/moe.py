@@ -16,8 +16,9 @@ Under the train step's tensor-parallel arithmetic (``Dist.tensor_parallel``,
 a ``model`` axis of m > 1 ranks) ``moe_dense`` computes the rank's block of
 E_pad / m experts over all of its batch block's tokens, as the reference's
 GSPMD partitions the expert dimension, and the weighted combine is summed
-over the axis; the expert-parallel path receives the rank's expert block
-as it is (models/transformer.py ``_moe_apply``).
+over the axis; ``moe_gather`` (a server's decode) gathers only the picks
+in the rank's block; the expert-parallel path receives the rank's expert
+block as it is (models/transformer.py ``_moe_apply``).
 
 Experts whose count does not divide the configured expert shards
 (granite's 40 experts for 16 shards) are zero-padded to ``expert_pad``;
@@ -118,25 +119,39 @@ def _moe_dense_split(p, cfg: ModelConfig, x, name: str):
     u = torch.einsum("nd,edf->enf", x2, wu)
     ye = torch.einsum("enf,efd->end", g * u, wd)
     y = torch.einsum("end,ne->nd", ye, combine)
-    whole_shared = 0.0
-    if "sh_gate" in p:
-        sff = cfg.moe_d_ff * cfg.n_shared_experts
-        if sff % m == 0:
-            sg, su = (tp_block(p[k], name, 1, sff) for k in ("sh_gate",
-                                                             "sh_up"))
-            y = y + (F.silu(x2 @ sg) * (x2 @ su)) @ tp_block(
-                p["sh_down"], name, 0, sff)
-        else:  # computed whole on every rank, outside the region
-            whole_shared = _shared(p, x.reshape(-1, d))
+    y, whole_shared = _shared_split(p, cfg, x, x2, y, name)
     y = tp_exit(y, name) + whole_shared
     return y.reshape(B, S, d)
 
 
-def moe_gather(p, cfg: ModelConfig, x):
+def _shared_split(p, cfg: ModelConfig, x, x2, y, name: str):
+    """(``y`` plus this rank's part of the shared experts, split over
+    their hidden units as SwiGLU is; the shared experts computed whole on
+    every rank, outside the region, where their units do not divide the
+    axis, else 0): ``x`` (B, S, d) the layer's input, ``x2`` its rows
+    entered into the region."""
+    if "sh_gate" not in p:
+        return y, 0.0
+    sff = cfg.moe_d_ff * cfg.n_shared_experts
+    if sff % axis_size(name):
+        return y, _shared(p, x.reshape(-1, x.shape[-1]))
+    sg, su = (tp_block(p[k], name, 1, sff) for k in ("sh_gate", "sh_up"))
+    return y + (F.silu(x2 @ sg) * (x2 @ su)) @ tp_block(
+        p["sh_down"], name, 0, sff), 0.0
+
+
+def moe_gather(p, cfg: ModelConfig, x, axis_name: str | None = None):
     """Decode-path MoE: gather the k selected experts' weights per token.
 
     For small token counts (one decode step) this moves k*d*ff weight bytes
-    per token instead of computing every expert.  x: (B, S, d), tiny B*S."""
+    per token instead of computing every expert.  x: (B, S, d), tiny B*S.
+    With ``axis_name`` (a bound model axis dividing the padded experts)
+    each rank gathers only the picks that lie in its block of experts (a
+    pick outside it contributes zero), the shared experts split over their
+    hidden units, and the combine is summed over the axis."""
+    if axis_name is not None and \
+            expert_pad(cfg, cfg.expert_shards) % axis_size(axis_name) == 0:
+        return _moe_gather_split(p, cfg, x, axis_name)
     B, S, d = x.shape
     x2 = x.reshape(-1, d)
     w, idx = _route(x2, p["router"], cfg.top_k)
@@ -146,6 +161,27 @@ def moe_gather(p, cfg: ModelConfig, x):
     y = torch.einsum("nkf,nkfd->nd", (g * u) * w[..., None], wd)
     y = y + _shared(p, x2)
     return y.reshape(B, S, d)
+
+
+def _moe_gather_split(p, cfg: ModelConfig, x, name: str):
+    """:func:`moe_gather` on this rank's E_pad / m experts (the router
+    whole, the picks outside the block weighted zero)."""
+    B, S, d = x.shape
+    e_pad = expert_pad(cfg, cfg.expert_shards)
+    el = e_pad // axis_size(name)
+    x2 = tp_enter(x.reshape(-1, d), name)
+    w, idx = _route(x2, tp_enter(p["router"], name), cfg.top_k)
+    local = idx - axis_index(name) * el
+    mine = (local >= 0) & (local < el)
+    local = local.clamp(0, el - 1)
+    wg, wu, wd = (tp_block(p[k], name, 0, e_pad)[local]
+                  for k in ("w_gate", "w_up", "w_down"))
+    w = torch.where(mine, w, torch.zeros((), dtype=w.dtype, device=w.device))
+    g = F.silu(torch.einsum("nd,nkdf->nkf", x2, wg))
+    u = torch.einsum("nd,nkdf->nkf", x2, wu)
+    y = torch.einsum("nkf,nkfd->nd", (g * u) * w[..., None], wd)
+    y, whole_shared = _shared_split(p, cfg, x, x2, y, name)
+    return (tp_exit(y, name) + whole_shared).reshape(B, S, d)
 
 
 def moe_ep_a2a_decode(p, cfg: ModelConfig, x, *, expert_axis: str = "model",

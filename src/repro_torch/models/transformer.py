@@ -30,18 +30,23 @@ Distribution is carried by :class:`Dist` (mesh + axis names), threaded as
 the reference threads it.  One process drives each device: under an
 active ``Dist`` the model runs on this rank's batch block (the batch axes
 are manual, models/common.py).  With ``Dist.tensor_parallel`` (the train
-step's, for every family) the ``model`` axis is manual too and each layer
-splits its arithmetic over it where its dimension divides (Megatron's
-layout, models/common.py ``tp_enter``/``tp_exit``): GQA and MLA heads,
-the FFN's and the shared experts' hidden units, the MoE's experts,
-mamba1's channels, mamba2's heads (zamba2's shared block as a dense
-layer) and the vocabulary of the embedding, the head and the loss, each
-on the rank's block of the weights; activations between the layers are
-the same on every rank.  A layer whose dimension does not divide runs
-whole, the same on every rank.  Otherwise (serving) the model runs with
-whole parameters, the same on every rank of ``model``.  The MoE FFN with
-``moe_mode="ep_a2a"`` takes the reference's expert-parallel branches
-over ``model`` either way.
+step's and a meshed server's, for every family) the ``model`` axis is
+manual too and each layer splits its arithmetic over it where its
+dimension divides (Megatron's layout, models/common.py
+``tp_enter``/``tp_exit``): GQA and MLA heads, the FFN's and the shared
+experts' hidden units, the MoE's experts, mamba1's channels, mamba2's
+heads (zamba2's shared block as a dense layer) and the vocabulary of the
+embedding, the head and the loss, each on the rank's block of the
+weights; activations between the layers are the same on every rank.  A
+layer whose dimension does not divide runs whole, the same on every
+rank.  A server's decode caches (``Dist.cache_len``) are the rank's
+blocks under ``cache_specs`` (models/attention.py ``kv_layout``: its KV
+heads, or its block of the positions where they do not divide, or the
+whole), and so are its mamba states; each decode form runs on them
+(``gqa_decode``, ``mla_decode``, the mamba decode steps, ``moe_gather``),
+and the last position's logits are gathered over ``model``, the same on
+every rank.  The MoE FFN with ``moe_mode="ep_a2a"`` takes the reference's
+expert-parallel branches over ``model`` under any active ``Dist``.
 
 ``train_loss`` records autograd's graph (the kernel wrappers'
 gradients are the backward kernels); ``prefill`` and ``decode_step`` run
@@ -81,12 +86,16 @@ class Dist:
     model axes.  ``capacity_factor`` is the expert-parallel MoE's (None:
     the reference's defaults, 1.25 for full sequences and 2.0 for
     decode).  ``tensor_parallel``: the layers split their arithmetic over
-    the model axis (module docstring); the train step sets it."""
+    the model axis (module docstring); the train step and a meshed
+    server set it.  ``cache_len``: a server's decode-cache length (0 in
+    the train step), whose layout over the model axis follows
+    ``cache_specs`` (models/attention.py ``kv_layout``)."""
     mesh: Any = None
     batch_axes: tuple = ("data",)
     model_axis: str = "model"
     capacity_factor: float | None = None
     tensor_parallel: bool = False
+    cache_len: int = 0
 
     @property
     def active(self) -> bool:
@@ -124,7 +133,7 @@ class AttnBlock(Params):
         h = rms_norm(x, self.ln1, cfg.norm_eps)
         dec = mla_decode if cfg.mla else gqa_decode
         a, cache = dec(self.attn, cfg, h, cache[0], cache[1], index,
-                       positions)
+                       positions, dist)
         return self._ffn(cfg, x + a, True, dist), cache
 
     def _ffn(self, cfg: ModelConfig, x, decoding: bool, dist):
@@ -149,8 +158,7 @@ def _moe_apply(p, cfg: ModelConfig, x, dist, decoding: bool):
     sequence block of the activations, which every rank holds whole."""
     name = tp_axis(dist)
     if not (cfg.moe_mode == "ep_a2a" and dist is not None and dist.active):
-        return moe_gather(p, cfg, x) if decoding \
-            else moe_dense(p, cfg, x, name)
+        return (moe_gather if decoding else moe_dense)(p, cfg, x, name)
     mdl, dp = dist.model_axis, dist.batch_axes
     names = ["router", "w_gate", "w_up", "w_down"]
     if "sh_gate" in p:
@@ -189,10 +197,10 @@ class MambaBlock(Params):
             y, cache = seq(self.mamba, cfg, h, dist=dist)
         return x + y, cache
 
-    def decode(self, cfg: ModelConfig, x, cache):
+    def decode(self, cfg: ModelConfig, x, cache, dist=None):
         dec = mamba1_decode if cfg.ssm_version == 1 else mamba2_decode
         y, cache = dec(self.mamba, cfg, rms_norm(x, self.ln, cfg.norm_eps),
-                       cache[0], cache[1])
+                       cache[0], cache[1], dist)
         return x + y, cache
 
 
@@ -382,7 +390,7 @@ def _mamba_layers(layers, cfg, x, decoding, conv, ssm, out, dist=None):
     ``out``."""
     for i, layer in enumerate(layers):
         if decoding:
-            x, (nconv, nh) = layer.decode(cfg, x, (conv[i], ssm[i]))
+            x, (nconv, nh) = layer.decode(cfg, x, (conv[i], ssm[i]), dist)
             conv[i].copy_(nconv)
             ssm[i].copy_(nh)
         else:
@@ -394,7 +402,7 @@ def _mamba_layers(layers, cfg, x, decoding, conv, ssm, out, dist=None):
 def _stack_ssm(params, cfg, x, decoding, caches, dist=None):
     if decoding:
         x = _mamba_layers(params.layers, cfg, x, True, caches["conv"],
-                          caches["ssm"], None)
+                          caches["ssm"], None, dist)
         return x, caches
     per_layer = []
     body = _remat(cfg, dist, lambda layer, h: layer(cfg, h, dist), False)
@@ -477,6 +485,17 @@ def _head(params: Model, h, cfg: ModelConfig | None = None,
     return tp_enter(h, name) @ tp_block(params.out, name, 1, cfg.vocab)
 
 
+def _last_logits(params: Model, h, cfg: ModelConfig, dist: Dist):
+    """The last position's logits, the same on every rank: under
+    tensor-parallel arithmetic over a vocabulary it divides, each rank's
+    block of them gathered over the model axis."""
+    with (manual_axes(dist.mesh, dist.manual) if dist.active
+          else contextlib.nullcontext()):
+        name = _vocab_axis(cfg, dist)
+        logits = _head(params, h[:, -1], cfg, name)
+        return logits if name is None else tp_gather(logits, name, -1)
+
+
 # --------------------------------------------------------------------------
 # public API
 # --------------------------------------------------------------------------
@@ -517,9 +536,14 @@ def prefill(params: Model, batch: dict, cfg: ModelConfig,
             dist: Dist = Dist()):
     """Full-sequence forward; returns (last-position logits, caches of
     length S for continuation).  The vocab head runs on the LAST position
-    only — serving never needs the (B, S, V) logits."""
+    only — serving never needs the (B, S, V) logits.  Under a server's
+    tensor-parallel ``dist`` the caches are its layers' (the rank's KV
+    heads where they split the axis, else every KV head; MLA's whole
+    latent; the rank's mamba channels or heads), every position: the
+    engine installs the rank's block of them
+    (core/deploy/engine.py ``_write_lane``)."""
     h, caches = _forward(params, cfg, batch, dist)
-    return _head(params, h[:, -1]), caches
+    return _last_logits(params, h, cfg, dist), caches
 
 
 @torch.no_grad()
@@ -528,7 +552,8 @@ def decode_step(params: Model, token_batch: dict, caches: dict, index,
     """One decode step.  ``token_batch`` holds (B, 1) tokens (or (B,1,d)
     embeds) plus positions; ``index`` is the current cache length, an int
     or a (B,) tensor of one a lane.  ``caches`` is updated in place and
-    returned."""
+    returned: under a server's tensor-parallel ``dist``, this rank's
+    blocks (module docstring)."""
     h, new_caches = _forward(params, cfg, token_batch, dist, decoding=True,
                              caches=caches, index=index)
-    return _head(params, h[:, -1]), new_caches
+    return _last_logits(params, h, cfg, dist), new_caches

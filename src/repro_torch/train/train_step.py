@@ -57,10 +57,10 @@ import numpy as np
 import torch
 
 from ..launch.shardings import (NamedSharding, batch_placements,
-                                batch_specs, gather, gather_batch,
-                                local_block, model_dim, place, tp_dims)
+                                batch_specs, gather, local_block,
+                                local_model, place)
 from ..models.common import P, manual_axes, pmean, psum
-from ..models.transformer import Dist, Model, init_params, train_loss
+from ..models.transformer import Dist, Model, train_loss
 from ..optim.grad_compress import compress_tree_psum
 from ..optim.optimizers import LeafSplit, Optimizer, _stack_key
 
@@ -162,31 +162,7 @@ def _is_dtensor(x) -> bool:
 def _whole_model(cfg, params: Model) -> Model:
     """``params`` as a model of whole plain tensors: itself, or, when any
     parameter is a DTensor, a new model of the gathered tensors."""
-    return _local_model(cfg, params, Dist())[0]
-
-
-def _local_model(cfg, params: Model, dist: Dist) -> tuple[Model, set]:
-    """``params`` as a model of plain tensors for this rank's arithmetic
-    under ``dist`` (module docstring), and the names of the leaves it
-    holds as the rank's block over the model axis: itself when no
-    parameter is a DTensor."""
-    named = dict(params.named_parameters())
-    if not any(_is_dtensor(p) for p in named.values()):
-        return params, set()
-    model = init_params(cfg, device="meta")
-    kept = set()
-    dims = tp_dims(cfg)
-    for n, p in named.items():
-        if dist.tensor_parallel and model_dim(p, dist.model_axis) \
-                == dims.get(n.rpartition(".")[2], -1):
-            t = gather_batch(p, dist.model_axis)
-            kept.add(n)
-        else:
-            t = gather(p)
-        mod, _, leaf = n.rpartition(".")
-        model.get_submodule(mod).register_parameter(
-            leaf, torch.nn.Parameter(t, requires_grad=p.requires_grad))
-    return model, kept
+    return local_model(cfg, params, Dist())[0]
 
 
 def _as_tensors(batch: dict) -> dict:
@@ -213,7 +189,7 @@ def _sharded_grads(cfg, dist: Dist, params: Model, batch: dict, k: int):
                                          dist.model_axis, dp))
            for mb in _split_microbatches(_as_tensors(batch), k)]
     dist = replace(dist, tensor_parallel=True)
-    model, kept = _local_model(cfg, params, dist)
+    model, kept = local_model(cfg, params, dist)
     loss, grads = _grads(cfg, model, mbs, dist)
     with manual_axes(mesh, mesh.mesh_dim_names):
         loss = pmean(loss, dist.batch_axes)

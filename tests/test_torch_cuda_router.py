@@ -148,8 +148,10 @@ def card_mesh(cuda, tmp_path):
 @pytest.mark.parametrize("arch", ["qwen3-0.6b", "falcon-mamba-7b"])
 def test_meshed_replica_matches_the_unmeshed_on_the_card(card_mesh, arch):
     """``build_router(mesh=)`` on (1, 1): its weights and lane caches are
-    DTensors on the mesh, and every request gets the tokens (f32, TF32
-    off) and the router the counts of the same router without a mesh."""
+    placed as DTensors on the mesh (the record) and served as the rank's
+    plain local tensors over the same memory under the tensor-parallel
+    ``Dist``, and every request gets the tokens (f32, TF32 off) and the
+    router the counts of the same router without a mesh."""
     from torch.distributed.tensor import DTensor
 
     from repro_torch.core.deploy import build_router
@@ -167,9 +169,14 @@ def test_meshed_replica_matches_the_unmeshed_on_the_card(card_mesh, arch):
                          [stats[k] for k in ("n_completed", "ticks",
                                              "gen_tokens")])
     engine = router.replicas[0].engine.real
-    assert all(isinstance(p, DTensor) for p in engine.params.parameters())
-    assert all(isinstance(t, DTensor)
-               for t in engine.batches["default"].caches.values())
+    batch = engine.batches["default"]
+    assert all(isinstance(p, DTensor) for p in router.placed.parameters())
+    assert all(isinstance(t, DTensor) for t in batch.placed.values())
+    assert not any(isinstance(p, DTensor) for p in engine.params.parameters())
+    assert all(not isinstance(t, DTensor)
+               and t.data_ptr() == batch.placed[k]._local_tensor.data_ptr()
+               for k, t in batch.caches.items())
+    assert engine.dist.tensor_parallel and engine.dist.cache_len == 16
     assert got["mesh"] == got["plain"] and len(got["plain"][0]) == 6
 
 

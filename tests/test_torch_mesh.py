@@ -38,11 +38,18 @@ Tolerances, each stated where it is used:
   parameter within 0.05 of its largest value (the reference's), the
   residual x - deq exactly;
 * a checkpoint written from (2, 2) and restored onto (4, 1): bit for bit;
-* the router's replicas on submeshes of (2, 2) and (4, 1): greedy f32
-  tokens equal, exactly, to the port's unmeshed router's (in the ranks)
-  and to the reference's ``Router`` (computed here while the ranks run),
-  with and without a failover; each rank's block of every parameter and
-  lane cache exactly its block of the whole tensor.
+* the router's replicas on submeshes of (2, 2) and (4, 1), and one
+  replica serving on its blocks over (1, 4) (qwen3-0.6b's caches split on
+  the sequence, and whole; falcon-mamba-7b; deepseek-v3-671b) and (2, 2)
+  (lanes over the data axis: qwen3-0.6b, granite-moe-3b-a800m,
+  zamba2-1.2b): greedy f32 tokens equal, exactly, to the port's unmeshed
+  router's (in the ranks) and to the reference's ``Router`` (computed here
+  while the ranks run), with and without a failover; no parameter
+  gathered over ``model`` while the router steps; each rank's block of
+  every parameter exactly its block of the whole tensor, and of every
+  lane cache after the replay, exactly where the submesh's model axis has
+  one rank and within 1e-5 |ref| + 1e-5 max(1, max |ref|) where it has
+  more (the split layers' sums run in another order).
 """
 
 from __future__ import annotations
@@ -335,7 +342,29 @@ ROUTER_CASES = [(f"{arch.split('-')[0]}_{mesh}_{'kill' if kill else 'live'}",
                  arch, mesh, replicas, ROUTER_KILL_AT if kill else -1)
                 for arch in ("qwen3-0.6b", "falcon-mamba-7b")
                 for mesh, replicas in (("2x2", 2), ("4x1", 4))
-                for kill in (False, True)]
+                for kill in (False, True)] + [
+    # one replica over the whole mesh, serving on its blocks: on (1, 4)
+    # qwen3's 2 KV heads do not divide the model axis, so its caches split
+    # on the sequence (max_len 8) or stay whole (the trace's 6); on (2, 2)
+    # the lanes split over the data axis and the KV heads over model; each
+    # other family on its blocks (MLA's latent caches on the sequence)
+    ("qwen3_1x4_seq", "qwen3-0.6b", "1x4", 1, -1),
+    ("qwen3_1x4_whole", "qwen3-0.6b", "1x4", 1, -1),
+    ("qwen3_2x2_lanes", "qwen3-0.6b", "2x2", 1, -1),
+    ("falcon_1x4", "falcon-mamba-7b", "1x4", 1, -1),
+    ("granite_2x2", "granite-moe-3b-a800m", "2x2", 1, -1),
+    ("deepseek_1x4", "deepseek-v3-671b", "1x4", 1, -1),
+    ("zamba2_2x2", "zamba2-1.2b", "2x2", 1, -1),
+]
+# a case's max_len where it is not the trace's own (6)
+ROUTER_MAX_LEN = {"qwen3_1x4_seq": 8, "deepseek_1x4": 8}
+# a fault that rank 1 alone hits mid-step (the second layer of the first
+# decode step from tick ROUTER_KILL_AT on) in replica 0 of two on (2, 2)
+# (its (1, 2) submesh: ranks 0 and 1), whose groups time out after
+# ``timeout`` seconds (``router.FAULT_TIMEOUT``)
+ROUTER_FAULT = {"arch": "qwen3-0.6b", "mesh": "2x2", "replicas": 2,
+                "rank": 1, "at": ROUTER_KILL_AT, "timeout": 10.0,
+                "like": "qwen3_2x2_live"}
 ROUTER_CLI = ["--smoke", "--device", "cpu", "--replicas", "2", "--mesh",
               "2x2"]
 SERVE_CLI = ROUTER_CLI + ["--requests", "8", "--prompt-len", "8", "--gen",
@@ -503,14 +532,15 @@ def _router_weights(arch: str) -> dict:
     return tree
 
 
-def _ref_router(arch: str, replicas: int, kill_at: int, mesh=None) -> dict:
+def _ref_router(arch: str, replicas: int, kill_at: int, mesh=None,
+                max_len: int | None = None) -> dict:
     """The reference's router on the case's trace and weights: tokens by
     request and its stats."""
     cfg, tree = ref_smoke_config(arch), _router_weights(arch)
     trace = ref_synthesize(vocab=cfg.vocab, **ROUTER_TRACE)
     router = RR.build_router(cfg, jax.tree.map(jnp.asarray, tree),
                              genome=dict(ROUTER_GENOME, replicas=replicas),
-                             max_len=trace.max_len(), mesh=mesh)
+                             max_len=max_len or trace.max_len(), mesh=mesh)
     accepted = _drive(router, trace, kill_at)
     return {"tokens": {r.uid: [int(t) for t in r.tokens]
                        for r in router.completed},
@@ -521,7 +551,9 @@ def _ref_routers() -> dict:
     """Each case's reference ``Router`` (no mesh), and one qwen3-0.6b
     replica placed by the reference's ``build_router(mesh=)`` on a (1, 1)
     mesh of the one CPU device."""
-    out = {c[0]: _ref_router(c[1], c[3], c[4]) for c in ROUTER_CASES}
+    out = {c[0]: _ref_router(c[1], c[3], c[4],
+                             max_len=ROUTER_MAX_LEN.get(c[0]))
+           for c in ROUTER_CASES}
     out["mesh_1x1"] = _ref_router("qwen3-0.6b", 1, -1,
                                   ref_make_smoke_mesh(1, 1))
     return out
@@ -569,7 +601,11 @@ def group(tmp_path_factory):
         arrays.update(_flat(_router_weights(arch), f"w/{wname}"))
         meta["router"]["cases"].append({
             "name": name, "arch": arch, "weights": wname, "mesh": mesh,
-            "replicas": replicas, "kill_at": kill_at})
+            "replicas": replicas, "kill_at": kill_at,
+            "max_len": ROUTER_MAX_LEN.get(name)})
+    meta["router"]["fault"] = dict(
+        ROUTER_FAULT, weights=re.sub(r"\W", "_",
+                                     f"router:{ROUTER_FAULT['arch']}"))
     # the checkpoint's weights and batch: qwen3's own
     q = next(s for s in meta["steps"] if s["arch"] == "qwen3-0.6b")
     for kind in ("w", "b"):
@@ -935,12 +971,18 @@ def test_router_storage_is_each_ranks_block(group, case):
     """Each rank holds, of its replica's parameters and lane caches,
     exactly its block under ``param_specs`` / ``cache_specs`` on the
     replica's submesh: the parameters' blocks of the whole weights, the
-    caches allocated at build (zeros) and, after the replay, the blocks of
-    the unmeshed router's same replica's caches."""
+    caches allocated at build (zeros, the engine's plain tensors over the
+    DTensors' memory) and, after the replay, the blocks of the unmeshed
+    router's same replica's caches: bit for bit where the submesh's model
+    axis has one rank; within 1e-5 |ref| + 1e-5 max(1, max |ref|) where it
+    has more (the layers sum their ranks' partial products in another
+    order)."""
     ranks, _, _ = group
     _, arch, _, replicas, _ = next(c for c in ROUTER_CASES if c[0] == case)
     tcfg = smoke_config(arch)
     model = T.init_params(tcfg, device="meta")
+    max_len = ROUTER_MAX_LEN.get(case) or synthesize(
+        vocab=tcfg.vocab, **ROUTER_TRACE).max_len()
     sharded = 0
     for r in ranks:
         own, members, sub_shape = json.loads(str(r[f"router/{case}/submesh"]))
@@ -954,9 +996,7 @@ def test_router_storage_is_each_ranks_block(group, case):
             want = _block_shape(p.shape, specs[n], sizes)
             assert local == want and equal, (n, local, want)
             sharded += want != list(p.shape)
-        caches = T.init_cache(tcfg, ROUTER_GENOME["max_slots"],
-                              synthesize(vocab=tcfg.vocab,
-                                         **ROUTER_TRACE).max_len(),
+        caches = T.init_cache(tcfg, ROUTER_GENOME["max_slots"], max_len,
                               device="cpu")
         dp = int(np.prod([sizes[a] for a in ("data",)]))
         cspecs = S.cache_specs(tcfg, caches, dp_size=dp,
@@ -965,11 +1005,25 @@ def test_router_storage_is_each_ranks_block(group, case):
         after = json.loads(str(r[f"router/{case}/caches_after"]))
         assert set(at_build) == set(after) == set(caches)
         for k, t in caches.items():
-            local, zeros = at_build[k]
+            local, zeros, shared = at_build[k]
             assert local == _block_shape(t.shape, cspecs[k], sizes) and zeros
-            assert after[k], k
+            assert shared, k
+            exact, within = after[k]
+            assert within, k
+            assert exact or sizes["model"] > 1, k
         assert len(members) * len(members[0]) * replicas == 4
     assert (sharded > 0) == (replicas < 4)  # a (1, 1) submesh shards none
+
+
+@pytest.mark.parametrize("case", [c[0] for c in ROUTER_CASES])
+def test_router_step_gathers_no_weight_over_model(group, case):
+    """While the meshed router replays its trace, no parameter of the
+    rank's replica is gathered over ``model`` (a spy on DTensor's
+    ``full_tensor`` and ``redistribute``): each tick runs on the local
+    blocks made when the router was built."""
+    ranks, _, _ = group
+    for r in ranks:
+        assert json.loads(str(r[f"router/{case}/gathered_over_model"])) == []
 
 
 def _counts(stats: dict) -> list:
@@ -1011,6 +1065,36 @@ def test_router_tokens_match_unmeshed_and_reference(group, case):
         assert stats[0]["n_requeued"] > 0
     else:
         assert all(row["n_completed"] > 0 for row in stats[0]["per_replica"])
+
+
+def test_router_fails_over_a_fault_on_one_rank_of_a_replica(group):
+    """One rank of a replica raises mid-step, between two of the layer's
+    collectives, while its peer waits in the second: the replica's groups
+    time out (``router.FAULT_TIMEOUT``), the replica fails on
+    every rank, its requests are requeued, and the other replica serves
+    every accepted request with the greedy tokens of the reference
+    ``Router`` that lost no replica; ``stats()`` is the same on every
+    rank."""
+    ranks, ref, _ = group
+    f = ROUTER_FAULT
+    raised = [json.loads(str(r["router/fault/raised"])) for r in ranks]
+    assert [bool(x) for x in raised] == [i == f["rank"] for i in range(4)]
+    assert raised[f["rank"]][0] >= f["at"]
+    stats = _ranks_json(ranks, "router/fault/stats")
+    assert all(s == stats[0] for s in stats)
+    st = stats[0]
+    assert st["n_replicas"] == f["replicas"] and st["n_live"] == 1
+    assert [row["alive"] for row in st["per_replica"]] == [False, True]
+    assert "begin_step" in st["per_replica"][0]["fail_reason"]
+    assert st["n_requeued"] > 0, (st, raised)
+    for r in ranks:
+        assert json.loads(str(r["router/fault/tokens"])) == \
+            ref["router"][f["like"]]["tokens"]
+        assert (st["n_completed"] == int(r["router/fault/accepted"])
+                == ROUTER_TRACE["n_requests"])
+        # the peer's wait ended at the groups' timeout, not the default's
+        assert f["timeout"] <= float(r["router/fault/seconds"]) \
+            < 10 * f["timeout"]
 
 
 @pytest.mark.parametrize("cli", ("router", "serve"))

@@ -93,12 +93,11 @@ def router_tasks(task, meta: dict, meshes: dict, out: dict) -> None:
         params = params_from_reference(_tree(task, f"w/{case['weights']}"),
                                        tcfg, "cpu")
         trace = synthesize(vocab=tcfg.vocab, **rt["trace"])
+        max_len = case["max_len"] or trace.max_len()
         genome = dict(rt["genome"], replicas=case["replicas"])
-        plain = build_router(tcfg, params, genome=genome,
-                             max_len=trace.max_len())
+        plain = build_router(tcfg, params, genome=genome, max_len=max_len)
         drive(plain, trace, case["kill_at"])
-        router = build_router(tcfg, params, genome=genome,
-                              max_len=trace.max_len(),
+        router = build_router(tcfg, params, genome=genome, max_len=max_len,
                               mesh=meshes[case["mesh"]], device="cpu")
         engine = router.replicas[router.replica].engine.real
         sub = router.submesh
@@ -106,17 +105,27 @@ def router_tasks(task, meta: dict, meshes: dict, out: dict) -> None:
         out[f"{tag}/params"] = np.array(json.dumps({
             n: [list(p.to_local().shape),
                 equal(p.to_local(), local_block(whole[n], sub, p.placements))]
-            for n, p in engine.params.named_parameters()}))
-        caches = engine.batches["default"].caches
+            for n, p in router.placed.named_parameters()}))
+        batch = engine.batches["default"]
         out[f"{tag}/caches_at_build"] = np.array(json.dumps({
-            k: [list(t.to_local().shape), bool((t.to_local() == 0).all())]
-            for k, t in caches.items()}))
-        accepted = drive(router, trace, case["kill_at"])
+            k: [list(t.to_local().shape), bool((t.to_local() == 0).all()),
+                batch.caches[k].data_ptr() == t._local_tensor.data_ptr()]
+            for k, t in batch.placed.items()}))
+        with GatherSpy(router.placed) as spy:
+            accepted = drive(router, trace, case["kill_at"])
+        out[f"{tag}/gathered_over_model"] = np.array(json.dumps(
+            sorted(spy.gathered)))
         ref = plain.replicas[router.replica].engine.batches["default"].caches
-        out[f"{tag}/caches_after"] = np.array(json.dumps({
-            k: equal(t.to_local(), local_block(ref[k], sub, t.placements)
-                     if ref is not None else torch.zeros_like(t.to_local()))
-            for k, t in caches.items()}))
+        after = {}
+        for k, t in batch.placed.items():
+            got = t.to_local()
+            want = local_block(ref[k], sub, t.placements) \
+                if ref is not None else torch.zeros_like(got)
+            bound = 1e-5 * want.abs() + 1e-5 * max(
+                1.0, float(want.abs().max()))
+            after[k] = [equal(got, want),
+                        bool(((got - want).abs() <= bound).all())]
+        out[f"{tag}/caches_after"] = np.array(json.dumps(after))
         out[f"{tag}/submesh"] = np.array(json.dumps(
             [router.replica, sub.mesh.tolist(), list(sub.shape)]))
         out[f"{tag}/tokens"] = np.array(json.dumps(
@@ -126,6 +135,65 @@ def router_tasks(task, meta: dict, meshes: dict, out: dict) -> None:
         out[f"{tag}/stats"] = np.array(json.dumps(router.stats()))
         out[f"{tag}/stats_plain"] = np.array(json.dumps(plain.stats()))
         out[f"{tag}/accepted"] = np.array(accepted)
+    router_fault(task, rt, meshes, out)
+
+
+def router_fault(task, rt: dict, meshes: dict, out: dict) -> None:
+    """A fault that one rank of a replica alone hits, mid-step: from the
+    fault's tick on, that rank's second layer's attention of a decode step
+    raises, after the first layer made its collectives; its peer waits in
+    the second layer's sum until the replica's groups time out.  (A
+    decode step: a fault in a prefill loses the requests that tick
+    admitted, in the reference ``Router`` as in the port's, with or
+    without a mesh.)  Records the replay's tokens, stats and seconds, and
+    the tick at which this rank raised, if it did."""
+    import time
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.core.deploy import build_router
+    from repro_torch.core.deploy import router as R
+    from repro_torch.core.liveloop.traces import synthesize
+    from repro_torch.models import transformer as T
+    from repro_torch.models.weights import params_from_reference
+
+    f = rt["fault"]
+    tcfg = smoke_config(f["arch"])
+    params = params_from_reference(_tree(task, f"w/{f['weights']}"), tcfg,
+                                   "cpu")
+    trace = synthesize(vocab=tcfg.vocab, **rt["trace"])
+    default, R.FAULT_TIMEOUT = R.FAULT_TIMEOUT, f["timeout"]
+    try:
+        router = build_router(tcfg, params, genome=dict(
+            rt["genome"], replicas=f["replicas"]), max_len=trace.max_len(),
+            mesh=meshes[f["mesh"]], device="cpu")
+    finally:
+        R.FAULT_TIMEOUT = default
+    decode, calls, raised = T.gqa_decode, [], []
+
+    def faulty(*args, **kw):
+        if router.n_ticks >= f["at"] and not raised:
+            calls.append(router.n_ticks)
+            if len(calls) == 2:
+                raised.append(router.n_ticks)
+                raise RuntimeError("fault injected on this rank alone")
+        return decode(*args, **kw)
+
+    if dist.get_rank() == f["rank"]:
+        T.gqa_decode = faulty
+    try:
+        t0 = time.perf_counter()
+        accepted = drive(router, trace, -1)
+        seconds = time.perf_counter() - t0
+    finally:
+        T.gqa_decode = decode
+    out["router/fault/tokens"] = np.array(json.dumps(
+        {r.uid: list(r.tokens) for r in router.completed}))
+    out["router/fault/stats"] = np.array(json.dumps(router.stats()))
+    out["router/fault/accepted"] = np.array(accepted)
+    out["router/fault/seconds"] = np.array(seconds)
+    out["router/fault/raised"] = np.array(json.dumps(raised))
 
 
 class GatherSpy:

@@ -24,6 +24,20 @@ and dry-run traces on a fake 4 x 4 mesh whose per-rank dot FLOPs equal a
 count derived by hand from the config (qwen3, deepseek, zamba2 smoke).
 The 4-rank gloo group of tests/test_torch_mesh.py runs the whole
 tensor-parallel train step.
+
+Serving over the model axis, on the same thread ranks at the same
+tolerance, without gradients: each decode form on the rank's blocks of
+the weights and of the caches in each layout ``cache_specs`` gives
+(``kv_layout``: KV heads split, sequence split, whole) against the
+one-device decode (GQA with M-RoPE and biases, a KV group straddling
+two ranks and query heads that do not divide the axis; MLA on a split
+and a whole latent cache; mamba1 and mamba2; ``moe_gather`` over padded
+experts and its shared experts; the expert-parallel decode on the rank's
+expert block), the new token written by the rank that holds its
+position; then each family's ``prefill`` and three ``decode_step``s
+under the serving ``Dist``, the prefill's rows installed by the engine's
+``_write_lane``, against the one-device model: the logits, the same on
+every rank bit for bit, and the ranks' cache blocks put together.
 """
 
 from __future__ import annotations
@@ -98,10 +112,14 @@ def _all_gather(parts, t, group=None):
         p.copy_(v)
 
 
-def _all_to_all_single(out, inp, out_splits, in_splits, group=None):
-    sent = group.axis.exchange(group.rank, list(inp.split(list(in_splits))))
-    got = [sent[j][group.rank] for j in range(group.axis.m)]
-    assert [g.shape[0] for g in got] == list(out_splits)
+def _all_to_all_single(out, inp, out_splits=None, in_splits=None,
+                       group=None):
+    m = group.axis.m
+    parts = inp.chunk(m) if in_splits is None else inp.split(list(in_splits))
+    sent = group.axis.exchange(group.rank, list(parts))
+    got = [sent[j][group.rank] for j in range(m)]
+    if out_splits is not None:
+        assert [g.shape[0] for g in got] == list(out_splits)
     out.copy_(torch.cat(got))
 
 
@@ -128,7 +146,7 @@ def threads(monkeypatch):
 
 
 DIST = SimpleNamespace(tensor_parallel=True, model_axis="model",
-                       batch_axes=(), active=True)
+                       batch_axes=(), active=True, cache_len=0)
 
 
 def _close(got, want, what: str, tol: float = TOL) -> None:
@@ -761,3 +779,379 @@ def test_dry_run_4x4_dot_flops_are_the_hand_count_mla_moe_hybrid(arch,
     assert sum(rec["hlo"]["aten_flops"].values()) == hand(cfg, batch, seq,
                                                           4, 4)
     assert rec["hlo"]["collective_bytes"]["all_reduce"] > 0
+
+
+# --------------------------------------------------------------------------
+# serving over the model axis: each decode form on the rank's blocks of
+# the weights and of the caches (cache_specs' layouts: KV heads split,
+# sequence split, whole), then each family's prefill and decode steps
+# --------------------------------------------------------------------------
+
+def _serve_dist(cache_len: int):
+    """The tensor-parallel serving context of the bound thread rank."""
+    from repro_torch.models.transformer import Dist
+    mesh = C._BINDINGS.get()[-1][0]
+    return Dist(mesh=mesh, batch_axes=(), model_axis="model",
+                tensor_parallel=True, cache_len=cache_len)
+
+
+def _blk(x, m: int, r: int, dim):
+    """Rank r's block of ``x`` along ``dim`` (None: the whole)."""
+    return x.clone() if dim is None else x.chunk(m, dim)[r].clone()
+
+
+def _lane_index(B: int, T: int, seed: int) -> torch.Tensor:
+    """One cache index a lane, spread over the sequence (each rank's block
+    of a split sequence holds some)."""
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(np.sort(rng.choice(T, B, replace=False)))
+
+
+GQA_DECODE_CASES = {  # name: (arch, config overrides, m, cache length)
+    "heads_m2": ("qwen3-0.6b", {}, 2, 8),          # 2 KV heads on 2
+    "seq_m4": ("qwen3-0.6b", {}, 4, 8),            # 2 KV heads on 4
+    "whole_m4": ("qwen3-0.6b", {}, 4, 7),          # neither divides
+    "mrope_bias_heads_m2": ("qwen2-vl-72b", {}, 2, 8),
+    "mrope_bias_seq_m4": ("qwen2-vl-72b", {}, 4, 8),
+    "mrope_bias_whole_m4": ("qwen2-vl-72b", {}, 4, 6),
+    # rank 0's query heads read KV heads 0-1, rank 1's heads 1-2
+    "straddle_whole_m2": ("qwen3-0.6b", {"n_heads": 12, "n_kv_heads": 3},
+                          2, 7),
+    "straddle_seq_m2": ("qwen3-0.6b", {"n_heads": 12, "n_kv_heads": 3},
+                        2, 8),
+    # 6 query heads on 4 ranks: each rank scores all of them on its
+    # positions, and wo runs whole
+    "heads_not_divisible_seq_m4": ("qwen3-0.6b", {"n_heads": 6,
+                                                  "n_kv_heads": 2}, 4, 8),
+}
+
+
+@pytest.mark.parametrize("lanes", ("lane_index", "int_index"))
+@pytest.mark.parametrize("case", sorted(GQA_DECODE_CASES))
+def test_gqa_decode_tensor_parallel_matches_whole(threads, case, lanes):
+    """``gqa_decode`` on each rank's heads and its block of the KV cache
+    (cache_specs' layout, ``kv_layout``) against the one-device decode on
+    the whole weights and caches: the output, and each rank's cache block
+    the block of the one-device cache (the new token written by the rank
+    that holds its position)."""
+    arch, over, m, T = GQA_DECODE_CASES[case]
+    cfg = smoke_config(arch).scaled(**over)
+    layout = A.kv_layout(cfg, m, T)
+    assert layout == case.split("_m")[0].split("_")[-1]
+    arrays = _attn_arrays(cfg, seed=m)
+    B, K, hd = 3, cfg.n_kv_heads, cfg.hd
+    rng = np.random.default_rng(len(case))
+    x = torch.from_numpy(rng.standard_normal((B, 1, cfg.d_model))
+                         .astype(np.float32))
+    ck = torch.from_numpy(rng.standard_normal((B, T, K, hd))
+                          .astype(np.float32))
+    cv = torch.from_numpy(rng.standard_normal((B, T, K, hd))
+                          .astype(np.float32))
+    index = _lane_index(B, T, m) if lanes == "lane_index" else T - 2
+    pos = (index[:, None] if lanes == "lane_index"
+           else torch.full((B, 1), index))
+    if cfg.mrope:
+        pos = pos[..., None].expand(B, 1, 3).contiguous()
+    whole = {k: torch.tensor(v) for k, v in arrays.items()}
+    wk, wv = ck.clone(), cv.clone()
+    want, _ = A.gqa_decode(whole, cfg, x, wk, wv, index, pos)
+    split = cfg.n_heads % m == 0
+    kv = 1 if layout == "heads" else None
+    dims = {"wq": 1 if split else None, "wo": 0 if split else None,
+            "wk": kv, "wv": kv, "bq": 0 if split else None,
+            "bk": kv and 0, "bv": kv and 0, "q_scale": None,
+            "k_scale": None}
+    cdim = {"heads": 2, "seq": 1, "whole": None}[layout]
+
+    def rank(r):
+        local = {k: _blk(whole[k], m, r, dims[k]) for k in whole}
+        lk, lv = _blk(ck, m, r, cdim), _blk(cv, m, r, cdim)
+        y, _ = A.gqa_decode(local, cfg, x, lk, lv, index, pos,
+                            _serve_dist(T))
+        return y, lk, lv
+
+    for r, (y, lk, lv) in enumerate(threads(m, rank)):
+        _close(y, want, f"y r{r}")
+        _close(lk, _blk(wk, m, r, cdim), f"k r{r}")
+        _close(lv, _blk(wv, m, r, cdim), f"v r{r}")
+
+
+@pytest.mark.parametrize("T", (8, 7), ids=("seq", "whole"))
+@pytest.mark.parametrize("m", (2, 4))
+def test_mla_decode_tensor_parallel_matches_whole(threads, m, T):
+    """Absorbed MLA decode on each rank's heads of ``wq_b``/``wkv_b`` and
+    rows of ``wo``: against the latent cache split on the sequence (each
+    rank scores every head over its positions, the context summed over
+    the axis) and against the whole latent cache."""
+    cfg = smoke_config("deepseek-v3-671b")
+    p = A.init_attn(cfg, torch.float32,
+                    generator=torch.Generator().manual_seed(m), device="cpu")
+    whole = {k: torch.tensor(v) for k, v in
+             _perturbed(p, ("q_norm", "kv_norm"), m).items()}
+    B = 3
+    rng = np.random.default_rng(T + m)
+    x = torch.from_numpy(rng.standard_normal((B, 1, cfg.d_model))
+                         .astype(np.float32))
+    ckv = torch.from_numpy(rng.standard_normal(
+        (B, T, cfg.kv_lora_rank)).astype(np.float32))
+    kr = torch.from_numpy(rng.standard_normal(
+        (B, T, cfg.qk_rope_dim)).astype(np.float32))
+    index = _lane_index(B, T, m)
+    pos = index[:, None]
+    wc, wr = ckv.clone(), kr.clone()
+    want, _ = A.mla_decode(whole, cfg, x, wc, wr, index, pos)
+    dims = {"wq_a": None, "q_norm": None, "wq_b": 1, "wkv_a": None,
+            "kv_norm": None, "wkv_b": 1, "wo": 0}
+    cdim = 1 if A.kv_layout(cfg, m, T) == "seq" else None
+    assert (cdim == 1) == (T % m == 0)
+
+    def rank(r):
+        local = {k: _blk(whole[k], m, r, dims[k]) for k in whole}
+        lc, lr = _blk(ckv, m, r, cdim), _blk(kr, m, r, cdim)
+        y, _ = A.mla_decode(local, cfg, x, lc, lr, index, pos,
+                            _serve_dist(T))
+        return y, lc, lr
+
+    for r, (y, lc, lr) in enumerate(threads(m, rank)):
+        _close(y, want, f"y r{r}")
+        _close(lc, _blk(wc, m, r, cdim), f"ckv r{r}")
+        _close(lr, _blk(wr, m, r, cdim), f"krope r{r}")
+
+
+@pytest.mark.parametrize("m", (2, 4))
+@pytest.mark.parametrize("version", (1, 2))
+def test_mamba_decode_tensor_parallel_matches_whole(threads, version, m):
+    """mamba1's decode step on each rank's channels (``in_proj``'s [x | z]
+    block realigned, ``x_proj``'s product summed over the axis) and
+    mamba2's on its heads (the gated norm's squares summed over the
+    axis): the output and each rank's block of the conv and SSM states."""
+    arch = "falcon-mamba-7b" if version == 1 else "zamba2-1.2b"
+    cfg = smoke_config(arch)
+    p = init_params(cfg, generator=torch.Generator().manual_seed(m),
+                    device="cpu").layers[0].mamba
+    whole = {k: torch.tensor(v) for k, v in _perturbed(
+        p, ("conv_b", "D", "dt_bias", "A_log", "norm_scale"), m).items()}
+    if version == 1:
+        dims = {"in_proj": 1, "conv_w": 1, "conv_b": 0, "out_proj": 0,
+                "D": 0, "x_proj": 0, "dt_proj": 1, "dt_bias": None,
+                "A_log": None}
+        state = (2, cfg.d_inner, cfg.ssm_state)
+        dec = MB.mamba1_decode
+    else:
+        dims = {"in_proj": 1, "conv_w": 1, "conv_b": 0, "bc_proj": None,
+                "dt_w": 1, "dt_bias": None, "A_log": None, "D": 0,
+                "norm_scale": None, "out_proj": 0}
+        H = cfg.ssm_heads
+        state = (2, H, cfg.d_inner // H, cfg.ssm_state)
+        dec = MB.mamba2_decode
+    rng = np.random.default_rng(version * 10 + m)
+    x = torch.from_numpy(rng.standard_normal((2, 1, cfg.d_model))
+                         .astype(np.float32))
+    conv = torch.from_numpy(rng.standard_normal(
+        (2, cfg.ssm_conv - 1, cfg.d_inner)).astype(np.float32))
+    h = torch.from_numpy(rng.standard_normal(state).astype(np.float32))
+    want, (wconv, wh) = dec(whole, cfg, x, conv, h)
+
+    def rank(r):
+        local = {k: _blk(whole[k], m, r, dims[k]) for k in whole}
+        return dec(local, cfg, x, _blk(conv, m, r, 2), _blk(h, m, r, 1),
+                   _serve_dist(8))
+
+    for r, (y, (lconv, lh)) in enumerate(threads(m, rank)):
+        _close(y, want, f"y r{r}")
+        _close(lconv, _blk(wconv, m, r, 2), f"conv r{r}")
+        _close(lh, _blk(wh, m, r, 1), f"ssm r{r}")
+
+
+@pytest.mark.parametrize("case", sorted(MOE_CASES))
+def test_moe_gather_tensor_parallel_matches_whole(threads, case):
+    """``moe_gather`` on each rank's block of the (padded) experts: each
+    rank gathers the picks in its block (one outside it weighs zero), the
+    router whole, the shared experts split over their hidden units where
+    they divide; the combine summed over the axis."""
+    from repro_torch.models import moe as MO
+    arch, over, m, shift = MOE_CASES[case]
+    cfg = smoke_config(arch).scaled(**over)
+    p = MO.init_moe(cfg, torch.float32, n_expert_shards=cfg.expert_shards,
+                    generator=torch.Generator().manual_seed(m), device="cpu")
+    whole = {k: torch.tensor(v) for k, v in _perturbed(p, (), m).items()}
+    if shift:
+        whole["router"][:, 0] += shift
+    sff = cfg.moe_d_ff * cfg.n_shared_experts
+    sh = sff and sff % m == 0
+    dims = {"router": None, "w_gate": 0, "w_up": 0, "w_down": 0,
+            "sh_gate": 1 if sh else None, "sh_up": 1 if sh else None,
+            "sh_down": 0 if sh else None}
+    x = torch.from_numpy(np.random.default_rng(m).standard_normal(
+        (3, 1, cfg.d_model)).astype(np.float32)) + shift
+    want = MO.moe_gather(whole, cfg, x)
+
+    def rank(r):
+        local = {k: _blk(whole[k], m, r, dims[k]) for k in whole}
+        return MO.moe_gather(local, cfg, x, "model")
+
+    for r, y in enumerate(threads(m, rank)):
+        _close(y, want, f"y r{r}")
+
+
+@pytest.mark.parametrize("m", (2, 4))
+def test_ep_decode_takes_the_ranks_expert_block(threads, m):
+    """Under ``moe_mode="ep_a2a"`` the serving ``Dist`` runs the
+    expert-parallel decode on each rank's expert block as it is (the
+    model axis is manual, so ``shard_map`` splits nothing again): equal to
+    ``moe_gather`` on the whole weights at a capacity that drops
+    nothing."""
+    from repro_torch.models import moe as MO
+    from repro_torch.models.transformer import _moe_apply
+    cfg = smoke_config("granite-moe-3b-a800m").scaled(
+        moe_mode="ep_a2a", expert_shards=4, n_experts=6)
+    p = MO.init_moe(cfg, torch.float32, n_expert_shards=4,
+                    generator=torch.Generator().manual_seed(m), device="cpu")
+    whole = {k: torch.tensor(v) for k, v in _perturbed(p, (), m).items()}
+    x = torch.from_numpy(np.random.default_rng(m).standard_normal(
+        (5, 1, cfg.d_model)).astype(np.float32))
+    want = MO.moe_gather(whole, cfg, x)
+
+    def rank(r):
+        local = {k: _blk(whole[k], m, r, 0 if k.startswith("w_") else None)
+                 for k in whole}
+        with C.manual_axes(C._BINDINGS.get()[-1][0], ("model",)):
+            return _moe_apply(local, cfg, x, _serve_dist(8), True)
+
+    for r, y in enumerate(threads(m, rank)):
+        _close(y, want, f"y r{r}")
+
+
+def _rank_model(cfg, params, m: int, r: int):
+    """Rank r's model on a (1, m) mesh, as ``shardings.local_model`` makes
+    it: a leaf ``param_specs`` places on its layer's split dimension
+    (``tp_dims``) is the rank's block, any other leaf whole."""
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.launch.shardings import param_specs, tp_dims
+    specs = param_specs(params, MeshShape((1, m)))
+    dims = tp_dims(cfg)
+    model = init_params(cfg, device="meta")
+    for n, p in params.named_parameters():
+        md = next((i for i, e in enumerate(specs[n]) if e == "model"), None)
+        t = p.detach()
+        if md is not None and md == dims.get(n.rpartition(".")[2], -1):
+            t = t.chunk(m, md)[r].clone()
+        mod, _, leaf = n.rpartition(".")
+        model.get_submodule(mod).register_parameter(
+            leaf, torch.nn.Parameter(t, requires_grad=False))
+    return model
+
+
+def _cache_dims(cfg, caches: dict, m: int) -> dict:
+    """Each lane-cache leaf's dimension split over ``model`` under
+    ``cache_specs`` on a (1, m) mesh (None: whole)."""
+    from repro_torch.launch.shardings import cache_specs
+    specs = cache_specs(cfg, caches, dp_axes=(), model_size=m)
+    return {k: next((i for i, e in enumerate(specs[k]) if e == "model"),
+                    None) for k in caches}
+
+
+SERVE_FAMILIES = {  # name: (arch, config overrides, m, cache length)
+    "qwen3_heads_m2": ("qwen3-0.6b", {}, 2, 10),
+    "qwen3_seq_m4": ("qwen3-0.6b", {}, 4, 12),
+    "qwen3_whole_m4": ("qwen3-0.6b", {}, 4, 10),
+    "qwen2vl_seq_m4": ("qwen2-vl-72b", {}, 4, 12),   # M-RoPE, biases
+    "falcon_m4": ("falcon-mamba-7b", {}, 4, 10),
+    "granite_heads_m2": ("granite-moe-3b-a800m", {}, 2, 10),
+    "deepseek_seq_m2": ("deepseek-v3-671b", {}, 2, 12),  # MLA's latent
+    "deepseek_whole_m4": ("deepseek-v3-671b", {}, 4, 10),
+    "zamba2_heads_m2": ("zamba2-1.2b", {}, 2, 10),   # the shared block's
+    "zamba2_seq_m4": ("zamba2-1.2b", {"n_kv_heads": 2}, 4, 12),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SERVE_FAMILIES))
+def test_serving_prefill_and_decode_on_blocks_match_whole(threads, case):
+    """``prefill`` then three ``decode_step``s of each family under the
+    serving ``Dist`` on m thread ranks, each on its local weights
+    (``_rank_model``) and lane-cache blocks (the prefill's rows, each
+    leaf's block as its layer returned it, installed by the engine's
+    ``_write_lane``),
+    against the one-device model on the whole weights and caches: the
+    logits within TOL and the same on every rank bit for bit, and the
+    ranks' cache blocks put together the one-device caches within TOL."""
+    from repro_torch.core.deploy.engine import _write_lane
+    from repro_torch.models import transformer as T_
+    arch, over, m, T = SERVE_FAMILIES[case]
+    cfg = smoke_config(arch).scaled(**over)
+    if cfg.n_heads:
+        layout = A.kv_layout(cfg, m, T)
+        assert layout in case or not {"heads", "seq", "whole"} & set(
+            case.split("_")), (case, layout)
+    params = init_params(cfg, generator=torch.Generator().manual_seed(m),
+                         device="cpu")
+    B, S = 2, 5
+    rng = np.random.default_rng(T)
+    toks = rng.integers(0, cfg.vocab, (B, S))
+    steps = [rng.integers(0, cfg.vocab, (B, 1)) for _ in range(3)]
+
+    def batch(tokens, start):
+        pos = torch.arange(start, start + tokens.shape[1])[None].expand(
+            B, tokens.shape[1])
+        b = {"tokens": torch.from_numpy(tokens), "positions": pos}
+        if cfg.mrope:
+            b["positions3"] = pos[..., None].expand(pos.shape + (3,))
+        return b
+
+    def serve(model, dist, r=None):
+        logits, pre = T_.prefill(model, batch(toks, 0), cfg, *dist)
+        caches = T_.init_cache(cfg, B, T, device="cpu")
+        if r is not None:  # rank r's blocks
+            dims = _cache_dims(cfg, caches, m)
+            caches = {k: t if dims[k] is None else
+                      t.chunk(m, dims[k])[r].clone()
+                      for k, t in caches.items()}
+        for lane in range(B):
+            _write_lane(caches, lane, pre, lane)
+        out = [logits]
+        for i, tk in enumerate(steps):
+            index = torch.full((B,), S + i)
+            logits, caches = T_.decode_step(model, batch(tk, S + i), caches,
+                                            index, cfg, *dist)
+            out.append(logits)
+        return out, caches
+
+    want, wcaches = serve(params, ())
+
+    def rank(r):
+        return serve(_rank_model(cfg, params, m, r), (_serve_dist(T),), r)
+
+    ranks = threads(m, rank)
+    for r, (got, _) in enumerate(ranks):
+        for i, (g, w) in enumerate(zip(got, want)):
+            _close(g, w, f"logits {i} r{r}")
+            assert torch.equal(g, ranks[0][0][i]), f"logits {i} r{r}"
+    dims = _cache_dims(cfg, wcaches, m)
+    for k, w in wcaches.items():
+        d = dims[k]
+        got = ranks[0][1][k] if d is None else torch.cat(
+            [c[k] for _, c in ranks], d)
+        _close(got, w, f"cache {k}")
+
+
+@pytest.mark.parametrize("arch", ("qwen3-0.6b", "qwen2-vl-72b",
+                                  "deepseek-v3-671b", "zamba2-1.2b",
+                                  "minicpm-2b"))
+def test_kv_layout_is_cache_specs_rule(arch):
+    """``kv_layout`` reads the attention caches' placement over ``model``
+    as ``cache_specs`` makes it, for axes of 2, 4 and 16 ranks and cache
+    lengths that do and do not divide them (production widths)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.shardings import cache_specs
+    from repro_torch.models.transformer import init_cache
+    cfg = get_config(arch)
+    want = {None: "whole", 2: "seq", 3: "heads"}
+    for m in (2, 4, 16):
+        for T in (32, 33, 48, 4096):
+            caches = init_cache(cfg, 2, T, device="meta")
+            specs = cache_specs(cfg, caches, dp_axes=(), model_size=m)
+            key = "ckv" if cfg.mla else "shared_k" if "shared_k" in caches \
+                else "k"
+            md = next((i for i, e in enumerate(specs[key])
+                       if e == "model"), None)
+            assert A.kv_layout(cfg, m, T) == want[md], (m, T)
