@@ -1235,11 +1235,14 @@ def cross_check(torch, name, program, inputs, patches) -> dict:
 def device_spans(torch, prof) -> list:
     """(start, end, name) of every device event of a profile, in order,
     but for the spin ``measured_time`` holds the stream with while the host
-    enqueues the timed calls (``torch.cuda._sleep``'s ``spin_kernel``)."""
+    enqueues the timed calls (``torch.cuda._sleep``'s ``spin_kernel``) and
+    the device's record of a host span (a ``record_function`` range, such
+    as the port's ``repro_torch.spans``), which is no kernel."""
     return sorted((e.time_range.start, e.time_range.end, e.name)
                   for e in prof.events()
                   if e.device_type == torch.autograd.DeviceType.CUDA
-                  and "spin_kernel" not in e.name)
+                  and "spin_kernel" not in e.name
+                  and not e.is_user_annotation)
 
 
 def busy_us(spans) -> float:

@@ -54,6 +54,22 @@ data axes where ``cache_specs`` puts it) and the logits of every lane are
 gathered before sampling, so every rank samples the same tokens (at a
 temperature, from identical generators).  Without a mesh ``dist`` is the
 empty ``Dist()`` and nothing of this runs.
+
+Spans (``repro_torch.spans``; they record only inside a recording or
+under torch's profiler): ``serve.tick`` (``step``) holds ``serve.admit``
+(``_admit`` when it takes a request) and, per variant,
+``serve.decode.dispatch`` (counters ``lanes``, the live lanes,
+``kv_positions``, the sum of their cache lengths, and ``kv_capacity``,
+lanes times ``max_len``) and ``serve.decode.sample``.  ``serve.admit``
+holds ``serve.select`` and, per group, ``serve.prefill`` (timed on the
+device, batch building to logits: ``rows`` and ``tokens``), which holds
+``serve.prefill.batch`` (the batch built on the host and copied to the
+device), then ``serve.prefill.sample`` and ``serve.install`` (the lane
+installs, the lane caches' first allocation included).  The host waits for
+the device in the two ``*.sample`` spans (:meth:`ServeEngine._sample`),
+and in :meth:`ServeEngine._token_batch` (``serve.prefill.batch``, and the
+dispatch's batch), whose copies from pageable host memory end in a
+synchronize of the stream.
 """
 
 from __future__ import annotations
@@ -69,6 +85,7 @@ import numpy as np
 import torch
 
 from ...device import resolve_device
+from ...spans import span
 from ..evaluator import EvalOutcome, FitnessCache
 from ..schedule import ScheduleSpace
 from .kvplan import DEFAULT_KV_PLAN, KV_SPACE, KVPlan
@@ -386,6 +403,9 @@ class ServeEngine:
 
     # -- prefill (admission) -------------------------------------------------
     def _token_batch(self, cfg, tokens_2d, positions_2d):
+        """The batch of host arrays on the engine's device.  Each copy from
+        pageable host memory ends in a synchronize of the stream: the host
+        waits here for the device's queued work."""
         pos = torch.as_tensor(np.array(positions_2d), device=self.device)
         b = {"tokens": torch.as_tensor(np.asarray(tokens_2d),
                                        device=self.device),
@@ -406,28 +426,29 @@ class ServeEngine:
         the oldest queued request has waited ``admit_max_wait`` ticks, the
         whole pick is strict FIFO — grouping must never starve an
         odd-length prompt behind a steady stream of same-length ones."""
-        q = self.queue
-        if self.n_ticks - getattr(q[0], "_enq_tick", self.n_ticks) \
-                >= self.admit_max_wait:
-            return [q.popleft() for _ in range(n_take)]
-        counts: dict[int, int] = {}
-        first_at: dict[int, int] = {}
-        for i, r in enumerate(q):
-            plen = len(r.tokens)
-            counts[plen] = counts.get(plen, 0) + 1
-            first_at.setdefault(plen, i)
-        best = max(counts, key=lambda p: (counts[p], -first_at[p]))
-        take: list[ServeRequest] = []
-        rest: list[ServeRequest] = []
-        for r in q:
-            if len(r.tokens) == best and len(take) < n_take:
-                take.append(r)
-            else:
-                rest.append(r)
-        while len(take) < n_take:
-            take.append(rest.pop(0))
-        self.queue = deque(rest)
-        return take
+        with span("serve.select"):
+            q = self.queue
+            if self.n_ticks - getattr(q[0], "_enq_tick", self.n_ticks) \
+                    >= self.admit_max_wait:
+                return [q.popleft() for _ in range(n_take)]
+            counts: dict[int, int] = {}
+            first_at: dict[int, int] = {}
+            for i, r in enumerate(q):
+                plen = len(r.tokens)
+                counts[plen] = counts.get(plen, 0) + 1
+                first_at.setdefault(plen, i)
+            best = max(counts, key=lambda p: (counts[p], -first_at[p]))
+            take: list[ServeRequest] = []
+            rest: list[ServeRequest] = []
+            for r in q:
+                if len(r.tokens) == best and len(take) < n_take:
+                    take.append(r)
+                else:
+                    rest.append(r)
+            while len(take) < n_take:
+                take.append(rest.pop(0))
+            self.queue = deque(rest)
+            return take
 
     def _admit(self) -> None:
         from ...models.transformer import init_cache, prefill
@@ -435,49 +456,58 @@ class ServeEngine:
         n_take = min(n_free, self.prefill_chunk, len(self.queue))
         if n_take <= 0:
             return
-        admitted = self._select_admissions(n_take)
-        t_admit = _time.perf_counter()
-        groups: dict[tuple, list[ServeRequest]] = {}
-        for req in admitted:
-            groups.setdefault((self._route(req), len(req.tokens)),
-                              []).append(req)
-        for (variant, plen), reqs in groups.items():
-            cfg = self.cfgs[variant]
-            batch = self.batches[variant]
-            G = len(reqs)
-            toks = np.stack([r.tokens for r in reqs])
-            pos = np.broadcast_to(np.arange(plen, dtype=np.int32)[None],
-                                  (G, plen))
-            logits, pre_caches = prefill(
-                self.params, self._token_batch(cfg, toks, pos), cfg,
-                self.dist)
-            self.n_prefill_batches += 1
-            first = self._sample(logits)
-            t_first = _time.perf_counter()
-            if batch.caches is None:
-                batch.caches = init_cache(cfg, batch.n_lanes, self.max_len,
-                                          device=self.device)
-            free = batch.free_lanes()
-            for i, req in enumerate(reqs):
-                tok = int(first[i])
-                res = ServeResult(
-                    uid=req.uid, variant=variant,
-                    t_submit=getattr(req, "_t_submit", t_admit),
-                    t_admit=t_admit, t_first=t_first)
-                lane = _Lane(req=req, index=plen, tokens=[tok], last=tok,
-                             res=res)
-                if not self._maybe_finish(lane, t_first):
-                    li = free.pop(0)
-                    batch.lanes[li] = lane
-                    _write_lane(batch.caches, li, pre_caches, i,
-                                batch.blocks)
+        with span("serve.admit"):
+            admitted = self._select_admissions(n_take)
+            t_admit = _time.perf_counter()
+            groups: dict[tuple, list[ServeRequest]] = {}
+            for req in admitted:
+                groups.setdefault((self._route(req), len(req.tokens)),
+                                  []).append(req)
+            for (variant, plen), reqs in groups.items():
+                cfg = self.cfgs[variant]
+                batch = self.batches[variant]
+                G = len(reqs)
+                with span("serve.prefill", device=True) as prefilling:
+                    if prefilling:
+                        prefilling.set(rows=G, tokens=G * plen)
+                    with span("serve.prefill.batch"):
+                        toks = np.stack([r.tokens for r in reqs])
+                        pos = np.broadcast_to(
+                            np.arange(plen, dtype=np.int32)[None], (G, plen))
+                        tb = self._token_batch(cfg, toks, pos)
+                    logits, pre_caches = prefill(self.params, tb, cfg,
+                                                 self.dist)
+                self.n_prefill_batches += 1
+                with span("serve.prefill.sample"):
+                    first = self._sample(logits)
+                t_first = _time.perf_counter()
+                with span("serve.install"):
+                    if batch.caches is None:
+                        batch.caches = init_cache(cfg, batch.n_lanes,
+                                                  self.max_len,
+                                                  device=self.device)
+                    free = batch.free_lanes()
+                    for i, req in enumerate(reqs):
+                        tok = int(first[i])
+                        res = ServeResult(
+                            uid=req.uid, variant=variant,
+                            t_submit=getattr(req, "_t_submit", t_admit),
+                            t_admit=t_admit, t_first=t_first)
+                        lane = _Lane(req=req, index=plen, tokens=[tok],
+                                     last=tok, res=res)
+                        if not self._maybe_finish(lane, t_first):
+                            li = free.pop(0)
+                            batch.lanes[li] = lane
+                            _write_lane(batch.caches, li, pre_caches, i,
+                                        batch.blocks)
 
     # -- decode --------------------------------------------------------------
     def _sample(self, logits):
         """Next tokens from (B, V) logits, greedy unless ``temperature`` >
         0 (then drawn from the engine's own ``torch.Generator``).  Copying
-        them to the host waits for the device: this is where a tick blocks,
-        as the reference blocks on its result."""
+        them to the host waits for the device's results, as the reference
+        blocks on its result, inside the span ``serve.prefill.sample`` or
+        ``serve.decode.sample``."""
         if self.temperature > 0:
             probs = torch.softmax(
                 logits.to(torch.float32) / self.temperature, dim=-1)
@@ -504,18 +534,24 @@ class ServeEngine:
             # (idle lanes run at index 0 and are ignored; their cache is
             # rewritten wholesale at the next admission)
             N = batch.n_lanes
-            toks = np.zeros((N, 1), np.int64)
-            pos = np.zeros((N, 1), np.int64)
-            for i, lane in active:
-                toks[i, 0] = lane.last
-                pos[i, 0] = lane.index
-            lo, n = batch.lane_block()
-            tb = self._token_batch(cfg, toks[lo:lo + n], pos[lo:lo + n])
-            logits, batch.caches = decode_step(
-                self.params, tb, batch.caches, tb["positions"][:, 0], cfg,
-                self.dist)
-            if n < N:
-                logits = self._all_lanes(logits)
+            with span("serve.decode.dispatch") as dispatching:
+                if dispatching:
+                    dispatching.set(
+                        lanes=len(active),
+                        kv_positions=sum(lane.index for _, lane in active),
+                        kv_capacity=N * self.max_len)
+                toks = np.zeros((N, 1), np.int64)
+                pos = np.zeros((N, 1), np.int64)
+                for i, lane in active:
+                    toks[i, 0] = lane.last
+                    pos[i, 0] = lane.index
+                lo, n = batch.lane_block()
+                tb = self._token_batch(cfg, toks[lo:lo + n], pos[lo:lo + n])
+                logits, batch.caches = decode_step(
+                    self.params, tb, batch.caches, tb["positions"][:, 0], cfg,
+                    self.dist)
+                if n < N:
+                    logits = self._all_lanes(logits)
             self.n_decode_batches += 1
             pending.append((variant, active, logits))
         return pending
@@ -536,7 +572,8 @@ class ServeEngine:
         host blocks on device results) and advance lane bookkeeping."""
         for variant, active, logits in pending:
             batch = self.batches[variant]
-            nxt = self._sample(logits)
+            with span("serve.decode.sample"):
+                nxt = self._sample(logits)
             t_now = _time.perf_counter()
             for i, lane in active:
                 lane.index += 1
@@ -582,7 +619,8 @@ class ServeEngine:
     def step(self) -> None:
         """One engine tick: admit + micro-batch prefill new requests, then
         advance every in-flight sequence one decode step."""
-        self.finish_step(self.begin_step())
+        with span("serve.tick"):
+            self.finish_step(self.begin_step())
 
     def run(self, requests=None, *, stagger: int | None = None
             ) -> list[ServeResult]:

@@ -234,12 +234,15 @@ def _median_run(runs: list) -> dict:
 def busy_seconds(prof) -> tuple[float, int]:
     """(seconds, count) of the device's kernels and copies in a
     torch.profiler profile, summed, but for the spin a stream is held
-    with (``torch.cuda._sleep``'s ``spin_kernel``)."""
+    with (``torch.cuda._sleep``'s ``spin_kernel``) and the device's record
+    of a host span (the engine's ``repro_torch.spans``), which is no
+    kernel."""
     from torch.autograd import DeviceType
     total, n = 0, 0
     for e in prof.profiler.kineto_results.events():
         if e.device_type() == DeviceType.CUDA \
-                and "spin_kernel" not in e.name():
+                and "spin_kernel" not in e.name() \
+                and not e.is_user_annotation():
             total += e.duration_ns()
             n += 1
     return total * 1e-9, n

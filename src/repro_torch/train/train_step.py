@@ -46,6 +46,17 @@ Under an active ``Dist`` (one process a rank, launch/mesh.py):
   in the state (one a rank), the loss ``pmean``-ed.
 * ``grad_shardings`` places the gradients under the given shardings
   before the update.
+
+Spans (``repro_torch.spans``), each timed on the device, on every path:
+``train.step`` holds, a microbatch at a time,
+``train.forward`` (``train_loss``) and
+``train.backward`` (``torch.autograd.grad``: autograd's engine runs the
+backward, on a thread of its own for a CUDA device, and the call returns
+once it has been launched), then
+``train.optimizer`` (``grad_norm`` and ``_update``).  On one device the
+step reads nothing back from the device (its metrics stay 0-d device
+tensors): the host blocks only where the caller reads them, or where the
+device's launch queue is full.
 """
 
 from __future__ import annotations
@@ -63,6 +74,7 @@ from ..models.common import P, manual_axes, pmean, psum
 from ..models.transformer import Dist, Model, train_loss
 from ..optim.grad_compress import compress_tree_psum
 from ..optim.optimizers import LeafSplit, Optimizer, _stack_key
+from ..spans import span
 
 
 def TrainState(params: Model, opt_state, step=0, residuals=None) -> dict:
@@ -92,8 +104,10 @@ def loss_and_grads(cfg, params: Model, batch: dict, dist: Dist = Dist()):
     """The loss of ``batch`` and its gradient for every parameter (zeros
     for one the loss does not reach), keyed by name."""
     names, tensors = zip(*params.named_parameters())
-    loss = train_loss(params, batch, cfg, dist)
-    grads = torch.autograd.grad(loss, tensors, allow_unused=True)
+    with span("train.forward", device=True):
+        loss = train_loss(params, batch, cfg, dist)
+    with span("train.backward", device=True):
+        grads = torch.autograd.grad(loss, tensors, allow_unused=True)
     return loss.detach(), {
         n: torch.zeros_like(p) if g is None else g
         for n, p, g in zip(names, tensors, grads)}
@@ -359,25 +373,28 @@ def make_train_step(cfg, optimizer: Optimizer, dist: Dist = Dist(),
     the gradients before the update."""
 
     def step(state, batch):
-        params = state["params"]
-        res = None
-        if compress_grads and dist.active:
-            loss, grads, res = _compressed_grads(cfg, dist, params, batch,
-                                                 state.get("residuals"))
-        elif dist.active:
-            loss, grads = _sharded_grads(cfg, dist, params, batch,
-                                         microbatches)
-        else:
-            loss, grads = _grads(cfg, params,
-                                 _split_microbatches(batch, microbatches))
-        gnorm = grad_norm(cfg, grads)
-        if grad_shardings is not None:
-            grads = {n: place(g, grad_shardings[n])
-                     if n in grad_shardings else g for n, g in grads.items()}
-        _update(optimizer, grads, state)
-        state["step"] = state["step"] + 1
-        if res is not None:
-            state["residuals"] = res
-        return state, {"loss": loss, "grad_norm": gnorm}
+        with span("train.step", device=True):
+            params = state["params"]
+            res = None
+            if compress_grads and dist.active:
+                loss, grads, res = _compressed_grads(
+                    cfg, dist, params, batch, state.get("residuals"))
+            elif dist.active:
+                loss, grads = _sharded_grads(cfg, dist, params, batch,
+                                             microbatches)
+            else:
+                loss, grads = _grads(cfg, params,
+                                     _split_microbatches(batch, microbatches))
+            with span("train.optimizer", device=True):
+                gnorm = grad_norm(cfg, grads)
+                if grad_shardings is not None:
+                    grads = {n: place(g, grad_shardings[n])
+                             if n in grad_shardings else g
+                             for n, g in grads.items()}
+                _update(optimizer, grads, state)
+            state["step"] = state["step"] + 1
+            if res is not None:
+                state["residuals"] = res
+            return state, {"loss": loss, "grad_norm": gnorm}
 
     return step
